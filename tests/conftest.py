@@ -24,6 +24,10 @@ def pytest_configure(config):
         "slow: long-running test, deselected by default "
         "(enable with --runslow or RUN_SLOW=1)",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs a CUDA GPU and nvcc; skips without one",
+    )
 
 
 def pytest_addoption(parser):
