@@ -13,7 +13,6 @@ from __future__ import annotations
 import ctypes
 import functools
 
-import numpy as np
 import torch
 
 from repro_torch.core.gn_softmax import exp_lut_tensors
@@ -21,6 +20,7 @@ from repro_torch.core.luts import SoftmaxLUTConfig, TPU_SOFTMAX_LUT
 from repro_torch.kernels import _build
 from repro_torch.kernels.gn_layernorm.ops import DTYPE_CODES
 from repro_torch.kernels.gn_paged_attention import ref
+from repro_torch.kernels.gn_softmax.ops import exp_lut_args
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 12 + [_I] * 10 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
@@ -112,10 +112,7 @@ def gn_paged_attention_chunk(
         starts.data_ptr(), n_valid.data_ptr(), coarse.data_ptr(), residual.data_ptr(),
         out.data_ptr(), *(None if t is None else t.data_ptr() for t in part),
         n, c, h, hkv, d, bs, max_bt, splits, split_blocks, DTYPE_CODES[q.dtype],
-        float(sm_scale), cfg.step, float(np.float32(1.0 / cfg.step)), cfg.max_delta_int,
-        3 + cfg.frac_bits, cfg.residual_entries - 1, cfg.coarse_entries,
-        cfg.residual_entries, float(1 << cfg.lut_value_bits),
-        torch.cuda.current_stream(q.device).cuda_stream,
+        float(sm_scale), *exp_lut_args(cfg), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "gn_paged_attention")
     launches += 1

@@ -1,4 +1,4 @@
-"""Dense-family model for the serving tick (port of the dense paths of
+"""Dense-family model (port of the dense paths of
 ``repro/models/transformer.py``).
 
 ``Model(cfg)`` exposes:
@@ -8,11 +8,16 @@
     moved to the device, the matmul weights cast once to ``cfg.dtype``
     (what the reference's ``.astype(dt)`` at every einsum computes), and
     ``layers`` split into a per-layer list of views;
+  * ``forward``                                 — teacher-forced logits over
+    every position, self-attention through the GN flash-attention kernel;
+  * ``cache_specs`` / ``init_cache`` / ``prefill`` / ``decode_step`` — the
+    static path over a dense slab cache (L, B, max_seq, KV, dh) per k and v,
+    written in place, its score rows through the GN softmax kernel;
   * ``init_paged_cache`` / ``fused_step_slots_paged`` / ``_paged_head`` —
     the block-paged serving tick over fp arenas.
 
-Each layer runs norm -> paged attention -> norm -> MLP; the head runs one
-more norm and the LM projection.  Projections stay ``torch.matmul``, as the
+Each layer runs norm -> attention -> norm -> MLP; the head runs one more
+norm and the LM projection.  Projections stay ``torch.matmul``, as the
 reference leaves them to XLA outside any Pallas kernel.
 """
 from __future__ import annotations
@@ -83,6 +88,68 @@ class Model:
         ]
         return tree
 
+    def _embed(self, params, tokens):
+        """Token rows of the f32 table, cast to the activation dtype (the
+        reference casts the table first: the same values)."""
+        return params["embed"]["tok"][tokens.long()].to(getattr(torch, self.cfg.dtype))
+
+    def _mlp_residual(self, lp, x):
+        return x + apply_mlp(self.cfg, lp["mlp"], apply_norm(self.cfg, lp["ln2"], x))
+
+    # --------------------------------------------------------- static path --
+    def forward(self, params, batch: dict):
+        """Teacher-forced logits (B, S, V) of batch["tokens"] (B, S).  The
+        reference also returns MoE aux losses, which the dense family lacks."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        x = self._embed(params, tokens)
+        positions = torch.arange(tokens.shape[1], device=x.device).expand(tokens.shape)
+        for lp in params["layers"]:
+            h = apply_norm(cfg, lp["ln1"], x)
+            x = self._mlp_residual(lp, x + attn.self_attention(cfg, lp["mixer"], h, positions))
+        return self._lm_head(params, x)
+
+    def cache_specs(self, batch: int, max_seq: int) -> dict:
+        """The static path's slab cache, name -> (shape, dtype):
+        (L, B, max_seq, KV, dh) per k and v."""
+        per_layer = attn.attn_cache_shape(self.cfg, batch, max_seq)
+        return {k: ((self.cfg.n_layers, *shape), dt) for k, (shape, dt) in per_layer.items()}
+
+    def init_cache(self, batch: int, max_seq: int, device=None) -> dict:
+        dev = resolve_device(device)
+        return {k: torch.zeros(shape, dtype=dt, device=dev)
+                for k, (shape, dt) in self.cache_specs(batch, max_seq).items()}
+
+    def prefill(self, params, batch: dict, max_seq: int | None = None):
+        """Prompt pass over batch["tokens"] (B, S).  Returns the logits
+        (B, S, V) of every position and a new slab cache of ``max_seq``
+        (default S) slots holding the prompt's K/V at [0, S)."""
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        x = self._embed(params, tokens)
+        cache = self.init_cache(b, max_seq or s, x.device)
+        positions = torch.arange(s, device=x.device).expand(b, s)
+        for lp, k_slab, v_slab in zip(params["layers"], cache["k"], cache["v"]):
+            y, kv = attn.attn_prefill(cfg, lp["mixer"], apply_norm(cfg, lp["ln1"], x), positions)
+            k_slab[:, :s] = kv["k"]
+            v_slab[:, :s] = kv["v"]
+            x = self._mlp_residual(lp, x + y)
+        return self._lm_head(params, x), cache
+
+    def decode_step(self, params, cache, token, pos: int):
+        """token: (B, 1) at position ``pos`` (a Python int).  Writes slot
+        ``pos`` of every layer's slabs in place; returns (logits (B, 1, V),
+        cache)."""
+        cfg = self.cfg
+        x = self._embed(params, token)
+        for lp, k_slab, v_slab in zip(params["layers"], cache["k"], cache["v"]):
+            h = apply_norm(cfg, lp["ln1"], x)
+            y, _ = attn.attn_decode_step(cfg, lp["mixer"], {"k": k_slab, "v": v_slab}, h, pos)
+            x = self._mlp_residual(lp, x + y)
+        return self._lm_head(params, x), cache
+
+    # ---------------------------------------------------------- paged tick --
     def init_paged_cache(self, num_blocks: int, block_size: int, device=None) -> dict:
         """fp block arenas (L, num_blocks + 1, block_size, KV, dh); the extra
         block is the write sink of ``attention.paged_write_indices``."""
@@ -100,12 +167,11 @@ class Model:
         tables: (N, max_bt) int32.  Writes the arenas of ``cache`` in place and
         returns the logits (N, 1, V) of each slot's row n_valid - 1."""
         cfg = self.cfg
-        x = params["embed"]["tok"][tokens.long()].to(getattr(torch, cfg.dtype))
+        x = self._embed(params, tokens)
         for lp, k_arena, v_arena in zip(params["layers"], cache["k"], cache["v"]):
             h = apply_norm(cfg, lp["ln1"], x)
-            x = x + attn.attn_paged_chunk(cfg, lp["mixer"], k_arena, v_arena, h,
-                                          positions, n_valid, tables)
-            x = x + apply_mlp(cfg, lp["mlp"], apply_norm(cfg, lp["ln2"], x))
+            x = self._mlp_residual(lp, x + attn.attn_paged_chunk(
+                cfg, lp["mixer"], k_arena, v_arena, h, positions, n_valid, tables))
         return self._paged_head(params, x, n_valid)
 
     def _paged_head(self, params, x, n_valid):

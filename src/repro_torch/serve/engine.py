@@ -1,6 +1,12 @@
-"""Continuous-batching engine with chunked prefill fused into the tick
-(port of ``ContinuousEngine`` in ``repro/serve/engine.py``: FCFS, greedy,
-block-paged fp KV, one device).
+"""Serving engines (port of ``repro/serve/engine.py``): the static path
+(``generate``, ``perplexity``, ``static_reference``) and the
+continuous-batching engine with chunked prefill fused into the tick
+(``ContinuousEngine``: FCFS, greedy, block-paged fp KV, one device).
+
+The static path serves uniform-length prompt batches: one prefill over a
+dense slab cache, then one decode step per new token; it is the greedy
+oracle the continuous engine is held against.  Its functions take
+``model.prepare``d parameters and run on their device.
 
 Admission pages an empty slot in; each tick then runs the model once over
 the live slots.  A tick with a prefilling slot is *fused*: every slot gets
@@ -15,9 +21,9 @@ tables are uploaded only when admission, completion or block growth made
 their host mirrors dirty; a fused tick also uploads its staged chunk.
 
 Not ported, and refused with an error rather than ignored: sampling
-(temperature > 0), GN sentinels, the prefix cache, priority scheduling and
-preemption, int8 KV, snapshots, multi-device pools, the slab pool, and the
-static ``generate``/``static_reference`` paths.
+(temperature > 0, in both paths), GN sentinels, the prefix cache, priority
+scheduling and preemption, int8 KV, snapshots, multi-device pools, and the
+continuous engine's slab pool.
 """
 from __future__ import annotations
 
@@ -36,7 +42,80 @@ from repro_torch.serve.scheduler import Completion, FCFSScheduler, Request
 
 @dataclasses.dataclass
 class ServeConfig:
+    max_new_tokens: int = 32
     temperature: float = 0.0  # 0 = greedy; the port serves greedy only
+    seed: int = 0             # the sampling key's seed (sampling is not ported)
+
+
+def _refuse_sampling(temperature) -> None:
+    if temperature:
+        raise NotImplementedError("sampling (temperature > 0) is not ported; greedy only")
+
+
+# ---------------------------------------------------------------- static ---
+def _tokens_on(params, tokens) -> torch.Tensor:
+    return torch.as_tensor(tokens).to(params["embed"]["tok"].device)
+
+
+def generate(model: Model, params, batch: dict, cfg: ServeConfig) -> torch.Tensor:
+    """batch["tokens"]: (B, S_prompt) -> (B, S_prompt + max_new_tokens) int32
+    tokens, greedy.  Prefill once, then ``max_new_tokens`` decode steps; as
+    in the reference, the last step's logits are computed and not used."""
+    _refuse_sampling(cfg.temperature)
+    tokens = _tokens_on(params, batch["tokens"])
+    b, s = tokens.shape
+    max_seq = s + cfg.max_new_tokens
+    logits, cache = model.prefill(params, {"tokens": tokens}, max_seq)
+    last = logits[:, -1].clone()
+    del logits
+    out = torch.zeros(b, max_seq, dtype=torch.int32, device=tokens.device)
+    out[:, :s] = tokens
+    for i in range(cfg.max_new_tokens):
+        nxt = last.argmax(dim=-1).to(torch.int32)[:, None]
+        out[:, s + i:s + i + 1] = nxt
+        logits_step, cache = model.decode_step(params, cache, nxt, s + i)
+        last = logits_step[:, 0]
+    return out
+
+
+def perplexity(model: Model, params, batch: dict) -> float:
+    """Teacher-forced perplexity over a token batch (the score-oriented
+    metric): the exact f32 log-softmax of the logits, as the reference's
+    ``jax.nn.log_softmax``."""
+    tokens = _tokens_on(params, batch["tokens"])
+    logits = model.forward(params, {"tokens": tokens})[:, :-1].float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
+    return float(torch.exp(nll.mean()))
+
+
+def static_reference(model: Model, params, requests: Sequence[Request],
+                     cfg: ServeConfig) -> dict[int, np.ndarray]:
+    """Serve ``requests`` through the static path: group by (prompt_len,
+    max_new_tokens) in FCFS order, one ``generate`` call per group.  Returns
+    request id -> full (prompt + generated) token array, truncated at a
+    request's stop token if it has one (``generate`` itself always decodes
+    the full budget).  The greedy-identity oracle of the continuous engine."""
+    if any(r.temperature not in (None, 0, 0.0) for r in requests) or cfg.temperature:
+        raise ValueError("static_reference is a greedy oracle (temperature 0 only)")
+    groups: dict[tuple, list[Request]] = {}
+    for req in requests:
+        groups.setdefault((req.prompt_len, req.max_new_tokens), []).append(req)
+    out: dict[int, np.ndarray] = {}
+    for (plen, max_new), reqs in groups.items():
+        batch = {"tokens": np.stack([np.asarray(r.tokens, np.int32) for r in reqs])}
+        gcfg = dataclasses.replace(cfg, max_new_tokens=max_new)
+        toks = generate(model, params, batch, gcfg).cpu().numpy()
+        for r, row in zip(reqs, toks):
+            if r.stop_token is not None:
+                hits = np.nonzero(row[plen:] == r.stop_token)[0]
+                if hits.size:
+                    row = row[: plen + hits[0] + 1]
+            out[r.id] = row
+    return out
+
+
+# ------------------------------------------------------------ continuous ---
 
 
 @dataclasses.dataclass
@@ -70,8 +149,7 @@ class ContinuousEngine:
             _refuse(name, value, default)
         if paged is False:
             raise NotImplementedError("the slab pool is not ported; the port pages KV")
-        if cfg.temperature:
-            raise NotImplementedError("sampling (temperature > 0) is not ported; greedy only")
+        _refuse_sampling(cfg.temperature)
         self.model, self.cfg = model, cfg
         self.num_slots, self.max_seq = int(num_slots), int(max_seq)
         self.chunk = int(chunk)
@@ -105,8 +183,7 @@ class ContinuousEngine:
         self.tick_log: list[tuple[int, int, float]] = []
 
     def submit(self, req: Request) -> int:
-        if req.temperature:
-            raise NotImplementedError("sampling (temperature > 0) is not ported; greedy only")
+        _refuse_sampling(req.temperature)
         return self.scheduler.submit(req)
 
     # ------------------------------------------------------------ admission --

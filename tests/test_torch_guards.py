@@ -13,8 +13,10 @@ import torch
 
 import repro_torch
 from repro_torch.configs.registry import get_config, reduce_config
+from repro_torch.kernels.gn_attention import ops as fa_ops
 from repro_torch.kernels.gn_layernorm import ops as norm_ops
 from repro_torch.kernels.gn_paged_attention import ops as attn_ops
+from repro_torch.kernels.gn_softmax import ops as sm_ops
 from repro_torch.launch import serve as serve_launch
 from repro_torch.models.transformer import make_model
 from repro_torch.serve.engine import ContinuousEngine
@@ -62,7 +64,8 @@ def test_package_imports_without_nvcc_or_triton():
 def test_walk_finds_every_module():
     names = {m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")}
     assert {"repro_torch.kernels.gn_paged_attention.ops", "repro_torch.serve.engine",
-            "repro_torch.launch.serve"} <= names
+            "repro_torch.launch.serve", "repro_torch.kernels.gn_softmax.ops",
+            "repro_torch.kernels.gn_attention.ops", "repro_torch.data.synthetic"} <= names
 
 
 def _no_cuda(monkeypatch):
@@ -83,11 +86,16 @@ def test_entry_points_raise_without_a_gpu_and_a_device(monkeypatch):
         BlockPagedKVPool(model, num_slots=1, max_seq=8, block_size=4)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve_launch.main(["--smoke", "--continuous"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve_launch.main(["--smoke"])  # the static mode
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        model.init_cache(batch=1, max_seq=8)
     assert repro_torch.resolve_device("cpu") == torch.device("cpu")
 
 
 def test_cpu_wrappers_leave_launch_counters_at_zero():
-    before = (norm_ops.launches, attn_ops.launches)
+    ops = (norm_ops, attn_ops, sm_ops, fa_ops)
+    before = tuple(m.launches for m in ops)
     x = torch.randn(3, 32)
     norm_ops.gn_rmsnorm(x, torch.ones(32))
     norm_ops.gn_layernorm(x, torch.ones(32), torch.zeros(32))
@@ -96,7 +104,11 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
     attn_ops.gn_paged_attention_chunk(q, kv, kv, torch.zeros(2, 1, dtype=torch.int32),
                                       torch.tensor([0, 2], dtype=torch.int32),
                                       torch.tensor([1, 1], dtype=torch.int32))
-    assert (norm_ops.launches, attn_ops.launches) == before == (0, 0)
+    sm_ops.gn_softmax(x)
+    sm_ops.gn_softmax(x.bfloat16())
+    fa_ops.gn_attention(torch.randn(1, 4, 5, 8), torch.randn(1, 2, 7, 8),
+                        torch.randn(1, 2, 7, 8), causal=True)
+    assert tuple(m.launches for m in ops) == before == (0, 0, 0, 0)
 
 
 def test_wrappers_refuse_other_devices():
@@ -107,3 +119,7 @@ def test_wrappers_refuse_other_devices():
     ints = torch.zeros(1, 1, dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="cpu or cuda"):
         attn_ops.gn_paged_attention_chunk(meta, meta, meta, ints, ints[0], ints[0])
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        sm_ops.gn_softmax(x)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        fa_ops.gn_attention(meta, meta, meta, causal=True)

@@ -1,20 +1,29 @@
 """The port's kernel wrappers on the CPU (their plain versions) against the
 JAX package: the paged GN read against the Pallas kernel in interpret mode
 and against its gathered oracle, the norm wrappers against the Pallas norm
-kernel.  Shared numpy inputs; shuffled tables with stale entries; GQA group
-2; an empty sequence.  The CUDA kernels themselves are held against these
-plain versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
+kernel, the GN softmax against the Pallas softmax kernel and its oracle,
+and GN flash attention against the Pallas attention kernel.  Shared numpy
+inputs; shuffled tables with stale entries; GQA; an empty sequence; the KV
+prefix offset.  The CUDA kernels themselves are held against these plain
+versions on the card (tests/test_torch_cuda.py, chip_smoke.py)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core.luts import SoftmaxLUTConfig as JaxLUTConfig
+from repro.kernels.gn_attention import ops as jax_fa_ops
 from repro.kernels.gn_layernorm import ops as jax_norm_ops
 from repro.kernels.gn_paged_attention import ops as jax_attn_ops
 from repro.kernels.gn_paged_attention.ref import gn_paged_attention_chunk_ref
+from repro.kernels.gn_softmax import ops as jax_sm_ops
+from repro.kernels.gn_softmax.ref import gn_softmax_ref as jax_gn_softmax_ref
 from repro_torch.core import gn_layernorm as core_ln
+from repro_torch.core.luts import SoftmaxLUTConfig
+from repro_torch.kernels.gn_attention import ops as fa_ops
 from repro_torch.kernels.gn_layernorm import ops as norm_ops
 from repro_torch.kernels.gn_paged_attention import ops as attn_ops
+from repro_torch.kernels.gn_softmax import ops as sm_ops
 
 
 def _chunk_inputs(bs, c, seed=0, v_ones=False):
@@ -107,3 +116,91 @@ def test_norm_wrappers_run_the_core_datapath_on_cpu():
     g = torch.linspace(0.5, 1.5, 64)
     assert torch.equal(norm_ops.gn_rmsnorm(x, g), core_ln.gn_rmsnorm(x, g))
     assert torch.equal(norm_ops.gn_layernorm(x, g, g), core_ln.gn_layernorm(x, g, g))
+
+
+# ------------------------------------------------------------- GN softmax --
+SOFTMAX_SHAPES = [(8, 128), (4, 7, 300), (1, 1000), (257, 64), (2, 3, 5, 130)]  # the reference's
+LUT_CFGS = [(0, 1.0), (3, 1.0), (4, 0.5)]  # (frac_bits, delta_scale): the reference's sweep
+
+
+def _logits(shape, seed, scale=3.0):
+    return (np.random.default_rng(seed).normal(size=shape) * scale).astype(np.float32)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", SOFTMAX_SHAPES, ids=str)
+def test_softmax_wrapper_matches_pallas_kernel_interpret(shape, dtype):
+    """The reference's kernel-vs-oracle tolerances: 1e-6 at f32, 1e-2 at bf16."""
+    x = _logits(shape, seed=len(shape) * 100 + shape[-1])
+    mine = sm_ops.gn_softmax(torch.from_numpy(x).to(getattr(torch, dtype)))
+    assert mine.dtype == getattr(torch, dtype) and mine.shape == shape
+    xj = jnp.asarray(x).astype(dtype)
+    tol = 1e-6 if dtype == "float32" else 1e-2
+    mine = mine.float().numpy()
+    for ref in (jax_sm_ops.gn_softmax(xj, interpret=True), jax_gn_softmax_ref(xj)):
+        np.testing.assert_allclose(mine, np.asarray(ref.astype(jnp.float32)), atol=tol, rtol=0)
+    assert sm_ops.launches == 0
+
+
+@pytest.mark.parametrize("frac_bits,delta_scale", LUT_CFGS)
+def test_softmax_wrapper_cfg_sweep(frac_bits, delta_scale):
+    x = _logits((16, 200), seed=frac_bits)
+    mine = sm_ops.gn_softmax(torch.from_numpy(x), SoftmaxLUTConfig(frac_bits, delta_scale=delta_scale))
+    jcfg = JaxLUTConfig(frac_bits, delta_scale=delta_scale)
+    for ref in (jax_sm_ops.gn_softmax(jnp.asarray(x), cfg=jcfg, interpret=True),
+                jax_gn_softmax_ref(jnp.asarray(x), cfg=jcfg)):
+        np.testing.assert_allclose(mine.numpy(), np.asarray(ref), atol=1e-6, rtol=0)
+
+
+def test_softmax_wrapper_guarantees():
+    """Σp = 1 within 2e-6 on wide-range logits; masked scores (-1e30, as the
+    model's masks write them) give numerators of exactly 0."""
+    x = _logits((64, 333), seed=9, scale=8.0)
+    x[::3, 100:] = -1e30
+    p = sm_ops.gn_softmax(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(p.astype(np.float64).sum(-1), 1.0, atol=2e-6, rtol=0)
+    assert (p[::3, 100:] == 0).all()
+
+
+# ------------------------------------------------------- GN flash attention --
+# (B, H, Hkv, Sq, Sk, D): MHA; GQA 2:1 with ragged S; MQA with a KV prefix
+# (Sk > Sq, the causal offset); small, as interpret mode is slow
+ATTN_SHAPES = [(1, 2, 2, 64, 64, 32), (2, 4, 2, 40, 40, 16), (1, 4, 1, 16, 64, 32)]
+
+
+def _qkv(shape, seed, dtype="float32"):
+    b, h, hkv, sq, sk, d = shape
+    rng = np.random.default_rng(seed)
+    q = (rng.normal(size=(b, h, sq, d)) * 0.5).astype(np.float32)
+    k = (rng.normal(size=(b, hkv, sk, d)) * 0.5).astype(np.float32)
+    v = rng.normal(size=(b, hkv, sk, d)).astype(np.float32)
+    return ([torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)],
+            [jnp.asarray(a).astype(dtype) for a in (q, k, v)])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", ATTN_SHAPES, ids=str)
+def test_attention_wrapper_matches_pallas_kernel_interpret(shape, causal):
+    """Online (Pallas) vs one-pass (port's plain version): the reference's
+    own 5e-5 at f32."""
+    mine_in, ref_in = _qkv(shape, seed=shape[3] + causal)
+    mine = fa_ops.gn_attention(*mine_in, causal=causal)
+    ref = jax_fa_ops.gn_attention(*ref_in, causal=causal, interpret=True)
+    assert mine.shape == mine_in[0].shape
+    np.testing.assert_allclose(mine.numpy(), np.asarray(ref), atol=5e-5, rtol=0)
+    assert fa_ops.launches == 0
+
+
+def test_attention_wrapper_bf16_matches_pallas_kernel_interpret():
+    mine_in, ref_in = _qkv((1, 2, 2, 64, 64, 64), seed=11, dtype="bfloat16")
+    mine = fa_ops.gn_attention(*mine_in, causal=True)
+    ref = jax_fa_ops.gn_attention(*ref_in, causal=True, interpret=True)
+    assert mine.dtype == torch.bfloat16
+    np.testing.assert_allclose(mine.float().numpy(), np.asarray(ref.astype(jnp.float32)),
+                               atol=3e-2, rtol=0)
+
+
+def test_attention_wrapper_rows_sum_to_one():
+    (q, k, _), _ = _qkv((1, 4, 2, 24, 40, 16), seed=12)
+    out = fa_ops.gn_attention(q, k, torch.ones_like(k), causal=True)
+    np.testing.assert_allclose(out.numpy(), 1.0, atol=1e-5, rtol=0)

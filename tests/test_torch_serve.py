@@ -168,5 +168,8 @@ def test_launch_serves_a_seeded_workload_on_cpu(capsys):
     assert all(len(c.new_tokens) == 3 for c in out["completions"])
     text = capsys.readouterr().out
     assert "req 2: prompt" in text and "ticks    0+" in text
-    with pytest.raises(SystemExit):
-        serve_launch.main(["--smoke", "--device", "cpu"])  # static serving: not ported
+    assert "greedy outputs token-identical to static path: " in text
+    # the static mode, the launcher's default, serves too
+    out = serve_launch.main(["--smoke", "--device", "cpu", "--batches", "1", "--new-tokens", "2"])
+    assert tuple(out["outputs"][0].shape) == (4, 34)
+    assert "seq ppl" in capsys.readouterr().out
