@@ -9,12 +9,15 @@ Phases, each fatal on failure (exit code 1):
                its path's shapes, with stated tolerances, plus the exact-score
                and exact-ones checks (V = 1 => every valid output row is 1),
                the softmax's Σp = 1 and masked-zero checks, and device times
-               beside the byte/flop bound and a library call's time;
+               beside the byte/flop bound and a library call's time; the
+               paged read in its fp mode and in its int8 mode (arenas
+               quantized on the card by ``paged_quant_write``);
   3. parity  - full-width internlm2-1.8b cut to 2 layers, kernels on the card
                against plain versions on the CPU, same weights, at float32
                and at bfloat16: one fused paged tick with mixed
-               prefill/decode/parked lanes, and the static path's prefill,
-               four decode steps and teacher-forced forward;
+               prefill/decode/parked lanes over fp and over int8 arenas, and
+               the static path's prefill, four decode steps and
+               teacher-forced forward;
   4. serve   - the continuous path: full-width internlm2-1.8b (24 layers,
                random weights from a seed) through ``repro_torch.launch.serve
                --continuous``: 8 slots, chunk 16, block 16, 16 requests of
@@ -25,7 +28,14 @@ Phases, each fatal on failure (exit code 1):
                mode, 2 batches of 8 x 1024-token prompts, 32 new tokens each,
                and the perplexity of each whole sequence; exact launch counts,
                finite logits and perplexity, a rerun of batch 0 token for
-               token, prefill and decode-step times.
+               token, prefill and decode-step times;
+  6. int8    - phase 4's workload and model through ``ContinuousEngine(
+               kv_dtype="int8")``: int8 block-paged KV with per-block f32
+               scales; exact int8-mode launch counts and no fp-mode launch,
+               drain, reset-replay, tok/s, tick ms, device-busy share, the
+               pool's bytes beside phase 4's fp pool, and each request's
+               common greedy prefix with phase 4's fp tokens (reported, not
+               gated: random weights give near-flat logits).
 Each path's launch counters are set to 0 just before it runs and read just
 after.  The last two lines are the kernels JSON and {"ok": true, ...}.
 
@@ -64,7 +74,8 @@ from repro_torch.kernels.gn_softmax import ref as sm_ref  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models.transformer import make_model  # noqa: E402
-from repro_torch.serve.engine import ServeConfig, generate  # noqa: E402
+from repro_torch.serve.engine import ContinuousEngine, ServeConfig, generate  # noqa: E402
+from repro_torch.serve.workload import required_max_seq, seeded_requests  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate and the op rate per
 # input type (bf16 on the tensor cores, f32 on the CUDA cores)
@@ -74,6 +85,9 @@ PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 DEV = "cuda"
 ARCH = "internlm2-1.8b"
 SLOTS, CHUNK, BLOCK = 8, 16, 16
+# the continuous workload (phases 4 and 6): REQUESTS seeded prompts of
+# MIN_PROMPT..MAX_PROMPT tokens, NEW new tokens each, one arrival per tick
+REQUESTS, MIN_PROMPT, MAX_PROMPT, SEED = 16, 32, 1024, 0
 # the static path: batches of BATCH prompts of PROMPT tokens, NEW new tokens;
 # its forward scores BATCH sequences of PROMPT + NEW tokens
 BATCHES, BATCH, PROMPT, NEW = 2, 8, 1024, 32
@@ -241,6 +255,22 @@ def attn_inputs(c: int, dtype, gen, v_ones: bool = False, exact: bool = False):
     return (q, k_ar, v_ar, *ints), lengths, n_valid
 
 
+def attn_bound(args, lengths, n_valid, kv_item: int, scales: bool) -> tuple[float, str]:
+    """Bytes: every live K/V block once (``kv_item`` bytes an element, plus
+    its two f32 scales in int8 mode), q read and out written once, the
+    tables and per-sequence ints; operations: q.k and p.v over the visible
+    (row, column) pairs."""
+    q = args[0]
+    n, _, h, d = q.shape
+    hkv, item = args[1].shape[2], q.element_size()
+    blocks = sum(-(-int(L) // BLOCK) for L in lengths)
+    nbytes = (2 * blocks * BLOCK * hkv * d * kv_item + (2 * 4 * blocks if scales else 0)
+              + 2 * q.numel() * item + 4 * (args[3].numel() + 2 * n))
+    seen = sum(min(int(L) - int(nv) + i + 1, int(L)) for L, nv in zip(lengths, n_valid)
+               for i in range(int(nv)))  # visible columns over the valid rows
+    return bound(nbytes, 4 * h * d * seen, q.dtype)
+
+
 def attn_case(c: int, dtype, gen) -> dict:
     rel = 0.0 if dtype == torch.float32 else BF16_REL
     args, lengths, n_valid = attn_inputs(c, dtype, gen)
@@ -260,24 +290,72 @@ def attn_case(c: int, dtype, gen) -> dict:
     empty_read = got[3].abs().max().item()  # the empty sequence must read nothing
     check["ok"] = (check["bad_rows"] <= FLIP_ROWS * check["rows"] and exact["bad_rows"] == 0
                    and ones_err <= ONES_ATOL and empty_read == 0.0)
-    q = args[0]
-    n, _, h, d = q.shape
-    hkv, item, bs = args[1].shape[2], q.element_size(), BLOCK
-    blocks = sum(-(-int(L) // bs) for L in lengths)
-    nbytes = (2 * blocks * bs * hkv * d * item + 2 * q.numel() * item
-              + 4 * (args[3].numel() + 2 * n))
-    seen = sum(min(int(L) - int(nv) + i + 1, int(L)) for L, nv in zip(lengths, n_valid)
-               for i in range(int(nv)))  # visible columns over the valid rows
-    b_ms, b_by = bound(nbytes, 4 * h * d * seen, dtype)
+    n, _, h, d = args[0].shape
+    hkv = args[1].shape[2]
+    b_ms, b_by = attn_bound(args, lengths, n_valid, args[1].element_size(), False)
     return {
         "name": "gn_paged_attention",
-        "shape": {"N": n, "C": c, "H": h, "Hkv": hkv, "D": d, "block": bs,
+        "shape": {"N": n, "C": c, "H": h, "Hkv": hkv, "D": d, "block": BLOCK,
                   "max_len": int(lengths.max())},
         "dtype": str(dtype).split(".")[-1], **check,
         "exact_scores": {k: exact[k] for k in ("max_abs_err", "bad_rows")},
         "ones_err": ones_err, "empty_read": empty_read, "bound_ms": b_ms, "bound_by": b_by,
         **timings(lambda: attn_ops.gn_paged_attention_chunk(*args),
                   lambda: attn_ref.gn_paged_attention_chunk_ref(*args), None, 20),
+    }
+
+
+def quantize(arena):
+    """An (nb, bs, Hkv, D) fp arena as the int8 pool holds it: (nb + 1)
+    int8 blocks (the last is the write sink) and (nb + 1,) f32 scales,
+    written in one call of ``paged_quant_write`` on the card."""
+    nb, bs, hkv, d = arena.shape
+    q8 = torch.zeros((nb + 1) * bs, hkv, d, dtype=torch.int8, device=DEV)
+    scale = torch.zeros(nb + 1, device=DEV)
+    attention_mod.paged_quant_write(q8, scale, arena.reshape(nb * bs, hkv, d),
+                                    torch.arange(nb * bs, device=DEV), bs)
+    return q8.view(nb + 1, bs, hkv, d), scale
+
+
+def attn_int8_case(c: int, dtype, gen) -> dict:
+    """The int8 mode against its plain version: random arenas quantized on
+    the card; exact scores (k in {-1, 0, 1} stored at scale 1, q likewise,
+    sm_scale 1/8); V = 1 stored at scale 1; the empty sequence."""
+    rel = 0.0 if dtype == torch.float32 else BF16_REL
+    (q, k_fp, v_fp, *ints), lengths, n_valid = attn_inputs(c, dtype, gen)
+    lane = torch.as_tensor(np.arange(c)[None, :] < n_valid[:, None]).to(DEV)
+    (k8, ks), (v8, vs) = quantize(k_fp), quantize(v_fp)
+    del k_fp, v_fp
+    args, scales = (q, k8, v8, *ints), (ks, vs)
+    got = attn_ops.gn_paged_attention_chunk(*args, scales=scales)
+    check = compare(got[lane], attn_ref.gn_paged_attention_chunk_ref(*args, scales=scales)[lane],
+                    ATTN_ATOL_F32, rel)
+    (eq, ek, ev, *eints), _, _ = attn_inputs(c, dtype, gen, exact=True)
+    ev8, evs = quantize(ev)
+    ek8 = torch.cat([ek.to(torch.int8), torch.zeros_like(ek[:1], dtype=torch.int8)])
+    ex_args, ex_scales = (eq, ek8, ev8, *eints), (torch.ones_like(evs), evs)
+    exact = compare(
+        attn_ops.gn_paged_attention_chunk(*ex_args, sm_scale=1 / 8, scales=ex_scales)[lane],
+        attn_ref.gn_paged_attention_chunk_ref(*ex_args, sm_scale=1 / 8, scales=ex_scales)[lane],
+        EXACT_ATOL, rel)
+    del eq, ek, ev, ek8, ev8
+    ones = attn_ops.gn_paged_attention_chunk(q.float(), k8, torch.ones_like(v8), *ints,
+                                             scales=(ks, torch.ones_like(vs)))
+    ones_err = (ones[lane] - 1.0).abs().max().item()
+    empty_read = got[3].abs().max().item()
+    check["ok"] = (check["bad_rows"] <= FLIP_ROWS * check["rows"] and exact["bad_rows"] == 0
+                   and ones_err <= ONES_ATOL and empty_read == 0.0)
+    n, _, h, d = q.shape
+    b_ms, b_by = attn_bound(args, lengths, n_valid, 1, True)
+    return {
+        "name": "gn_paged_attention_int8",
+        "shape": {"N": n, "C": c, "H": h, "Hkv": k8.shape[2], "D": d, "block": BLOCK,
+                  "max_len": int(lengths.max()), "kv": "int8"},
+        "dtype": str(dtype).split(".")[-1], **check,
+        "exact_scores": {k: exact[k] for k in ("max_abs_err", "bad_rows")},
+        "ones_err": ones_err, "empty_read": empty_read, "bound_ms": b_ms, "bound_by": b_by,
+        **timings(lambda: attn_ops.gn_paged_attention_chunk(*args, scales=scales),
+                  lambda: attn_ref.gn_paged_attention_chunk_ref(*args, scales=scales), None, 20),
     }
 
 
@@ -418,49 +496,75 @@ def phase_kernels() -> dict:
     attns = [attn_case(c, dt, gen) for c in (CHUNK, 1) for dt in (torch.bfloat16, torch.float32)]
     softmaxes = softmax_cases(gen)
     flashes = attention_cases(gen)
-    results = norms + attns + softmaxes + flashes
+    attns_int8 = [attn_int8_case(c, torch.bfloat16, gen) for c in (CHUNK, 1)]
+    results = norms + attns + attns_int8 + softmaxes + flashes
     for r in results:
         print(f"[kernels] {json.dumps(r)}")
     bad = [f"{r['name']} {r.get('case', '')} {r['dtype']} {r['shape']}" for r in results
            if not r["ok"]]
     if bad:
         fail(f"kernel vs plain out of tolerance: {bad}")
-    return {"gn_rmsnorm": norms, "gn_paged_attention": attns, "gn_softmax": softmaxes,
+    return {"gn_rmsnorm": norms, "gn_paged_attention": attns,
+            "gn_paged_attention_int8": attns_int8, "gn_softmax": softmaxes,
             "gn_attention": flashes}
 
 
 # ------------------------------------------------------------------ phase 3 --
 def tick_parity(base, master) -> dict:
     """One fused tick: slot 0 prefills 16 tokens from 0, slot 1 decodes at 100,
-    slot 2 prefills 7 tokens at 48, slot 3 is parked.  The tick also runs on
-    the card with the plain paged read swapped in, which splits the gap
-    into the read's share and the rest's (matmuls, norm kernel)."""
+    slot 2 prefills 7 tokens at 48, slot 3 is parked; over fp arenas and
+    over int8 arenas with per-block scales.  The tick also runs on the card
+    with the plain paged read swapped in, which splits the gap into the
+    read's share and the rest's (matmuls, norm kernel).  In int8 the largest
+    difference of a written int8 value and of a real block's scale (relative)
+    are printed: the K/V projections round apart on the card and on the CPU,
+    so a value at a .5 boundary of the grid may land one step apart."""
     rng = np.random.default_rng(1)
     positions = np.array([0, 100, 48, 0], np.int32)
     n_valid = np.array([16, 1, 7, 0], np.int32)
     tokens = rng.integers(0, base.vocab, size=(4, 16)).astype(np.int32)
     tables = rng.permutation(48)[:32].reshape(4, 8).astype(np.int32)
 
-    def tick(model, dev):
+    def tick(model, dev, kv_dtype):
         params = model.prepare(master, dev)
-        cache = model.init_paged_cache(48, BLOCK, dev)
-        g = torch.Generator().manual_seed(2)  # prior context: random arena contents
+        cache = model.init_paged_cache(48, BLOCK, dev, kv_dtype)
+        # prior context: random N(0, 1) arena contents; an int8 pool holds the
+        # same values as paged_quant_write stores them, layer by layer
+        g = torch.Generator().manual_seed(2)
         for key in ("k", "v"):
-            cache[key].copy_(torch.randn(cache[key].shape, generator=g).to(cache[key].dtype))
+            prior = torch.randn(cache[key].shape, generator=g)
+            if kv_dtype == "fp":
+                cache[key].copy_(prior.to(cache[key].dtype))
+                continue
+            rows = torch.arange(prior.shape[1] * BLOCK, device=dev)
+            for arena, scale, vals in zip(cache[key], cache[f"{key}_scale"], prior.to(dev)):
+                attention_mod.paged_quant_write(arena.flatten(0, 1), scale, vals.flatten(0, 1),
+                                                rows, BLOCK)
         t = [torch.as_tensor(a).to(dev) for a in (tokens, positions, n_valid, tables)]
-        return model.fused_step_slots_paged(params, cache, *t).float().cpu()
+        logits = model.fused_step_slots_paged(params, cache, *t).float().cpu()
+        return logits, {k: v[:, :48].cpu() for k, v in cache.items()}
 
     errs = {}
-    for dt, tol in (("float32", LOGITS_ATOL_F32), ("bfloat16", LOGITS_ATOL_BF16)):
-        model = make_model(dataclasses.replace(base, dtype=dt))
-        cpu = tick(model, "cpu")
-        err = (tick(model, DEV) - cpu).abs().max().item()
-        with swapped("gn_paged_attention_chunk", attn_ref.gn_paged_attention_chunk_ref):
-            plain_read_err = (tick(model, DEV) - cpu).abs().max().item()
-        print(f"[parity] {ARCH} 2 layers {dt} fused tick: max |logit diff| {err:.3e} "
-              f"(plain paged read on the card: {plain_read_err:.3e}; "
-              f"max |logit| {cpu.abs().max().item():.3f}, bound {tol})")
-        errs[dt] = err
+    for kv_dtype in ("fp", "int8"):
+        for dt, tol in (("float32", LOGITS_ATOL_F32), ("bfloat16", LOGITS_ATOL_BF16)):
+            model = make_model(dataclasses.replace(base, dtype=dt))
+            cpu, cpu_cache = tick(model, "cpu", kv_dtype)
+            got, got_cache = tick(model, DEV, kv_dtype)
+            err = (got - cpu).abs().max().item()
+            with swapped("gn_paged_attention_chunk", attn_ref.gn_paged_attention_chunk_ref):
+                plain_read_err = (tick(model, DEV, kv_dtype)[0] - cpu).abs().max().item()
+            extra = ""
+            if kv_dtype == "int8":
+                int8_diff = max((got_cache[k].int() - cpu_cache[k].int()).abs().max().item()
+                                for k in ("k", "v"))
+                scale_rel = max(((got_cache[k] - cpu_cache[k]).abs()
+                                 / cpu_cache[k].abs().clamp_min(1e-30)).max().item()
+                                for k in ("k_scale", "v_scale"))
+                extra = f"; max int8 diff {int8_diff}, max relative scale diff {scale_rel:.3e}"
+            print(f"[parity] {ARCH} 2 layers {dt} fused tick, {kv_dtype} KV: max |logit diff| "
+                  f"{err:.3e} (plain paged read on the card: {plain_read_err:.3e}; "
+                  f"max |logit| {cpu.abs().max().item():.3f}, bound {tol}{extra})")
+            errs[dt if kv_dtype == "fp" else f"int8 {dt}"] = err
     return errs
 
 
@@ -532,9 +636,10 @@ def phase_parity() -> dict:
     master = make_model(base).init(seed=1, device=DEV)
     errs = {"tick": tick_parity(base, master), "static": static_parity(base, master)}
     for path, by_dtype in errs.items():
-        for dt, tol in (("float32", LOGITS_ATOL_F32), ("bfloat16", LOGITS_ATOL_BF16)):
-            if not math.isfinite(by_dtype[dt]) or by_dtype[dt] > tol:
-                fail(f"model parity ({path}) at {dt}: {by_dtype[dt]:.3e} > {tol}")
+        for key, err in by_dtype.items():
+            tol = LOGITS_ATOL_F32 if key.endswith("float32") else LOGITS_ATOL_BF16
+            if not math.isfinite(err) or err > tol:
+                fail(f"model parity ({path}) at {key}: {err:.3e} > {tol}")
     return errs
 
 
@@ -542,9 +647,10 @@ def phase_parity() -> dict:
 def phase_serve() -> dict:
     counters.reset()
     out = serve_mod.main([
-        "--arch", ARCH, "--continuous", "--seed", "0", "--num-slots", str(SLOTS),
-        "--chunk", str(CHUNK), "--block-size", str(BLOCK), "--requests", "16",
-        "--min-prompt", "32", "--max-prompt", "1024", "--new-tokens", "32", "--stagger", "1",
+        "--arch", ARCH, "--continuous", "--seed", str(SEED), "--num-slots", str(SLOTS),
+        "--chunk", str(CHUNK), "--block-size", str(BLOCK), "--requests", str(REQUESTS),
+        "--min-prompt", str(MIN_PROMPT), "--max-prompt", str(MAX_PROMPT),
+        "--new-tokens", str(NEW), "--stagger", "1",
     ])
     launches = out["launches"]  # the engine's run; the static oracle's launches follow it
     plain_on_cuda = sum(counters.plain_cuda_calls().values())
@@ -561,8 +667,8 @@ def phase_serve() -> dict:
         fail(f"paged attention launches {launches} != {layers} x {ticks} ticks")
     if launches["gn_rmsnorm"] != (2 * layers + 1) * ticks:
         fail(f"norm launches {launches} != {2 * layers + 1} x {ticks} ticks")
-    if launches["gn_softmax"] or launches["gn_attention"]:
-        fail(f"the paged tick launched a static-path kernel: {launches}")
+    if launches["gn_softmax"] or launches["gn_attention"] or launches["gn_paged_attention_int8"]:
+        fail(f"the fp paged tick launched another kernel: {launches}")
     if plain_on_cuda:
         fail(f"{plain_on_cuda} plain-version calls on CUDA tensors in the serving run")
     if not bool(torch.isfinite(engine._last_logits).all()):
@@ -594,9 +700,10 @@ def phase_serve() -> dict:
         # online paged read vs one-pass static softmax: reported, not gated
         "static_identical": f"{out['static_identical']}/{len(comps)}",
         "mean_common_prefix": float(np.mean(out["common_prefix"])),
+        "kv_hbm_bytes": engine.pool.hbm_bytes(), "num_blocks": engine.pool.num_blocks,
     }
     print(f"[serve] {json.dumps(res)}")
-    return res
+    return {**res, "new_tokens": first}
 
 
 # ------------------------------------------------------------------ phase 5 --
@@ -618,7 +725,8 @@ def phase_static() -> dict:
     model, params = out["model"], out["params"]
     layers = model.cfg.n_layers
     want = {"gn_rmsnorm": BATCHES * (2 * layers + 1) * (NEW + 2), "gn_paged_attention": 0,
-            "gn_softmax": BATCHES * layers * (1 + NEW), "gn_attention": BATCHES * layers}
+            "gn_paged_attention_int8": 0, "gn_softmax": BATCHES * layers * (1 + NEW),
+            "gn_attention": BATCHES * layers}
     if launches != want or out["launches"] != want:
         fail(f"static launches {launches} (run: {out['launches']}) != {want}")
     if any(plain.values()):
@@ -666,11 +774,85 @@ def phase_static() -> dict:
     return res
 
 
+# ------------------------------------------------------------------ phase 6 --
+def phase_int8(served: dict) -> dict:
+    """Phase 4's workload and weights over an int8 pool of the same block
+    count, through the engine itself (the launcher has no KV dtype flag, as
+    the reference's has none)."""
+    model = make_model(get_config(ARCH))
+    reqs = seeded_requests(model.cfg.vocab, REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW, 1, SEED)
+    engine = ContinuousEngine(model, model.init(SEED, DEV), num_slots=SLOTS,
+                              max_seq=required_max_seq(reqs), chunk=CHUNK, block_size=BLOCK,
+                              kv_dtype="int8", device=DEV)
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    comps = engine.run(reqs)
+    seconds = time.perf_counter() - t0
+    launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
+    m = engine.metrics()
+    ticks, layers = m["model_ticks"], model.cfg.n_layers
+    want = {"gn_rmsnorm": (2 * layers + 1) * ticks, "gn_paged_attention": 0,
+            "gn_paged_attention_int8": layers * ticks, "gn_softmax": 0, "gn_attention": 0}
+    if launches != want:
+        fail(f"int8 serving launches {launches} != {want}")
+    if any(plain.values()):
+        fail(f"plain-version calls on CUDA tensors in the int8 serving run: {plain}")
+    if len(comps) != len(reqs) or any(len(c.new_tokens) != r.max_new_tokens for c, r in
+                                       zip(sorted(comps, key=lambda c: c.request_id), reqs)):
+        fail("int8: not every request completed with its budget")
+    if engine.pool.blocks_in_use or engine.pool.num_free != SLOTS:
+        fail(f"int8: blocks not returned: {engine.pool.blocks_in_use} in use")
+    if not bool(torch.isfinite(engine._last_logits).all()):
+        fail("int8: non-finite logits")
+    if engine.pool.num_blocks != served["num_blocks"]:
+        fail(f"int8 pool has {engine.pool.num_blocks} blocks, the fp pool {served['num_blocks']}")
+    first = {c.request_id: c.new_tokens for c in comps}
+    engine.reset()
+    t1 = time.perf_counter()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        again = {c.request_id: c.new_tokens for c in engine.run(reqs)}
+        torch.cuda.synchronize()
+    rerun_s = time.perf_counter() - t1
+    if any(not np.array_equal(first[i], again[i]) for i in first):
+        fail("int8: reset + rerun gave different tokens")
+    per_kernel = _device_us(prof)
+    busy_s = sum(per_kernel.values()) / 1e6
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[int8-profile] device busy {busy_s:.3f}s of {rerun_s:.3f}s "
+          f"({100 * busy_s / rerun_s:.1f}%); top kernels (s): "
+          + json.dumps({k[:60]: v / 1e6 for k, v in top}))
+    # greedy prefix shared with phase 4's fp tokens, per request (not gated)
+    fp = served["new_tokens"]
+    prefix = []
+    for i, toks in first.items():
+        diff = np.nonzero(toks != fp[i])[0]
+        prefix.append((int(diff[0]) if diff.size else len(toks)) / len(toks))
+    tick_ms = [dt * 1e3 for _, _, dt in engine.tick_log]
+    res = {
+        "requests": len(comps), "generated_tokens": m["generated_tokens"], "seconds": seconds,
+        "tokens_per_s": m["generated_tokens"] / seconds, "model_ticks": ticks,
+        "fused_ticks": m["fused_ticks"], "mean_tick_ms": float(np.mean(tick_ms)),
+        "launches": launches, "profiled_rerun_seconds": rerun_s, "device_busy_seconds": busy_s,
+        "device_busy_share": busy_s / rerun_s, "kv_hbm_bytes": engine.pool.hbm_bytes(),
+        "fp_kv_hbm_bytes": served["kv_hbm_bytes"],
+        "hbm_ratio": engine.pool.hbm_bytes() / served["kv_hbm_bytes"],
+        "num_blocks": m["num_blocks"], "block_utilization": m["block_utilization"],
+        "fp_common_prefix_mean": float(np.mean(prefix)),
+        "fp_common_prefix_min": float(np.min(prefix)),
+        "fp_identical": f"{sum(p == 1.0 for p in prefix)}/{len(prefix)}",
+    }
+    print(f"[int8] {json.dumps(res)}")
+    return res
+
+
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "gn_rmsnorm": ("src/repro_torch/csrc/gn_layernorm.cu",
                    "src/repro/kernels/gn_layernorm/kernel.py:81"),
     "gn_paged_attention": ("src/repro_torch/csrc/gn_paged_attention.cu",
                            "src/repro/kernels/gn_paged_attention/kernel.py:160"),
+    "gn_paged_attention_int8": ("src/repro_torch/csrc/gn_paged_attention.cu",
+                                "src/repro/kernels/gn_paged_attention/kernel.py:97-104"),
     "gn_softmax": ("src/repro_torch/csrc/gn_softmax.cu",
                    "src/repro/kernels/gn_softmax/kernel.py:59"),
     "gn_attention": ("src/repro_torch/csrc/gn_attention.cu",
@@ -692,10 +874,15 @@ def main() -> int:
     served = phase_serve()
     torch.cuda.empty_cache()
     static = phase_static()
-    by_path = {"continuous": served["launches"], "static": static["launches"]}
+    torch.cuda.empty_cache()
+    int8 = phase_int8(served)
+    by_path = {"continuous": served["launches"], "static": static["launches"],
+               "int8": int8["launches"]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        main_case = kern[name][0]  # the main path's shape: bf16 tick, f32 prefill rows, bf16 forward
+        # the main path's shape: bf16 tick (fp or int8 KV), f32 prefill rows,
+        # bf16 forward
+        main_case = kern[name][0]
         counts = {path: n[name] for path, n in by_path.items() if n[name]}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -12,6 +12,8 @@
 // an FMA and every product and sum rounds where the reference rounds.
 #pragma once
 
+#include <cstdint>
+
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -19,9 +21,11 @@ namespace gn {
 
 constexpr float NEG_INF = -1e30f;
 
-// Element types the kernels take; the wrappers pass 0 for f32, 1 for bf16.
+// Element types the kernels take; the wrappers pass 0 for f32, 1 for bf16,
+// 2 for int8 (a quantized KV arena, exact in f32).
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ float to_float(int8_t v) { return static_cast<float>(v); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float v);

@@ -1,7 +1,10 @@
 // Chunked-query GN attention over a block-paged KV arena, for Hopper.
 //
 // Replaces the Pallas TPU kernel repro/kernels/gn_paged_attention/kernel.py
-// (_gn_paged_attention_kernel, gn_paged_attention_pallas) in its fp mode.
+// (_gn_paged_attention_kernel, gn_paged_attention_pallas) in both its modes:
+// fp arenas in q's type, and int8 arenas with per-physical-block f32 scales
+// (kernel.py:97-104), where each K/V element is dequantized in f32 right
+// after its load, by the scale of the block just loaded, before any dot.
 // Query row i of sequence n sits at absolute position starts[n] + i and
 // attends columns c with c <= starts[n] + i and c < length, length =
 // starts[n] + n_valid[n]; blocks at or past `length` are never read (their
@@ -26,10 +29,13 @@
 // has few (row, column) pairs (decode), and the online row update runs one
 // warp per row.
 //
-// Bound: bytes.  A tick reads each live K/V block once and does about
-// 4 * R * D flops per key, far below the card's flops-per-byte balance.
+// Bound: bytes.  A tick reads each live K/V block once (1 byte an element
+// in int8 mode, plus one scale per block) and does about 4 * R * D flops per
+// key, far below the card's flops-per-byte balance.
 // This version is still the simple one: f32 CUDA-core dots, no tensor
 // cores, no TMA, no overlap of the next block's load with this block's math.
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -38,10 +44,13 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-template <typename T>
+// T: the type of q and out; KV: the arenas' type, T itself or int8_t (then
+// k_scale and v_scale hold one f32 scale per physical block).
+template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads)
-gn_paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena,
-                          const T* __restrict__ v_arena, const int* __restrict__ tables,
+gn_paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_arena,
+                          const KV* __restrict__ v_arena, const float* __restrict__ k_scale,
+                          const float* __restrict__ v_scale, const int* __restrict__ tables,
                           const int* __restrict__ starts, const int* __restrict__ n_valid,
                           const float* __restrict__ coarse_g,
                           const float* __restrict__ residual_g, T* __restrict__ out,
@@ -88,10 +97,20 @@ gn_paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_arena
 
   for (int j = split * split_blocks; j < j_end; ++j) {
     const size_t phys = (size_t)tables[(size_t)n * max_bt + j];
-    for (int t = r0; t < bs; t += rstep) {
-      const size_t off = ((phys * bs + t) * Hkv + kvh) * D + d0;
-      k_s[t * ld + d0] = gn::to_float(k_arena[off]);
-      v_s[t * D + d0] = gn::to_float(v_arena[off]);
+    if constexpr (std::is_same_v<KV, int8_t>) {
+      // int8: one f32 product of the exact int8 value and the block's scale
+      const float ks = k_scale[phys], vs = v_scale[phys];
+      for (int t = r0; t < bs; t += rstep) {
+        const size_t off = ((phys * bs + t) * Hkv + kvh) * D + d0;
+        k_s[t * ld + d0] = gn::to_float(k_arena[off]) * ks;
+        v_s[t * D + d0] = gn::to_float(v_arena[off]) * vs;
+      }
+    } else {
+      for (int t = r0; t < bs; t += rstep) {
+        const size_t off = ((phys * bs + t) * Hkv + kvh) * D + d0;
+        k_s[t * ld + d0] = gn::to_float(k_arena[off]);
+        v_s[t * D + d0] = gn::to_float(v_arena[off]);
+      }
     }
     __syncthreads();
 
@@ -219,21 +238,23 @@ gn_paged_attention_merge(const float* __restrict__ part_m, const float* __restri
   }
 }
 
-template <typename T>
-int launch(const void* q, const void* k, const void* v, const int* tables, const int* starts,
+template <typename T, typename KV>
+int launch(const void* q, const void* k, const void* v, const float* k_scale,
+           const float* v_scale, const int* tables, const int* starts,
            const int* n_valid, const float* coarse, const float* residual, void* out,
            float* part_m, float* part_l, float* part_acc, int N, int C, int H, int Hkv, int D,
            int bs, int max_bt, int splits, int split_blocks, int dot_lanes, float sm_scale,
            const gn::ExpLut& lut, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        gn_paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        gn_paged_attention_kernel<T, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  gn_paged_attention_kernel<T><<<dim3(N, Hkv, splits), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), tables,
-      starts, n_valid, coarse, residual, static_cast<T*>(out), part_m, part_l, part_acc, C, H,
-      Hkv, D, bs, max_bt, split_blocks, dot_lanes, sm_scale, lut);
+  gn_paged_attention_kernel<T, KV><<<dim3(N, Hkv, splits), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v), k_scale,
+      v_scale, tables, starts, n_valid, coarse, residual, static_cast<T*>(out), part_m, part_l,
+      part_acc, C, H, Hkv, D, bs, max_bt, split_blocks, dot_lanes, sm_scale, lut);
   if (splits > 1) {
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -246,8 +267,10 @@ int launch(const void* q, const void* k, const void* v, const int* tables, const
 
 }  // namespace
 
-// q, out: (N, C, H, D) contiguous; k, v: (nb, bs, Hkv, D) contiguous arenas of
-// the same dtype, f32 (dtype 0) or bf16 (dtype 1); D must divide 256;
+// q, out: (N, C, H, D) contiguous, f32 (dtype 0) or bf16 (dtype 1); k, v:
+// (nb, bs, Hkv, D) contiguous arenas, of q's dtype (kv_dtype == dtype, and
+// k_scale, v_scale null) or int8 (kv_dtype 2, and k_scale, v_scale the
+// (nb,) f32 per-block scales); D must divide 256;
 // tables: (N, max_bt) int32; starts, n_valid: (N,) int32; coarse, residual:
 // the f32 exp ROM tables.  The chain is cut into `splits` ranges of
 // `split_blocks` blocks; with splits > 1, part_m and part_l (N, Hkv, splits,
@@ -255,15 +278,19 @@ int launch(const void* q, const void* k, const void* v, const int* tables, const
 // Launches on `stream` and returns cudaGetLastError() (or the error of the
 // shared-memory opt-in).
 extern "C" int gn_paged_attention_launch(
-    const void* q, const void* k, const void* v, const void* tables, const void* starts,
-    const void* n_valid, const void* coarse, const void* residual, void* out, void* part_m,
-    void* part_l, void* part_acc, int N, int C, int H, int Hkv, int D, int bs, int max_bt,
-    int splits, int split_blocks, int dtype, float sm_scale, float step, float inv_step,
+    const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
+    const void* tables, const void* starts, const void* n_valid, const void* coarse,
+    const void* residual, void* out, void* part_m, void* part_l, void* part_acc, int N, int C,
+    int H, int Hkv, int D, int bs, int max_bt, int splits, int split_blocks, int dtype,
+    int kv_dtype, float sm_scale, float step, float inv_step,
     int max_delta_int, int coarse_shift, int residual_mask, int coarse_entries,
     int residual_entries, float value_scale, void* stream) {
   if (N == 0) return static_cast<int>(cudaGetLastError());
+  const bool quant = kv_dtype == 2;
   if (D < 1 || kThreads % D || splits < 1 ||
-      (splits - 1) * split_blocks >= (max_bt > 1 ? max_bt : 1))
+      (splits - 1) * split_blocks >= (max_bt > 1 ? max_bt : 1) ||
+      (!quant && kv_dtype != dtype) || quant != (k_scale != nullptr) ||
+      quant != (v_scale != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const gn::ExpLut lut{step, inv_step, max_delta_int, coarse_shift, residual_mask,
                        coarse_entries, residual_entries, value_scale, 1.0f / value_scale};
@@ -275,7 +302,8 @@ extern "C" int gn_paged_attention_launch(
                         (size_t)bs * D + (size_t)R * bs + 3 * (size_t)R + coarse_entries +
                         residual_entries;
   const size_t smem = floats * sizeof(float);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* ks = static_cast<const float*>(k_scale);
+  const float* vs = static_cast<const float*>(v_scale);
   const int* t = static_cast<const int*>(tables);
   const int* st = static_cast<const int*>(starts);
   const int* nv = static_cast<const int*>(n_valid);
@@ -284,12 +312,15 @@ extern "C" int gn_paged_attention_launch(
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
-  if (dtype == 0)
-    return launch<float>(q, k, v, t, st, nv, co, re, out, pm, pl, pa, N, C, H, Hkv, D, bs,
-                         max_bt, splits, split_blocks, dot_lanes, sm_scale, lut, smem, s);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // instantiate the (q, arena) type pair the codes name
+  auto go = [&](auto q_type, auto kv_type) {
+    return launch<decltype(q_type), decltype(kv_type)>(
+        q, k, v, ks, vs, t, st, nv, co, re, out, pm, pl, pa, N, C, H, Hkv, D, bs, max_bt,
+        splits, split_blocks, dot_lanes, sm_scale, lut, smem, s);
+  };
+  if (dtype == 0) return quant ? go(float{}, int8_t{}) : go(float{}, float{});
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, t, st, nv, co, re, out, pm, pl, pa, N, C, H, Hkv,
-                                 D, bs, max_bt, splits, split_blocks, dot_lanes, sm_scale,
-                                 lut, smem, s);
+    return quant ? go(__nv_bfloat16{}, int8_t{}) : go(__nv_bfloat16{}, __nv_bfloat16{});
   return static_cast<int>(cudaErrorInvalidValue);
 }

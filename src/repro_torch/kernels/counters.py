@@ -13,15 +13,18 @@ from repro_torch.kernels.gn_paged_attention import ref as paged_ref
 from repro_torch.kernels.gn_softmax import ops as softmax_ops
 from repro_torch.kernels.gn_softmax import ref as softmax_ref
 
-WRAPPERS = {"gn_rmsnorm": norm_ops, "gn_paged_attention": paged_ops,
-            "gn_softmax": softmax_ops, "gn_attention": attention_ops}
+# kernel -> (its wrapper module, the wrapper's launch counter); the paged
+# read counts its fp and its int8 mode apart
+WRAPPERS = {"gn_rmsnorm": (norm_ops, "launches"), "gn_paged_attention": (paged_ops, "launches"),
+            "gn_paged_attention_int8": (paged_ops, "launches_int8"),
+            "gn_softmax": (softmax_ops, "launches"), "gn_attention": (attention_ops, "launches")}
 PLAIN = {"gn_rmsnorm": norm_ref, "gn_paged_attention": paged_ref,
          "gn_softmax": softmax_ref, "gn_attention": attention_ref}
 
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last ``reset``."""
-    return {name: mod.launches for name, mod in WRAPPERS.items()}
+    return {name: getattr(mod, attr) for name, (mod, attr) in WRAPPERS.items()}
 
 
 def plain_cuda_calls() -> dict[str, int]:
@@ -30,7 +33,7 @@ def plain_cuda_calls() -> dict[str, int]:
 
 
 def reset() -> None:
-    for mod in WRAPPERS.values():
-        mod.launches = 0
+    for mod, attr in WRAPPERS.values():
+        setattr(mod, attr, 0)
     for mod in PLAIN.values():
         mod.cuda_calls = 0

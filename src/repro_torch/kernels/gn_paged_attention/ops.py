@@ -5,7 +5,10 @@ query chunk per sequence (a decode is C = 1), causal within the chunk, the
 prior context read through the block table from the pool's (nb, bs, Hkv, D)
 arenas in place.  For CPU tensors the wrapper runs the plain version
 (``ref``); for CUDA tensors it launches ``csrc/gn_paged_attention.cu`` on
-the current stream, or raises.  ``launches`` counts kernel launches and nothing else.
+the current stream, or raises.  ``scales`` marks the arenas as int8, with one
+f32 dequantization scale per physical block for k and for v (the reference
+wrapper's ``scales=``).  ``launches`` counts the kernel's launches over fp
+arenas and ``launches_int8`` those over int8 arenas, and nothing else.
 One device per process: the kernel runs on the current CUDA device.
 """
 from __future__ import annotations
@@ -23,9 +26,11 @@ from repro_torch.kernels.gn_paged_attention import ref
 from repro_torch.kernels.gn_softmax.ops import exp_lut_args
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 12 + [_I] * 10 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
+_ARGTYPES = [_P] * 14 + [_I] * 11 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
+INT8_CODE = 2  # the entry's kv dtype code of an int8 arena
 
 launches = 0
+launches_int8 = 0
 
 
 @functools.lru_cache(maxsize=8)
@@ -48,15 +53,20 @@ def _entry():
     return fn
 
 
-def _check(q, k_arena, v_arena, tables, starts, n_valid) -> None:
+def _check(q, k_arena, v_arena, tables, starts, n_valid, scales) -> None:
     dev = q.device
-    for name, t in (("k_arena", k_arena), ("v_arena", v_arena), ("tables", tables),
-                    ("starts", starts), ("n_valid", n_valid)):
+    named = [("k_arena", k_arena), ("v_arena", v_arena), ("tables", tables),
+             ("starts", starts), ("n_valid", n_valid)]
+    if scales is not None:
+        named += [("k_scale", scales[0]), ("v_scale", scales[1])]
+    for name, t in named:
         if t.device != dev:
             raise ValueError(f"{name} is on {t.device}, q on {dev}")
-    if q.dtype not in DTYPE_CODES or k_arena.dtype != q.dtype or v_arena.dtype != q.dtype:
-        raise TypeError(f"q and the arenas must share one of {list(DTYPE_CODES)}, got "
-                        f"{q.dtype}, {k_arena.dtype}, {v_arena.dtype}")
+    kv_dtype = torch.int8 if scales is not None else q.dtype
+    if q.dtype not in DTYPE_CODES or k_arena.dtype != kv_dtype or v_arena.dtype != kv_dtype:
+        raise TypeError(f"q must be one of {list(DTYPE_CODES)} and the arenas of q's dtype, or "
+                        f"int8 with scales; got {q.dtype}, {k_arena.dtype}, {v_arena.dtype}, "
+                        f"scales {'given' if scales is not None else 'none'}")
     for name, t in (("tables", tables), ("starts", starts), ("n_valid", n_valid)):
         if t.dtype != torch.int32:
             raise TypeError(f"{name} must be int32, got {t.dtype}")
@@ -67,8 +77,12 @@ def _check(q, k_arena, v_arena, tables, starts, n_valid) -> None:
                          f"k {tuple(k_arena.shape)}, v {tuple(v_arena.shape)}")
     if tables.dim() != 2 or tables.shape[0] != n or starts.shape != (n,) or n_valid.shape != (n,):
         raise ValueError(f"tables/starts/n_valid must be (N, max_bt)/(N,)/(N,) with N={n}")
-    for name, t in (("q", q), ("k_arena", k_arena), ("v_arena", v_arena),
-                    ("tables", tables), ("starts", starts), ("n_valid", n_valid)):
+    if scales is not None:
+        for name, t in (("k_scale", scales[0]), ("v_scale", scales[1])):
+            if t.dtype != torch.float32 or t.shape != (k_arena.shape[0],):
+                raise ValueError(f"{name} must be f32 of shape ({k_arena.shape[0]},), got "
+                                 f"{t.dtype} {tuple(t.shape)}")
+    for name, t in [("q", q)] + named:
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
 
@@ -82,19 +96,22 @@ def gn_paged_attention_chunk(
     n_valid: torch.Tensor,  # (N,) int32 valid lanes (KV read bound)
     cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT,
     sm_scale: float | None = None,
+    scales: tuple[torch.Tensor, torch.Tensor] | None = None,  # ((nb,), (nb,)) f32
 ) -> torch.Tensor:
     """Chunked-query paged read.  Row i of sequence n attends the logical
     stream [0, starts[n] + i], bounded by starts + n_valid; rows past
-    n_valid are don't-care.  Returns (N, C, H, D) in q's dtype."""
-    global launches
+    n_valid are don't-care.  ``scales`` = (k_scale, v_scale) marks the arenas
+    as int8, dequantized per physical block in f32 after each load.  Returns
+    (N, C, H, D) in q's dtype."""
+    global launches, launches_int8
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return ref.gn_paged_attention_chunk_ref(q, k_arena, v_arena, tables, starts,
-                                                n_valid, cfg, sm_scale)
+                                                n_valid, cfg, sm_scale, scales)
     if q.device.type != "cuda":
         raise ValueError(f"gn_paged_attention runs on cpu or cuda tensors, got {q.device}")
-    _check(q, k_arena, v_arena, tables, starts, n_valid)
+    _check(q, k_arena, v_arena, tables, starts, n_valid, scales)
     n, c, h, d = q.shape
     _, bs, hkv, _ = k_arena.shape
     max_bt = tables.shape[1]
@@ -107,13 +124,18 @@ def gn_paged_attention_chunk(
         part = [torch.empty(n, hkv, splits, rows, device=q.device),
                 torch.empty(n, hkv, splits, rows, device=q.device),
                 torch.empty(n, hkv, splits, rows, d, device=q.device)]
+    scale_ptrs = (None, None) if scales is None else (scales[0].data_ptr(), scales[1].data_ptr())
+    kv_code = DTYPE_CODES[q.dtype] if scales is None else INT8_CODE
     rc = _entry()(
-        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), tables.data_ptr(),
+        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *scale_ptrs, tables.data_ptr(),
         starts.data_ptr(), n_valid.data_ptr(), coarse.data_ptr(), residual.data_ptr(),
         out.data_ptr(), *(None if t is None else t.data_ptr() for t in part),
-        n, c, h, hkv, d, bs, max_bt, splits, split_blocks, DTYPE_CODES[q.dtype],
+        n, c, h, hkv, d, bs, max_bt, splits, split_blocks, DTYPE_CODES[q.dtype], kv_code,
         float(sm_scale), *exp_lut_args(cfg), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "gn_paged_attention")
-    launches += 1
+    if scales is None:
+        launches += 1
+    else:
+        launches_int8 += 1
     return out

@@ -19,7 +19,10 @@ port's arenas carry one extra block past the last real one, a write sink:
 lanes that must not write (past a slot's ``n_valid``, or a parked slot) are
 aimed at it, where the reference drops them with an out-of-bounds scatter.
 No table ever names the sink, so it is never read.  The fp write updates
-the arena in place.
+the arena in place.  With int8 arenas (``scales`` given) the write quantizes
+through ``paged_quant_write``, which updates the int8 arena and the
+per-block scale vectors in place; the scale vectors carry an entry for the
+sink block too, set by its writes and never read.
 
 Only the GN softmax is ported (``softmax_impl="gn"``), and no sliding
 window.
@@ -164,15 +167,52 @@ def paged_write_indices(rows, n_valid, tables, block_size: int, num_blocks: int)
     return torch.where(lane_ok, dest, num_blocks * block_size).reshape(-1)
 
 
+# Headroom on the first-write per-block amax (the reference's QUANT_MARGIN):
+# a block's scale is frozen at its offset-0 write and later appends to the
+# block saturate at +-127 rather than rescale.
+QUANT_MARGIN = 2.0
+
+
+def paged_quant_write(flat_arena, scale, new_vals, dest, block_size: int) -> None:
+    """Freeze-at-first-write int8 block scatter, in place (port of the
+    reference's ``paged_quant_write``, ``models/attention.py:331``).
+
+    flat_arena: ((nb + 1) * bs, ...) int8, the sink block last; scale:
+    (nb + 1,) f32 per-block scales; new_vals: (n_tok, ...) fp values for the
+    flattened arena rows ``dest`` (n_tok,), dropped lanes aimed at the sink.
+    A block that takes a write at in-block offset 0 this call (re)sets its
+    scale to QUANT_MARGIN * (the amax of every write into it this call) /
+    127; every write is quantized by its block's scale after that update,
+    rounded half to even and clipped to +-127.  On the same f32 inputs the
+    real blocks' int8 values and scales equal the reference's bit for bit."""
+    blk = dest // block_size
+    x = new_vals.float()
+    amax = x.abs().reshape(x.shape[0], -1).amax(dim=1)  # (n_tok,)
+    blk_amax = torch.zeros_like(scale).scatter_reduce_(0, blk, amax, "amax")
+    at_zero = (dest % block_size == 0).to(scale.dtype)
+    first = torch.zeros_like(scale).scatter_reduce_(0, blk, at_zero, "amax") > 0
+    # the divisor is a tensor filled on the device: PyTorch on CUDA divides
+    # by a Python scalar as a multiply by its reciprocal, which can round
+    # 1 ulp apart from the IEEE quotient the reference and the CPU take
+    frozen = QUANT_MARGIN * blk_amax / torch.full_like(blk_amax, 127.0)
+    scale.copy_(torch.where(first, frozen, scale))
+    s_tok = scale[blk]
+    denom = torch.where(s_tok > 0, s_tok, 1.0).reshape((-1,) + (1,) * (x.dim() - 1))
+    q = torch.clamp(torch.round(x / denom), -127.0, 127.0).to(torch.int8)
+    flat_arena.index_copy_(0, dest, q)
+
+
 def attn_paged_chunk(cfg: ModelConfig, p: dict, arena_k, arena_v, x, positions,
-                     n_valid, tables):
+                     n_valid, tables, scales=None):
     """Block-paged chunked append-decode, batched over slots.
 
     x: (N, C, D) in the activation dtype; positions/n_valid: (N,) int32;
     tables: (N, max_bt) int32; arena_k/arena_v: (num_blocks + 1, bs, KV, dh),
     updated in place; p: the layer's attention weights in x's dtype.  Lane
     (s, i) writes absolute position positions[s] + i (if i < n_valid[s]) and
-    attends [0, positions[s] + i].  Returns (N, C, D).
+    attends [0, positions[s] + i].  ``scales`` = (k_scale, v_scale), each
+    (num_blocks + 1,) f32 and updated in place, marks the arenas as int8:
+    the writes quantize, the read dequantizes per block.  Returns (N, C, D).
     """
     _require_gn(cfg)
     b, c_len, _ = x.shape
@@ -184,8 +224,13 @@ def attn_paged_chunk(cfg: ModelConfig, p: dict, arena_k, arena_v, x, positions,
     v_new = (x @ p["wv"]).reshape(b, c_len, kv, dh)
 
     dest = paged_write_indices(rows, n_valid, tables, bs, nb)
-    arena_k.view(-1, kv, dh).index_copy_(0, dest, k_new.reshape(-1, kv, dh).to(arena_k.dtype))
-    arena_v.view(-1, kv, dh).index_copy_(0, dest, v_new.reshape(-1, kv, dh).to(arena_v.dtype))
+    for arena, new, scale in zip((arena_k, arena_v), (k_new, v_new), scales or (None, None)):
+        flat, vals = arena.view(-1, kv, dh), new.reshape(-1, kv, dh)
+        if scale is None:
+            flat.index_copy_(0, dest, vals.to(arena.dtype))
+        else:
+            paged_quant_write(flat, scale, vals, dest, bs)
 
-    out = gn_paged_attention_chunk(q, arena_k, arena_v, tables, positions, n_valid)
+    out = gn_paged_attention_chunk(q, arena_k, arena_v, tables, positions, n_valid,
+                                   scales=scales)
     return out.reshape(b, c_len, cfg.q_features).to(x.dtype) @ p["wo"]

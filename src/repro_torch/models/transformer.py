@@ -14,7 +14,8 @@
     static path over a dense slab cache (L, B, max_seq, KV, dh) per k and v,
     written in place, its score rows through the GN softmax kernel;
   * ``init_paged_cache`` / ``fused_step_slots_paged`` / ``_paged_head`` —
-    the block-paged serving tick over fp arenas.
+    the block-paged serving tick over fp arenas, or int8 arenas with
+    per-block f32 scales.
 
 Each layer runs norm -> attention -> norm -> MLP; the head runs one more
 norm and the LM projection.  Projections stay ``torch.matmul``, as the
@@ -150,28 +151,41 @@ class Model:
         return self._lm_head(params, x), cache
 
     # ---------------------------------------------------------- paged tick --
-    def init_paged_cache(self, num_blocks: int, block_size: int, device=None) -> dict:
-        """fp block arenas (L, num_blocks + 1, block_size, KV, dh); the extra
-        block is the write sink of ``attention.paged_write_indices``."""
+    def init_paged_cache(self, num_blocks: int, block_size: int, device=None,
+                         kv_dtype: str = "fp") -> dict:
+        """Block arenas "k", "v" (L, num_blocks + 1, block_size, KV, dh); the
+        extra block is the write sink of ``attention.paged_write_indices``.
+        ``kv_dtype="int8"`` stores the arenas in int8 and adds "k_scale" and
+        "v_scale" (L, num_blocks + 1) f32, zeroed: the per-block dequant
+        scales (the reference's ``<leaf>_scale`` leaves)."""
+        if kv_dtype not in ("fp", "int8"):
+            raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")
         cfg = self.cfg
         shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim)
-        dt = getattr(torch, cfg.dtype)
+        dt = torch.int8 if kv_dtype == "int8" else getattr(torch, cfg.dtype)
         dev = resolve_device(device)
-        return {"k": torch.zeros(shape, dtype=dt, device=dev),
-                "v": torch.zeros(shape, dtype=dt, device=dev)}
+        cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
+                 "v": torch.zeros(shape, dtype=dt, device=dev)}
+        if kv_dtype == "int8":
+            for key in ("k_scale", "v_scale"):
+                cache[key] = torch.zeros(shape[:2], dtype=torch.float32, device=dev)
+        return cache
 
     def fused_step_slots_paged(self, params, cache, tokens, positions, n_valid, tables):
         """One paged serving tick: every slot processes its own C-token chunk
         at its own write offset.  params: ``prepare``d; tokens: (N, C) int;
         positions/n_valid: (N,) int32 (n_valid = 0 parks a lane: no writes);
-        tables: (N, max_bt) int32.  Writes the arenas of ``cache`` in place and
-        returns the logits (N, 1, V) of each slot's row n_valid - 1."""
+        tables: (N, max_bt) int32.  Writes the arenas of ``cache`` (and its
+        scales, for int8 arenas) in place and returns the logits (N, 1, V) of
+        each slot's row n_valid - 1."""
         cfg = self.cfg
         x = self._embed(params, tokens)
-        for lp, k_arena, v_arena in zip(params["layers"], cache["k"], cache["v"]):
+        scales = (zip(cache["k_scale"], cache["v_scale"]) if "k_scale" in cache
+                  else [None] * cfg.n_layers)
+        for lp, k_arena, v_arena, sc in zip(params["layers"], cache["k"], cache["v"], scales):
             h = apply_norm(cfg, lp["ln1"], x)
             x = self._mlp_residual(lp, x + attn.attn_paged_chunk(
-                cfg, lp["mixer"], k_arena, v_arena, h, positions, n_valid, tables))
+                cfg, lp["mixer"], k_arena, v_arena, h, positions, n_valid, tables, sc))
         return self._paged_head(params, x, n_valid)
 
     def _paged_head(self, params, x, n_valid):

@@ -1,7 +1,7 @@
 """Serving engines (port of ``repro/serve/engine.py``): the static path
 (``generate``, ``perplexity``, ``static_reference``) and the
 continuous-batching engine with chunked prefill fused into the tick
-(``ContinuousEngine``: FCFS, greedy, block-paged fp KV, one device).
+(``ContinuousEngine``: FCFS, greedy, block-paged fp or int8 KV, one device).
 
 The static path serves uniform-length prompt batches: one prefill over a
 dense slab cache, then one decode step per new token; it is the greedy
@@ -22,8 +22,11 @@ their host mirrors dirty; a fused tick also uploads its staged chunk.
 
 Not ported, and refused with an error rather than ignored: sampling
 (temperature > 0, in both paths), GN sentinels, the prefix cache, priority
-scheduling and preemption, int8 KV, snapshots, multi-device pools, and the
-continuous engine's slab pool.
+scheduling and preemption, snapshots, multi-device pools, and the
+continuous engine's slab pool.  ``kv_dtype="int8"`` serves over int8 arenas
+with per-block f32 scales frozen at each block's first write; without GN
+sentinels it has no int8->fp clip fallback, as the reference engine with
+``sentinels=False`` has none.
 """
 from __future__ import annotations
 
@@ -145,8 +148,10 @@ class ContinuousEngine:
                  kv_dtype: str = "fp", sentinels: bool = False, device=None):
         for name, value, default in (("devices", devices, 1), ("prefix_cache", prefix_cache, False),
                                      ("sched", sched, "fcfs"), ("preempt", preempt, "off"),
-                                     ("kv_dtype", kv_dtype, "fp"), ("sentinels", sentinels, False)):
+                                     ("sentinels", sentinels, False)):
             _refuse(name, value, default)
+        if kv_dtype not in ("fp", "int8"):
+            raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")
         if paged is False:
             raise NotImplementedError("the slab pool is not ported; the port pages KV")
         _refuse_sampling(cfg.temperature)
@@ -158,7 +163,7 @@ class ContinuousEngine:
         self.device = resolve_device(device)
         self.params = model.prepare(params, self.device)
         self.pool = BlockPagedKVPool(model, num_slots, max_seq, block_size or self.chunk,
-                                     num_blocks, self.device)
+                                     num_blocks, self.device, kv_dtype)
         self.reset()
 
     def reset(self) -> None:
@@ -337,4 +342,8 @@ class ContinuousEngine:
             "generated_tokens": self.generated_tokens,
             "completed": len(self.completions),
             "peak_blocks_in_use": self.pool.peak_blocks_in_use,
+            "kv_dtype": self.pool.kv_dtype,
+            "num_blocks": self.pool.num_blocks,
+            "block_size": self.pool.block_size,
+            "block_utilization": self.pool.peak_blocks_in_use / max(1, self.pool.num_blocks),
         }

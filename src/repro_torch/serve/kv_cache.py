@@ -1,10 +1,11 @@
-"""Block-granular KV pool, fp, one device (port of ``BlockPagedKVPool`` in
-``repro/serve/kv_cache.py``).
+"""Block-granular KV pool, one device (port of ``BlockPagedKVPool`` in
+``repro/serve/kv_cache.py``), fp or int8 (``kv_dtype``).
 
-Device state: the shared block arenas of ``model.init_paged_cache``.  Host
-state: per-slot positions, per-slot block tables (a numpy mirror the engine
-uploads when ``tables_dirty``), FIFO free lists for slots and blocks, and
-per-slot whole-request block reservations.
+Device state: the shared block arenas of ``model.init_paged_cache``, and for
+int8 arenas their per-block f32 scales.  Host state: per-slot positions,
+per-slot block tables (a numpy mirror the engine uploads when
+``tables_dirty``), FIFO free lists for slots and blocks, and per-slot
+whole-request block reservations.
 
 Reservation contract: ``allocate(reserve_tokens=n)`` admits a request only
 after ``can_reserve(n)`` said the arena can cover its whole footprint
@@ -13,7 +14,9 @@ after ``can_reserve(n)`` said the arena can cover its whole footprint
 
 Recycled blocks are not zeroed: every read is bounded by the causal mask and
 the context length, and the GN softmax maps masked scores to numerators of
-exactly zero, so stale contents are unreachable.
+exactly zero, so stale contents are unreachable.  Scales are not zeroed
+either: a recycled block's first write lands at in-block offset 0 and
+freezes its scale anew.
 """
 from __future__ import annotations
 
@@ -26,8 +29,9 @@ from repro_torch import resolve_device
 
 class BlockPagedKVPool:
     def __init__(self, model, num_slots: int, max_seq: int, block_size: int,
-                 num_blocks: int = 0, device=None):
+                 num_blocks: int = 0, device=None, kv_dtype: str = "fp"):
         self.model = model
+        self.kv_dtype = kv_dtype
         self.num_slots = int(num_slots)
         self.max_seq = int(max_seq)
         self.block_size = int(block_size)
@@ -37,7 +41,8 @@ class BlockPagedKVPool:
         # 0 = slab-equivalent capacity (never admission-blocks)
         self.num_blocks = int(num_blocks) or self.num_slots * self.max_blocks_per_slot
         self.device = resolve_device(device)
-        self.cache = model.init_paged_cache(self.num_blocks, self.block_size, self.device)
+        self.cache = model.init_paged_cache(self.num_blocks, self.block_size, self.device,
+                                            kv_dtype)
         self.positions = np.zeros(self.num_slots, np.int32)
         # physical ids; entries past a slot's allocated prefix are stale but
         # never read (the kernel stops at the context length)
@@ -47,7 +52,8 @@ class BlockPagedKVPool:
     def reset(self) -> None:
         """Free everything and restore canonical slot and block order, so a
         reset engine replays a workload with identical slot assignment and
-        block tables (stale arena contents are mask-guarded, not zeroed)."""
+        block tables (stale arena contents and scales are mask-guarded or
+        re-frozen, not zeroed)."""
         self.positions[:] = 0
         self.tables[:] = 0
         self.tables_dirty = True
@@ -56,6 +62,11 @@ class BlockPagedKVPool:
         self._slot_blocks: dict[int, list[int]] = {}
         self._reserved = np.zeros(self.num_slots, np.int32)  # blocks, whole-request
         self.peak_blocks_in_use = 0
+
+    def hbm_bytes(self) -> int:
+        """Resident device bytes: the arenas (sink block included), the int8
+        pool's scales, and the block tables."""
+        return sum(t.numel() * t.element_size() for t in self.cache.values()) + self.tables.nbytes
 
     @property
     def num_free(self) -> int:

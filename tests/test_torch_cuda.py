@@ -7,7 +7,9 @@ Tolerances: f32 as the reference's own kernel-vs-ref tests (2e-4 for the
 online paged read, 1e-6 for the softmax, a few f32 ulps for the norm); the
 flash attention to 2e-4 on random inputs with at most 1% of rows past it
 (a Δ-grid flip, see chip_smoke.py) and to 2e-5 on exact-score inputs;
-bf16 one bf16 rounding on top.
+bf16 one bf16 rounding on top.  The paged read's int8 mode keeps the fp
+mode's tolerances; ``paged_quant_write`` on the card equals the CPU bit for
+bit.
 """
 import numpy as np
 import pytest
@@ -24,6 +26,7 @@ from repro_torch.kernels.gn_paged_attention import ops as attn_ops
 from repro_torch.kernels.gn_paged_attention import ref as attn_ref
 from repro_torch.kernels.gn_softmax import ops as sm_ops
 from repro_torch.kernels.gn_softmax import ref as sm_ref
+from repro_torch.models import attention as t_attn
 from repro_torch.models.transformer import make_model
 from repro_torch.serve.engine import ContinuousEngine, ServeConfig, generate, perplexity
 from repro_torch.serve.workload import required_max_seq, seeded_requests
@@ -100,28 +103,108 @@ def test_paged_attention_kernel_sums_to_one(cuda, c):
     assert (out[lane] - 1).abs().max().item() <= 1e-5
 
 
+def _quantized(args, seed, exact=False):
+    """The fp case's arenas replaced by int8 ones with per-block f32 scales
+    (``exact``: k in {-1, 0, 1} at scale 1, so every score stays exact)."""
+    q, k, v, *ints = args
+    g = torch.Generator(device=q.device).manual_seed(seed)
+    nb = k.shape[0]
+    if exact:
+        k8 = torch.randint(-1, 2, k.shape, generator=g, device=q.device).to(torch.int8)
+        ks = torch.ones(nb, device=q.device)
+    else:
+        k8 = torch.randint(-127, 128, k.shape, generator=g, device=q.device).to(torch.int8)
+        ks = 0.002 + 0.02 * torch.rand(nb, generator=g, device=q.device)
+    v8 = torch.randint(-127, 128, k.shape, generator=g, device=q.device).to(torch.int8)
+    vs = 0.002 + 0.02 * torch.rand(nb, generator=g, device=q.device)
+    return (q, k8, v8, *ints), (ks, vs)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 16])
+def test_paged_attention_int8_kernel_matches_plain(cuda, c, dtype):
+    args, lane = _paged(cuda, c, 16, dtype)
+    args, scales = _quantized(args, seed=c)
+    before = (attn_ops.launches, attn_ops.launches_int8)
+    got = attn_ops.gn_paged_attention_chunk(*args, scales=scales)
+    assert (attn_ops.launches, attn_ops.launches_int8) == (before[0], before[1] + 1)
+    want = attn_ref.gn_paged_attention_chunk_ref(*args, scales=scales)
+    # random scores: the attention kernels' 1% row budget, and at least one
+    # row (a Δ-grid flip moves a row past 2e-4, see chip_smoke.py; the C=1
+    # case has 32 rows)
+    rel = BF16_REL if dtype == torch.bfloat16 else 0.0
+    err = (got[lane].float() - want[lane].float()).abs() - (2e-4 + rel * want[lane].float().abs())
+    rows = err.shape[0] * err.shape[1]
+    assert (err > 0).any(-1).sum().item() <= max(1, 0.01 * rows)
+    assert got[1].abs().max().item() == 0.0
+    # exact scores: q and k in {-1, 0, 1}, scale 1, sm_scale 1/8
+    ex, _ = _paged(cuda, c, 16, dtype, seed=7)
+    q = torch.randint(-1, 2, ex[0].shape, device=cuda).to(dtype)
+    q[..., 8:] = 0
+    ex, ex_scales = _quantized((q, *ex[1:]), seed=c + 1, exact=True)
+    _close(attn_ops.gn_paged_attention_chunk(*ex, sm_scale=1 / 8, scales=ex_scales)[lane],
+           attn_ref.gn_paged_attention_chunk_ref(*ex, sm_scale=1 / 8, scales=ex_scales)[lane],
+           2e-5, dtype)
+    # V = 1 through int8 blocks: every valid row sums to one
+    ones = (args[0].float(), args[1], torch.ones_like(args[2]), *args[3:])
+    out = attn_ops.gn_paged_attention_chunk(*ones, scales=(scales[0], torch.ones_like(scales[1])))
+    assert (out[lane] - 1).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bs", [4, 16])
+def test_quant_write_on_card_equals_cpu(cuda, bs, dtype):
+    nb, kv, d = 12, 8, 128
+    rng = np.random.default_rng(bs)
+    arena = torch.zeros((nb + 1) * bs, kv, d, dtype=torch.int8)
+    scale = torch.zeros(nb + 1)
+    arena_d, scale_d = arena.to(cuda), scale.to(cuda)
+    for tick in range(3):
+        dest = torch.from_numpy(rng.choice(nb * bs, 20, replace=False))
+        dest[-3:] = nb * bs  # dropped lanes go to the sink
+        vals = torch.from_numpy(rng.normal(size=(20, kv, d)) * (1 + tick)).float().to(dtype)
+        t_attn.paged_quant_write(arena, scale, vals, dest, bs)
+        t_attn.paged_quant_write(arena_d, scale_d, vals.to(cuda), dest.to(cuda), bs)
+        assert torch.equal(arena_d[:nb * bs].cpu(), arena[:nb * bs])
+        assert torch.equal(scale_d[:nb].cpu().view(torch.int32), scale[:nb].view(torch.int32))
+
+
 def test_kernels_refuse_bad_inputs(cuda):
     args, _ = _paged(cuda, 4, 4, torch.float32)
     with pytest.raises(TypeError):
         attn_ops.gn_paged_attention_chunk(args[0], args[1].half(), *args[2:])
     with pytest.raises(ValueError, match="contiguous"):
         attn_ops.gn_paged_attention_chunk(args[0].transpose(1, 2), *args[1:])
+    q8, scales = _quantized(args, seed=0)
+    with pytest.raises(TypeError):  # int8 arenas without scales, fp arenas with them
+        attn_ops.gn_paged_attention_chunk(*q8)
+    with pytest.raises(TypeError):
+        attn_ops.gn_paged_attention_chunk(*args, scales=scales)
+    with pytest.raises(ValueError, match="k_scale"):
+        attn_ops.gn_paged_attention_chunk(*q8, scales=(scales[0][:-1], scales[1]))
+    with pytest.raises(ValueError, match="v_scale"):
+        attn_ops.gn_paged_attention_chunk(*q8, scales=(scales[0], scales[1].double()))
     with pytest.raises(TypeError):
         norm_ops.gn_rmsnorm(torch.randn(3, 8, device=cuda).half())
 
 
-def test_engine_on_cuda_launches_the_kernels_every_tick(cuda):
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_engine_on_cuda_launches_the_kernels_every_tick(cuda, kv_dtype):
     cfg = reduce_config(get_config("internlm2-1.8b"))
     model = make_model(cfg)
     reqs = seeded_requests(cfg.vocab, 5, 4, 20, 4, seed=1)
     eng = ContinuousEngine(model, model.init(0, cuda), num_slots=2,
-                           max_seq=required_max_seq(reqs), chunk=4, device=cuda)
-    attn0, norm0, plain0 = attn_ops.launches, norm_ops.launches, attn_ref.cuda_calls
+                           max_seq=required_max_seq(reqs), chunk=4, device=cuda,
+                           kv_dtype=kv_dtype)
+    counters.reset()
     eng.run(reqs)
-    ticks = eng.metrics()["model_ticks"]
-    assert attn_ops.launches - attn0 == cfg.n_layers * ticks
-    assert norm_ops.launches - norm0 == (2 * cfg.n_layers + 1) * ticks
-    assert attn_ref.cuda_calls == plain0
+    ticks, L = eng.metrics()["model_ticks"], cfg.n_layers
+    launches = counters.launch_counts()
+    mode = "gn_paged_attention_int8" if kv_dtype == "int8" else "gn_paged_attention"
+    other = "gn_paged_attention" if kv_dtype == "int8" else "gn_paged_attention_int8"
+    assert launches[mode] == L * ticks and launches[other] == 0
+    assert launches["gn_rmsnorm"] == (2 * L + 1) * ticks
+    assert not any(counters.plain_cuda_calls().values())
     assert eng.pool.blocks_in_use == 0
 
 
@@ -231,6 +314,7 @@ def test_static_path_on_cuda_launches_the_kernels(cuda):
     L = cfg.n_layers
     assert counters.launch_counts() == {"gn_rmsnorm": (2 * L + 1) * (5 + 2),
                                         "gn_paged_attention": 0,
+                                        "gn_paged_attention_int8": 0,
                                         "gn_softmax": L * (1 + 5), "gn_attention": L}
     assert not any(counters.plain_cuda_calls().values())
     assert np.isfinite(ppl) and out.shape == (3, 17)

@@ -147,7 +147,7 @@ def test_admission_waits_for_blocks_and_unservable_raises(reference):
 
 @pytest.mark.parametrize("kw", [
     {"devices": 2}, {"prefix_cache": True}, {"sched": "priority"}, {"preempt": "spill"},
-    {"kv_dtype": "int8"}, {"sentinels": True}, {"paged": False},
+    {"sentinels": True}, {"paged": False},
     {"cfg": ServeConfig(temperature=0.8)},
 ])
 def test_unported_options_are_refused(reference, kw):
