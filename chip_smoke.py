@@ -11,7 +11,10 @@ Phases, each fatal on failure (exit code 1):
                the softmax's Σp = 1 and masked-zero checks, and device times
                beside the byte/flop bound and a library call's time; the
                paged read in its fp mode and in its int8 mode (arenas
-               quantized on the card by ``paged_quant_write``);
+               quantized on the card by ``paged_quant_write``); the flash
+               attention in bf16 (its tensor-core design, V = 1 drawn in
+               bf16) and in f32 (its CUDA-core design), each case naming
+               the design that ran it;
   3. parity  - full-width internlm2-1.8b cut to 2 layers, kernels on the card
                against plain versions on the CPU, same weights, at float32
                and at bfloat16: one fused paged tick with mixed
@@ -28,7 +31,9 @@ Phases, each fatal on failure (exit code 1):
                mode, 2 batches of 8 x 1024-token prompts, 32 new tokens each,
                and the perplexity of each whole sequence; exact launch counts,
                finite logits and perplexity, a rerun of batch 0 token for
-               token, prefill and decode-step times;
+               token, prefill and decode-step times, and the time of batch
+               0's teacher-forced perplexity (the 24-layer forward through
+               the flash attention) with its profiled top kernels;
   6. int8    - phase 4's workload and model through ``ContinuousEngine(
                kv_dtype="int8")``: int8 block-paged KV with per-block f32
                scales; exact int8-mode launch counts and no fp-mode launch,
@@ -74,7 +79,8 @@ from repro_torch.kernels.gn_softmax import ref as sm_ref  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models.transformer import make_model  # noqa: E402
-from repro_torch.serve.engine import ContinuousEngine, ServeConfig, generate  # noqa: E402
+from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, generate,  # noqa: E402
+                                      perplexity)
 from repro_torch.serve.workload import required_max_seq, seeded_requests  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate and the op rate per
@@ -452,12 +458,12 @@ def fa_case(label: str, shape, dtype, causal: bool, gen, iters: int = 0) -> dict
                     fa_ref.gn_attention_ref(eq, ek, ev, causal=causal, sm_scale=1 / 8),
                     EXACT_ATOL, rel)
     del eq, ek, ev
-    oq, ok_, ov = fa_inputs(shape, torch.float32, gen, v_ones=True)
-    ones_err = (fa_ops.gn_attention(oq, ok_, ov, causal=causal) - 1.0).abs().max().item()
+    oq, ok_, ov = fa_inputs(shape, dtype, gen, v_ones=True)
+    ones_err = (fa_ops.gn_attention(oq, ok_, ov, causal=causal).float() - 1.0).abs().max().item()
     del oq, ok_, ov
     check["ok"] = (check["bad_rows"] <= FLIP_ROWS * check["rows"] and exact["bad_rows"] == 0
                    and ones_err <= ONES_ATOL)
-    res = {"name": "gn_attention", "case": label,
+    res = {"name": "gn_attention", "case": label, "design": fa_ops.DESIGNS[dtype],
            "shape": {"B": b, "H": h, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d, "causal": causal},
            "dtype": str(dtype).split(".")[-1], **check,
            "exact_scores": {key: exact[key] for key in ("max_abs_err", "bad_rows")},
@@ -762,12 +768,29 @@ def phase_static() -> dict:
             fail("non-finite decode logits")
         nxt = step[:, 0].argmax(-1).to(torch.int32)[:, None]
         step_ms.append(ms)
+    del cache, step
+    # batch 0's teacher-forced perplexity: the 24-layer forward over 8 x 1056
+    # tokens, one flash-attention launch a layer; timed, then profiled
+    seqs = {"tokens": out["outputs"][0]}
+    ppl, forward_ms = timed(lambda: perplexity(model, params, seqs))
+    if not math.isfinite(ppl):
+        fail(f"non-finite perplexity {ppl} in the timed forward")
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        perplexity(model, params, seqs)
+        torch.cuda.synchronize()
+    per_kernel = _device_us(prof)
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    print(f"[static-forward] perplexity of batch 0 ({BATCH} x {PROMPT + NEW} tokens, {layers} "
+          f"layers): {forward_ms:.3f} ms on the host clock; profiled run busy "
+          f"{sum(per_kernel.values()) / 1e3:.3f} ms on the device; top kernels (ms): "
+          + json.dumps({k[:60]: v / 1e3 for k, v in top}))
     res = {"batches": BATCHES, "batch": BATCH, "prompt": PROMPT, "new_tokens": NEW,
            "layers": layers, "generated_tokens": out["generated_tokens"],
            "seconds": out["seconds"], "tokens_per_s": out["generated_tokens"] / out["seconds"],
            "batch_seconds": out["batch_seconds"], "perplexities": out["perplexities"],
            "optimal_perplexity": optimal_perplexity(out["data"]),
            "prefill_ms": prefill_ms, "decode_ms_per_step": float(np.mean(step_ms[1:])),
+           "forward_ms": forward_ms,
            "profiled_rerun_seconds": rerun_s, "device_busy_seconds": busy_s,
            "launches": launches}
     print(f"[static] {json.dumps(res)}")
@@ -884,8 +907,9 @@ def main() -> int:
         # bf16 forward
         main_case = kern[name][0]
         counts = {path: n[name] for path, n in by_path.items() if n[name]}
+        design = {"design": main_case["design"]} if "design" in main_case else {}
         kernels.append({
-            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "name": name, "route": "cuda", "source": src, "replaces": replaces, **design,
             "launches": sum(counts.values()), "launches_by_path": counts,
             "max_abs_err": main_case["max_abs_err"],
             "ms": main_case["ms"], "plain_ms": main_case["plain_ms"],

@@ -49,19 +49,32 @@ struct ExpLut {
   float inv_value_scale; // 2^-lut_value_bits, exact
 };
 
-// e^{-delta} (delta >= 0) on the fixed-point Δ grid: coarse[Δ >> shift] *
-// residual[Δ & mask], rounded to the LUT's fixed-point grid.  Δ past the
-// coarse LUT's reach saturates to exactly 0 (common.py:57-77); the saturation
-// test happens in float, so a masked score's huge Δ never reaches an int.
-// The reference divides the rounded product by 2^bits; multiplying by the
-// exact 2^-bits gives the same bits without a division.
+// The LUT value of grid index d (0 <= d <= max_delta_int): coarse[d >> shift]
+// * residual[d & mask], rounded to the LUT's fixed-point grid.  The
+// reference divides the rounded product by 2^bits; multiplying by the exact
+// 2^-bits gives the same bits without a division.
+__device__ __forceinline__ float exp_entry(int d, const float* coarse, const float* residual,
+                                           const ExpLut& p) {
+  const float y = coarse[d >> p.coarse_shift] * residual[d & p.residual_mask];
+  return rintf(y * p.value_scale) * p.inv_value_scale;
+}
+
+// e^{-delta} (delta >= 0) on the fixed-point Δ grid.  Δ past the coarse
+// LUT's reach saturates to exactly 0 (common.py:57-77); the saturation test
+// happens in float, so a masked score's huge Δ never reaches an int.
 __device__ __forceinline__ float factorized_exp(float delta, const float* coarse,
                                                 const float* residual, const ExpLut& p) {
   const float r = rintf(delta * p.inv_step);
   if (r > (float)p.max_delta_int) return 0.0f;
   const int d = r > 0.0f ? (int)r : 0;
-  const float y = coarse[d >> p.coarse_shift] * residual[d & p.residual_mask];
-  return rintf(y * p.value_scale) * p.inv_value_scale;
+  return exp_entry(d, coarse, residual, p);
+}
+
+// The same function read from a product table: table[d] = exp_entry(d) for
+// d <= max_delta_int and table[max_delta_int + 1] = 0, so table[exp_index(
+// delta)] == factorized_exp(delta) bit for bit for every delta >= 0.
+__device__ __forceinline__ int exp_index(float delta, const ExpLut& p) {
+  return (int)fminf(rintf(delta * p.inv_step), (float)(p.max_delta_int + 1));
 }
 
 // Ceil a running max onto the Δ grid (common.py:80).

@@ -5,8 +5,12 @@ layout: q (B, H, Sq, D), k and v (B, Hkv, Sk, D), q head h reading kv head
 h // (H / Hkv); with ``causal`` row i sees the columns up to i + Sk - Sq.
 For CPU tensors the wrapper runs the plain version (``ref``); for CUDA
 tensors it launches ``csrc/gn_attention.cu`` on the current stream, or
-raises.  Unlike the TPU wrapper it pads nothing: the kernel masks the ragged
-edges itself.  ``launches`` counts kernel launches and nothing else.  One
+raises: bf16 runs the tensor-core design, f32 the CUDA-core design
+(``DESIGNS``).  The tensor-core design feeds each LUT numerator to the
+tensor cores as an exact sum of two bf16, which holds for LUT values of at
+most ``MAX_BF16_LUT_BITS`` bits; a bf16 call with a finer LUT raises.
+Unlike the TPU wrapper it pads nothing: the kernel masks the ragged edges
+itself.  ``launches`` counts kernel launches and nothing else.  One
 device per process: the kernel runs on the current CUDA device.
 """
 from __future__ import annotations
@@ -26,6 +30,9 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 6 + [_I] * 8 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
 MAX_HEAD_DIM = 256
 MAX_GROUP = 64  # q heads per kv head: one block holds 64 rows
+# every multiple of 2^-17 in [0, 1] is exactly bf16(y) + bf16(y - bf16(y))
+MAX_BF16_LUT_BITS = 17
+DESIGNS = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
 
 launches = 0
 
@@ -36,7 +43,7 @@ def _entry():
     return fn
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, cfg: SoftmaxLUTConfig) -> None:
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -57,6 +64,9 @@ def _check(q, k, v) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    if q.dtype == torch.bfloat16 and cfg.lut_value_bits > MAX_BF16_LUT_BITS:
+        raise ValueError(f"the bf16 kernel splits LUT values of at most {MAX_BF16_LUT_BITS} bits "
+                         f"exactly, got lut_value_bits={cfg.lut_value_bits}")
 
 
 def gn_attention(
@@ -75,7 +85,7 @@ def gn_attention(
         return ref.gn_attention_ref(q, k, v, cfg, causal, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"gn_attention runs on cpu or cuda tensors, got {q.device}")
-    _check(q, k, v)
+    _check(q, k, v, cfg)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)

@@ -6,8 +6,11 @@ fixture, never at import).  Run on a GPU machine with
 Tolerances: f32 as the reference's own kernel-vs-ref tests (2e-4 for the
 online paged read, 1e-6 for the softmax, a few f32 ulps for the norm); the
 flash attention to 2e-4 on random inputs with at most 1% of rows past it
-(a Δ-grid flip, see chip_smoke.py) and to 2e-5 on exact-score inputs;
-bf16 one bf16 rounding on top.  The paged read's int8 mode keeps the fp
+(a Δ-grid flip, see chip_smoke.py), to 2e-5 on exact-score inputs and to
+1e-5 of 1 with V = 1, in the dtype under test (bf16: the tensor-core
+design; f32: the CUDA-core design); bf16 one bf16 rounding on top.  The
+softmax shapes cover both of its layouts (a warp per row for many rows, a
+block per row for few) and rows off a 16-byte boundary.  The paged read's int8 mode keeps the fp
 mode's tolerances; ``paged_quant_write`` on the card equals the CPU bit for
 bit.
 """
@@ -219,9 +222,12 @@ def _masked_logits(cuda, rows, cols, seed, scale=3.0):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,cols", [(37, 7), (300, 100), (64, 1024), (128, 1056), (5, 3000)])
+@pytest.mark.parametrize("rows,cols", [(37, 7), (300, 100), (64, 1024), (128, 1056), (5, 3000),
+                                       (16, 2048), (3, 1500), (4500, 300), (8, 12000)])
 def test_softmax_kernel_matches_plain(cuda, rows, cols, dtype):
-    """Register path (<= 2048 columns) and the wide-row path."""
+    """The block layout (few rows, or up to 8192 columns; bf16 rows of 1500
+    and f32 rows of 7 start off a 16-byte boundary), the warp layout (4500
+    rows) and the wide-row path (12000 f32 columns)."""
     x, keep = _masked_logits(cuda, rows, cols, seed=cols)
     x = x.to(dtype)
     before = sm_ops.launches
@@ -232,6 +238,17 @@ def test_softmax_kernel_matches_plain(cuda, rows, cols, dtype):
     assert (got[~keep] == 0).all()
     if dtype == torch.float32:
         assert (got.double().sum(-1) - 1).abs().max().item() <= 2e-6
+
+
+def test_softmax_kernel_takes_rows_of_another_alignment_than_out(cuda):
+    """x starting 4 bytes past a 16-byte boundary (out is aligned): the
+    kernel takes a layout without vector loads."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    for rows, cols in ((128, 1056), (8, 3000)):
+        flat = torch.randn(rows * cols + 1, generator=g, device=cuda) * 3
+        x = flat[1:].view(rows, cols)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
+        _close(sm_ops.gn_softmax(x), sm_ref.gn_softmax_ref(x), 1e-6, torch.float32)
 
 
 @pytest.mark.parametrize("frac_bits,delta_scale", [(0, 1.0), (3, 1.0), (4, 0.5)])
@@ -261,7 +278,7 @@ def _attn_inputs(cuda, shape, dtype, seed, exact=False, v_ones=False):
 ATTN_SHAPES = [  # (B, H, Hkv, Sq, Sk, D)
     (1, 2, 2, 128, 128, 64), (2, 4, 2, 200, 200, 64), (1, 8, 1, 64, 256, 32),
     (1, 2, 2, 100, 100, 80), (2, 16, 8, 77, 77, 128), (1, 4, 4, 33, 33, 16),
-    (1, 2, 1, 20, 20, 256)]
+    (1, 2, 1, 20, 20, 256), (1, 16, 8, 1056, 1056, 128), (1, 6, 2, 50, 90, 20)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -282,8 +299,25 @@ def test_attention_kernel_matches_plain(cuda, shape, causal, dtype):
     q, k, v = _attn_inputs(cuda, shape, dtype, seed=1, exact=True)
     _close(fa_ops.gn_attention(q, k, v, causal=causal, sm_scale=1 / 8),
            fa_ref.gn_attention_ref(q, k, v, causal=causal, sm_scale=1 / 8), 2e-5, dtype)
-    q, k, v = _attn_inputs(cuda, shape, torch.float32, seed=2, v_ones=True)
-    assert (fa_ops.gn_attention(q, k, v, causal=causal) - 1).abs().max().item() <= 1e-5
+    # V = 1 in the dtype under test: every row sums its p to one
+    q, k, v = _attn_inputs(cuda, shape, dtype, seed=2, v_ones=True)
+    assert (fa_ops.gn_attention(q, k, v, causal=causal).float() - 1).abs().max().item() <= 1e-5
+
+
+def test_attention_kernel_refuses_lut_values_past_the_bf16_split(cuda):
+    """bf16 runs the tensor-core design, whose hi + lo split of the LUT
+    numerators is exact up to 17-bit values: a finer LUT raises before any
+    launch (no route to another kernel); f32 takes it."""
+    cfg = SoftmaxLUTConfig(3, lut_value_bits=18)
+    q, k, v = _attn_inputs(cuda, (1, 4, 2, 40, 40, 64), torch.bfloat16, seed=4, exact=True)
+    before = (fa_ops.launches, fa_ref.cuda_calls)
+    with pytest.raises(ValueError, match="lut_value_bits=18"):
+        fa_ops.gn_attention(q, k, v, cfg, causal=True, sm_scale=1 / 8)
+    assert (fa_ops.launches, fa_ref.cuda_calls) == before
+    q, k, v = (t.float() for t in (q, k, v))
+    _close(fa_ops.gn_attention(q, k, v, cfg, causal=True, sm_scale=1 / 8),
+           fa_ref.gn_attention_ref(q, k, v, cfg, causal=True, sm_scale=1 / 8), 2e-5,
+           torch.float32)
 
 
 def test_new_kernels_refuse_bad_inputs(cuda):

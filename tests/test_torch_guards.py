@@ -13,6 +13,7 @@ import torch
 
 import repro_torch
 from repro_torch.configs.registry import get_config, reduce_config
+from repro_torch.core.luts import SoftmaxLUTConfig
 from repro_torch.kernels.gn_attention import ops as fa_ops
 from repro_torch.kernels.gn_layernorm import ops as norm_ops
 from repro_torch.kernels.gn_paged_attention import ops as attn_ops
@@ -23,7 +24,8 @@ from repro_torch.serve.engine import ContinuousEngine
 from repro_torch.serve.kv_cache import BlockPagedKVPool
 
 ROOT = Path(__file__).resolve().parent.parent
-PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                                  ROOT / "kernel_ab.py"]
 
 
 def _imported_roots(nodes) -> set[str]:
@@ -123,3 +125,16 @@ def test_wrappers_refuse_other_devices():
         sm_ops.gn_softmax(x)
     with pytest.raises(ValueError, match="cpu or cuda"):
         fa_ops.gn_attention(meta, meta, meta, causal=True)
+
+
+def test_flash_attention_check_refuses_lut_values_the_bf16_split_cannot_hold():
+    """The bf16 design takes LUT values of at most 17 bits; the f32 design
+    takes any.  (The check the wrapper runs on CUDA tensors, here on CPU
+    ones; the CPU path itself runs the plain version for any config.)"""
+    q, kv = torch.zeros(1, 2, 4, 8), torch.zeros(1, 1, 4, 8)
+    fine, coarse = SoftmaxLUTConfig(3, lut_value_bits=17), SoftmaxLUTConfig(3, lut_value_bits=18)
+    fa_ops._check(q.bfloat16(), kv.bfloat16(), kv.bfloat16(), fine)
+    fa_ops._check(q, kv, kv, coarse)
+    with pytest.raises(ValueError, match="lut_value_bits=18"):
+        fa_ops._check(q.bfloat16(), kv.bfloat16(), kv.bfloat16(), coarse)
+    assert fa_ops.DESIGNS == {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}

@@ -19,6 +19,7 @@ from repro.kernels.gn_paged_attention.ref import gn_paged_attention_chunk_ref
 from repro.kernels.gn_softmax import ops as jax_sm_ops
 from repro.kernels.gn_softmax.ref import gn_softmax_ref as jax_gn_softmax_ref
 from repro_torch.core import gn_layernorm as core_ln
+from repro_torch.core.gn_softmax import delta_index, factorized_exp
 from repro_torch.core.luts import SoftmaxLUTConfig
 from repro_torch.kernels.gn_attention import ops as fa_ops
 from repro_torch.kernels.gn_layernorm import ops as norm_ops
@@ -204,3 +205,37 @@ def test_attention_wrapper_rows_sum_to_one():
     (q, k, _), _ = _qkv((1, 4, 2, 24, 40, 16), seed=12)
     out = fa_ops.gn_attention(q, k, torch.ones_like(k), causal=True)
     np.testing.assert_allclose(out.numpy(), 1.0, atol=1e-5, rtol=0)
+
+
+# ------------------------------------------- the bf16 split of P·V (CUDA) --
+def _splits_exactly(y: torch.Tensor) -> torch.Tensor:
+    """Per element: y == bf16(y) + bf16(y - bf16(y)) in f32, bit for bit."""
+    hi = y.to(torch.bfloat16)
+    lo = (y - hi.float()).to(torch.bfloat16)
+    return (hi.float() + lo.float()).view(torch.int32) == y.view(torch.int32)
+
+
+@pytest.mark.parametrize("value_bits", [15, 16, 17])
+@pytest.mark.parametrize("frac_bits,delta_scale", LUT_CFGS)
+def test_lut_numerators_split_exactly_into_two_bf16(frac_bits, delta_scale, value_bits):
+    """The tensor-core flash attention feeds each LUT numerator y to P·V as
+    hi + lo, two bf16: exact for every Δ index the LUT can produce."""
+    cfg = SoftmaxLUTConfig(frac_bits, delta_scale=delta_scale, lut_value_bits=value_bits)
+    idx = torch.arange(cfg.max_delta_int + 1, dtype=torch.int32)
+    delta = idx.float() * cfg.step
+    assert torch.equal(delta_index(delta, cfg), idx)  # every index reached once
+    y = factorized_exp(delta, cfg)
+    assert y.dtype == torch.float32 and float(y.max()) == 1.0 and float(y.min()) >= 0.0
+    assert bool(_splits_exactly(y).all())
+
+
+@pytest.mark.parametrize("bits", [15, 16, 17, 18])
+def test_bf16_split_holds_up_to_the_wrappers_limit(bits):
+    """Every multiple of 2^-bits in [0, 1] splits exactly iff bits <= 17,
+    the limit the bf16 wrapper enforces (the first failure on the 2^-18
+    grid is 0.50098, 131329 / 2^18)."""
+    y = (torch.arange(2**bits + 1, dtype=torch.float64) / 2**bits).float()
+    ok = _splits_exactly(y)
+    assert bool(ok.all()) == (bits <= fa_ops.MAX_BF16_LUT_BITS)
+    if bits == 18:
+        assert int((~ok).sum()) == 32768 and int((~ok).nonzero()[0]) == 131329
