@@ -11,10 +11,11 @@ Phases, each fatal on failure (exit code 1):
                the softmax's Σp = 1 and masked-zero checks, and device times
                beside the byte/flop bound and a library call's time; the
                paged read in its fp mode and in its int8 mode (arenas
-               quantized on the card by ``paged_quant_write``); the flash
+               quantized on the card by ``paged_quant_write``), bf16 on its
+               tensor-core design and f32 on its CUDA-core design; the flash
                attention in bf16 (its tensor-core design, V = 1 drawn in
-               bf16) and in f32 (its CUDA-core design), each case naming
-               the design that ran it;
+               bf16) and in f32 (its CUDA-core design); each attention case
+               names the design that ran it;
   3. parity  - full-width internlm2-1.8b cut to 2 layers, kernels on the card
                against plain versions on the CPU, same weights, at float32
                and at bfloat16: one fused paged tick with mixed
@@ -65,7 +66,7 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.core.luts import SoftmaxLUTConfig  # noqa: E402
+from repro_torch.core.luts import TPU_SOFTMAX_LUT, SoftmaxLUTConfig  # noqa: E402
 from repro_torch.data.synthetic import optimal_perplexity  # noqa: E402
 from repro_torch.kernels import _build, counters  # noqa: E402
 from repro_torch.kernels.gn_attention import ops as fa_ops  # noqa: E402
@@ -300,7 +301,7 @@ def attn_case(c: int, dtype, gen) -> dict:
     hkv = args[1].shape[2]
     b_ms, b_by = attn_bound(args, lengths, n_valid, args[1].element_size(), False)
     return {
-        "name": "gn_paged_attention",
+        "name": "gn_paged_attention", "design": attn_ops.call_design(*args[:3]),
         "shape": {"N": n, "C": c, "H": h, "Hkv": hkv, "D": d, "block": BLOCK,
                   "max_len": int(lengths.max())},
         "dtype": str(dtype).split(".")[-1], **check,
@@ -354,7 +355,7 @@ def attn_int8_case(c: int, dtype, gen) -> dict:
     n, _, h, d = q.shape
     b_ms, b_by = attn_bound(args, lengths, n_valid, 1, True)
     return {
-        "name": "gn_paged_attention_int8",
+        "name": "gn_paged_attention_int8", "design": attn_ops.call_design(*args[:3]),
         "shape": {"N": n, "C": c, "H": h, "Hkv": k8.shape[2], "D": d, "block": BLOCK,
                   "max_len": int(lengths.max()), "kv": "int8"},
         "dtype": str(dtype).split(".")[-1], **check,
@@ -463,7 +464,7 @@ def fa_case(label: str, shape, dtype, causal: bool, gen, iters: int = 0) -> dict
     del oq, ok_, ov
     check["ok"] = (check["bad_rows"] <= FLIP_ROWS * check["rows"] and exact["bad_rows"] == 0
                    and ones_err <= ONES_ATOL)
-    res = {"name": "gn_attention", "case": label, "design": fa_ops.DESIGNS[dtype],
+    res = {"name": "gn_attention", "case": label, "design": fa_ops.design(dtype, TPU_SOFTMAX_LUT),
            "shape": {"B": b, "H": h, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d, "causal": causal},
            "dtype": str(dtype).split(".")[-1], **check,
            "exact_scores": {key: exact[key] for key in ("max_abs_err", "bad_rows")},

@@ -97,4 +97,87 @@ __device__ __forceinline__ float corn_rsqrt(float n, const float* lut, int manti
   return x;
 }
 
+// ------------------------------------------- tensor-core helpers (bf16) --
+// Shared by the tensor-core designs of gn_attention.cu and
+// gn_paged_attention.cu: 16-byte cp.async with its commit/wait pair,
+// ldmatrix, mma.sync m16n8k16 bf16 -> f32, the exact hi + lo bf16 split of
+// two LUT numerators, and the reductions over the 4 lanes of a quad.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, bypassing L1; zero-filled when !in (src is then
+// not read, but must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(in ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                    uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
+  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
+         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
+}
+
+// Two numerators (columns 2 tig and 2 tig + 1 of a row) as the exact sums
+// hi + lo of two bf16 each, packed as A-fragment registers.
+__device__ __forceinline__ void split(float y0, float y1, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(y0, y1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 r = __floats2bfloat162_rn(y0 - hf.x, y1 - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&r);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// Eight head-dim columns [d0, d0 + 8) of one row into shared memory, zeros
+// past D or for a row that does not exist: one 16-byte cp.async where the
+// rows are aligned (`vec`), else element by element.
+__device__ __forceinline__ void load8(bf16* dst, const bf16* row, const bf16* base, int d0, int D,
+                                      bool in, bool vec) {
+  if (vec) {
+    const bool ok = in && d0 < D;  // D % 8 == 0: a chunk is wholly in or out
+    cp_async16(dst, ok ? row + d0 : base, ok);
+    return;
+  }
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+    dst[j] = in && d0 + j < D ? row[d0 + j] : __float2bfloat16_rn(0.0f);
+}
+
 }  // namespace gn

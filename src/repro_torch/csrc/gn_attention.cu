@@ -38,8 +38,8 @@
 // is skipped where no row of the warp moved its max (x * 1 == x).  P V
 // takes each LUT numerator y, a Q1.15 value in [0, 1], as the exact sum
 // hi + lo of two bf16 (hi = bf16(y), lo = bf16(y - hi); exact for any
-// multiple of 2^-b in [0, 1] with b <= 17, so the C entry refuses
-// lut_value_bits > 17 in bf16): two mma.sync against the same V fragment.
+// multiple of 2^-b in [0, 1] with b <= 17; a bf16 call with a finer LUT takes
+// the CUDA-core design): two mma.sync against the same V fragment.
 // acc then sums exactly the numerators l sums, so Σp = 1 holds as in the
 // f32 design; rounding p to one bf16 would cost up to 2^-9 per numerator.
 // The S fragment is the P fragment's layout, so numerators never leave
@@ -50,8 +50,9 @@
 // memory up to a multiple of 16 (zeros change no dot).  Unaligned rows
 // (D % 8 != 0 or a pointer off 16 bytes) load and store element by element.
 //
-// f32 runs on the CUDA cores (the first design, unchanged): the tensor cores
-// have no exact f32 product (TF32 keeps 10 of the 23 mantissa bits).  256
+// f32, and bf16 with LUT values of more than 17 bits, run on the CUDA cores
+// (the first design, unchanged): the tensor cores have no exact f32 product
+// (TF32 keeps 10 of the 23 mantissa bits).  256
 // threads as 16 x 16: thread (ty, tx) owns rows ty + 16 i (i < 4), score
 // columns tx + 16 j (j < 4) and head-dim columns tx + 16 dc; q is scaled in
 // f32 before an f32 dot with an explicit fused multiply-add (kernel.py:70),
@@ -281,86 +282,21 @@ int dispatch(const void* q, const void* k, const void* v, const float* coarse,
 // ------------------------------------------------------- tensor cores (bf16) --
 namespace tc {
 
-using bf16 = __nv_bfloat16;
+using gn::bf16;
+using gn::cp_async16;
+using gn::cp_async_commit;
+using gn::cp_async_wait;
+using gn::ldsm_x4;
+using gn::ldsm_x4_trans;
+using gn::load8;
+using gn::mma;
+using gn::quad_max;
+using gn::quad_sum;
+using gn::split;
+
 constexpr int kWarps = 4;               // 16 rows each
 constexpr int kThreads = 32 * kWarps;
 constexpr int kKeys = 32;               // keys a tile
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16 bytes global -> shared, bypassing L1; zero-filled when !in (src is then
-// not read, but must still be a valid address)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool in) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(in ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-// d += a (16 x 16, row) * b (16 x 8, col), bf16 in, f32 accumulate
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(lo)) |
-         (static_cast<uint32_t>(__bfloat16_as_ushort(hi)) << 16);
-}
-
-// Two numerators (columns 2 tig and 2 tig + 1 of a row) as the exact sums
-// hi + lo of two bf16 each, packed as A-fragment registers.
-__device__ __forceinline__ void split(float y0, float y1, uint32_t& hi, uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(y0, y1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 r = __floats2bfloat162_rn(y0 - hf.x, y1 - hf.y);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&r);
-}
-
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-__device__ __forceinline__ float quad_sum(float v) {
-  v += __shfl_xor_sync(0xffffffffu, v, 1);
-  return v + __shfl_xor_sync(0xffffffffu, v, 2);
-}
-
-// Eight head-dim columns [d0, d0 + 8) of one row into shared memory, zeros
-// past D or for a row that does not exist: one 16-byte cp.async where the
-// rows are aligned (`vec`), else element by element.
-__device__ __forceinline__ void load8(bf16* dst, const bf16* row, const bf16* base, int d0, int D,
-                                      bool in, bool vec) {
-  if (vec) {
-    const bool ok = in && d0 < D;  // D % 8 == 0: a chunk is wholly in or out
-    cp_async16(dst, ok ? row + d0 : base, ok);
-    return;
-  }
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-    dst[j] = in && d0 + j < D ? row[d0 + j] : __float2bfloat16_rn(0.0f);
-}
 
 // Blocks an SM should hold per head-dim instantiation; the register budget
 // follows from it (D <= 128: 4 blocks of 128 threads, <= 128 registers).
@@ -636,17 +572,21 @@ int dispatch(const void* q, const void* k, const void* v, const float* coarse,
 }  // namespace
 
 // q, out: (B, H, Sq, D) contiguous; k, v: (B, Hkv, Sk, D) contiguous, all of
-// one dtype, f32 (dtype 0, the CUDA-core design) or bf16 (dtype 1, the
-// tensor-core design, which takes LUT values of at most 17 bits: value_scale
-// <= 2^17); 1 <= D <= 256; H a multiple of Hkv with G = H / Hkv <= 64;
-// coarse, residual: the f32 exp ROM tables.  Launches on `stream` and
-// returns cudaGetLastError() (or the error of the shared-memory opt-in).
+// one dtype, f32 (dtype 0) or bf16 (dtype 1); 1 <= D <= 256; H a multiple of
+// Hkv with G = H / Hkv <= 64; coarse, residual: the f32 exp ROM tables.  The
+// caller names the design (ops.py `design`): tensor_core 1 runs the
+// tensor-core design, which takes bf16 with LUT values of at most 17 bits
+// (value_scale <= 2^17, the exact hi + lo split) and refuses anything else;
+// tensor_core 0 runs the CUDA-core design in either dtype.  Launches on
+// `stream` and returns cudaGetLastError() (or the error of the shared-memory
+// opt-in).
 extern "C" int gn_attention_launch(const void* q, const void* k, const void* v,
                                    const void* coarse, const void* residual, void* out, int B,
                                    int H, int Hkv, int Sq, int Sk, int D, int causal, int dtype,
-                                   float sm_scale, float step, float inv_step, int max_delta_int,
-                                   int coarse_shift, int residual_mask, int coarse_entries,
-                                   int residual_entries, float value_scale, void* stream) {
+                                   int tensor_core, float sm_scale, float step, float inv_step,
+                                   int max_delta_int, int coarse_shift, int residual_mask,
+                                   int coarse_entries, int residual_entries, float value_scale,
+                                   void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return static_cast<int>(cudaGetLastError());
   if (B < 0 || Sq < 0 || Sk < 0 || D < 1 || D > 256 || Hkv < 1 || H % Hkv || H / Hkv > kRows ||
       B > 65535 || Hkv > 65535)
@@ -656,9 +596,15 @@ extern "C" int gn_attention_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* co = static_cast<const float*>(coarse);
   const float* re = static_cast<const float*>(residual);
+  if (tensor_core) {
+    if (dtype != 1 || value_scale > 131072.0f)  // the hi + lo split is exact up to 2^-17
+      return static_cast<int>(cudaErrorInvalidValue);
+    return tc::dispatch(q, k, v, co, re, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale, lut, s);
+  }
   if (dtype == 0)
     return dispatch<float>(q, k, v, co, re, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale, lut, s);
-  if (dtype == 1 && value_scale <= 131072.0f)  // the hi + lo split is exact up to 2^-17
-    return tc::dispatch(q, k, v, co, re, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale, lut, s);
+  if (dtype == 1)
+    return dispatch<__nv_bfloat16>(q, k, v, co, re, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale,
+                                   lut, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

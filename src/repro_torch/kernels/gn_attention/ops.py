@@ -5,10 +5,10 @@ layout: q (B, H, Sq, D), k and v (B, Hkv, Sk, D), q head h reading kv head
 h // (H / Hkv); with ``causal`` row i sees the columns up to i + Sk - Sq.
 For CPU tensors the wrapper runs the plain version (``ref``); for CUDA
 tensors it launches ``csrc/gn_attention.cu`` on the current stream, or
-raises: bf16 runs the tensor-core design, f32 the CUDA-core design
-(``DESIGNS``).  The tensor-core design feeds each LUT numerator to the
-tensor cores as an exact sum of two bf16, which holds for LUT values of at
-most ``MAX_BF16_LUT_BITS`` bits; a bf16 call with a finer LUT raises.
+raises.  ``design`` picks the kernel's design: the tensor-core design for
+bf16 with LUT values of at most ``MAX_BF16_LUT_BITS`` bits (it feeds each
+LUT numerator to the tensor cores as an exact sum of two bf16, which holds
+up to that width), the CUDA-core design for f32 and for finer LUTs.
 Unlike the TPU wrapper it pads nothing: the kernel masks the ragged edges
 itself.  ``launches`` counts kernel launches and nothing else.  One
 device per process: the kernel runs on the current CUDA device.
@@ -27,12 +27,12 @@ from repro_torch.kernels.gn_layernorm.ops import DTYPE_CODES
 from repro_torch.kernels.gn_softmax.ops import exp_lut_args
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 6 + [_I] * 8 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
+_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
 MAX_HEAD_DIM = 256
 MAX_GROUP = 64  # q heads per kv head: one block holds 64 rows
 # every multiple of 2^-17 in [0, 1] is exactly bf16(y) + bf16(y - bf16(y))
 MAX_BF16_LUT_BITS = 17
-DESIGNS = {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 
 launches = 0
 
@@ -43,7 +43,15 @@ def _entry():
     return fn
 
 
-def _check(q, k, v, cfg: SoftmaxLUTConfig) -> None:
+def design(dtype: torch.dtype, cfg: SoftmaxLUTConfig) -> str:
+    """The kernel design a CUDA call takes: the tensor cores for bf16 whose
+    LUT numerators split exactly into two bf16, the CUDA cores otherwise."""
+    if dtype == torch.bfloat16 and cfg.lut_value_bits <= MAX_BF16_LUT_BITS:
+        return TENSOR_CORE
+    return CUDA_CORE
+
+
+def _check(q, k, v) -> None:
     for name, t in (("k", k), ("v", v)):
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
@@ -64,9 +72,6 @@ def _check(q, k, v, cfg: SoftmaxLUTConfig) -> None:
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if q.dtype == torch.bfloat16 and cfg.lut_value_bits > MAX_BF16_LUT_BITS:
-        raise ValueError(f"the bf16 kernel splits LUT values of at most {MAX_BF16_LUT_BITS} bits "
-                         f"exactly, got lut_value_bits={cfg.lut_value_bits}")
 
 
 def gn_attention(
@@ -85,7 +90,7 @@ def gn_attention(
         return ref.gn_attention_ref(q, k, v, cfg, causal, sm_scale)
     if q.device.type != "cuda":
         raise ValueError(f"gn_attention runs on cpu or cuda tensors, got {q.device}")
-    _check(q, k, v, cfg)
+    _check(q, k, v)
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
@@ -94,7 +99,8 @@ def gn_attention(
     coarse, residual = exp_lut_tensors(cfg, str(q.device))
     rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), coarse.data_ptr(),
                   residual.data_ptr(), out.data_ptr(), b, h, hkv, sq, sk, d, int(causal),
-                  DTYPE_CODES[q.dtype], float(sm_scale), *exp_lut_args(cfg),
+                  DTYPE_CODES[q.dtype], int(design(q.dtype, cfg) == TENSOR_CORE),
+                  float(sm_scale), *exp_lut_args(cfg),
                   torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "gn_attention")
     launches += 1

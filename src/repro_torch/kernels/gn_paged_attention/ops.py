@@ -7,9 +7,13 @@ arenas in place.  For CPU tensors the wrapper runs the plain version
 (``ref``); for CUDA tensors it launches ``csrc/gn_paged_attention.cu`` on
 the current stream, or raises.  ``scales`` marks the arenas as int8, with one
 f32 dequantization scale per physical block for k and for v (the reference
-wrapper's ``scales=``).  ``launches`` counts the kernel's launches over fp
-arenas and ``launches_int8`` those over int8 arenas, and nothing else.
-One device per process: the kernel runs on the current CUDA device.
+wrapper's ``scales=``).  ``design`` picks the kernel's design: the
+tensor-core design for bf16 q (over bf16 or int8 arenas) when the LUT
+numerators split exactly into two bf16, D is a multiple of 16, at most 64
+rows share a block and the pointers sit on 16 bytes; the CUDA-core design
+otherwise.  ``launches`` counts the kernel's launches over fp arenas and
+``launches_int8`` those over int8 arenas, and nothing else.  One device per
+process: the kernel runs on the current CUDA device.
 """
 from __future__ import annotations
 
@@ -21,13 +25,20 @@ import torch
 from repro_torch.core.gn_softmax import exp_lut_tensors
 from repro_torch.core.luts import SoftmaxLUTConfig, TPU_SOFTMAX_LUT
 from repro_torch.kernels import _build
+from repro_torch.kernels.gn_attention.ops import CUDA_CORE, MAX_BF16_LUT_BITS, TENSOR_CORE
 from repro_torch.kernels.gn_layernorm.ops import DTYPE_CODES
 from repro_torch.kernels.gn_paged_attention import ref
 from repro_torch.kernels.gn_softmax.ops import exp_lut_args
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 14 + [_I] * 11 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
+_ARGTYPES = [_P] * 14 + [_I] * 12 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
 INT8_CODE = 2  # the entry's kv dtype code of an int8 arena
+MAX_ROWS = 64  # q rows (G * C) one block of the tensor-core design holds
+# pages a chain range may hold (two 64-key tiles); None sizes the ranges by
+# the card alone.  Measured on an H100 (kernel_ab.py, PERF.md §6), the cap
+# was faster at C = 16 and C = 1 in both modes, merge included, and over
+# phase 4's ticks.
+MAX_RANGE_PAGES: int | None = 8
 
 launches = 0
 launches_int8 = 0
@@ -40,11 +51,32 @@ def _sm_count(index: int) -> int:
 
 def chain_splits(n: int, hkv: int, max_bt: int, device: torch.device) -> tuple[int, int]:
     """(splits, blocks per split): each chain of up to ``max_bt`` blocks is cut
-    into contiguous ranges so that the grid has about two blocks per SM."""
+    into contiguous ranges so that the grid has about two blocks per SM, and
+    no range holds more than ``MAX_RANGE_PAGES`` blocks where that is set."""
     max_bt = max(max_bt, 1)
     want = max(1, -(-2 * _sm_count(device.index) // max(n * hkv, 1)))
     split_blocks = -(-max_bt // min(want, max_bt))
+    if MAX_RANGE_PAGES:
+        split_blocks = min(split_blocks, MAX_RANGE_PAGES)
     return -(-max_bt // split_blocks), split_blocks
+
+
+def design(dtype: torch.dtype, cfg: SoftmaxLUTConfig, d: int, rows: int,
+           aligned: bool = True) -> str:
+    """The kernel design a CUDA call takes, for q of ``dtype``, head dim ``d``,
+    ``rows`` = (H / Hkv) * C q rows a block and pointers on 16 bytes or not."""
+    if (dtype == torch.bfloat16 and cfg.lut_value_bits <= MAX_BF16_LUT_BITS and d % 16 == 0
+            and d <= 256 and rows <= MAX_ROWS and aligned):
+        return TENSOR_CORE
+    return CUDA_CORE
+
+
+def call_design(q: torch.Tensor, k_arena: torch.Tensor, v_arena: torch.Tensor,
+                cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT) -> str:
+    """``design`` for a call on these tensors."""
+    _, c, h, d = q.shape
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k_arena, v_arena))
+    return design(q.dtype, cfg, d, (h // k_arena.shape[2]) * c, aligned)
 
 
 def _entry():
@@ -115,7 +147,8 @@ def gn_paged_attention_chunk(
     n, c, h, d = q.shape
     _, bs, hkv, _ = k_arena.shape
     max_bt = tables.shape[1]
-    out = torch.empty_like(q)
+    out = torch.empty_like(q)  # the caching allocator's blocks sit on 512 bytes
+    tensor_core = call_design(q, k_arena, v_arena, cfg) == TENSOR_CORE
     coarse, residual = exp_lut_tensors(cfg, str(q.device))
     splits, split_blocks = chain_splits(n, hkv, max_bt, q.device)
     part = [None, None, None]  # per-range (m, l, acc) for the merge kernel
@@ -131,7 +164,7 @@ def gn_paged_attention_chunk(
         starts.data_ptr(), n_valid.data_ptr(), coarse.data_ptr(), residual.data_ptr(),
         out.data_ptr(), *(None if t is None else t.data_ptr() for t in part),
         n, c, h, hkv, d, bs, max_bt, splits, split_blocks, DTYPE_CODES[q.dtype], kv_code,
-        float(sm_scale), *exp_lut_args(cfg), torch.cuda.current_stream(q.device).cuda_stream,
+        int(tensor_core), float(sm_scale), *exp_lut_args(cfg), torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "gn_paged_attention")
     if scales is None:

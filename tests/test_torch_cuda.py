@@ -31,7 +31,8 @@ from repro_torch.kernels.gn_softmax import ops as sm_ops
 from repro_torch.kernels.gn_softmax import ref as sm_ref
 from repro_torch.models import attention as t_attn
 from repro_torch.models.transformer import make_model
-from repro_torch.serve.engine import ContinuousEngine, ServeConfig, generate, perplexity
+from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, generate, perplexity,
+                                      static_reference)
 from repro_torch.serve.workload import required_max_seq, seeded_requests
 
 pytestmark = pytest.mark.cuda
@@ -211,6 +212,46 @@ def test_engine_on_cuda_launches_the_kernels_every_tick(cuda, kv_dtype):
     assert eng.pool.blocks_in_use == 0
 
 
+def _greedy(device, dtype, kv_dtype="fp", static=False):
+    """The reduced internlm2-1.8b config at ``dtype`` with weights from one
+    CPU seed: the continuous engine's full token arrays per request on
+    ``device`` (chunk 4, block 4, 2 slots), or the static oracle's."""
+    cfg = reduce_config(get_config("internlm2-1.8b"), dtype=dtype)
+    model = make_model(cfg)
+    master = model.init(0, "cpu")
+    reqs = seeded_requests(cfg.vocab, 6, 4, 24, 8, seed=2)
+    if static:
+        return static_reference(model, model.prepare(master, device), reqs, ServeConfig())
+    eng = ContinuousEngine(model, master, num_slots=2, max_seq=required_max_seq(reqs),
+                           chunk=4, block_size=4, device=device, kv_dtype=kv_dtype)
+    return {c.request_id: c.tokens for c in eng.run(reqs)}
+
+
+def test_engine_greedy_tokens_on_card_equal_static_oracle_and_cpu(cuda):
+    """At float32 the continuous engine's greedy tokens on the card equal
+    the static oracle's on the card and the CPU engine's, same weights."""
+    card = _greedy(cuda, "float32")
+    oracle = _greedy(cuda, "float32", static=True)
+    cpu = _greedy("cpu", "float32")
+    for rid, toks in card.items():
+        assert np.array_equal(toks, oracle[rid]), rid
+        assert np.array_equal(toks, cpu[rid]), rid
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_engine_on_card_keeps_the_prefix_pins_vs_fp(cuda, dtype):
+    """Over the int8 pool on the card, the reference's int8-vs-fp pins
+    (tests/test_serve_quant.py) hold against the fp pool's tokens on the
+    card: per-request common-prefix fractions min >= 0.5, mean >= 0.7."""
+    fp, q8 = _greedy(cuda, dtype), _greedy(cuda, dtype, kv_dtype="int8")
+    fracs = []
+    for rid, want in fp.items():
+        diff = np.nonzero(want != q8[rid])[0]
+        fracs.append((diff[0] if diff.size else len(want)) / len(want))
+    assert min(fracs) >= 0.5, fracs
+    assert float(np.mean(fracs)) >= 0.7, fracs
+
+
 def _masked_logits(cuda, rows, cols, seed, scale=3.0):
     """Random logits with a causal-style masked tail of -1e30 on every row
     but the last (row r keeps its first (r % cols) + 1 columns)."""
@@ -304,20 +345,42 @@ def test_attention_kernel_matches_plain(cuda, shape, causal, dtype):
     assert (fa_ops.gn_attention(q, k, v, causal=causal).float() - 1).abs().max().item() <= 1e-5
 
 
-def test_attention_kernel_refuses_lut_values_past_the_bf16_split(cuda):
-    """bf16 runs the tensor-core design, whose hi + lo split of the LUT
-    numerators is exact up to 17-bit values: a finer LUT raises before any
-    launch (no route to another kernel); f32 takes it."""
+def test_attention_kernel_routes_lut_values_past_the_bf16_split(cuda):
+    """bf16 with an 18-bit LUT, past the exact hi + lo split of the
+    tensor-core design, runs the CUDA-core design and matches the plain
+    version; f32 takes the same design."""
     cfg = SoftmaxLUTConfig(3, lut_value_bits=18)
+    assert fa_ops.design(torch.bfloat16, cfg) == "cuda_core"
     q, k, v = _attn_inputs(cuda, (1, 4, 2, 40, 40, 64), torch.bfloat16, seed=4, exact=True)
     before = (fa_ops.launches, fa_ref.cuda_calls)
-    with pytest.raises(ValueError, match="lut_value_bits=18"):
-        fa_ops.gn_attention(q, k, v, cfg, causal=True, sm_scale=1 / 8)
-    assert (fa_ops.launches, fa_ref.cuda_calls) == before
+    got = fa_ops.gn_attention(q, k, v, cfg, causal=True, sm_scale=1 / 8)
+    assert (fa_ops.launches, fa_ref.cuda_calls) == (before[0] + 1, before[1])
+    _close(got, fa_ref.gn_attention_ref(q, k, v, cfg, causal=True, sm_scale=1 / 8), 2e-5,
+           torch.bfloat16)
     q, k, v = (t.float() for t in (q, k, v))
     _close(fa_ops.gn_attention(q, k, v, cfg, causal=True, sm_scale=1 / 8),
            fa_ref.gn_attention_ref(q, k, v, cfg, causal=True, sm_scale=1 / 8), 2e-5,
            torch.float32)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+def test_paged_attention_kernel_routes_lut_values_past_the_bf16_split(cuda, int8):
+    """The paged read in bf16 with an 18-bit LUT runs the CUDA-core design
+    and matches the plain version on exact-score inputs."""
+    cfg = SoftmaxLUTConfig(3, lut_value_bits=18)
+    assert attn_ops.design(torch.bfloat16, cfg, 64, 4 * 16) == "cuda_core"
+    ex, lane = _paged(cuda, 16, 16, torch.bfloat16, seed=7)
+    q = torch.randint(-1, 2, ex[0].shape, device=cuda).to(torch.bfloat16)
+    q[..., 8:] = 0
+    ex, scales = _quantized((q, *ex[1:]), seed=9, exact=True)  # k in {-1, 0, 1}, scale 1
+    if not int8:
+        ex, scales = (q, ex[1].to(torch.bfloat16), ex[2].to(torch.bfloat16), *ex[3:]), None
+    before = (attn_ops.launches, attn_ops.launches_int8, attn_ref.cuda_calls)
+    got = attn_ops.gn_paged_attention_chunk(*ex, cfg=cfg, sm_scale=1 / 8, scales=scales)
+    assert (attn_ops.launches, attn_ops.launches_int8, attn_ref.cuda_calls) == (
+        before[0] + (not int8), before[1] + int8, before[2])
+    want = attn_ref.gn_paged_attention_chunk_ref(*ex, cfg=cfg, sm_scale=1 / 8, scales=scales)
+    _close(got[lane], want[lane], 2e-5, torch.bfloat16)
 
 
 def test_new_kernels_refuse_bad_inputs(cuda):

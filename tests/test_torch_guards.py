@@ -128,13 +128,34 @@ def test_wrappers_refuse_other_devices():
 
 
 def test_flash_attention_check_refuses_lut_values_the_bf16_split_cannot_hold():
-    """The bf16 design takes LUT values of at most 17 bits; the f32 design
-    takes any.  (The check the wrapper runs on CUDA tensors, here on CPU
-    ones; the CPU path itself runs the plain version for any config.)"""
+    """The bf16 tensor-core design takes LUT values of at most 17 bits (the
+    exact hi + lo split of each numerator); a finer LUT in bf16 is routed to
+    the CUDA-core design by ``design``, not refused, and f32 always takes
+    the CUDA-core design.  The wrapper's check accepts every case."""
     q, kv = torch.zeros(1, 2, 4, 8), torch.zeros(1, 1, 4, 8)
-    fine, coarse = SoftmaxLUTConfig(3, lut_value_bits=17), SoftmaxLUTConfig(3, lut_value_bits=18)
-    fa_ops._check(q.bfloat16(), kv.bfloat16(), kv.bfloat16(), fine)
-    fa_ops._check(q, kv, kv, coarse)
-    with pytest.raises(ValueError, match="lut_value_bits=18"):
-        fa_ops._check(q.bfloat16(), kv.bfloat16(), kv.bfloat16(), coarse)
-    assert fa_ops.DESIGNS == {torch.bfloat16: "tensor_core", torch.float32: "cuda_core"}
+    for bits in (15, 16, 17):
+        cfg = SoftmaxLUTConfig(3, lut_value_bits=bits)
+        assert fa_ops.design(torch.bfloat16, cfg) == "tensor_core"
+        assert fa_ops.design(torch.float32, cfg) == "cuda_core"
+    coarse = SoftmaxLUTConfig(3, lut_value_bits=18)
+    assert fa_ops.design(torch.bfloat16, coarse) == "cuda_core"
+    assert fa_ops.design(torch.float32, coarse) == "cuda_core"
+    fa_ops._check(q.bfloat16(), kv.bfloat16(), kv.bfloat16())
+    fa_ops._check(q, kv, kv)
+
+
+@pytest.mark.parametrize("bits", [15, 16, 17, 18])
+@pytest.mark.parametrize("d", [16, 64, 128, 20])
+def test_paged_read_design_route(d, bits):
+    """The paged read's route (fp and int8 arenas alike): the tensor-core
+    design for bf16 q when the numerators split exactly (at most 17 LUT bits),
+    D is a multiple of 16 up to 256, at most 64 rows share a block and the
+    pointers sit on 16 bytes; the CUDA-core design for everything else."""
+    cfg = SoftmaxLUTConfig(3, lut_value_bits=bits)
+    tc = bits <= 17 and d % 16 == 0
+    for rows in (1, 2, 16, 32, 64):
+        assert attn_ops.design(torch.bfloat16, cfg, d, rows) == (
+            "tensor_core" if tc else "cuda_core")
+        assert attn_ops.design(torch.float32, cfg, d, rows) == "cuda_core"
+    assert attn_ops.design(torch.bfloat16, cfg, d, 65) == "cuda_core"
+    assert attn_ops.design(torch.bfloat16, cfg, d, 32, aligned=False) == "cuda_core"

@@ -239,3 +239,140 @@ def test_bf16_split_holds_up_to_the_wrappers_limit(bits):
     assert bool(ok.all()) == (bits <= fa_ops.MAX_BF16_LUT_BITS)
     if bits == 18:
         assert int((~ok).sum()) == 32768 and int((~ok).nonzero()[0]) == 131329
+
+
+# ------------------------------- the tensor-core paged read's arithmetic (CUDA) --
+NEG_INF = -1e30
+
+
+def _lut(delta: torch.Tensor, cfg: SoftmaxLUTConfig) -> torch.Tensor:
+    """factorized_exp with the kernels' saturation: Δ past the LUT is 0."""
+    past = torch.round(delta * (1.0 / cfg.step)) > cfg.max_delta_int
+    return torch.where(past, 0.0, factorized_exp(delta, cfg))
+
+
+def _hi_lo(y: torch.Tensor) -> torch.Tensor:
+    """y as the tensor cores take it: bf16(y) + bf16(y - bf16(y))."""
+    hi = y.to(torch.bfloat16).float()
+    return hi + (y - hi).to(torch.bfloat16).float()
+
+
+def _fold(states, cfg: SoftmaxLUTConfig):
+    """(m, l, acc) states merged: their max, then each state's (l, acc) times
+    its LUT'd correction, 0 for a state that saw nothing, in order."""
+    m = torch.stack([s[0] for s in states]).amax(0)
+    l, acc = torch.zeros_like(m), torch.zeros_like(states[0][2])
+    cap = cfg.step * (cfg.max_delta_int + 1)
+    for m_s, l_s, acc_s in states:
+        c = torch.where(m_s > NEG_INF / 2, _lut((m - m_s).clamp(0.0, cap), cfg), 0.0)
+        l, acc = l + l_s * c, acc + acc_s * c[:, None]
+    return m, l, acc
+
+
+def _emulate_tc_read(q, k, v, tables, starts, n_valid, cfg, sm_scale, scales=None, keys=16,
+                     streams=2, range_pages=5):
+    """csrc/gn_paged_attention.cu's tensor-core design, step by step in f32:
+    chain ranges of ``range_pages`` pages, tiles of ``keys`` keys (several
+    pages), each tile's keys cut into ``streams`` slices with their own
+    (m, l, acc) folded at the range's end, the ranges merged; scores q·k,
+    then (int8) the key's k_scale, then sm_scale; P·V over y (int8: y times
+    the key's v_scale in f32) split into bf16 hi + lo; l sums y."""
+    n_seq, c, h, d = q.shape
+    bs, hkv = k.shape[1], k.shape[2]
+    g = h // hkv
+    kw, cap = keys // streams, cfg.step * (cfg.max_delta_int + 1)
+    out = torch.zeros(n_seq, c, h, d)
+    for n in range(n_seq):
+        start, length = int(starts[n]), int(starts[n] + n_valid[n])
+        pages = -(-length // bs)
+        pos = start + torch.arange(g * c) % c  # row r = head g * C + chunk row i
+        for kvh in range(hkv):
+            rows = q[n, :, kvh * g:(kvh + 1) * g].permute(1, 0, 2).reshape(g * c, d).float()
+            ranges = []
+            for j0 in range(0, pages, range_pages):
+                c_begin, c_end = j0 * bs, min(min(j0 + range_pages, pages) * bs, length)
+                states = []
+                for ks in range(streams):
+                    m, l = torch.full((g * c,), NEG_INF), torch.zeros(g * c)
+                    acc = torch.zeros(g * c, d)
+                    for c0 in range(c_begin + ks * kw, c_end, keys):
+                        cols = torch.arange(c0, min(c0 + kw, c_end))
+                        page = tables[n, cols // bs].long()
+                        kk, vv = k[page, cols % bs, kvh].float(), v[page, cols % bs, kvh].float()
+                        s = rows @ kk.T
+                        if scales is not None:
+                            s = s * scales[0][page]
+                        vis = cols[None] <= pos[:, None]
+                        s = torch.where(vis, s * sm_scale, NEG_INF)
+                        started = m > NEG_INF / 2
+                        m_new = torch.ceil(torch.maximum(m, s.amax(1)) / cfg.step) * cfg.step
+                        m_new = torch.where(vis.any(1) | started, m_new, m)
+                        corr = torch.where(started, _lut((m_new - m).clamp(0.0, cap), cfg), 0.0)
+                        live = vis & (m_new > NEG_INF / 2)[:, None]
+                        y = torch.where(live, _lut((m_new[:, None] - s).clamp_min(0.0), cfg), 0.0)
+                        z = y if scales is None else y * scales[1][page]
+                        l, acc, m = l * corr + y.sum(1), acc * corr[:, None] + _hi_lo(z) @ vv, m_new
+                    states.append((m, l, acc))
+                ranges.append(_fold(states, cfg))
+            if ranges:
+                _, l, acc = _fold(ranges, cfg)
+                o = acc / torch.where(l > 0, l, 1.0)[:, None]
+                out[n, :, kvh * g:(kvh + 1) * g] = o.reshape(g, c, d).permute(1, 0, 2)
+    return out
+
+
+def _tc_inputs(int8: bool, ones: bool, seed: int = 3):
+    """Exact scores (q, k in {-1, 0, 1}, q nonzero on 8 head dims, for a
+    scale of 1/8, k_scale 1) over chains of up to 12 pages of 4 (shuffled
+    tables, stale ids past each length, one empty sequence); V random (bf16
+    values, or int8 with random v_scale) or 1 (v_scale 1)."""
+    rng = np.random.default_rng(seed)
+    n, c, h, hkv, d, bs, max_bt, nb = 4, 4, 4, 2, 16, 4, 12, 40
+    lengths = np.array([37, 0, 45, 9])
+    n_valid = np.array([4, 0, 3, 1], np.int32)
+    tables = rng.integers(0, nb, size=(n, max_bt)).astype(np.int32)
+    perm, o = rng.permutation(nb), 0
+    for i, L in enumerate(lengths):
+        tables[i, :-(-L // bs)] = perm[o:o - (-L // bs)]
+        o -= -L // bs
+    q = rng.integers(-1, 2, size=(n, c, h, d)).astype(np.float32)
+    q[..., 8:] = 0
+    k = rng.integers(-1, 2, size=(nb, bs, hkv, d))
+    if int8:
+        v = np.ones_like(k) if ones else rng.integers(-127, 128, size=k.shape)
+        scales = (np.ones(nb, np.float32),
+                  np.ones(nb, np.float32) if ones else
+                  (0.002 + 0.02 * rng.random(nb)).astype(np.float32))
+        arrays = (q, k.astype(np.int8), v.astype(np.int8))
+    else:
+        v = np.ones(k.shape) if ones else rng.normal(size=k.shape)
+        v = torch.from_numpy(v).to(torch.bfloat16).float().numpy()
+        scales = None
+        arrays = (q, k.astype(np.float32), v)
+    return arrays + (tables, (lengths - n_valid).astype(np.int32), n_valid), scales
+
+
+@pytest.mark.parametrize("ones", [False, True], ids=["exact", "ones"])
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+def test_tensor_core_paged_read_arithmetic(int8, ones):
+    """The tensor-core paged read's rounding points, emulated on the CPU,
+    against the plain version and the Pallas kernel in interpret mode, on
+    exact-score inputs with chip_smoke.py's tolerances: 2e-5 on every valid
+    row (only the Q1.15 rounding of the corrections, applied per 8-key
+    slice, per stream fold and per range merge, differs), 1e-5 of 1 with
+    V = 1, and the empty sequence reads 0."""
+    cfg = SoftmaxLUTConfig(frac_bits=3)
+    arrays, scales = _tc_inputs(int8, ones)
+    t_scales = None if scales is None else tuple(torch.from_numpy(s) for s in scales)
+    args = _torch(*arrays)
+    mine = _emulate_tc_read(*args, cfg, 1 / 8, t_scales).numpy()
+    plain = attn_ops.gn_paged_attention_chunk(*args, cfg, sm_scale=1 / 8, scales=t_scales).numpy()
+    pallas = np.asarray(jax_attn_ops.gn_paged_attention_chunk(
+        *[jnp.asarray(a) for a in arrays], sm_scale=1 / 8, interpret=True,
+        scales=None if scales is None else tuple(jnp.asarray(s) for s in scales)))
+    ok = _lane_ok(4, arrays[5])
+    np.testing.assert_allclose(mine[ok], plain[ok], atol=2e-5, rtol=0)
+    np.testing.assert_allclose(mine[ok], pallas[ok], atol=2e-5, rtol=0)
+    if ones:
+        np.testing.assert_allclose(mine[ok], 1.0, atol=1e-5, rtol=0)
+    assert (mine[1] == 0).all() and (plain[1] == 0).all()
