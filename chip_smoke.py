@@ -6,7 +6,11 @@ Phases, each fatal on failure (exit code 1):
                (one process per source, in parallel); print the build time,
                the ptxas report and the card's name and power limit;
   2. kernels - each kernel against its plain PyTorch version on the card at
-               its path's shapes, with stated tolerances, plus the exact-score
+               its path's shapes, with stated tolerances (the norm in RMS and
+               LayerNorm mode at a tick's, a decode step's and the forward's
+               rows, each case naming its layout, and its fused residual add
+               held bit for bit to the eager add and the unfused kernel),
+               plus the exact-score
                and exact-ones checks (V = 1 => every valid output row is 1),
                the softmax's Σp = 1 and masked-zero checks, and device times
                beside the byte/flop bound and a library call's time; the
@@ -206,24 +210,83 @@ def phase_build() -> str:
 
 
 # ------------------------------------------------------------------ phase 2 --
-def norm_case(rows: int, dtype, gen) -> dict:
-    x = torch.randn(rows, 2048, generator=gen, device=DEV).to(dtype)
-    gamma = 1.0 + 0.1 * torch.randn(2048, generator=gen, device=DEV)
-    got = norm_ops.gn_rmsnorm(x, gamma)
-    want = norm_ref.gn_layernorm_ref(x, gamma, None, subtract_mean=False)
-    check = compare(got, want, *((NORM_ATOL_F32, 0.0) if dtype == torch.float32
-                                 else (1e-6, BF16_REL)))
+def norm_tol(dtype) -> tuple[float, float]:
+    return (NORM_ATOL_F32, 0.0) if dtype == torch.float32 else (1e-6, BF16_REL)
+
+
+def norm_case(rows: int, dtype, gen, cols: int = 2048, subtract_mean: bool = False) -> dict:
+    """The norm in RMS mode, or in LayerNorm mode with a beta, against its
+    plain version; library: ``F.rms_norm`` or ``F.layer_norm`` (exact, not
+    GN) with gamma and beta in x's dtype."""
+    x = torch.randn(rows, cols, generator=gen, device=DEV).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(cols, generator=gen, device=DEV)
+    beta = 0.1 * torch.randn(cols, generator=gen, device=DEV) if subtract_mean else None
+    kw = {"subtract_mean": subtract_mean}
+    check = compare(norm_ops.gn_layernorm(x, gamma, beta, **kw),
+                    norm_ref.gn_layernorm_ref(x, gamma, beta, **kw), *norm_tol(dtype))
     check["ok"] = check["bad_rows"] == 0
-    nbytes = 2 * rows * 2048 * x.element_size() + 2048 * 4
-    b_ms, b_by = bound(nbytes, 5 * rows * 2048, dtype)
+    # x read and y written once, gamma (and beta) read once; f32 arithmetic
+    # on the CUDA cores: 5 operations an element (RMS), 8 with the mean
+    nbytes = 2 * x.numel() * x.element_size() + cols * 4 * (1 + subtract_mean)
+    b_ms, b_by = bound(nbytes, (8 if subtract_mean else 5) * x.numel(), torch.float32)
+    lib_w, lib_b = gamma.to(dtype), None if beta is None else beta.to(dtype)
+    library = (functools.partial(F.layer_norm, x, (cols,), lib_w, lib_b) if subtract_mean
+               else functools.partial(F.rms_norm, x, (cols,), lib_w))
+    return {
+        "name": "gn_rmsnorm", "mode": "layernorm" if subtract_mean else "rms",
+        "layout": norm_ops.layout(x), "shape": [rows, cols], "dtype": str(dtype).split(".")[-1],
+        **check, "bound_ms": b_ms, "bound_by": b_by,
+        "library": "F.layer_norm" if subtract_mean else "F.rms_norm",
+        **timings(lambda: norm_ops.gn_layernorm(x, gamma, beta, **kw),
+                  lambda: norm_ref.gn_layernorm_ref(x, gamma, beta, **kw), library, 100),
+    }
+
+
+def fused_norm_case(rows: int, dtype, gen, cols: int = 2048) -> dict:
+    """The fused add + RMS norm: s bit for bit the eager x + r, y bit for bit
+    the unfused kernel on s and within the norm's tolerance of the plain
+    version.  library_ms is two calls (the eager add, then F.rms_norm);
+    unfused_ms the eager add and the unfused kernel, the path it replaces."""
+    x = torch.randn(rows, cols, generator=gen, device=DEV).to(dtype)
+    r = torch.randn(rows, cols, generator=gen, device=DEV).to(dtype)
+    gamma = 1.0 + 0.1 * torch.randn(cols, generator=gen, device=DEV)
+    s, y = norm_ops.gn_add_rmsnorm(x, r, gamma)
+    s_exact = torch.equal(s, x + r)
+    y_exact = torch.equal(y, norm_ops.gn_rmsnorm(s, gamma))
+    check = compare(y, norm_ref.gn_add_layernorm_ref(x, r, gamma, None, subtract_mean=False)[1],
+                    *norm_tol(dtype))
+    check["ok"] = check["bad_rows"] == 0 and s_exact and y_exact
+    # x and r read, s and y written once, gamma read once
+    b_ms, b_by = bound(4 * x.numel() * x.element_size() + cols * 4, 6 * x.numel(),
+                       torch.float32)
     lib_w = gamma.to(dtype)
     return {
-        "name": "gn_rmsnorm", "shape": [rows, 2048], "dtype": str(dtype).split(".")[-1],
-        **check, "bound_ms": b_ms, "bound_by": b_by,
-        **timings(lambda: norm_ops.gn_rmsnorm(x, gamma),
-                  lambda: norm_ref.gn_layernorm_ref(x, gamma, None, subtract_mean=False),
-                  lambda: torch.nn.functional.rms_norm(x, (2048,), lib_w), 100),
+        "name": "gn_rmsnorm_fused", "mode": "rms", "layout": norm_ops.layout(x, r),
+        "shape": [rows, cols], "dtype": str(dtype).split(".")[-1], **check,
+        "s_bitwise": s_exact, "y_bitwise_unfused": y_exact, "bound_ms": b_ms, "bound_by": b_by,
+        "library": "x + r, then F.rms_norm (two calls)",
+        **timings(lambda: norm_ops.gn_add_rmsnorm(x, r, gamma),
+                  lambda: norm_ref.gn_add_layernorm_ref(x, r, gamma, None, subtract_mean=False),
+                  lambda: F.rms_norm(x + r, (cols,), lib_w), 100),
+        "unfused_ms": device_ms(lambda: norm_ops.gn_rmsnorm(x + r, gamma), 100),
+        "unfused_call_ms": call_ms(lambda: norm_ops.gn_rmsnorm(x + r, gamma), 100),
     }
+
+
+def norm_cases(gen) -> tuple[list[dict], list[dict]]:
+    """A tick's rows (SLOTS x CHUNK = 128), a decode step's (8) and the
+    forward's (8448 = 8 x 1056) at d_model 2048, RMS (the model's mode) and
+    LayerNorm with a beta; f32 at the few-row shapes; deepseek-coder-33b's
+    width 7168 at the forward's rows; the fused add + norm at 128 and 8448
+    rows."""
+    rows = (SLOTS * CHUNK, SLOTS, BATCH * (PROMPT + NEW))
+    norms = [norm_case(n, torch.bfloat16, gen) for n in rows]
+    norms += [norm_case(n, torch.float32, gen) for n in rows[:2]]
+    norms += [norm_case(n, torch.bfloat16, gen, subtract_mean=True) for n in rows]
+    norms += [norm_case(SLOTS * CHUNK, torch.float32, gen, subtract_mean=True),
+              norm_case(rows[2], torch.bfloat16, gen, cols=7168)]
+    fused = [fused_norm_case(n, torch.bfloat16, gen) for n in (rows[0], rows[2])]
+    return norms, fused
 
 
 def attn_inputs(c: int, dtype, gen, v_ones: bool = False, exact: bool = False):
@@ -498,20 +561,19 @@ def attention_cases(gen) -> list[dict]:
 
 def phase_kernels() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(0)
-    norms = [norm_case(rows, dt, gen) for rows in (SLOTS * CHUNK, SLOTS)
-             for dt in (torch.bfloat16, torch.float32)]
+    norms, fused_norms = norm_cases(gen)
     attns = [attn_case(c, dt, gen) for c in (CHUNK, 1) for dt in (torch.bfloat16, torch.float32)]
     softmaxes = softmax_cases(gen)
     flashes = attention_cases(gen)
     attns_int8 = [attn_int8_case(c, torch.bfloat16, gen) for c in (CHUNK, 1)]
-    results = norms + attns + attns_int8 + softmaxes + flashes
+    results = norms + fused_norms + attns + attns_int8 + softmaxes + flashes
     for r in results:
         print(f"[kernels] {json.dumps(r)}")
     bad = [f"{r['name']} {r.get('case', '')} {r['dtype']} {r['shape']}" for r in results
            if not r["ok"]]
     if bad:
         fail(f"kernel vs plain out of tolerance: {bad}")
-    return {"gn_rmsnorm": norms, "gn_paged_attention": attns,
+    return {"gn_rmsnorm": norms, "gn_rmsnorm_fused": fused_norms, "gn_paged_attention": attns,
             "gn_paged_attention_int8": attns_int8, "gn_softmax": softmaxes,
             "gn_attention": flashes}
 
@@ -674,6 +736,8 @@ def phase_serve() -> dict:
         fail(f"paged attention launches {launches} != {layers} x {ticks} ticks")
     if launches["gn_rmsnorm"] != (2 * layers + 1) * ticks:
         fail(f"norm launches {launches} != {2 * layers + 1} x {ticks} ticks")
+    if launches["gn_rmsnorm_fused"] != (2 * layers - 1) * ticks:
+        fail(f"fused norm launches {launches} != {2 * layers - 1} x {ticks} ticks")
     if launches["gn_softmax"] or launches["gn_attention"] or launches["gn_paged_attention_int8"]:
         fail(f"the fp paged tick launched another kernel: {launches}")
     if plain_on_cuda:
@@ -731,7 +795,8 @@ def phase_static() -> dict:
     launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
     model, params = out["model"], out["params"]
     layers = model.cfg.n_layers
-    want = {"gn_rmsnorm": BATCHES * (2 * layers + 1) * (NEW + 2), "gn_paged_attention": 0,
+    want = {"gn_rmsnorm": BATCHES * (2 * layers + 1) * (NEW + 2),
+            "gn_rmsnorm_fused": BATCHES * (2 * layers - 1) * (NEW + 2), "gn_paged_attention": 0,
             "gn_paged_attention_int8": 0, "gn_softmax": BATCHES * layers * (1 + NEW),
             "gn_attention": BATCHES * layers}
     if launches != want or out["launches"] != want:
@@ -816,7 +881,8 @@ def phase_int8(served: dict) -> dict:
     launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
     m = engine.metrics()
     ticks, layers = m["model_ticks"], model.cfg.n_layers
-    want = {"gn_rmsnorm": (2 * layers + 1) * ticks, "gn_paged_attention": 0,
+    want = {"gn_rmsnorm": (2 * layers + 1) * ticks,
+            "gn_rmsnorm_fused": (2 * layers - 1) * ticks, "gn_paged_attention": 0,
             "gn_paged_attention_int8": layers * ticks, "gn_softmax": 0, "gn_attention": 0}
     if launches != want:
         fail(f"int8 serving launches {launches} != {want}")
@@ -873,6 +939,9 @@ def phase_int8(served: dict) -> dict:
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "gn_rmsnorm": ("src/repro_torch/csrc/gn_layernorm.cu",
                    "src/repro/kernels/gn_layernorm/kernel.py:81"),
+    # the same kernel's fused entry: the residual add, then the norm
+    "gn_rmsnorm_fused": ("src/repro_torch/csrc/gn_layernorm.cu",
+                         "src/repro/kernels/gn_layernorm/kernel.py:81"),
     "gn_paged_attention": ("src/repro_torch/csrc/gn_paged_attention.cu",
                            "src/repro/kernels/gn_paged_attention/kernel.py:160"),
     "gn_paged_attention_int8": ("src/repro_torch/csrc/gn_paged_attention.cu",
@@ -904,11 +973,11 @@ def main() -> int:
                "int8": int8["launches"]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
-        # the main path's shape: bf16 tick (fp or int8 KV), f32 prefill rows,
-        # bf16 forward
+        # the main path's shape: bf16 tick (fp or int8 KV; the norms' 128
+        # rows), f32 prefill rows, bf16 forward
         main_case = kern[name][0]
         counts = {path: n[name] for path, n in by_path.items() if n[name]}
-        design = {"design": main_case["design"]} if "design" in main_case else {}
+        design = {key: main_case[key] for key in ("design", "layout") if key in main_case}
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces, **design,
             "launches": sum(counts.values()), "launches_by_path": counts,

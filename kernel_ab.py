@@ -21,8 +21,31 @@ ran):
   wrapper has ``MAX_RANGE_PAGES``, the same calls under each rule by name:
   ranges sized by the card alone (``_card``) and capped at ``CAP_PAGES``
   pages (``_cap``).
+- ``gn_rmsnorm`` at a decode step's (8, 2048), a tick's (128, 2048) and
+  the forward's (8448, 2048) rows, bf16, in RMS mode (``norm_rms``) and in
+  LayerNorm mode with a beta (``norm_ln``), with ``F.rms_norm`` on the same
+  inputs, and the host-inclusive time of the RMS call (``_call_ms``, CUDA
+  events around a loop of calls); the residual add and the norm at 128 and
+  8448 rows (``add_norm``): the fused call where the root's wrapper has
+  ``gn_add_rmsnorm``, else the eager add and the norm.
 The inputs come from one seed, so every root sees the same tensors.  Two
 versions compare only within one run of this script, on one card.
+
+    python3 kernel_ab.py --forward ROOT
+
+runs chip_smoke.py's phase-5 perplexity forward (full-width internlm2-1.8b,
+random weights from seed 0, 8 x 1056 tokens from seed 0) through ROOT's
+model: one warm-up, five runs timed on the host clock around synchronized
+work (``host_ms``, their median), then one under a CUDA-only profiler: the
+device busy ms and the ms and calls of the norm kernel and of the eager
+adds (one JSON line).
+
+    python3 kernel_ab.py --norm-layouts ROOT
+
+times ROOT's norm and its fused add + norm in each layout that holds the
+row, forced, at 8..16896 rows of 2048 columns (bf16 RMS and LayerNorm, f32
+RMS) and of 7168 (bf16 RMS), beside a plain copy of the norm's bytes: the
+measurements behind the kernel's layout pick (one JSON line a shape).
 
     python3 kernel_ab.py --ticks ROOT
 
@@ -41,29 +64,159 @@ import subprocess
 import sys
 from pathlib import Path
 
-ITERS = {"attention": 10, "softmax_decode": 200, "softmax_prefill": 10, "paged": 50}
+ITERS = {"attention": 10, "softmax_decode": 200, "softmax_prefill": 10, "paged": 50,
+         "norm": 100}
+NORM_ROWS = (8, 128, 8448)  # a decode step's, a tick's and the forward's rows
 CAP_PAGES = 8  # the capped chain-split rule: at most two 64-key tiles a range
 
 
-def device_ms(fn, iters: int, only: str | None = None) -> float:
-    """Device ms per call; ``only``: just the kernels whose name holds it."""
+def device_ms(fn, iters: int, only: str | None = None, tries: int = 3) -> float:
+    """Device ms per call; ``only``: just the kernels whose name holds it.
+    A trace that shows no device time (a process's first trace may miss its
+    kernels) is taken again, up to ``tries`` times."""
     import torch
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
+    for _ in range(tries):
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total, seen = 0.0, False
+        for e in prof.key_averages():
+            if str(e.device_type).endswith("CUDA"):
+                t = getattr(e, "self_device_time_total", None)
+                seen |= (t if t is not None else e.self_cuda_time_total) > 0
+                if only is None or only in e.key:
+                    total += t if t is not None else e.self_cuda_time_total
+        if seen:
+            return total / iters / 1e3
+    raise RuntimeError("the profiler saw no device time")
+
+
+def call_ms(fn, iters: int) -> float:
+    """Wall ms per call between CUDA events: the host's launch cost where it
+    exceeds the device's work."""
+    import torch
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def norm_inputs(rows: int, cols: int, seed: int = 0):
+    """bf16 x and r, f32 gamma and beta, from one seed."""
+    import torch
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    x, r = (torch.randn(rows, cols, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    gamma = 1 + 0.1 * torch.randn(cols, generator=gen, device="cuda")
+    return x, r, gamma, 0.1 * torch.randn(cols, generator=gen, device="cuda")
+
+
+def norms(res: dict) -> None:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.gn_layernorm import ops as nm
+
+    fused = hasattr(nm, "gn_add_rmsnorm")
+    res["add_norm_fused"] = fused
+    for rows in NORM_ROWS:
+        x, r, gamma, beta = norm_inputs(rows, 2048)
+        res[f"norm_rms_{rows}_ms"] = device_ms(lambda: nm.gn_rmsnorm(x, gamma), ITERS["norm"])
+        res[f"norm_rms_{rows}_call_ms"] = call_ms(lambda: nm.gn_rmsnorm(x, gamma), ITERS["norm"])
+        res[f"norm_ln_{rows}_ms"] = device_ms(lambda: nm.gn_layernorm(x, gamma, beta),
+                                              ITERS["norm"])
+        w = gamma.to(x.dtype)
+        res[f"torch_rms_norm_{rows}_ms"] = device_ms(lambda: F.rms_norm(x, (2048,), w),
+                                                     ITERS["norm"])
+        if rows == NORM_ROWS[0]:
+            continue
+        add_norm = ((lambda: nm.gn_add_rmsnorm(x, r, gamma)) if fused
+                    else (lambda: nm.gn_rmsnorm(x + r, gamma)))
+        res[f"add_norm_{rows}_ms"] = device_ms(add_norm, ITERS["norm"])
+        res[f"add_norm_{rows}_call_ms"] = call_ms(add_norm, ITERS["norm"])
+
+
+def norm_layouts(root: str) -> list[dict]:
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    import torch
+
+    from repro_torch.kernels.gn_layernorm import ops as nm
+
+    out = []
+    for cols, dtype, ln in ((2048, "bfloat16", False), (2048, "bfloat16", True),
+                            (2048, "float32", False), (7168, "bfloat16", False)):
+        for rows in (8, 128, 528, 1056, 2112, 4224, 8448, 16896):
+            x, r, gamma, beta = norm_inputs(rows, cols)
+            x, r = x.to(getattr(torch, dtype)), r.to(getattr(torch, dtype))
+            beta = beta if ln else None
+            y = torch.empty_like(x)
+            line = {"root": root, "rows": rows, "cols": cols, "dtype": dtype,
+                    "mode": "layernorm" if ln else "rms", "pick": nm.layout(x),
+                    # the norm's bytes moved by a plain copy: the practical ceiling
+                    "copy_ms": device_ms(lambda: y.copy_(x), ITERS["norm"])}
+            chunks = -(-cols // (16 // x.element_size()))
+            for name, g in nm.LAYOUTS.items():
+                if g and chunks > 8 * g:  # the layout does not hold the row
+                    continue
+                line[f"{name}_ms"] = device_ms(
+                    lambda: nm.gn_layernorm(x, gamma, beta, subtract_mean=ln, layout=name),
+                    ITERS["norm"])
+                line[f"{name}_fused_ms"] = device_ms(
+                    lambda: nm.gn_add_layernorm(x, r, gamma, beta, subtract_mean=ln, layout=name),
+                    ITERS["norm"])
+            out.append(line)
+            del x, r, y
+    return out
+
+
+def forward(root: str) -> list[dict]:
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve.engine import perplexity
+
+    model = make_model(get_config("internlm2-1.8b"))
+    params = model.prepare(model.init(0, "cuda"), "cuda")
+    tokens = np.random.default_rng(0).integers(0, model.cfg.vocab, size=(8, 1056))
+    batch = {"tokens": torch.as_tensor(tokens, dtype=torch.int32, device="cuda")}
+    perplexity(model, params, batch)
+    host = []
+    for _ in range(5):
         torch.cuda.synchronize()
-    total, seen = 0.0, False
+        t0 = time.perf_counter()
+        perplexity(model, params, batch)
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        perplexity(model, params, batch)
+        torch.cuda.synchronize()
+    line = {"root": root, "host_ms": float(np.median(host)), "host_ms_all": host,
+            "device_ms": 0.0, "norm_ms": 0.0, "norm_calls": 0, "add_ms": 0.0, "add_calls": 0}
     for e in prof.key_averages():
-        if str(e.device_type).endswith("CUDA"):
-            t = getattr(e, "self_device_time_total", None)
-            seen |= (t if t is not None else e.self_cuda_time_total) > 0
-            if only is None or only in e.key:
-                total += t if t is not None else e.self_cuda_time_total
-    if not seen:
-        raise RuntimeError("the profiler saw no device time")
-    return total / iters / 1e3
+        if not str(e.device_type).endswith("CUDA"):
+            continue
+        t = getattr(e, "self_device_time_total", None)
+        ms = (t if t is not None else e.self_cuda_time_total) / 1e3
+        line["device_ms"] += ms
+        kind = ("norm" if "layernorm" in e.key or "norm_block" in e.key or "norm_warp" in e.key
+                or "norm_stream" in e.key else "add" if "CUDAFunctor_add" in e.key else None)
+        if kind:
+            line[f"{kind}_ms"] += ms
+            line[f"{kind}_calls"] += e.count
+    return [line]
 
 
 def paged_inputs(c: int, int8: bool):
@@ -140,6 +293,7 @@ def one(root: str) -> dict:
         res[f"gn_softmax_{label}_ms"] = device_ms(lambda: sm.gn_softmax(x), iters)
         res[f"torch_softmax_{label}_ms"] = device_ms(lambda: torch.softmax(x, dim=-1), iters)
     del x
+    norms(res)
     from repro_torch.kernels.gn_paged_attention import ops as pa
 
     # the root's own rule, then (where it has the knob) each rule by name
@@ -203,8 +357,9 @@ def main(argv: list[str]) -> int:
     if len(argv) == 2 and argv[0] == "--one":
         print(json.dumps(one(argv[1])))
         return 0
-    if len(argv) == 2 and argv[0] == "--ticks":
-        for line in ticks(argv[1]):
+    modes = {"--ticks": ticks, "--norm-layouts": norm_layouts, "--forward": forward}
+    if len(argv) == 2 and argv[0] in modes:
+        for line in modes[argv[0]](argv[1]):
             print(json.dumps(line))
         return 0
     if not argv:

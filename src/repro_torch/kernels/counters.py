@@ -14,8 +14,10 @@ from repro_torch.kernels.gn_softmax import ops as softmax_ops
 from repro_torch.kernels.gn_softmax import ref as softmax_ref
 
 # kernel -> (its wrapper module, the wrapper's launch counter); the paged
-# read counts its fp and its int8 mode apart
-WRAPPERS = {"gn_rmsnorm": (norm_ops, "launches"), "gn_paged_attention": (paged_ops, "launches"),
+# read counts its fp and its int8 mode apart; "gn_rmsnorm" counts every norm
+# launch, "gn_rmsnorm_fused" those of the fused add + norm among them
+WRAPPERS = {"gn_rmsnorm": (norm_ops, "launches"), "gn_rmsnorm_fused": (norm_ops, "launches_fused"),
+            "gn_paged_attention": (paged_ops, "launches"),
             "gn_paged_attention_int8": (paged_ops, "launches_int8"),
             "gn_softmax": (softmax_ops, "launches"), "gn_attention": (attention_ops, "launches")}
 PLAIN = {"gn_rmsnorm": norm_ref, "gn_paged_attention": paged_ref,

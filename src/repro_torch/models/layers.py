@@ -4,7 +4,8 @@ Port of ``repro/models/layers.py``.  Parameters are nested dicts of tensors
 with the reference's tree and shapes, so ``convert.py`` can load a JAX
 ``model.init(...)`` pytree as it is.  The GN norms go through the
 ``kernels.gn_layernorm`` wrappers: the CUDA kernel for CUDA tensors, the
-plain ``core`` function on the CPU.
+plain ``core`` function on the CPU; a norm that follows a residual add
+takes the wrappers' fused add + norm (``apply_add_norm``).
 """
 from __future__ import annotations
 
@@ -20,6 +21,10 @@ from repro_torch.kernels.gn_layernorm import ops as norm_ops
 _KERNEL_NORMS = {
     "gn_rms": lambda x, gamma, beta=None: norm_ops.gn_rmsnorm(x, gamma),
     "gn_ln": lambda x, gamma, beta=None: norm_ops.gn_layernorm(x, gamma, beta),
+}
+_KERNEL_ADD_NORMS = {
+    "gn_rms": lambda x, r, gamma, beta=None: norm_ops.gn_add_rmsnorm(x, r, gamma),
+    "gn_ln": lambda x, r, gamma, beta=None: norm_ops.gn_add_layernorm(x, r, gamma, beta),
 }
 
 
@@ -63,6 +68,17 @@ def norm_specs(cfg: ModelConfig) -> dict:
 def apply_norm(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
     fn = _KERNEL_NORMS.get(cfg.norm_impl) or get_norm(cfg.norm_impl)
     return fn(x, p["gamma"], p.get("beta"))
+
+
+def apply_add_norm(cfg: ModelConfig, p: dict, x: torch.Tensor,
+                   r: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(s, norm(s)) with s = x + r: one fused kernel launch for the GN norms;
+    the eager add and ``apply_norm``'s function for the others."""
+    fused = _KERNEL_ADD_NORMS.get(cfg.norm_impl)
+    if fused is not None:
+        return fused(x, r, p["gamma"], p.get("beta"))
+    s = x + r
+    return s, get_norm(cfg.norm_impl)(s, p["gamma"], p.get("beta"))
 
 
 # -------------------------------------------------------------------- MLP ---

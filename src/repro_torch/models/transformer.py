@@ -18,8 +18,12 @@
     per-block f32 scales.
 
 Each layer runs norm -> attention -> norm -> MLP; the head runs one more
-norm and the LM projection.  Projections stay ``torch.matmul``, as the
-reference leaves them to XLA outside any Pallas kernel.
+norm and the LM projection.  Every norm that follows a residual add (ln2,
+and ln1 of every layer but the first) takes the add with it in one fused
+launch (``apply_add_norm``): a layer's MLP output is carried into the next
+layer's ln1, and the last one is added before the head.  Projections stay
+``torch.matmul``, as the reference leaves them to XLA outside any Pallas
+kernel.
 """
 from __future__ import annotations
 
@@ -29,6 +33,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models.layers import (
+    apply_add_norm,
     apply_mlp,
     apply_norm,
     embed_specs,
@@ -94,8 +99,18 @@ class Model:
         reference casts the table first: the same values)."""
         return params["embed"]["tok"][tokens.long()].to(getattr(torch, self.cfg.dtype))
 
-    def _mlp_residual(self, lp, x):
-        return x + apply_mlp(self.cfg, lp["mlp"], apply_norm(self.cfg, lp["ln2"], x))
+    def _ln1(self, lp, x, pending):
+        """(residual stream, ln1 input): the previous layer's MLP output
+        ``pending`` (None in layer 0) added in by the fused norm."""
+        if pending is None:
+            return x, apply_norm(self.cfg, lp["ln1"], x)
+        return apply_add_norm(self.cfg, lp["ln1"], x, pending)
+
+    def _mlp_residual(self, lp, x, y):
+        """Adds the attention output y to the residual stream x, then ln2 and
+        the MLP: (residual stream, MLP output still to be added)."""
+        x, h = apply_add_norm(self.cfg, lp["ln2"], x, y)
+        return x, apply_mlp(self.cfg, lp["mlp"], h)
 
     # --------------------------------------------------------- static path --
     def forward(self, params, batch: dict):
@@ -105,10 +120,12 @@ class Model:
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=x.device).expand(tokens.shape)
+        pending = None
         for lp in params["layers"]:
-            h = apply_norm(cfg, lp["ln1"], x)
-            x = self._mlp_residual(lp, x + attn.self_attention(cfg, lp["mixer"], h, positions))
-        return self._lm_head(params, x)
+            x, h = self._ln1(lp, x, pending)
+            x, pending = self._mlp_residual(
+                lp, x, attn.self_attention(cfg, lp["mixer"], h, positions))
+        return self._lm_head(params, x + pending)
 
     def cache_specs(self, batch: int, max_seq: int) -> dict:
         """The static path's slab cache, name -> (shape, dtype):
@@ -131,24 +148,26 @@ class Model:
         x = self._embed(params, tokens)
         cache = self.init_cache(b, max_seq or s, x.device)
         positions = torch.arange(s, device=x.device).expand(b, s)
+        pending = None
         for lp, k_slab, v_slab in zip(params["layers"], cache["k"], cache["v"]):
-            y, kv = attn.attn_prefill(cfg, lp["mixer"], apply_norm(cfg, lp["ln1"], x), positions)
+            x, h = self._ln1(lp, x, pending)
+            y, kv = attn.attn_prefill(cfg, lp["mixer"], h, positions)
             k_slab[:, :s] = kv["k"]
             v_slab[:, :s] = kv["v"]
-            x = self._mlp_residual(lp, x + y)
-        return self._lm_head(params, x), cache
+            x, pending = self._mlp_residual(lp, x, y)
+        return self._lm_head(params, x + pending), cache
 
     def decode_step(self, params, cache, token, pos: int):
         """token: (B, 1) at position ``pos`` (a Python int).  Writes slot
         ``pos`` of every layer's slabs in place; returns (logits (B, 1, V),
         cache)."""
         cfg = self.cfg
-        x = self._embed(params, token)
+        x, pending = self._embed(params, token), None
         for lp, k_slab, v_slab in zip(params["layers"], cache["k"], cache["v"]):
-            h = apply_norm(cfg, lp["ln1"], x)
+            x, h = self._ln1(lp, x, pending)
             y, _ = attn.attn_decode_step(cfg, lp["mixer"], {"k": k_slab, "v": v_slab}, h, pos)
-            x = self._mlp_residual(lp, x + y)
-        return self._lm_head(params, x), cache
+            x, pending = self._mlp_residual(lp, x, y)
+        return self._lm_head(params, x + pending), cache
 
     # ---------------------------------------------------------- paged tick --
     def init_paged_cache(self, num_blocks: int, block_size: int, device=None,
@@ -179,14 +198,14 @@ class Model:
         scales, for int8 arenas) in place and returns the logits (N, 1, V) of
         each slot's row n_valid - 1."""
         cfg = self.cfg
-        x = self._embed(params, tokens)
+        x, pending = self._embed(params, tokens), None
         scales = (zip(cache["k_scale"], cache["v_scale"]) if "k_scale" in cache
                   else [None] * cfg.n_layers)
         for lp, k_arena, v_arena, sc in zip(params["layers"], cache["k"], cache["v"], scales):
-            h = apply_norm(cfg, lp["ln1"], x)
-            x = self._mlp_residual(lp, x + attn.attn_paged_chunk(
+            x, h = self._ln1(lp, x, pending)
+            x, pending = self._mlp_residual(lp, x, attn.attn_paged_chunk(
                 cfg, lp["mixer"], k_arena, v_arena, h, positions, n_valid, tables, sc))
-        return self._paged_head(params, x, n_valid)
+        return self._paged_head(params, x + pending, n_valid)
 
     def _paged_head(self, params, x, n_valid):
         """Next-token logits per slot: gather row n_valid - 1 (clamped for

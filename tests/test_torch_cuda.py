@@ -10,8 +10,10 @@ flash attention to 2e-4 on random inputs with at most 1% of rows past it
 1e-5 of 1 with V = 1, in the dtype under test (bf16: the tensor-core
 design; f32: the CUDA-core design); bf16 one bf16 rounding on top.  The
 softmax shapes cover both of its layouts (a warp per row for many rows, a
-block per row for few) and rows off a 16-byte boundary.  The paged read's int8 mode keeps the fp
-mode's tolerances; ``paged_quant_write`` on the card equals the CPU bit for
+block per row for few) and rows off a 16-byte boundary; the norm's shapes
+cover its three layouts, picked and forced, and its fused residual add,
+held bit for bit to the eager add and to the unfused kernel on the sum.
+The paged read's int8 mode keeps the fp mode's tolerances; ``paged_quant_write`` on the card equals the CPU bit for
 bit.
 """
 import numpy as np
@@ -52,19 +54,125 @@ def _close(got, want, atol, dtype):
     assert bool((err <= atol + rel * want.float().abs()).all()), err.max().item()
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("subtract_mean", [False, True])
-@pytest.mark.parametrize("cols", [2048, 100])
-def test_norm_kernel_matches_plain(cuda, cols, subtract_mean, dtype):
-    g = torch.Generator(device=cuda).manual_seed(cols)
-    x = (torch.randn(37, cols, generator=g, device=cuda) * 2 + 0.3).to(dtype)
+def _norm_inputs(cuda, rows, cols, dtype, subtract_mean, seed=None):
+    g = torch.Generator(device=cuda).manual_seed(cols if seed is None else seed)
+    x = (torch.randn(rows, cols, generator=g, device=cuda) * 2 + 0.3).to(dtype)
     gamma = 1 + 0.1 * torch.randn(cols, generator=g, device=cuda)
     beta = 0.1 * torch.randn(cols, generator=g, device=cuda) if subtract_mean else None
+    return x, gamma, beta
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("subtract_mean", [False, True])
+@pytest.mark.parametrize("cols", [2048, 100, 7168])
+@pytest.mark.parametrize("rows", [8, 37, 128, 8448])
+def test_norm_kernel_matches_plain(cuda, rows, cols, subtract_mean, dtype):
+    """The kernel's own pick of layout: one chunk a thread over up to 256
+    threads for few rows, two for many (8448 rows), a warp for rows of 100;
+    bf16 rows of 100 start off a 16-byte boundary every other row (the
+    scalar edge)."""
+    x, gamma, beta = _norm_inputs(cuda, rows, cols, dtype, subtract_mean)
     before = norm_ops.launches
     got = norm_ops.gn_layernorm(x, gamma, beta, subtract_mean=subtract_mean)
     assert norm_ops.launches == before + 1
     want = norm_ref.gn_layernorm_ref(x, gamma, beta, subtract_mean=subtract_mean)
     _close(got, want, 4e-6, dtype)
+
+
+# rows of 1001 start at every offset mod 16 (bf16 and f32): the scalar edge
+# and gamma loaded element by element where gamma + head is off 16 bytes
+NORM_LAYOUT_SHAPES = [(8, 2048), (37, 100), (300, 2048), (1200, 7), (64, 7168), (5, 20000),
+                      (2000, 1000), (300, 1001)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("subtract_mean", [False, True])
+@pytest.mark.parametrize("rows,cols", NORM_LAYOUT_SHAPES)
+def test_norm_kernel_layouts_match_plain(cuda, rows, cols, subtract_mean, dtype):
+    """Each layout forced on every shape it holds (a group of G threads up
+    to 8 G 16-byte chunks a row, the stream layout always), against the
+    plain version; a layout a row does not fit is refused; the fused entry's
+    y equals the unfused kernel's on s bit for bit in every layout."""
+    x, gamma, beta = _norm_inputs(cuda, rows, cols, dtype, subtract_mean)
+    r, _, _ = _norm_inputs(cuda, rows, cols, dtype, False, seed=cols + 2)
+    want = norm_ref.gn_layernorm_ref(x, gamma, beta, subtract_mean=subtract_mean)
+    chunks = -(-cols // (16 // x.element_size()))
+    holds = {name: g == 0 or chunks <= 8 * g for name, g in norm_ops.LAYOUTS.items()}
+    for name, fits in holds.items():
+        if not fits:
+            with pytest.raises(RuntimeError, match="CUDA error"):
+                norm_ops.gn_layernorm(x, gamma, beta, subtract_mean=subtract_mean, layout=name)
+            continue
+        got = norm_ops.gn_layernorm(x, gamma, beta, subtract_mean=subtract_mean, layout=name)
+        _close(got, want, 4e-6, dtype)
+        s, y = norm_ops.gn_add_layernorm(x, r, gamma, beta, subtract_mean=subtract_mean,
+                                         layout=name)
+        assert torch.equal(s, x + r), name
+        assert torch.equal(y, norm_ops.gn_layernorm(s, gamma, beta, subtract_mean=subtract_mean,
+                                                    layout=name)), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("subtract_mean", [False, True])
+@pytest.mark.parametrize("rows,cols", [(8, 2048), (128, 2048), (8448, 2048), (128, 7168),
+                                       (37, 100)])
+def test_fused_add_norm_is_the_add_then_the_kernel(cuda, rows, cols, subtract_mean, dtype):
+    """The fused entry on the card: s equals the eager x + r and y the
+    unfused kernel's output on s, bit for bit, one launch counted in both
+    counters; y within the norm's tolerance of the plain version."""
+    x, gamma, beta = _norm_inputs(cuda, rows, cols, dtype, subtract_mean, seed=cols + 1)
+    r, _, _ = _norm_inputs(cuda, rows, cols, dtype, False, seed=cols + 2)
+    before = (norm_ops.launches, norm_ops.launches_fused, norm_ref.cuda_calls)
+    s, y = norm_ops.gn_add_layernorm(x, r, gamma, beta, subtract_mean=subtract_mean)
+    assert (norm_ops.launches, norm_ops.launches_fused, norm_ref.cuda_calls) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert s.dtype == y.dtype == dtype
+    assert torch.equal(s, x + r)
+    assert torch.equal(y, norm_ops.gn_layernorm(s, gamma, beta, subtract_mean=subtract_mean))
+    _close(y, norm_ref.gn_layernorm_ref(x + r, gamma, beta, subtract_mean=subtract_mean),
+           4e-6, dtype)
+    if not subtract_mean:
+        s2, y2 = norm_ops.gn_add_rmsnorm(x, r, gamma)
+        assert torch.equal(s2, s) and torch.equal(y2, y)
+
+
+@pytest.mark.parametrize("subtract_mean", [False, True])
+@pytest.mark.parametrize("rows,cols", [(8, 2048), (128, 2048), (8448, 2048), (64, 7168)])
+def test_norm_kernel_sigma_matches_plain(cuda, rows, cols, subtract_mean):
+    """The guarantee itself: with gamma = 1 and beta = 0, each row's sigma
+    (LN mode) or RMS (RMS mode) of the kernel's output equals the plain
+    version's to 1e-6 at f32."""
+    x, _, _ = _norm_inputs(cuda, rows, cols, torch.float32, subtract_mean)
+    gamma = torch.ones(cols, device=cuda)
+    beta = torch.zeros(cols, device=cuda) if subtract_mean else None
+
+    def sigma(y):
+        y = y.double()
+        if subtract_mean:
+            y = y - y.mean(-1, keepdim=True)
+        return y.square().mean(-1).sqrt()
+
+    got = sigma(norm_ops.gn_layernorm(x, gamma, beta, subtract_mean=subtract_mean))
+    want = sigma(norm_ref.gn_layernorm_ref(x, gamma, beta, subtract_mean=subtract_mean))
+    assert (got - want).abs().max().item() <= 1e-6
+
+
+def test_norm_kernel_takes_rows_of_another_alignment_than_out(cuda):
+    """x starting 4 bytes past a 16-byte boundary (y is aligned): the stream
+    layout, in both entries."""
+    g = torch.Generator(device=cuda).manual_seed(6)
+    for rows, cols in ((128, 2048), (8448, 2048)):
+        flat = torch.randn(rows * cols + 1, generator=g, device=cuda)
+        x = flat[1:].view(rows, cols)
+        assert x.is_contiguous() and x.data_ptr() % 16 == 4
+        assert norm_ops.layout(x) == "stream"
+        gamma = torch.ones(cols, device=cuda)
+        _close(norm_ops.gn_rmsnorm(x, gamma), norm_ref.gn_layernorm_ref(x, gamma, None,
+                                                                          subtract_mean=False),
+               4e-6, torch.float32)
+        r = torch.randn(rows, cols, generator=g, device=cuda)
+        s, y = norm_ops.gn_add_rmsnorm(x, r, gamma)
+        assert torch.equal(s, x + r) and torch.equal(y, norm_ops.gn_rmsnorm(s, gamma, layout="stream"))
 
 
 def _paged(cuda, c, bs, dtype, v_ones=False, seed=0):
@@ -190,6 +298,11 @@ def test_kernels_refuse_bad_inputs(cuda):
         attn_ops.gn_paged_attention_chunk(*q8, scales=(scales[0], scales[1].double()))
     with pytest.raises(TypeError):
         norm_ops.gn_rmsnorm(torch.randn(3, 8, device=cuda).half())
+    with pytest.raises(TypeError):
+        norm_ops.gn_add_rmsnorm(*(torch.zeros(3, 8, device=cuda).half(),) * 2)
+    x = torch.zeros(3, 8, device=cuda)
+    with pytest.raises(ValueError, match="alike"):
+        norm_ops.gn_add_rmsnorm(x, x.cpu())
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
@@ -208,6 +321,7 @@ def test_engine_on_cuda_launches_the_kernels_every_tick(cuda, kv_dtype):
     other = "gn_paged_attention" if kv_dtype == "int8" else "gn_paged_attention_int8"
     assert launches[mode] == L * ticks and launches[other] == 0
     assert launches["gn_rmsnorm"] == (2 * L + 1) * ticks
+    assert launches["gn_rmsnorm_fused"] == (2 * L - 1) * ticks
     assert not any(counters.plain_cuda_calls().values())
     assert eng.pool.blocks_in_use == 0
 
@@ -410,6 +524,7 @@ def test_static_path_on_cuda_launches_the_kernels(cuda):
     ppl = perplexity(model, params, {"tokens": out})
     L = cfg.n_layers
     assert counters.launch_counts() == {"gn_rmsnorm": (2 * L + 1) * (5 + 2),
+                                        "gn_rmsnorm_fused": (2 * L - 1) * (5 + 2),
                                         "gn_paged_attention": 0,
                                         "gn_paged_attention_int8": 0,
                                         "gn_softmax": L * (1 + 5), "gn_attention": L}

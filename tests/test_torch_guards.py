@@ -101,6 +101,9 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
     x = torch.randn(3, 32)
     norm_ops.gn_rmsnorm(x, torch.ones(32))
     norm_ops.gn_layernorm(x, torch.ones(32), torch.zeros(32))
+    norm_ops.gn_add_rmsnorm(x, x, torch.ones(32))
+    norm_ops.gn_add_layernorm(x, x, torch.ones(32), torch.zeros(32))
+    assert norm_ops.launches_fused == 0
     q = torch.randn(2, 1, 2, 8)
     kv = torch.randn(3, 4, 1, 8)
     attn_ops.gn_paged_attention_chunk(q, kv, kv, torch.zeros(2, 1, dtype=torch.int32),
@@ -125,6 +128,28 @@ def test_wrappers_refuse_other_devices():
         sm_ops.gn_softmax(x)
     with pytest.raises(ValueError, match="cpu or cuda"):
         fa_ops.gn_attention(meta, meta, meta, causal=True)
+
+
+def test_fused_norm_refuses_inputs_that_do_not_match():
+    """The fused add + norm takes x and r of one shape, dtype (f32 or bf16)
+    and device, both contiguous, and raises otherwise on any device."""
+    x = torch.randn(4, 16)
+    g = torch.ones(16)
+    bad = [(x, torch.randn(4, 8)), (x, torch.randn(2, 4, 16)), (x, x.bfloat16()),
+           (x, torch.randn(4, 16, device="meta")), (x, torch.randn(16, 4).t()),
+           (torch.randn(16, 4).t(), x)]
+    for a, b in bad:
+        with pytest.raises(ValueError, match="alike and contiguous"):
+            norm_ops.gn_add_rmsnorm(a, b, g)
+        with pytest.raises(ValueError, match="alike and contiguous"):
+            norm_ops.gn_add_layernorm(a, b, g, torch.zeros(16))
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(TypeError, match="takes"):
+            norm_ops.gn_add_rmsnorm(x.to(dt), x.to(dt), g)
+    meta = torch.zeros(4, 16, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        norm_ops.gn_add_rmsnorm(meta, meta)
+    assert norm_ops.launches == norm_ops.launches_fused == 0
 
 
 def test_flash_attention_check_refuses_lut_values_the_bf16_split_cannot_hold():

@@ -112,6 +112,71 @@ def test_norm_wrapper_matches_pallas_kernel_interpret(subtract_mean, dtype):
     assert norm_ops.launches == 0
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("subtract_mean", [False, True])
+def test_fused_add_norm_plain_is_the_add_then_the_norm(subtract_mean, dtype):
+    """The fused entry's plain version: s is the eager x + r and y the plain
+    norm of s, bit for bit."""
+    from repro_torch.kernels.gn_layernorm import ref as norm_ref
+
+    rng = np.random.default_rng(7)
+    x, r = (torch.from_numpy(rng.normal(size=(6, 5, 96)).astype(np.float32)).to(dtype)
+            for _ in range(2))
+    g = torch.from_numpy((1 + 0.1 * rng.normal(size=96)).astype(np.float32))
+    b = torch.from_numpy((0.1 * rng.normal(size=96)).astype(np.float32)) if subtract_mean else None
+    s, y = norm_ref.gn_add_layernorm_ref(x, r, g, b, subtract_mean=subtract_mean)
+    assert s.dtype == y.dtype == dtype
+    assert torch.equal(s, x + r)
+    assert torch.equal(y, norm_ref.gn_layernorm_ref(x + r, g, b, subtract_mean=subtract_mean))
+    ws, wy = norm_ops.gn_add_layernorm(x, r, g, b, subtract_mean=subtract_mean)
+    assert torch.equal(ws, s) and torch.equal(wy, y)
+    assert norm_ops.launches == norm_ops.launches_fused == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("subtract_mean", [False, True])
+def test_fused_add_norm_wrapper_matches_pallas_kernel_interpret(subtract_mean, dtype):
+    """The fused wrapper's y against the Pallas norm kernel run on the same
+    sum, with the unfused wrapper's tolerances: f32 within 1e-6, bf16
+    identical."""
+    rng = np.random.default_rng(8)
+    x = (rng.normal(size=(24, 160)) * 2).astype(np.float32)
+    r = rng.normal(size=(24, 160)).astype(np.float32)
+    g = (1 + 0.1 * rng.normal(size=160)).astype(np.float32)
+    b = (0.1 * rng.normal(size=160)).astype(np.float32)
+    tdt = getattr(torch, dtype)
+    s, mine = norm_ops.gn_add_layernorm(torch.from_numpy(x).to(tdt), torch.from_numpy(r).to(tdt),
+                                        torch.from_numpy(g),
+                                        torch.from_numpy(b) if subtract_mean else None,
+                                        subtract_mean=subtract_mean)
+    ref = jax_norm_ops.gn_layernorm(jnp.asarray(s.float().numpy()).astype(dtype), jnp.asarray(g),
+                                    jnp.asarray(b) if subtract_mean else None,
+                                    subtract_mean=subtract_mean, interpret=True)
+    mine, ref = mine.float().numpy(), np.asarray(ref.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(mine, ref, atol=1e-6, rtol=0)
+    else:
+        np.testing.assert_array_equal(mine, ref)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "stablelm-1.6b"])  # gn_rms, gn_ln
+def test_apply_add_norm_is_the_add_then_apply_norm(arch, dtype):
+    from repro_torch.configs.registry import get_config, reduce_config
+    from repro_torch.models.layers import apply_add_norm, apply_norm
+
+    cfg = reduce_config(get_config(arch), dtype=dtype)
+    rng = np.random.default_rng(9)
+    x, r = (torch.from_numpy(rng.normal(size=(3, 4, cfg.d_model)).astype(np.float32))
+            .to(getattr(torch, dtype)) for _ in range(2))
+    p = {"gamma": torch.from_numpy((1 + 0.1 * rng.normal(size=cfg.d_model)).astype(np.float32))}
+    if cfg.norm_impl == "gn_ln":
+        p["beta"] = torch.from_numpy((0.1 * rng.normal(size=cfg.d_model)).astype(np.float32))
+    s, h = apply_add_norm(cfg, p, x, r)
+    assert torch.equal(s, x + r)
+    assert torch.equal(h, apply_norm(cfg, p, x + r))
+
+
 def test_norm_wrappers_run_the_core_datapath_on_cpu():
     x = torch.from_numpy(np.random.default_rng(6).normal(size=(5, 64)).astype(np.float32))
     g = torch.linspace(0.5, 1.5, 64)
