@@ -30,22 +30,32 @@ Phases, each fatal on failure (exit code 1):
                random weights from a seed) through ``repro_torch.launch.serve
                --continuous``: 8 slots, chunk 16, block 16, 16 requests of
                32..1024 prompt tokens, 32 new tokens each, one arrival per
-               tick; launch counts, drain, reset-replay, and the static
-               oracle's token identity (reported, not gated);
+               tick; every tick a CUDA-graph replay, captured once per
+               (step kind, horizon bucket) within the grid's bound; launch
+               counts, drain, a timed reset-replay (launches gated again), a
+               profiled one (device busy share, the GN kernels' device
+               records against the launches), the eager tick on the same
+               workload bit for bit against the graphed one (tokens, held
+               logits, arenas), and the static oracle's token identity
+               (reported, not gated);
   5. static  - the static path: the same model through the launcher's default
                mode, 2 batches of 8 x 1024-token prompts, 32 new tokens each,
                and the perplexity of each whole sequence; exact launch counts,
-               finite logits and perplexity, a rerun of batch 0 token for
-               token, prefill and decode-step times, and the time of batch
-               0's teacher-forced perplexity (the 24-layer forward through
-               the flash attention) with its profiled top kernels;
+               one decode graph for both batches, finite logits and
+               perplexity, a profiled rerun of batch 0 token for token (the
+               GN kernels' device records against the launches), prefill
+               time, the replayed decode step's time beside the eager step's
+               (their logits bit for bit), and the time of batch 0's
+               teacher-forced perplexity (the 24-layer forward through the
+               flash attention) with its profiled top kernels;
   6. int8    - phase 4's workload and model through ``ContinuousEngine(
                kv_dtype="int8")``: int8 block-paged KV with per-block f32
-               scales; exact int8-mode launch counts and no fp-mode launch,
-               drain, reset-replay, tok/s, tick ms, device-busy share, the
-               pool's bytes beside phase 4's fp pool, and each request's
-               common greedy prefix with phase 4's fp tokens (reported, not
-               gated: random weights give near-flat logits).
+               scales, the int8 write captured with the tick; phase 4's
+               checks (int8-mode launches and no fp-mode launch, the
+               scales bitwise against the eager tick too), the pool's bytes
+               beside phase 4's fp pool, and each request's common greedy
+               prefix with phase 4's fp tokens (reported, not gated: random
+               weights give near-flat logits).
 Each path's launch counters are set to 0 just before it runs and read just
 after.  The last two lines are the kernels JSON and {"ok": true, ...}.
 
@@ -69,6 +79,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
+from repro_torch.analysis import tracekeys  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.luts import TPU_SOFTMAX_LUT, SoftmaxLUTConfig  # noqa: E402
 from repro_torch.data.synthetic import optimal_perplexity  # noqa: E402
@@ -85,7 +96,7 @@ from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models.transformer import make_model  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, generate,  # noqa: E402
-                                      perplexity)
+                                      perplexity, static_decoder)
 from repro_torch.serve.workload import required_max_seq, seeded_requests  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate and the op rate per
@@ -150,6 +161,121 @@ def _device_us(prof) -> dict:
             t = getattr(e, "self_device_time_total", None)
             out[e.key] = t if t is not None else e.self_cuda_time_total
     return out
+
+
+RECORD_LOSS = 0.05  # share of a GN kernel's device records a trace may lose
+# the GN kernels' device names (the paged read's range merge apart), for
+# counting their records in a profiled run, graph replays included
+KERNEL_NAMES = {"gn_paged_attention": ("gn_paged_attention_kernel", "gn_paged_attention_tc_kernel"),
+                "gn_rmsnorm": ("norm_block_kernel", "norm_warp_kernel", "norm_stream_kernel"),
+                "gn_softmax": ("gn_softmax_warp_kernel", "gn_softmax_block_kernel",
+                               "gn_softmax_row_kernel"),
+                "gn_attention": ("gn_attention_kernel", "gn_attention_tc_kernel")}
+
+
+def record_counts(prof) -> dict:
+    """Device records per kernel name in a torch.profiler trace."""
+    return {e.key: e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
+
+
+def check_records(label: str, counts: dict, want: dict) -> dict:
+    """The GN kernels' device records in a profiled run (``counts``: records
+    per kernel name) against the launches the run should have executed, an
+    independent check of the counters, which a graph replay ticks by what
+    its capture counted.  CUPTI reports the kernels of replayed graphs, but
+    was seen to lose a few records of a long trace (3 to 12 of ~12k GN
+    records on an H100), so a kernel's records may fall short of its
+    launches by up to RECORD_LOSS of them and never exceed them.  That every
+    captured kernel ran is shown exactly by the eager rerun (bitwise the
+    graphed one) and the counters by the launch gates."""
+    got = dict.fromkeys(KERNEL_NAMES, 0)
+    for key, n in counts.items():
+        for name, devnames in KERNEL_NAMES.items():
+            if any(d in key for d in devnames):
+                got[name] += n
+    if any(not want[k] * (1 - RECORD_LOSS) <= got[k] <= want[k] for k in want):
+        keys = {k[:90]: n for k, n in counts.items()
+                if any(d in k for names in KERNEL_NAMES.values() for d in names)}
+        fail(f"{label}: device records of the GN kernels {got} against launches {want}: {keys}")
+    return got
+
+
+def profiled(fn):
+    """(fn's result, its CUDA-only torch.profiler trace, fn's wall seconds):
+    a short kernel, a synchronize and 10 ms run first inside the trace, and
+    10 ms after fn's work has ended, so that no launch of fn sits at an edge
+    of the trace (a trace that started on a launch-bound path was seen to
+    miss its first records)."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        torch.ones(1, device=DEV).add_(1)
+        torch.cuda.synchronize()
+        time.sleep(0.01)
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        time.sleep(0.01)
+    return out, prof, seconds
+
+
+def check_graphs(label: str, m: dict) -> None:
+    """Every model tick a graph replay; one capture per (step kind, bucket)
+    seen, within the bucket grid's bound (the reference's compile-count
+    contract, from the port's copy of its trace keys)."""
+    grid = m["horizon_bucket_grid"]
+    space, seen = tracekeys.trace_key_space(paged=True, grid=grid), tracekeys.seen_trace_keys(m)
+    counts = {"fused": m["fused_step_compilations"], "decode": m["decode_compilations"]}
+    diff = tracekeys.format_trace_key_diff(space, seen, counts)
+    bound = tracekeys.compile_bound(paged=True, grid=grid)
+    if (not seen <= space
+            or counts["fused"] != len(m["fused_buckets"])
+            or counts["decode"] != len(m["decode_buckets"])
+            or any(counts[k] > bound[k] for k in counts) or m["prefill_compilations"]):
+        fail(f"{label}: captures off the trace-key contract\n{diff}")
+    if m["transfer_guarded_ticks"] != m["model_ticks"]:
+        fail(f"{label}: {m['model_ticks'] - m['transfer_guarded_ticks']} of "
+             f"{m['model_ticks']} ticks were not graph replays")
+
+
+def timed_run(engine, reqs) -> tuple[dict, float]:
+    """A reset and a run of ``reqs``: (request id -> new tokens, seconds)."""
+    engine.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    toks = {c.request_id: c.new_tokens for c in engine.run(reqs)}
+    torch.cuda.synchronize()
+    return toks, time.perf_counter() - t0
+
+
+def eager_against_graphed(label: str, engine, reqs, graphed: dict, state: dict) -> dict:
+    """The workload once more with the engine's tick function called
+    directly (no graph): its tokens, held logits and real arena blocks (and
+    int8 scales) must equal the graphed run's bit for bit; returns its
+    tick and tok/s."""
+    graphs, engine._graphs = engine._graphs, None
+    try:
+        toks, seconds = timed_run(engine, reqs)
+    finally:
+        engine._graphs = graphs
+    if any(not np.array_equal(toks[i], graphed[i]) for i in graphed):
+        fail(f"{label}: the eager tick's tokens differ from the graphed tick's")
+    nb = engine.pool.num_blocks
+    now = {"last_logits": engine._last_logits,
+           **{k: v[:, :nb] for k, v in engine.pool.cache.items()}}
+    bad = [k for k, v in state.items() if not torch.equal(v, now[k])]
+    if bad:
+        fail(f"{label}: the eager tick's {bad} differ from the graphed tick's")
+    return {"eager_seconds": seconds,
+            "eager_tokens_per_s": engine.generated_tokens / seconds,
+            "eager_mean_tick_ms": float(np.mean([dt * 1e3 for _, _, dt in engine.tick_log]))}
+
+
+def engine_state(engine) -> dict:
+    """Clones of what a run leaves on the device: the held logits and the
+    real blocks of the arenas (and scales); the write sink is never read."""
+    nb = engine.pool.num_blocks
+    return {"last_logits": engine._last_logits.clone(),
+            **{k: v[:, :nb].clone() for k, v in engine.pool.cache.items()}}
 
 
 def device_ms(fn, iters: int) -> float:
@@ -713,6 +839,64 @@ def phase_parity() -> dict:
 
 
 # ------------------------------------------------------------------ phase 4 --
+def continuous_replays(label: str, engine, reqs, first: dict, want: dict) -> dict:
+    """After a continuous path's first run (which captured its graphs): the
+    capture contract; a timed rerun, every tick a replay, with its launch
+    counters gated as the first run's; a profiled rerun (device busy, top
+    kernels, the GN kernels' device records against the launches); then the
+    eager tick on the same workload, bitwise against the graphed one."""
+    m = engine.metrics()
+    check_graphs(label, m)
+    captures = (m["fused_step_compilations"], m["decode_compilations"])
+    counters.reset()
+    again, steady_s = timed_run(engine, reqs)
+    if counters.launch_counts() != want:
+        fail(f"{label}: replayed launches {counters.launch_counts()} != {want}")
+    if any(not np.array_equal(first[i], again[i]) for i in first):
+        fail(f"{label}: reset + rerun gave different tokens")
+    m = engine.metrics()
+    check_graphs(label, m)
+    if (m["fused_step_compilations"], m["decode_compilations"]) != captures:
+        fail(f"{label}: the rerun captured again: {captures} -> {m}")
+    steady_tick_ms = [dt * 1e3 for _, _, dt in engine.tick_log]
+    state = engine_state(engine)
+    engine.reset()
+    toks, prof, rerun_s = profiled(lambda: {c.request_id: c.new_tokens for c in engine.run(reqs)})
+    if any(not np.array_equal(first[i], toks[i]) for i in first):
+        fail(f"{label}: the profiled rerun gave different tokens")
+    per_kernel = _device_us(prof)
+    records = check_records(label, record_counts(prof), {
+        "gn_paged_attention": want["gn_paged_attention"] + want["gn_paged_attention_int8"],
+        "gn_rmsnorm": want["gn_rmsnorm"], "gn_softmax": want["gn_softmax"],
+        "gn_attention": want["gn_attention"]})
+    busy_s = sum(per_kernel.values()) / 1e6
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    # the trace slows the replays down several times, so the busy share is
+    # taken against the untraced rerun's wall time
+    print(f"[{label}-profile] device busy {busy_s:.3f}s: {100 * busy_s / steady_s:.1f}% of the "
+          f"untraced rerun's {steady_s:.3f}s ({100 * busy_s / rerun_s:.1f}% of the traced "
+          f"rerun's {rerun_s:.3f}s); GN kernel records {json.dumps(records)}; "
+          "top kernels (s): " + json.dumps({k[:60]: v / 1e6 for k, v in top}))
+    eager = eager_against_graphed(label, engine, reqs, first, state)
+    return {"captures": {"fused": captures[0], "decode": captures[1]},
+            "fused_buckets": m["fused_buckets"], "decode_buckets": m["decode_buckets"],
+            "capture_seconds": m["capture_seconds"], "steady_seconds": steady_s,
+            "steady_tokens_per_s": m["generated_tokens"] / steady_s,
+            "steady_mean_tick_ms": float(np.mean(steady_tick_ms)),
+            "profiled_rerun_seconds": rerun_s, "device_busy_seconds": busy_s,
+            "device_busy_share": busy_s / steady_s, "kernel_records": records, **eager}
+
+
+def continuous_want(layers: int, ticks: int, int8: bool) -> dict:
+    """The launches of ``ticks`` paged ticks: 24 paged reads (fp or int8
+    mode), 49 norms and 47 of them fused, a tick."""
+    read = layers * ticks
+    return {"gn_rmsnorm": (2 * layers + 1) * ticks, "gn_rmsnorm_fused": (2 * layers - 1) * ticks,
+            "gn_paged_attention": 0 if int8 else read,
+            "gn_paged_attention_int8": read if int8 else 0,
+            "gn_softmax": 0, "gn_attention": 0}
+
+
 def phase_serve() -> dict:
     counters.reset()
     out = serve_mod.main([
@@ -732,42 +916,21 @@ def phase_serve() -> dict:
         fail("not every request completed with its budget")
     if engine.pool.blocks_in_use or engine.pool.num_free != SLOTS:
         fail(f"blocks not returned: {engine.pool.blocks_in_use} in use")
-    if launches["gn_paged_attention"] != layers * ticks:
-        fail(f"paged attention launches {launches} != {layers} x {ticks} ticks")
-    if launches["gn_rmsnorm"] != (2 * layers + 1) * ticks:
-        fail(f"norm launches {launches} != {2 * layers + 1} x {ticks} ticks")
-    if launches["gn_rmsnorm_fused"] != (2 * layers - 1) * ticks:
-        fail(f"fused norm launches {launches} != {2 * layers - 1} x {ticks} ticks")
-    if launches["gn_softmax"] or launches["gn_attention"] or launches["gn_paged_attention_int8"]:
-        fail(f"the fp paged tick launched another kernel: {launches}")
+    want = continuous_want(layers, ticks, int8=False)
+    if launches != want:
+        fail(f"continuous serving launches {launches} != {want}")
     if plain_on_cuda:
         fail(f"{plain_on_cuda} plain-version calls on CUDA tensors in the serving run")
     if not bool(torch.isfinite(engine._last_logits).all()):
         fail("non-finite logits")
     first = {c.request_id: c.new_tokens for c in comps}
-    # the replay runs under a CUDA-only profiler: device busy time and the
-    # kernels that take it
-    engine.reset()
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        again = {c.request_id: c.new_tokens for c in engine.run(reqs)}
-        torch.cuda.synchronize()
-    rerun_s = time.perf_counter() - t0
-    if any(not np.array_equal(first[i], again[i]) for i in first):
-        fail("reset + rerun gave different tokens")
-    per_kernel = _device_us(prof)
-    busy_s = sum(per_kernel.values()) / 1e6
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[serve-profile] device busy {busy_s:.3f}s of {rerun_s:.3f}s "
-          f"({100 * busy_s / rerun_s:.1f}%); top kernels (s): "
-          + json.dumps({k[:60]: v / 1e6 for k, v in top}))
+    replays = continuous_replays("serve", engine, reqs, first, want)
     res = {
         "requests": len(comps), "generated_tokens": m["generated_tokens"],
         "seconds": out["seconds"], "tokens_per_s": m["generated_tokens"] / out["seconds"],
         "model_ticks": ticks, "fused_ticks": m["fused_ticks"],
         "mean_tick_ms": float(np.mean(tick_ms)), "launches": launches,
-        "prompt_tokens": int(sum(r.prompt_len for r in reqs)),
-        "profiled_rerun_seconds": rerun_s, "device_busy_seconds": busy_s,
+        "prompt_tokens": int(sum(r.prompt_len for r in reqs)), **replays,
         # online paged read vs one-pass static softmax: reported, not gated
         "static_identical": f"{out['static_identical']}/{len(comps)}",
         "mean_common_prefix": float(np.mean(out["common_prefix"])),
@@ -806,34 +969,54 @@ def phase_static() -> dict:
     if not all(math.isfinite(p) for p in out["perplexities"]):
         fail(f"non-finite perplexity {out['perplexities']}")
     prompt = out["prompts"][0]
-    # the rerun runs under a CUDA-only profiler: device busy time and the
-    # kernels that take it
-    t0 = time.perf_counter()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        again = generate(model, params, {"tokens": prompt}, ServeConfig(max_new_tokens=NEW))
-        torch.cuda.synchronize()
-    rerun_s = time.perf_counter() - t0
+    # the rerun runs under a CUDA-only profiler: device busy time, the
+    # kernels that take it, and the GN kernels' records (the prefill and
+    # NEW decode steps, each a graph replay) against the launches
+    again, untraced_ms = timed(
+        lambda: generate(model, params, {"tokens": prompt}, ServeConfig(max_new_tokens=NEW)))
     if not torch.equal(again, out["outputs"][0]):
         fail("a rerun of batch 0 gave different tokens")
+    again, prof, rerun_s = profiled(
+        lambda: generate(model, params, {"tokens": prompt}, ServeConfig(max_new_tokens=NEW)))
+    if not torch.equal(again, out["outputs"][0]):
+        fail("a rerun of batch 0 gave different tokens")
+    records = check_records("static", record_counts(prof), {
+        "gn_paged_attention": 0, "gn_rmsnorm": (2 * layers + 1) * (NEW + 1),
+        "gn_softmax": layers * (NEW + 1), "gn_attention": 0})
     per_kernel = _device_us(prof)
     busy_s = sum(per_kernel.values()) / 1e6
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[static-profile] generate of batch 0: device busy {busy_s:.3f}s of {rerun_s:.3f}s "
-          f"({100 * busy_s / rerun_s:.1f}%); top kernels (s): "
-          + json.dumps({k[:60]: v / 1e6 for k, v in top}))
+    print(f"[static-profile] generate of batch 0: device busy {busy_s:.3f}s: "
+          f"{100 * busy_s / (untraced_ms / 1e3):.1f}% of the untraced run's "
+          f"{untraced_ms / 1e3:.3f}s ({100 * busy_s / rerun_s:.1f}% of the traced run's "
+          f"{rerun_s:.3f}s); GN kernel records {json.dumps(records)}; "
+          "top kernels (s): " + json.dumps({k[:60]: v / 1e6 for k, v in top}))
+    decoders = model.__dict__.get("_static_decoders", {})
+    if {k: d.graphs.captures for k, d in decoders.items()} != {(BATCH, PROMPT + NEW):
+                                                               {"decode": 1}}:
+        fail(f"static decode graphs {[(k, d.graphs.captures) for k, d in decoders.items()]} "
+             f"!= one capture for ({BATCH}, {PROMPT + NEW})")
+    # prefill, then decode steps: the eager step (int position) and the
+    # replayed graph on the same tokens, their logits bit for bit
     (logits, cache), prefill_ms = timed(
         lambda: model.prefill(params, {"tokens": prompt}, PROMPT + NEW))
     if not bool(torch.isfinite(logits).all()):
         fail("non-finite prefill logits")
+    decode = static_decoder(model, params, BATCH, PROMPT + NEW, torch.device(DEV))
+    model.prefill(params, {"tokens": prompt}, PROMPT + NEW, cache=decode.cache)
     nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
     del logits
-    step_ms = []
+    step_ms, eager_ms = [], []
     for i in range(min(8, NEW)):
         (step, cache), ms = timed(lambda: model.decode_step(params, cache, nxt, PROMPT + i))
+        eager_ms.append(ms)
+        graphed, ms = timed(lambda: decode(nxt, PROMPT + i))
+        step_ms.append(ms)
         if not bool(torch.isfinite(step).all()):
             fail("non-finite decode logits")
+        if not torch.equal(graphed, step):
+            fail(f"the replayed decode step's logits differ from the eager step's at {i}")
         nxt = step[:, 0].argmax(-1).to(torch.int32)[:, None]
-        step_ms.append(ms)
     del cache, step
     # batch 0's teacher-forced perplexity: the 24-layer forward over 8 x 1056
     # tokens, one flash-attention launch a layer; timed, then profiled
@@ -841,9 +1024,7 @@ def phase_static() -> dict:
     ppl, forward_ms = timed(lambda: perplexity(model, params, seqs))
     if not math.isfinite(ppl):
         fail(f"non-finite perplexity {ppl} in the timed forward")
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        perplexity(model, params, seqs)
-        torch.cuda.synchronize()
+    _, prof, _ = profiled(lambda: perplexity(model, params, seqs))
     per_kernel = _device_us(prof)
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     print(f"[static-forward] perplexity of batch 0 ({BATCH} x {PROMPT + NEW} tokens, {layers} "
@@ -856,8 +1037,12 @@ def phase_static() -> dict:
            "batch_seconds": out["batch_seconds"], "perplexities": out["perplexities"],
            "optimal_perplexity": optimal_perplexity(out["data"]),
            "prefill_ms": prefill_ms, "decode_ms_per_step": float(np.mean(step_ms[1:])),
+           "eager_decode_ms_per_step": float(np.mean(eager_ms[1:])),
+           "captures": 1, "capture_seconds": decoders[BATCH, PROMPT + NEW].graphs.capture_seconds,
            "forward_ms": forward_ms,
-           "profiled_rerun_seconds": rerun_s, "device_busy_seconds": busy_s,
+           "generate_ms": untraced_ms, "profiled_rerun_seconds": rerun_s,
+           "device_busy_seconds": busy_s, "device_busy_share": busy_s / (untraced_ms / 1e3),
+           "kernel_records": records,
            "launches": launches}
     print(f"[static] {json.dumps(res)}")
     return res
@@ -881,9 +1066,7 @@ def phase_int8(served: dict) -> dict:
     launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
     m = engine.metrics()
     ticks, layers = m["model_ticks"], model.cfg.n_layers
-    want = {"gn_rmsnorm": (2 * layers + 1) * ticks,
-            "gn_rmsnorm_fused": (2 * layers - 1) * ticks, "gn_paged_attention": 0,
-            "gn_paged_attention_int8": layers * ticks, "gn_softmax": 0, "gn_attention": 0}
+    want = continuous_want(layers, ticks, int8=True)
     if launches != want:
         fail(f"int8 serving launches {launches} != {want}")
     if any(plain.values()):
@@ -898,33 +1081,19 @@ def phase_int8(served: dict) -> dict:
     if engine.pool.num_blocks != served["num_blocks"]:
         fail(f"int8 pool has {engine.pool.num_blocks} blocks, the fp pool {served['num_blocks']}")
     first = {c.request_id: c.new_tokens for c in comps}
-    engine.reset()
-    t1 = time.perf_counter()
-    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
-        again = {c.request_id: c.new_tokens for c in engine.run(reqs)}
-        torch.cuda.synchronize()
-    rerun_s = time.perf_counter() - t1
-    if any(not np.array_equal(first[i], again[i]) for i in first):
-        fail("int8: reset + rerun gave different tokens")
-    per_kernel = _device_us(prof)
-    busy_s = sum(per_kernel.values()) / 1e6
-    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
-    print(f"[int8-profile] device busy {busy_s:.3f}s of {rerun_s:.3f}s "
-          f"({100 * busy_s / rerun_s:.1f}%); top kernels (s): "
-          + json.dumps({k[:60]: v / 1e6 for k, v in top}))
+    tick_ms = [dt * 1e3 for _, _, dt in engine.tick_log]
+    replays = continuous_replays("int8", engine, reqs, first, want)
     # greedy prefix shared with phase 4's fp tokens, per request (not gated)
     fp = served["new_tokens"]
     prefix = []
     for i, toks in first.items():
         diff = np.nonzero(toks != fp[i])[0]
         prefix.append((int(diff[0]) if diff.size else len(toks)) / len(toks))
-    tick_ms = [dt * 1e3 for _, _, dt in engine.tick_log]
     res = {
         "requests": len(comps), "generated_tokens": m["generated_tokens"], "seconds": seconds,
         "tokens_per_s": m["generated_tokens"] / seconds, "model_ticks": ticks,
         "fused_ticks": m["fused_ticks"], "mean_tick_ms": float(np.mean(tick_ms)),
-        "launches": launches, "profiled_rerun_seconds": rerun_s, "device_busy_seconds": busy_s,
-        "device_busy_share": busy_s / rerun_s, "kv_hbm_bytes": engine.pool.hbm_bytes(),
+        "launches": launches, **replays, "kv_hbm_bytes": engine.pool.hbm_bytes(),
         "fp_kv_hbm_bytes": served["kv_hbm_bytes"],
         "hbm_ratio": engine.pool.hbm_bytes() / served["kv_hbm_bytes"],
         "num_blocks": m["num_blocks"], "block_utilization": m["block_utilization"],

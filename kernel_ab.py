@@ -51,11 +51,26 @@ measurements behind the kernel's layout pick (one JSON line a shape).
 
 serves chip_smoke.py's phase-4 workload (full-width internlm2-1.8b, random
 weights from seed 0, 8 slots, chunk 16, block 16, 16 requests of 32..1024
-prompt tokens, 32 new tokens each) through ROOT's continuous engine once to
-warm up, then four times under a CUDA-only profiler with the chain-split
-rules in turns (the card-sized rule, capped at ``CAP_PAGES``, capped, the
-card-sized rule): one JSON line a turn with the mean tick ms, the device
+prompt tokens, 32 new tokens each) under the chain-split rules in turns
+(the card-sized rule, capped at ``CAP_PAGES``, capped, the card-sized
+rule), each turn through a new engine of ROOT's, once to warm up (and
+capture its graphs, where ROOT's engine replays them) and once under a
+CUDA-only profiler: one JSON line a turn with the mean tick ms, the device
 busy seconds and the paged read's device seconds (read and merge).
+
+    python3 kernel_ab.py --serve PARENT_ROOT . . PARENT_ROOT
+
+serves phase 4's workload (above) over the fp pool and over the int8 pool
+of the same block count, and times the static path (8 prompts of 1024
+tokens from seed 0, 32 new tokens), through each root's engine, each root
+in a process of its own, in the order given: one JSON line a root and path.
+Continuous: one cold run (a root that captures graphs captures them there),
+then two reset runs timed on the host clock around synchronized work (tok/s,
+mean tick ms), and the graph captures where the root counts them.  Static:
+``generate`` once to warm up, then twice timed (tok/s), and the decode step
+alone, 16 steps after a warm-up step on the host clock around each
+synchronized step (ms): the root's ``static_decoder`` where it has one (a
+graph replay), else its eager ``decode_step``.
 """
 from __future__ import annotations
 
@@ -327,14 +342,16 @@ def ticks(root: str) -> list[dict]:
     from repro_torch.serve.workload import required_max_seq, seeded_requests
 
     model = make_model(get_config("internlm2-1.8b"))
+    master = model.init(0, "cuda")
     reqs = seeded_requests(model.cfg.vocab, 16, 32, 1024, 32, 1, 0)
-    engine = ContinuousEngine(model, model.init(0, "cuda"), num_slots=8,
-                              max_seq=required_max_seq(reqs), chunk=16, block_size=16,
-                              device="cuda")
-    engine.run(reqs)
     out = []
     for cap in (None, CAP_PAGES, CAP_PAGES, None):
+        # a new engine a turn: one that replays CUDA graphs keeps the chain
+        # splits its captures saw, so each rule captures its own (warm run)
         pa.MAX_RANGE_PAGES = cap
+        engine = ContinuousEngine(model, master, num_slots=8, max_seq=required_max_seq(reqs),
+                                  chunk=16, block_size=16, device="cuda")
+        engine.run(reqs)
         engine.reset()
         with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
             engine.run(reqs)
@@ -350,6 +367,76 @@ def ticks(root: str) -> list[dict]:
                     "ticks": len(engine.tick_log), "device_busy_s": sum(us.values()) / 1e6,
                     "paged_read_s": sum(v for k, v in paged.items() if "merge" not in k) / 1e6,
                     "paged_merge_s": sum(v for k, v in paged.items() if "merge" in k) / 1e6})
+        del engine
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve(root: str) -> list[dict]:
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    import time
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.transformer import make_model
+    from repro_torch.serve import engine as eng
+    from repro_torch.serve.workload import required_max_seq, seeded_requests
+
+    # as the launcher sets them: f32 matmuls in f32, bf16 ones summed in f32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+    def timed(fn) -> float:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    model = make_model(get_config("internlm2-1.8b"))
+    master = model.init(0, "cuda")
+    reqs = seeded_requests(model.cfg.vocab, 16, 32, 1024, 32, 1, 0)
+    out = []
+    for kv in ("fp", "int8"):
+        engine = eng.ContinuousEngine(model, master, num_slots=8, max_seq=required_max_seq(reqs),
+                                      chunk=16, block_size=16, kv_dtype=kv, device="cuda")
+        line = {"root": root, "path": f"continuous_{kv}", "cold_seconds": timed(
+            lambda: engine.run(reqs)), "seconds": [], "tokens_per_s": [], "mean_tick_ms": []}
+        for _ in range(2):
+            engine.reset()
+            sec = timed(lambda: engine.run(reqs))
+            line["seconds"].append(sec)
+            line["tokens_per_s"].append(engine.generated_tokens / sec)
+            line["mean_tick_ms"].append(float(np.mean([dt * 1e3 for *_, dt in engine.tick_log])))
+        m = engine.metrics()
+        line.update(ticks=m["model_ticks"], graphed=getattr(engine, "_graphs", None) is not None,
+                    captures=m.get("fused_step_compilations", 0) + m.get("decode_compilations", 0),
+                    capture_seconds=m.get("capture_seconds"))
+        out.append(line)
+        del engine
+        torch.cuda.empty_cache()
+    params = model.prepare(master, "cuda")
+    del master
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, model.cfg.vocab, size=(8, 1024)),
+                             dtype=torch.int32, device="cuda")
+    cfg = eng.ServeConfig(max_new_tokens=32)
+    timed(lambda: eng.generate(model, params, {"tokens": tokens}, cfg))
+    gen_s = [timed(lambda: eng.generate(model, params, {"tokens": tokens}, cfg)) for _ in range(2)]
+    logits, cache = model.prefill(params, {"tokens": tokens}, 1056)
+    nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+    graphed = hasattr(eng, "static_decoder")
+    if graphed:
+        decode = eng.static_decoder(model, params, 8, 1056, torch.device("cuda"))
+        model.prefill(params, {"tokens": tokens}, 1056, cache=decode.cache)
+        step = lambda i: decode(nxt, 1024 + i)  # noqa: E731
+    else:
+        step = lambda i: model.decode_step(params, cache, nxt, 1024 + i)  # noqa: E731
+    step_ms = [timed(lambda: step(i)) * 1e3 for i in range(17)][1:]
+    out.append({"root": root, "path": "static", "generate_seconds": gen_s,
+                "tokens_per_s": [8 * 32 / t for t in gen_s], "graphed": graphed,
+                "decode_ms": float(np.median(step_ms)), "decode_ms_all": step_ms})
     return out
 
 
@@ -357,7 +444,8 @@ def main(argv: list[str]) -> int:
     if len(argv) == 2 and argv[0] == "--one":
         print(json.dumps(one(argv[1])))
         return 0
-    modes = {"--ticks": ticks, "--norm-layouts": norm_layouts, "--forward": forward}
+    modes = {"--ticks": ticks, "--norm-layouts": norm_layouts, "--forward": forward,
+             "--serve-one": serve}
     if len(argv) == 2 and argv[0] in modes:
         for line in modes[argv[0]](argv[1]):
             print(json.dumps(line))
@@ -365,16 +453,21 @@ def main(argv: list[str]) -> int:
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
+    mode = "--one"
+    if argv[0] == "--serve":
+        mode, argv = "--serve-one", argv[1:]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[card] {card}")
     for root in argv:
-        out = subprocess.run([sys.executable, __file__, "--one", root], capture_output=True,
+        out = subprocess.run([sys.executable, __file__, mode, root], capture_output=True,
                              text=True, timeout=900)
         if out.returncode:
             print(out.stdout, out.stderr, file=sys.stderr)
             return out.returncode
-        print(out.stdout.strip().splitlines()[-1])
+        lines = out.stdout.strip().splitlines()
+        print("\n".join(lines[-1:] if mode == "--one" else
+                        [ln for ln in lines if ln.startswith("{")]))
     return 0
 
 

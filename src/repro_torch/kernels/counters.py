@@ -1,7 +1,13 @@
 """The kernels' launch counters and their plain versions' CUDA-call counters,
 read and reset together.  A run that sets them to 0, drives a path and reads
 them shows which kernels the path launched, and that no plain version ran
-on a CUDA tensor in their place."""
+on a CUDA tensor in their place.
+
+A wrapper's counter ticks when its Python code runs, which for a CUDA graph
+is at capture and not at replay.  ``serve/graphs.py`` therefore takes a
+``snapshot`` around each capture, removes what the capture and its warm-up
+counted, and ``add``s the capture's increments on every replay: the counts
+stay the launches the card executed on the path."""
 from __future__ import annotations
 
 from repro_torch.kernels.gn_attention import ops as attention_ops
@@ -34,8 +40,22 @@ def plain_cuda_calls() -> dict[str, int]:
     return {name: mod.cuda_calls for name, mod in PLAIN.items()}
 
 
+def _all() -> list[tuple[object, str]]:
+    """(module, attribute) of every counter, launches first."""
+    return list(WRAPPERS.values()) + [(mod, "cuda_calls") for mod in PLAIN.values()]
+
+
+def snapshot() -> tuple[int, ...]:
+    """Every counter's value, in ``_all``'s order."""
+    return tuple(getattr(mod, attr) for mod, attr in _all())
+
+
+def add(delta) -> None:
+    """Add ``delta`` (a ``snapshot``-ordered sequence) to the counters."""
+    for (mod, attr), d in zip(_all(), delta, strict=True):
+        setattr(mod, attr, getattr(mod, attr) + d)
+
+
 def reset() -> None:
-    for mod, attr in WRAPPERS.values():
+    for mod, attr in _all():
         setattr(mod, attr, 0)
-    for mod in PLAIN.values():
-        mod.cuda_calls = 0

@@ -135,7 +135,9 @@ def _serve_continuous(model, args, device) -> dict:
           f"{m['generated_tokens']} tokens in {seconds:.3f}s "
           f"({m['generated_tokens'] / seconds:.1f} tok/s), {m['model_ticks']} model ticks "
           f"({m['fused_ticks']} fused), peak blocks {m['peak_blocks_in_use']}"
-          f"/{engine.pool.num_blocks}")
+          f"/{engine.pool.num_blocks}, horizon buckets fused {m['fused_buckets']} decode "
+          f"{m['decode_buckets']}, {m['fused_step_compilations'] + m['decode_compilations']} "
+          f"graph captures ({m['capture_seconds']:.2f}s)")
     for i in range(0, len(engine.tick_log), 8):
         row = "  ".join(f"P{p}D{d} {dt * 1e3:.1f}ms"
                         for p, d, dt in engine.tick_log[i:i + 8])

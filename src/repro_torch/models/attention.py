@@ -132,17 +132,18 @@ def attn_prefill(cfg: ModelConfig, p: dict, x, positions):
     return out @ p["wo"], {"k": k, "v": v}
 
 
-def attn_decode_step(cfg: ModelConfig, p: dict, cache: dict, x, pos: int):
-    """One-token decode.  x: (B,1,D); pos: the position written, a Python
-    int; cache: this layer's {"k", "v"} slabs (B,T,KV,dh), whose slot
-    ``pos`` is written in place.  Returns (out (B,1,D), cache)."""
+def attn_decode_step(cfg: ModelConfig, p: dict, cache: dict, x, pos):
+    """One-token decode.  x: (B,1,D); pos: the position written, a 0-d int32
+    tensor on x's device (as the reference traces it, so one CUDA graph
+    serves every step); cache: this layer's {"k", "v"} slabs (B,T,KV,dh),
+    whose slot ``pos`` is written in place.  Returns (out (B,1,D), cache)."""
     _require_gn(cfg)
     b = x.shape[0]
     kv, dh = cfg.n_kv_heads, cfg.head_dim
-    posv = torch.full((b, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = _qkv(cfg, p, x, posv)
-    cache["k"][:, pos] = k_new[:, 0].to(cache["k"].dtype)
-    cache["v"][:, pos] = v_new[:, 0].to(cache["v"].dtype)
+    q, k_new, v_new = _qkv(cfg, p, x, pos.reshape(1, 1).expand(b, 1))
+    slot = pos.reshape(1).long()
+    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
+    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
     k, v = cache["k"], cache["v"]
     valid = torch.arange(k.shape[1], device=x.device) <= pos
     scores = _scaled_scores(q.reshape(b, 1, kv, cfg.n_heads // kv, dh), k, dh).float()

@@ -12,7 +12,9 @@
     every position, self-attention through the GN flash-attention kernel;
   * ``cache_specs`` / ``init_cache`` / ``prefill`` / ``decode_step`` — the
     static path over a dense slab cache (L, B, max_seq, KV, dh) per k and v,
-    written in place, its score rows through the GN softmax kernel;
+    written in place, its score rows through the GN softmax kernel; the
+    decode step takes its position as a device tensor too, so one CUDA
+    graph serves every step;
   * ``init_paged_cache`` / ``fused_step_slots_paged`` / ``_paged_head`` —
     the block-paged serving tick over fp arenas, or int8 arenas with
     per-block f32 scales.
@@ -138,15 +140,25 @@ class Model:
         return {k: torch.zeros(shape, dtype=dt, device=dev)
                 for k, (shape, dt) in self.cache_specs(batch, max_seq).items()}
 
-    def prefill(self, params, batch: dict, max_seq: int | None = None):
+    def prefill(self, params, batch: dict, max_seq: int | None = None, cache: dict | None = None):
         """Prompt pass over batch["tokens"] (B, S).  Returns the logits
-        (B, S, V) of every position and a new slab cache of ``max_seq``
-        (default S) slots holding the prompt's K/V at [0, S)."""
+        (B, S, V) of every position and a slab cache of ``max_seq`` (default
+        S) slots holding the prompt's K/V at [0, S) and zeros past it: a new
+        one, or ``cache`` (``init_cache(B, max_seq)``'s shapes) zeroed and
+        written in place, so a captured decode step can keep reading it."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
         x = self._embed(params, tokens)
-        cache = self.init_cache(b, max_seq or s, x.device)
+        if cache is None:
+            cache = self.init_cache(b, max_seq or s, x.device)
+        else:
+            want = {k: shape for k, (shape, _) in self.cache_specs(b, max_seq or s).items()}
+            if {k: tuple(v.shape) for k, v in cache.items()} != want:
+                raise ValueError(f"cache shapes {[tuple(v.shape) for v in cache.values()]} "
+                                 f"are not init_cache's {list(want.values())}")
+            for slab in cache.values():
+                slab.zero_()
         positions = torch.arange(s, device=x.device).expand(b, s)
         pending = None
         for lp, k_slab, v_slab in zip(params["layers"], cache["k"], cache["v"]):
@@ -157,12 +169,15 @@ class Model:
             x, pending = self._mlp_residual(lp, x, y)
         return self._lm_head(params, x + pending), cache
 
-    def decode_step(self, params, cache, token, pos: int):
-        """token: (B, 1) at position ``pos`` (a Python int).  Writes slot
-        ``pos`` of every layer's slabs in place; returns (logits (B, 1, V),
-        cache)."""
+    def decode_step(self, params, cache, token, pos):
+        """token: (B, 1) at position ``pos``: a Python int, or a 0-d int32
+        tensor on the cache's device (one CUDA graph then serves every
+        position).  Writes slot ``pos`` of every layer's slabs in place;
+        returns (logits (B, 1, V), cache)."""
         cfg = self.cfg
         x, pending = self._embed(params, token), None
+        if not isinstance(pos, torch.Tensor):
+            pos = torch.full((), pos, dtype=torch.int32, device=x.device)
         for lp, k_slab, v_slab in zip(params["layers"], cache["k"], cache["v"]):
             x, h = self._ln1(lp, x, pending)
             y, _ = attn.attn_decode_step(cfg, lp["mixer"], {"k": k_slab, "v": v_slab}, h, pos)

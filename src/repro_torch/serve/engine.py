@@ -15,10 +15,22 @@ a (chunk,)-lane set, decoding slots sample their next token into lane 0
 tick where every live slot decodes takes the (num_slots, 1) decode step.
 Parked slots get n_valid = 0: they neither write nor own blocks.
 
+Compile-once ticks, as the reference's: a tick specializes only on its step
+kind (fused or decode) and its horizon bucket, the smallest power of two of
+block-table columns (capped at a slot's capacity) that covers the live
+block horizon (``analysis/tracekeys.py``).  Its device state (held logits,
+positions, active mask, staged inputs per kind, one contiguous table per
+bucket) is allocated once and updated in place, so on the card each
+(kind, bucket) is captured into a CUDA graph at its first tick and every
+later tick replays it (``serve/graphs.py``); on the CPU the same tick runs
+eagerly.  ``generate``'s decode step is captured once per (B, max_seq) the
+same way, its position a device scalar.
+
 Per-tick host<->device traffic: the next tokens come back in one copy;
 positions advance on the device; the active mask, positions and block
 tables are uploaded only when admission, completion or block growth made
-their host mirrors dirty; a fused tick also uploads its staged chunk.
+their host mirrors dirty (a bucket's table also when the tick first reads
+it after that); a fused tick also uploads its staged chunk.
 
 Not ported, and refused with an error rather than ignored: sampling
 (temperature > 0, in both paths), GN sentinels, the prefix cache, priority
@@ -38,7 +50,9 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.analysis import tracekeys
 from repro_torch.models.transformer import Model
+from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.kv_cache import BlockPagedKVPool
 from repro_torch.serve.scheduler import Completion, FCFSScheduler, Request
 
@@ -60,15 +74,60 @@ def _tokens_on(params, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens).to(params["embed"]["tok"].device)
 
 
+class _StaticDecode:
+    """The static path's decode step over one slab cache of (B, max_seq):
+    the token and the position are staged into device buffers, and the step
+    runs eagerly on the CPU or as the replay of one CUDA graph on the card
+    (the reference jits ``decode_step`` once, the position traced)."""
+
+    def __init__(self, model: Model, params, batch: int, max_seq: int, device: torch.device):
+        self.model, self.params = model, params
+        self.cache = model.init_cache(batch, max_seq, device)
+        self.token = torch.zeros(batch, 1, dtype=torch.int32, device=device)
+        self.pos = torch.zeros((), dtype=torch.int32, device=device)
+        self.graphs = StepGraphs(device) if device.type == "cuda" else None
+
+    def _step(self):
+        return self.model.decode_step(self.params, self.cache, self.token, self.pos)[0]
+
+    def __call__(self, token, pos: int) -> torch.Tensor:
+        """Logits (B, 1, V) of ``token`` (B, 1) at ``pos``; on the card they
+        are the graph's output, overwritten by the next call."""
+        self.token.copy_(token)
+        self.pos.fill_(pos)
+        if self.graphs is None:
+            return self._step()
+        # the warm-up is the step itself: it writes slot pos with the values
+        # the replay then writes again
+        return self.graphs.run(("decode",), self._step, self._step)
+
+
+def static_decoder(model: Model, params, batch: int, max_seq: int,
+                   device: torch.device) -> _StaticDecode:
+    """The decode step ``generate`` runs for (batch, max_seq).  On the card
+    one is kept per (batch, max_seq) on the model, with its slab cache and
+    graph, as the reference keeps its jits per model; a call with other
+    parameters replaces it (the graph reads the weights it captured)."""
+    if device.type != "cuda":
+        return _StaticDecode(model, params, batch, max_seq, device)
+    kept = model.__dict__.setdefault("_static_decoders", {})
+    dec = kept.get((batch, max_seq))
+    if dec is None or dec.params is not params:
+        dec = kept[batch, max_seq] = _StaticDecode(model, params, batch, max_seq, device)
+    return dec
+
+
 def generate(model: Model, params, batch: dict, cfg: ServeConfig) -> torch.Tensor:
     """batch["tokens"]: (B, S_prompt) -> (B, S_prompt + max_new_tokens) int32
-    tokens, greedy.  Prefill once, then ``max_new_tokens`` decode steps; as
-    in the reference, the last step's logits are computed and not used."""
+    tokens, greedy.  Prefill once into the decoder's slab cache, then
+    ``max_new_tokens`` decode steps (graph replays on the card); as in the
+    reference, the last step's logits are computed and not used."""
     _refuse_sampling(cfg.temperature)
     tokens = _tokens_on(params, batch["tokens"])
     b, s = tokens.shape
     max_seq = s + cfg.max_new_tokens
-    logits, cache = model.prefill(params, {"tokens": tokens}, max_seq)
+    decode = static_decoder(model, params, b, max_seq, tokens.device)
+    logits, _ = model.prefill(params, {"tokens": tokens}, max_seq, cache=decode.cache)
     last = logits[:, -1].clone()
     del logits
     out = torch.zeros(b, max_seq, dtype=torch.int32, device=tokens.device)
@@ -76,8 +135,7 @@ def generate(model: Model, params, batch: dict, cfg: ServeConfig) -> torch.Tenso
     for i in range(cfg.max_new_tokens):
         nxt = last.argmax(dim=-1).to(torch.int32)[:, None]
         out[:, s + i:s + i + 1] = nxt
-        logits_step, cache = model.decode_step(params, cache, nxt, s + i)
-        last = logits_step[:, 0]
+        last = decode(nxt, s + i)[:, 0]
     return out
 
 
@@ -164,6 +222,30 @@ class ContinuousEngine:
         self.params = model.prepare(params, self.device)
         self.pool = BlockPagedKVPool(model, num_slots, max_seq, block_size or self.chunk,
                                      num_blocks, self.device, kv_dtype)
+        # the horizon-bucket grid, as the reference's: each tick reads the
+        # smallest power-of-two bucket of block-table columns that covers the
+        # live block horizon, so a tick has one shape per (step kind, bucket)
+        self.horizon_bucket_grid = tracekeys.horizon_bucket_grid(self.max_seq,
+                                                                 self.pool.block_size)
+        # the tick's device state: allocated once and updated in place, so a
+        # graph captured from one tick reads and writes the same tensors on
+        # every replay.  Per step kind: chunk tokens, n_valid, is_prefill;
+        # per bucket: a contiguous (N, bucket) block table.
+        dev, n = self.device, self.num_slots
+        self._last_logits = torch.zeros(n, model.cfg.vocab, dtype=torch.float32, device=dev)
+        self._pos_dev = torch.zeros(n, dtype=torch.int32, device=dev)
+        self._active_dev = torch.zeros(n, dtype=torch.bool, device=dev)
+        self._parked = torch.zeros(n, dtype=torch.bool, device=dev)  # the warm-up's mask
+        self._inputs = {kind: (torch.zeros(n, c, dtype=torch.int32, device=dev),
+                               torch.zeros(n, dtype=torch.int32, device=dev),
+                               torch.zeros(n, dtype=torch.bool, device=dev))
+                        for kind, c in (("fused", self.chunk), ("decode", 1))}
+        self._tables_dev = {b: torch.zeros(n, b, dtype=torch.int32, device=dev)
+                            for b in self.horizon_bucket_grid}
+        # on the card every tick is a graph replay (captured once per key and
+        # kept across reset, as the reference keeps its compiled ticks); on
+        # the CPU the same tick runs eagerly
+        self._graphs = StepGraphs(dev) if dev.type == "cuda" else None
         self.reset()
 
     def reset(self) -> None:
@@ -171,21 +253,23 @@ class ContinuousEngine:
         slot and block order are restored, so a reset run replays a workload
         with identical slot assignment and block tables."""
         self.pool.reset()
-        dev, n = self.device, self.num_slots
-        self._last_logits = torch.zeros(n, self.model.cfg.vocab, dtype=torch.float32, device=dev)
-        self._pos_dev = torch.zeros(n, dtype=torch.int32, device=dev)
-        self._active_dev = torch.zeros(n, dtype=torch.bool, device=dev)
-        self._tables_dev = torch.zeros(n, 1, dtype=torch.int32, device=dev)
+        n = self.num_slots
+        for t in (self._last_logits, self._pos_dev, self._active_dev):
+            t.zero_()
+        self._tables_fresh: set[int] = set()  # buckets whose buffer holds the host tables
         self._lanes_dirty = True
         self._slots: list[Optional[_SlotState]] = [None] * n
         self.scheduler = FCFSScheduler(chunk_grid=self.chunk)
         self.step_count = 0
         self.completions: list[Completion] = []
         self.model_ticks = 0      # ticks that ran the model
+        self._replayed_ticks = 0  # ... of which as a graph replay
         self.fused_ticks = 0      # ... of which carried a prefill lane
         self.generated_tokens = 0
         # (prefill lanes, decode lanes, host seconds) per model tick
         self.tick_log: list[tuple[int, int, float]] = []
+        # the horizon buckets each step kind ran at since the reset
+        self._buckets_seen: dict[str, set] = {"fused": set(), "decode": set()}
 
     def submit(self, req: Request) -> int:
         _refuse_sampling(req.temperature)
@@ -235,11 +319,13 @@ class ContinuousEngine:
         self._lanes_dirty = True
 
     # ----------------------------------------------------------------- ticks --
-    def _tick(self, tokens, n_valid, is_prefill):
+    def _tick(self, active, tokens, n_valid, is_prefill, tables):
         """Sample each decoding slot's token from the held logits into lane 0,
-        run the model once, and hold the new next-token logits.  Returns the
-        sampled tokens (N,), still on the device."""
-        active = self._active_dev
+        run the model once, and update the held logits and positions in
+        place.  Returns the sampled tokens (N,), still on the device.  With
+        ``active`` all false (the warm-up before a capture) every lane is
+        parked: the writes go to the sink block, and the held logits and
+        positions keep their values."""
         dec = torch.where(active & ~is_prefill, self._last_logits.argmax(dim=-1), 0)
         dec = dec.to(torch.int32)
         lane0 = torch.zeros_like(tokens)
@@ -248,11 +334,21 @@ class ContinuousEngine:
         nv = torch.where(active, torch.where(is_prefill, n_valid, 1), 0).to(torch.int32)
         pos = torch.where(active, self._pos_dev, 0).to(torch.int32)
         logits = self.model.fused_step_slots_paged(self.params, self.pool.cache, tokens,
-                                                   pos, nv, self._tables_dev)
-        self._last_logits = torch.where(active[:, None], logits[:, 0].float(),
-                                        self._last_logits)
-        self._pos_dev = self._pos_dev + nv
+                                                   pos, nv, tables)
+        self._last_logits.copy_(torch.where(active[:, None], logits[:, 0].float(),
+                                            self._last_logits))
+        self._pos_dev.add_(nv)
         return dec
+
+    def _run_tick(self, kind: str, bucket: int):
+        """The tick of ``kind`` over the ``bucket``-wide tables: eagerly on
+        the CPU, a graph replay on the card."""
+        args = (*self._inputs[kind], self._tables_dev[bucket])
+        if self._graphs is None:
+            return self._tick(self._active_dev, *args)
+        self._replayed_ticks += 1
+        return self._graphs.run((kind, bucket), lambda: self._tick(self._active_dev, *args),
+                                lambda: self._tick(self._parked, *args))
 
     def step(self) -> bool:
         """One engine tick.  Returns False once fully drained."""
@@ -266,25 +362,31 @@ class ContinuousEngine:
                 return True
             return False
         t0 = time.perf_counter()
-        dev = self.device
         prefills = [s for s in live if self._slots[s].phase == "prefilling"]
         decoders = [s for s in live if self._slots[s].phase == "decoding"]
         if self._lanes_dirty:  # residency changed: refresh the device mirrors
             active = np.array([st is not None for st in self._slots])
-            self._active_dev = torch.as_tensor(active).to(dev)
-            self._pos_dev = torch.as_tensor(self.pool.positions).to(dev)
+            self._active_dev.copy_(torch.from_numpy(active))
+            self._pos_dev.copy_(torch.from_numpy(self.pool.positions))
             self._lanes_dirty = False
         takes = {s: min(self.chunk, self._slots[s].req.prompt_len - self._slots[s].written)
                  for s in prefills}
         for s in live:
             self.pool.ensure(s, int(self.pool.positions[s]) + takes.get(s, 1))
-        # the tables go up sliced to the live block horizon: reads and
-        # gathers scale with live context, not max_seq
-        horizon = max(self.pool.active_horizon_blocks(), 1)
-        if self.pool.tables_dirty or self._tables_dev.shape[1] != horizon:
-            self._tables_dev = torch.as_tensor(self.pool.tables[:, :horizon].copy()).to(dev)
+        # the tick reads the smallest bucket of table columns that covers the
+        # live block horizon: reads scale with live context, and a tick has
+        # one shape per (step kind, bucket)
+        horizon = self.pool.active_horizon_blocks()
+        bucket = next(b for b in self.horizon_bucket_grid if b >= horizon)
+        kind = "fused" if prefills else "decode"
+        self._buckets_seen[kind].add(bucket)
+        if self.pool.tables_dirty:
+            self._tables_fresh.clear()
             self.pool.tables_dirty = False
-        if prefills:
+        if bucket not in self._tables_fresh:
+            self._tables_dev[bucket].copy_(torch.from_numpy(self.pool.tables[:, :bucket]))
+            self._tables_fresh.add(bucket)
+        if prefills:  # stage the chunk; the decode step's inputs stay zero
             chunk_toks = np.zeros((self.num_slots, self.chunk), np.int32)
             n_valid = np.ones(self.num_slots, np.int32)
             is_pref = np.zeros(self.num_slots, bool)
@@ -293,12 +395,10 @@ class ContinuousEngine:
                 chunk_toks[s] = st.padded[st.written: st.written + self.chunk]
                 n_valid[s] = takes[s]
                 is_pref[s] = True
-            dec = self._tick(torch.as_tensor(chunk_toks).to(dev),
-                             torch.as_tensor(n_valid).to(dev), torch.as_tensor(is_pref).to(dev))
+            for buf, host in zip(self._inputs[kind], (chunk_toks, n_valid, is_pref)):
+                buf.copy_(torch.from_numpy(host))
             self.fused_ticks += 1
-        else:  # steady state: every live slot decodes -> the (N, 1) step
-            zeros = torch.zeros(self.num_slots, dtype=torch.int32, device=dev)
-            dec = self._tick(zeros[:, None], zeros, zeros.bool())
+        dec = self._run_tick(kind, bucket)
         toks = dec.cpu().numpy()  # the tick's one device->host copy
         self.pool.advance({s: takes.get(s, 1) for s in live})
         self.model_ticks += 1
@@ -335,6 +435,7 @@ class ContinuousEngine:
         return self.completions
 
     def metrics(self) -> dict:
+        graphs = self._graphs
         return {
             "ticks": self.step_count,
             "model_ticks": self.model_ticks,
@@ -346,4 +447,23 @@ class ContinuousEngine:
             "num_blocks": self.pool.num_blocks,
             "block_size": self.pool.block_size,
             "block_utilization": self.pool.peak_blocks_in_use / max(1, self.pool.num_blocks),
+            "kv_paged": True,
+            "horizon_bucket_grid": list(self.horizon_bucket_grid),
+            "horizon_buckets": sorted(self._buckets_seen["fused"] | self._buckets_seen["decode"]),
+            "fused_buckets": sorted(self._buckets_seen["fused"]),
+            "decode_buckets": sorted(self._buckets_seen["decode"]),
+            # graph captures, the counterpart of the reference's compilation
+            # counters: one per (step kind, bucket) run on the card, kept
+            # across reset; 0 on the CPU, where no graph exists.  No tick
+            # depends on the prompt length, so no prefill is ever captured.
+            "fused_step_compilations": graphs.captures.get("fused", 0) if graphs else 0,
+            "decode_compilations": graphs.captures.get("decode", 0) if graphs else 0,
+            "prefill_compilations": 0,
+            "capture_seconds": graphs.capture_seconds if graphs else 0.0,
+            # the reference counts ticks dispatched under a guard that refuses
+            # implicit host->device transfers; a graph replay moves no host
+            # data into the tick (its inputs are staged before), so the port
+            # counts its replayed ticks, against decode_steps = model ticks
+            "decode_steps": self.model_ticks,
+            "transfer_guarded_ticks": self._replayed_ticks,
         }

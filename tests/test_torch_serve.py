@@ -24,6 +24,9 @@ from repro_torch.serve.workload import required_max_seq
 
 CHUNK = 4
 LENS = [5, 9, 14, 22, 7]  # the reference's _mixed_requests (tests/test_serve_paged.py)
+# the engines' horizon-bucket metrics: the grid and the buckets each step
+# kind ran at (one trace, or one CUDA graph, per (kind, bucket))
+BUCKET_KEYS = ("horizon_bucket_grid", "horizon_buckets", "fused_buckets", "decode_buckets")
 
 
 def _prompt(vocab, length, seed):
@@ -42,8 +45,8 @@ def _tokens(comps):
 
 @pytest.fixture(scope="module")
 def reference():
-    """The JAX engine's greedy tokens, and its weights as numpy, per dtype
-    and block size (float32 at {4, 8}, bfloat16 at 4)."""
+    """The JAX engine's greedy tokens and horizon buckets, and its weights
+    as numpy, per dtype and block size (float32 at {4, 8}, bfloat16 at 4)."""
     out = {}
     for dtype, sizes in (("float32", (4, 8)), ("bfloat16", (4,))):
         cfg = jax_reduce_config(jax_get_config("internlm2-1.8b"), dtype=dtype)
@@ -54,6 +57,7 @@ def reference():
             eng = JaxEngine(model, params, num_slots=2, max_seq=required_max_seq(reqs),
                             cfg=JaxServeConfig(), chunk=CHUNK, block_size=bs, sentinels=False)
             out[dtype, bs] = _tokens(eng.run(reqs))
+            out["buckets", dtype, bs] = {k: eng.metrics()[k] for k in BUCKET_KEYS}
         out[dtype] = jax.tree.map(np.asarray, params)
     return out
 
@@ -81,6 +85,20 @@ def test_greedy_tokens_identical_to_jax_engine_f32(reference, bs):
     # reset-replay: recycled blocks are not zeroed, yet tokens are identical
     eng.reset()
     assert _tokens(eng.run(reqs)) == reference["float32", bs]
+
+
+@pytest.mark.parametrize("bs", [4, 8])
+def test_horizon_buckets_equal_jax_engine(reference, bs):
+    """On the same workload the port's tick reads the horizon buckets the
+    JAX engine traced, per step kind, with its greedy tokens still equal at
+    float32; the CPU captures no graph."""
+    eng, reqs = _engine(reference, "float32", bs)
+    assert _tokens(eng.run(reqs)) == reference["float32", bs]
+    m = eng.metrics()
+    assert {k: m[k] for k in BUCKET_KEYS} == reference["buckets", "float32", bs]
+    assert len(m["horizon_buckets"]) >= 2 and m["kv_paged"]
+    assert (m["fused_step_compilations"], m["decode_compilations"],
+            m["prefill_compilations"]) == (0, 0, 0)
 
 
 def test_greedy_tokens_bf16_agreement(reference):
