@@ -16,15 +16,20 @@ Phases, each fatal on failure (exit code 1):
                beside the byte/flop bound and a library call's time; the
                paged read in its fp mode and in its int8 mode (arenas
                quantized on the card by ``paged_quant_write``), bf16 on its
-               tensor-core design and f32 on its CUDA-core design; the flash
+               tensor-core design and f32 on its CUDA-core design, and at the
+               long phases' 514-column tables (65 chain ranges); the flash
                attention in bf16 (its tensor-core design, V = 1 drawn in
-               bf16) and in f32 (its CUDA-core design); each attention case
-               names the design that ran it;
+               bf16) and in f32 (its CUDA-core design), and at the long
+               prefills' shapes (S = 4096 and 8192); the softmax at the long
+               decode rows (4128 and 8224 columns), each timed case naming
+               the layout it ran; each attention case names its design;
   3. parity  - full-width internlm2-1.8b cut to 2 layers, kernels on the card
                against plain versions on the CPU, same weights, at float32
                and at bfloat16: one fused paged tick with mixed
-               prefill/decode/parked lanes over fp and over int8 arenas, and
-               the static path's prefill, four decode steps and
+               prefill/decode/parked lanes over fp and over int8 arenas (at
+               f32 also through the reference's streamed and gathered reads:
+               streamed against gathered, the kernel read against streamed),
+               and the static path's prefill, four decode steps and
                teacher-forced forward;
   4. serve   - the continuous path: full-width internlm2-1.8b (24 layers,
                random weights from a seed) through ``repro_torch.launch.serve
@@ -34,7 +39,8 @@ Phases, each fatal on failure (exit code 1):
                (step kind, horizon bucket) within the grid's bound; launch
                counts, drain, a timed reset-replay (launches gated again), a
                profiled one (device busy share, the GN kernels' device
-               records against the launches), the eager tick on the same
+               records against the launches; a trace that lost records is
+               taken again), the eager tick on the same
                workload bit for bit against the graphed one (tokens, held
                logits, arenas), and the static oracle's token identity
                (reported, not gated);
@@ -55,7 +61,23 @@ Phases, each fatal on failure (exit code 1):
                scales bitwise against the eager tick too), the pool's bytes
                beside phase 4's fp pool, and each request's common greedy
                prefix with phase 4's fp tokens (reported, not gated: random
-               weights give near-flat logits).
+               weights give near-flat logits);
+  7. long-static - prompts past 2048 tokens through ``generate``: 4 x 4096,
+               then 2 x 8192 tokens, 32 new tokens each; exact launches (the
+               flash kernel in prefill, the softmax in every decode step),
+               prefill and replayed decode-step times, the softmax layout of
+               the decode rows, the 4096 batch's perplexity, and phase 2's
+               flash times at those shapes beside their bound and SDPA;
+  8. long    - the continuous path over 8 seeded prompts of 2049..8192 tokens
+               (8 slots, chunk 16, block 16, one arrival a tick): graphed,
+               captures within the grid's bound, launches exact, drained; a
+               timed rerun, a profiled window of ticks, and the static
+               oracle's tokens (reported, not gated);
+  9. reads   - phase 4's workload and weights through the reference's
+               streamed read (fp and int8 pools) and gathered read (fp),
+               forced by ``FORCE_PAGED_READ``, each graphed, with phase 4's
+               checks; their tok/s, tick and busy share beside phases 4 and
+               6, and the greedy prefix shared with phase 4 (not gated).
 Each path's launch counters are set to 0 just before it runs and read just
 after.  The last two lines are the kernels JSON and {"ok": true, ...}.
 
@@ -82,7 +104,7 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.analysis import tracekeys  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.luts import TPU_SOFTMAX_LUT, SoftmaxLUTConfig  # noqa: E402
-from repro_torch.data.synthetic import optimal_perplexity  # noqa: E402
+from repro_torch.data.synthetic import DataConfig, batch_at, optimal_perplexity  # noqa: E402
 from repro_torch.kernels import _build, counters  # noqa: E402
 from repro_torch.kernels.gn_attention import ops as fa_ops  # noqa: E402
 from repro_torch.kernels.gn_attention import ref as fa_ref  # noqa: E402
@@ -96,7 +118,7 @@ from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models.transformer import make_model  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, generate,  # noqa: E402
-                                      perplexity, static_decoder)
+                                      perplexity, static_decoder, static_reference)
 from repro_torch.serve.workload import required_max_seq, seeded_requests  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate and the op rate per
@@ -113,6 +135,14 @@ REQUESTS, MIN_PROMPT, MAX_PROMPT, SEED = 16, 32, 1024, 0
 # the static path: batches of BATCH prompts of PROMPT tokens, NEW new tokens;
 # its forward scores BATCH sequences of PROMPT + NEW tokens
 BATCHES, BATCH, PROMPT, NEW = 2, 8, 1024, 32
+# the long phases: the static path's batches of (prompts, prompt tokens), NEW
+# new tokens each; the continuous path's LONG_REQUESTS seeded prompts of
+# LONG_MIN..LONG_MAX tokens, NEW new tokens each (SLOTS, CHUNK, BLOCK, one
+# arrival a tick), whose tables reach LONG_BT columns
+LONG_BATCHES = ((4, 4096), (2, 8192))
+LONG_REQUESTS, LONG_MIN, LONG_MAX = 8, 2049, 8192
+LONG_BT = -(-(LONG_MAX + NEW) // BLOCK)
+LONG_WINDOW = 64  # ticks of the long continuous rerun that are profiled
 # kernel-vs-plain tolerances on the card
 NORM_ATOL_F32 = 4e-6      # sum order and mean vs sum*(1/C): a few f32 ulps at |y| ~ 4
 ATTN_ATOL_F32 = 2e-4      # the reference's own kernel-vs-ref tolerance (online vs one-pass)
@@ -132,6 +162,10 @@ SM_OPS_PER_ELEM = 8       # max, Δ, grid scale, round, LUT product, round, sum,
 # round at other places in cuBLAS than on the CPU.
 LOGITS_ATOL_F32 = 1e-2
 LOGITS_ATOL_BF16 = 0.1
+# the streamed read against the gathered read on the card, f32 logits: bit for
+# bit (cuBLAS reduced each score's dot alike for a tile and for the stream on
+# an H100, PERF.md); a nonzero bound would state where it does not
+STREAMED_ATOL = 0.0
 
 
 def fail(msg: str) -> None:
@@ -164,6 +198,7 @@ def _device_us(prof) -> dict:
 
 
 RECORD_LOSS = 0.05  # share of a GN kernel's device records a trace may lose
+TRACE_ATTEMPTS = 3  # traces of a rerun, taken until one holds the GN kernels' records
 # the GN kernels' device names (the paged read's range merge apart), for
 # counting their records in a profiled run, graph replays included
 KERNEL_NAMES = {"gn_paged_attention": ("gn_paged_attention_kernel", "gn_paged_attention_tc_kernel"),
@@ -178,26 +213,40 @@ def record_counts(prof) -> dict:
     return {e.key: e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
 
 
-def check_records(label: str, counts: dict, want: dict) -> dict:
-    """The GN kernels' device records in a profiled run (``counts``: records
-    per kernel name) against the launches the run should have executed, an
+def traced_rerun(label: str, rerun, want: dict) -> tuple:
+    """``rerun()`` -> (result, its CUDA-only trace, seconds), a profiled
+    rerun that checks its own result, with the GN kernels' device records in
+    its trace held against the launches the run executed (``want``): an
     independent check of the counters, which a graph replay ticks by what
-    its capture counted.  CUPTI reports the kernels of replayed graphs, but
-    was seen to lose a few records of a long trace (3 to 12 of ~12k GN
-    records on an H100), so a kernel's records may fall short of its
-    launches by up to RECORD_LOSS of them and never exceed them.  That every
-    captured kernel ran is shown exactly by the eager rerun (bitwise the
-    graphed one) and the counters by the launch gates."""
-    got = dict.fromkeys(KERNEL_NAMES, 0)
-    for key, n in counts.items():
-        for name, devnames in KERNEL_NAMES.items():
-            if any(d in key for d in devnames):
-                got[name] += n
-    if any(not want[k] * (1 - RECORD_LOSS) <= got[k] <= want[k] for k in want):
+    its capture counted.  A record count above the launches fails at once.
+    CUPTI reports the kernels of replayed graphs but loses records of some
+    traces: a few of ~12k in most (3 to 12 on an H100), and once 21% of
+    them, every GN kernel alike and ending mid-tick, in a rerun whose tokens
+    equalled the first run's.  A trace that lost more than RECORD_LOSS of a
+    kernel's records also undercounts the busy time, so it is discarded and
+    the rerun traced again, at most TRACE_ATTEMPTS times; the run fails if
+    no trace holds.  That every captured kernel ran is shown exactly by the
+    eager rerun (bitwise the graphed one) and the counters by the launch
+    gates.  Returns (result, trace, seconds, records, traces taken)."""
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        out, prof, seconds = rerun()
+        counts = record_counts(prof)
+        got = dict.fromkeys(KERNEL_NAMES, 0)
+        for key, n in counts.items():
+            for name, devnames in KERNEL_NAMES.items():
+                if any(d in key for d in devnames):
+                    got[name] += n
         keys = {k[:90]: n for k, n in counts.items()
                 if any(d in k for names in KERNEL_NAMES.values() for d in names)}
-        fail(f"{label}: device records of the GN kernels {got} against launches {want}: {keys}")
-    return got
+        if any(got[k] > want[k] for k in want):
+            fail(f"{label}: device records of the GN kernels {got} above launches {want}: {keys}")
+        if all(want[k] * (1 - RECORD_LOSS) <= got[k] for k in want):
+            return out, prof, seconds, got, attempt
+        print(f"[{label}-profile] trace {attempt} of {TRACE_ATTEMPTS} lost device records of "
+              f"the GN kernels: {json.dumps(got)} against launches {json.dumps(want)}: "
+              f"{json.dumps(keys)}")
+    fail(f"{label}: every one of {TRACE_ATTEMPTS} traces lost more than {RECORD_LOSS:.0%} of a "
+         f"GN kernel's device records (the last {got} against launches {want})")
 
 
 def profiled(fn):
@@ -415,14 +464,16 @@ def norm_cases(gen) -> tuple[list[dict], list[dict]]:
     return norms, fused
 
 
-def attn_inputs(c: int, dtype, gen, v_ones: bool = False, exact: bool = False):
+def attn_inputs(c: int, dtype, gen, v_ones: bool = False, exact: bool = False,
+                max_bt: int = 66):
     """N=8 sequences at serving widths (H16/Hkv8/D128, block 16): lengths up to
-    1056, shuffled tables with stale ids past each length, one empty row.
+    ``max_bt`` blocks (66: 1056 tokens, phase 4's; LONG_BT: 8224, the long
+    phases'), shuffled tables with stale ids past each length, one empty row.
     ``exact``: q and k in {-1, 0, 1}, q nonzero on 8 head dims only, under a
     scale of 1/8: every score is exact in f32 whatever the summation order,
     lies on the Δ grid and within one logit unit, so no score can flip a Δ
     rounding and every online correction is a fine Q1.15 factor."""
-    n, h, hkv, d, bs, max_bt = SLOTS, 16, 8, 128, BLOCK, 66
+    n, h, hkv, d, bs = SLOTS, 16, 8, 128, BLOCK
     rng = np.random.default_rng(c)
     lengths = rng.integers(1, max_bt * bs + 1, size=n)
     lengths[3] = 0  # an empty sequence reads nothing
@@ -467,21 +518,21 @@ def attn_bound(args, lengths, n_valid, kv_item: int, scales: bool) -> tuple[floa
     return bound(nbytes, 4 * h * d * seen, q.dtype)
 
 
-def attn_case(c: int, dtype, gen) -> dict:
+def attn_case(c: int, dtype, gen, max_bt: int = 66) -> dict:
     rel = 0.0 if dtype == torch.float32 else BF16_REL
-    args, lengths, n_valid = attn_inputs(c, dtype, gen)
+    args, lengths, n_valid = attn_inputs(c, dtype, gen, max_bt=max_bt)
     lane = torch.as_tensor(np.arange(c)[None, :] < n_valid[:, None]).to(DEV)
     got = attn_ops.gn_paged_attention_chunk(*args)
     check = compare(got[lane], attn_ref.gn_paged_attention_chunk_ref(*args)[lane],
                     ATTN_ATOL_F32, rel)
     # scores exact, on the Δ grid and one logit wide: no flip is possible,
     # so every row must agree to the Q1.15 rounding of the corrections alone
-    ex_args, _, _ = attn_inputs(c, dtype, gen, exact=True)
+    ex_args, _, _ = attn_inputs(c, dtype, gen, exact=True, max_bt=max_bt)
     exact = compare(attn_ops.gn_paged_attention_chunk(*ex_args, sm_scale=1 / 8)[lane],
                     attn_ref.gn_paged_attention_chunk_ref(*ex_args, sm_scale=1 / 8)[lane],
                     EXACT_ATOL, rel)
     # exact-ones: V = 1 turns each valid row into sum(p) = 1
-    ones_args, _, _ = attn_inputs(c, torch.float32, gen, v_ones=True)
+    ones_args, _, _ = attn_inputs(c, torch.float32, gen, v_ones=True, max_bt=max_bt)
     ones_err = (attn_ops.gn_paged_attention_chunk(*ones_args)[lane] - 1.0).abs().max().item()
     empty_read = got[3].abs().max().item()  # the empty sequence must read nothing
     check["ok"] = (check["bad_rows"] <= FLIP_ROWS * check["rows"] and exact["bad_rows"] == 0
@@ -492,7 +543,8 @@ def attn_case(c: int, dtype, gen) -> dict:
     return {
         "name": "gn_paged_attention", "design": attn_ops.call_design(*args[:3]),
         "shape": {"N": n, "C": c, "H": h, "Hkv": hkv, "D": d, "block": BLOCK,
-                  "max_len": int(lengths.max())},
+                  "max_len": int(lengths.max()),
+                  "chain_ranges": attn_ops.chain_splits(n, hkv, max_bt, args[0].device)[0]},
         "dtype": str(dtype).split(".")[-1], **check,
         "exact_scores": {k: exact[k] for k in ("max_abs_err", "bad_rows")},
         "ones_err": ones_err, "empty_read": empty_read, "bound_ms": b_ms, "bound_by": b_by,
@@ -513,12 +565,12 @@ def quantize(arena):
     return q8.view(nb + 1, bs, hkv, d), scale
 
 
-def attn_int8_case(c: int, dtype, gen) -> dict:
+def attn_int8_case(c: int, dtype, gen, max_bt: int = 66) -> dict:
     """The int8 mode against its plain version: random arenas quantized on
     the card; exact scores (k in {-1, 0, 1} stored at scale 1, q likewise,
     sm_scale 1/8); V = 1 stored at scale 1; the empty sequence."""
     rel = 0.0 if dtype == torch.float32 else BF16_REL
-    (q, k_fp, v_fp, *ints), lengths, n_valid = attn_inputs(c, dtype, gen)
+    (q, k_fp, v_fp, *ints), lengths, n_valid = attn_inputs(c, dtype, gen, max_bt=max_bt)
     lane = torch.as_tensor(np.arange(c)[None, :] < n_valid[:, None]).to(DEV)
     (k8, ks), (v8, vs) = quantize(k_fp), quantize(v_fp)
     del k_fp, v_fp
@@ -526,7 +578,7 @@ def attn_int8_case(c: int, dtype, gen) -> dict:
     got = attn_ops.gn_paged_attention_chunk(*args, scales=scales)
     check = compare(got[lane], attn_ref.gn_paged_attention_chunk_ref(*args, scales=scales)[lane],
                     ATTN_ATOL_F32, rel)
-    (eq, ek, ev, *eints), _, _ = attn_inputs(c, dtype, gen, exact=True)
+    (eq, ek, ev, *eints), _, _ = attn_inputs(c, dtype, gen, exact=True, max_bt=max_bt)
     ev8, evs = quantize(ev)
     ek8 = torch.cat([ek.to(torch.int8), torch.zeros_like(ek[:1], dtype=torch.int8)])
     ex_args, ex_scales = (eq, ek8, ev8, *eints), (torch.ones_like(evs), evs)
@@ -546,7 +598,8 @@ def attn_int8_case(c: int, dtype, gen) -> dict:
     return {
         "name": "gn_paged_attention_int8", "design": attn_ops.call_design(*args[:3]),
         "shape": {"N": n, "C": c, "H": h, "Hkv": k8.shape[2], "D": d, "block": BLOCK,
-                  "max_len": int(lengths.max()), "kv": "int8"},
+                  "max_len": int(lengths.max()), "kv": "int8",
+                  "chain_ranges": attn_ops.chain_splits(n, k8.shape[2], max_bt, q.device)[0]},
         "dtype": str(dtype).split(".")[-1], **check,
         "exact_scores": {k: exact[k] for k in ("max_abs_err", "bad_rows")},
         "ones_err": ones_err, "empty_read": empty_read, "bound_ms": b_ms, "bound_by": b_by,
@@ -567,6 +620,23 @@ def softmax_rows(rows: int, cols: int, dtype, gen, visible=None, scale: float = 
     return x.to(dtype), masked
 
 
+SOFTMAX_LAYOUTS = {"gn_softmax_warp_kernel": "warp", "gn_softmax_block_kernel": "block",
+                   "gn_softmax_row_kernel": "row"}
+
+
+def softmax_layouts(fn) -> list[str]:
+    """The softmax layouts a call of ``fn`` ran, read from the kernel names
+    of its device trace (a warp per row, a block per row, or the three-pass
+    row kernel)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sorted({layout for key in _device_us(prof) for name, layout in SOFTMAX_LAYOUTS.items()
+                   if name in key})
+
+
 def softmax_case(label: str, x, masked, cfg=None, iters: int = 0) -> dict:
     cfg = cfg or SoftmaxLUTConfig(frac_bits=3)
     got = sm_ops.gn_softmax(x, cfg)
@@ -584,17 +654,19 @@ def softmax_case(label: str, x, masked, cfg=None, iters: int = 0) -> dict:
     if iters:  # one read and one write of every element; elementwise ops on the CUDA cores
         b_ms, b_by = bound(2 * x.numel() * x.element_size(), SM_OPS_PER_ELEM * x.numel(),
                            torch.float32)
-        res.update(bound_ms=b_ms, bound_by=b_by, **timings(
-            lambda: sm_ops.gn_softmax(x, cfg), lambda: sm_ref.gn_softmax_ref(x, cfg),
-            lambda: torch.softmax(x, dim=-1), iters))
+        res.update(bound_ms=b_ms, bound_by=b_by,
+                   layout=softmax_layouts(lambda: sm_ops.gn_softmax(x, cfg)), **timings(
+                       lambda: sm_ops.gn_softmax(x, cfg), lambda: sm_ref.gn_softmax_ref(x, cfg),
+                       lambda: torch.softmax(x, dim=-1), iters))
     return res
 
 
 def softmax_cases(gen) -> list[dict]:
     """The prefill's causally masked score rows (B·H·S, S) and a decode
     step's (B·H, max_seq) with the tail past pos masked, both f32 as the
-    model casts its scores; a bf16 case, a ragged case, a vocab-wide row
-    set (the wide-row path) and the reference's three LUT configs."""
+    model casts its scores, and the long phases' decode rows (4128 and 8224
+    columns); a bf16 case, a ragged case, a vocab-wide row set (the
+    wide-row path) and the reference's three LUT configs."""
     out = []
     x, masked = softmax_rows(BATCH * 16 * PROMPT, PROMPT, torch.float32, gen,
                              visible=lambda r: r % PROMPT)
@@ -604,6 +676,10 @@ def softmax_cases(gen) -> list[dict]:
     x, masked = softmax_rows(BATCH * 16, PROMPT + NEW, torch.float32, gen,
                              visible=lambda r: torch.full_like(r, pos))
     out.append(softmax_case("decode", x, masked, iters=50))
+    for b, s in LONG_BATCHES:  # the long phases' decode rows: (B·H, S + NEW)
+        x, masked = softmax_rows(b * 16, s + NEW, torch.float32, gen,
+                                 visible=lambda r, p=s + NEW // 2: torch.full_like(r, p))
+        out.append(softmax_case(f"decode-{s + NEW}", x, masked, iters=50))
     x, masked = softmax_rows(4096, PROMPT, torch.bfloat16, gen, visible=lambda r: r % PROMPT)
     out.append(softmax_case("bf16", x, masked))
     x, masked = softmax_rows(1000, 777, torch.float32, gen, visible=lambda r: (r * 7) % 777)
@@ -673,25 +749,60 @@ def fa_case(label: str, shape, dtype, causal: bool, gen, iters: int = 0) -> dict
     return res
 
 
+def fa_long_case(b: int, s: int, gen, iters: int = 5) -> dict:
+    """The flash attention at a long prefill's shape (B, 16, 8, S, S, 128),
+    causal, bf16.  The kernel runs the whole shape; its first kv head's
+    group (q heads 0 and 1) is held against the plain version on that group
+    alone, whose (B, 2, S, S) f32 scores fit where the whole shape's would
+    not; V = 1 over the whole shape.  Device times of the whole shape beside
+    its bound and SDPA; the plain version's time is the group's."""
+    shape = (b, 16, 8, s, s, 128)
+    q, k, v = fa_inputs(shape, torch.bfloat16, gen)
+    group = [t[:, :n].contiguous() for t, n in ((q, 2), (k, 1), (v, 1))]
+    check = compare(fa_ops.gn_attention(q, k, v, causal=True)[:, :2],
+                    fa_ref.gn_attention_ref(*group, causal=True), ATTN_ATOL_F32, BF16_REL)
+    ones = fa_ops.gn_attention(q, k, torch.ones_like(v), causal=True)
+    ones_err = (ones.float() - 1.0).abs().max().item()
+    del ones
+    check["ok"] = check["bad_rows"] <= FLIP_ROWS * check["rows"] and ones_err <= ONES_ATOL
+    b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+                       4 * b * 16 * 128 * (s * (s + 1) // 2), torch.bfloat16)
+    lib = functools.partial(F.scaled_dot_product_attention, q, k, v, is_causal=True,
+                            enable_gqa=True)
+    return {"name": "gn_attention", "case": f"prefill-{s}",
+            "design": fa_ops.design(torch.bfloat16, TPU_SOFTMAX_LUT),
+            "shape": {"B": b, "H": 16, "Hkv": 8, "Sq": s, "Sk": s, "D": 128, "causal": True},
+            "dtype": "bfloat16", **check, "ones_err": ones_err, "bound_ms": b_ms,
+            "bound_by": b_by, "ms": device_ms(lambda: fa_ops.gn_attention(q, k, v, causal=True),
+                                              iters),
+            "call_ms": call_ms(lambda: fa_ops.gn_attention(q, k, v, causal=True), iters),
+            "plain_ms": None, "plain_group_ms": device_ms(
+                lambda: fa_ref.gn_attention_ref(*group, causal=True), 3),
+            "library_ms": device_ms(lib, iters)}
+
+
 def attention_cases(gen) -> list[dict]:
     """The forward's shape (B 8, H 16, Hkv 8, S = prompt + new, D 128,
     causal) in bf16 and f32, a non-causal case, a KV-prefix case (Sk > Sq,
-    the causal offset) and a ragged S."""
+    the causal offset), a ragged S, and the long prefills' shapes."""
     fwd = (BATCH, 16, 8, PROMPT + NEW, PROMPT + NEW, 128)
     return [fa_case("forward", fwd, torch.bfloat16, True, gen, iters=10),
             fa_case("forward", fwd, torch.float32, True, gen, iters=5),
             fa_case("non-causal", (2, 16, 8, 256, 256, 128), torch.bfloat16, False, gen),
             fa_case("kv-prefix", (1, 8, 1, 64, 256, 32), torch.float32, True, gen),
-            fa_case("ragged", (2, 16, 8, 333, 333, 128), torch.float32, True, gen)]
+            fa_case("ragged", (2, 16, 8, 333, 333, 128), torch.float32, True, gen)] + [
+                fa_long_case(b, s, gen) for b, s in LONG_BATCHES]
 
 
 def phase_kernels() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(0)
     norms, fused_norms = norm_cases(gen)
     attns = [attn_case(c, dt, gen) for c in (CHUNK, 1) for dt in (torch.bfloat16, torch.float32)]
+    attns.append(attn_case(CHUNK, torch.bfloat16, gen, max_bt=LONG_BT))
     softmaxes = softmax_cases(gen)
     flashes = attention_cases(gen)
     attns_int8 = [attn_int8_case(c, torch.bfloat16, gen) for c in (CHUNK, 1)]
+    attns_int8.append(attn_int8_case(CHUNK, torch.bfloat16, gen, max_bt=LONG_BT))
     results = norms + fused_norms + attns + attns_int8 + softmaxes + flashes
     for r in results:
         print(f"[kernels] {json.dumps(r)}")
@@ -760,21 +871,48 @@ def tick_parity(base, master) -> dict:
                   f"{err:.3e} (plain paged read on the card: {plain_read_err:.3e}; "
                   f"max |logit| {cpu.abs().max().item():.3f}, bound {tol}{extra})")
             errs[dt if kv_dtype == "fp" else f"int8 {dt}"] = err
+            if dt == "float32":
+                read_parity(tick, model, kv_dtype, got, torch.as_tensor(n_valid > 0))
     return errs
 
 
-class swapped:
-    """Swap a kernel wrapper in ``models.attention`` for its plain version."""
+def read_parity(tick, model, kv_dtype: str, kernel_logits, live) -> None:
+    """The f32 tick on the card through the reference's two jnp reads
+    (``FORCE_PAGED_READ``): the streamed read against the gathered read
+    (bitwise expected: each score is the same dot; STREAMED_ATOL bounds it
+    if cuBLAS picks another reduction for a tile's shape than for the whole
+    stream's) and, on the ``live`` slots, the kernel read against the
+    streamed read (the online read against the one-pass one, phase 3's f32
+    logits bound).  A parked slot's logits are don't-care: the kernel reads
+    nothing for it, the jnp reads read its row 0."""
+    reads = {}
+    for path in ("streamed", "gathered"):
+        with swapped("FORCE_PAGED_READ", path):
+            reads[path] = tick(model, DEV, kv_dtype)[0]
+    bitwise = torch.equal(reads["streamed"], reads["gathered"])
+    sg = (reads["streamed"] - reads["gathered"]).abs().max().item()
+    ks = (kernel_logits - reads["streamed"])[live].abs().max().item()
+    print(f"[parity] {ARCH} 2 layers float32 fused tick, {kv_dtype} KV, paged reads: streamed vs "
+          f"gathered bitwise {bitwise} (max |diff| {sg:.3e}, bound {STREAMED_ATOL}); kernel vs "
+          f"streamed max |logit diff| {ks:.3e} (bound {LOGITS_ATOL_F32})")
+    if not sg <= STREAMED_ATOL or not ks <= LOGITS_ATOL_F32:
+        fail(f"paged reads at {kv_dtype}: streamed vs gathered {sg:.3e}, kernel vs streamed "
+             f"{ks:.3e}")
 
-    def __init__(self, name: str, plain):
-        self.name, self.plain = name, plain
+
+class swapped:
+    """Set a name of ``models.attention`` for a block: a kernel wrapper to its
+    plain version, or ``FORCE_PAGED_READ`` to a read."""
+
+    def __init__(self, name: str, value):
+        self.name, self.value = name, value
 
     def __enter__(self):
-        self.kernel = getattr(attention_mod, self.name)
-        setattr(attention_mod, self.name, self.plain)
+        self.saved = getattr(attention_mod, self.name)
+        setattr(attention_mod, self.name, self.value)
 
     def __exit__(self, *exc):
-        setattr(attention_mod, self.name, self.kernel)
+        setattr(attention_mod, self.name, self.saved)
 
 
 def static_parity(base, master) -> dict:
@@ -839,12 +977,41 @@ def phase_parity() -> dict:
 
 
 # ------------------------------------------------------------------ phase 4 --
-def continuous_replays(label: str, engine, reqs, first: dict, want: dict) -> dict:
+def window_run(engine, reqs, start: int, ticks: int, trace: bool = False):
+    """A reset rerun of ``reqs`` whose model ticks [start, start + ticks)
+    run apart, timed on the host clock (and under the profiler, with
+    ``trace``): (request id -> new tokens, the window's seconds, the trace
+    or None)."""
+    engine.reset()
+    for req in reqs:
+        engine.submit(req)
+    while engine.model_ticks < start and engine.step():
+        pass
+
+    def window():
+        while engine.model_ticks < start + ticks and engine.step():
+            pass
+
+    if trace:
+        _, prof, seconds = profiled(window)
+    else:
+        prof, (_, ms) = None, timed(window)
+        seconds = ms / 1e3
+    while engine.step():
+        pass
+    return {c.request_id: c.new_tokens for c in engine.completions}, seconds, prof
+
+
+def continuous_replays(label: str, engine, reqs, first: dict, want: dict, eager: bool = True,
+                       window: int | None = None) -> dict:
     """After a continuous path's first run (which captured its graphs): the
     capture contract; a timed rerun, every tick a replay, with its launch
     counters gated as the first run's; a profiled rerun (device busy, top
-    kernels, the GN kernels' device records against the launches); then the
-    eager tick on the same workload, bitwise against the graphed one."""
+    kernels, the GN kernels' device records against the launches), or with
+    ``window`` a rerun that profiles that many model ticks from the middle
+    of the run, its busy share taken against the same ticks of an untraced
+    rerun; then (``eager``) the eager tick on the same workload, bitwise
+    against the graphed one."""
     m = engine.metrics()
     check_graphs(label, m)
     captures = (m["fused_step_compilations"], m["decode_compilations"])
@@ -860,41 +1027,70 @@ def continuous_replays(label: str, engine, reqs, first: dict, want: dict) -> dic
         fail(f"{label}: the rerun captured again: {captures} -> {m}")
     steady_tick_ms = [dt * 1e3 for _, _, dt in engine.tick_log]
     state = engine_state(engine)
-    engine.reset()
-    toks, prof, rerun_s = profiled(lambda: {c.request_id: c.new_tokens for c in engine.run(reqs)})
-    if any(not np.array_equal(first[i], toks[i]) for i in first):
-        fail(f"{label}: the profiled rerun gave different tokens")
+    ticks = m["model_ticks"]
+
+    def same(toks: dict) -> None:
+        if any(not np.array_equal(first[i], toks[i]) for i in first):
+            fail(f"{label}: the profiled rerun gave different tokens")
+
+    if window is None:
+        def rerun():
+            engine.reset()
+            toks, prof, seconds = profiled(
+                lambda: {c.request_id: c.new_tokens for c in engine.run(reqs)})
+            same(toks)
+            return toks, prof, seconds
+
+        traced, base_s = ticks, steady_s
+    else:
+        traced = min(window, ticks)
+        start = (ticks - traced) // 2
+        toks, base_s, _ = window_run(engine, reqs, start, traced)
+        if any(not np.array_equal(first[i], toks[i]) for i in first):
+            fail(f"{label}: the windowed rerun gave different tokens")
+
+        def rerun():
+            toks, seconds, prof = window_run(engine, reqs, start, traced, trace=True)
+            same(toks)
+            return toks, prof, seconds
+
+    # every model tick launches alike, so the traced ticks' share of the launches
+    _, prof, rerun_s, records, traces = traced_rerun(label, rerun, {
+        name: sum(want[k] for k in keys) * traced // ticks for name, keys in (
+            ("gn_paged_attention", ("gn_paged_attention", "gn_paged_attention_int8")),
+            ("gn_rmsnorm", ("gn_rmsnorm",)), ("gn_softmax", ("gn_softmax",)),
+            ("gn_attention", ("gn_attention",)))})
     per_kernel = _device_us(prof)
-    records = check_records(label, record_counts(prof), {
-        "gn_paged_attention": want["gn_paged_attention"] + want["gn_paged_attention_int8"],
-        "gn_rmsnorm": want["gn_rmsnorm"], "gn_softmax": want["gn_softmax"],
-        "gn_attention": want["gn_attention"]})
     busy_s = sum(per_kernel.values()) / 1e6
     top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
     # the trace slows the replays down several times, so the busy share is
-    # taken against the untraced rerun's wall time
-    print(f"[{label}-profile] device busy {busy_s:.3f}s: {100 * busy_s / steady_s:.1f}% of the "
-          f"untraced rerun's {steady_s:.3f}s ({100 * busy_s / rerun_s:.1f}% of the traced "
-          f"rerun's {rerun_s:.3f}s); GN kernel records {json.dumps(records)}; "
-          "top kernels (s): " + json.dumps({k[:60]: v / 1e6 for k, v in top}))
-    eager = eager_against_graphed(label, engine, reqs, first, state)
+    # taken against the untraced rerun's wall time of the same ticks
+    print(f"[{label}-profile] {traced} of {ticks} ticks traced: device busy {busy_s:.3f}s: "
+          f"{100 * busy_s / base_s:.1f}% of the untraced rerun's {base_s:.3f}s "
+          f"({100 * busy_s / rerun_s:.1f}% of the traced rerun's {rerun_s:.3f}s); GN kernel "
+          f"records {json.dumps(records)} (trace {traces}); top kernels (s): "
+          + json.dumps({k[:60]: v / 1e6 for k, v in top}))
+    eager = eager_against_graphed(label, engine, reqs, first, state) if eager else {}
     return {"captures": {"fused": captures[0], "decode": captures[1]},
             "fused_buckets": m["fused_buckets"], "decode_buckets": m["decode_buckets"],
             "capture_seconds": m["capture_seconds"], "steady_seconds": steady_s,
             "steady_tokens_per_s": m["generated_tokens"] / steady_s,
             "steady_mean_tick_ms": float(np.mean(steady_tick_ms)),
-            "profiled_rerun_seconds": rerun_s, "device_busy_seconds": busy_s,
-            "device_busy_share": busy_s / steady_s, "kernel_records": records, **eager}
+            "profiled_ticks": traced, "profiled_rerun_seconds": rerun_s, "traces": traces,
+            "device_busy_seconds": busy_s, "device_busy_share": busy_s / base_s,
+            "kernel_records": records, **eager}
 
 
-def continuous_want(layers: int, ticks: int, int8: bool) -> dict:
+def continuous_want(layers: int, ticks: int, int8: bool, read_path: str = "kernel") -> dict:
     """The launches of ``ticks`` paged ticks: 24 paged reads (fp or int8
-    mode), 49 norms and 47 of them fused, a tick."""
+    mode; with the streamed or gathered read 24 softmaxes instead), 49 norms
+    and 47 of them fused, a tick."""
     read = layers * ticks
+    kernel = read_path == "kernel"
     return {"gn_rmsnorm": (2 * layers + 1) * ticks, "gn_rmsnorm_fused": (2 * layers - 1) * ticks,
-            "gn_paged_attention": 0 if int8 else read,
-            "gn_paged_attention_int8": read if int8 else 0,
-            "gn_softmax": 0, "gn_attention": 0}
+            "gn_paged_attention": read if kernel and not int8 else 0,
+            "gn_paged_attention_int8": read if kernel and int8 else 0,
+            "gn_softmax": 0 if kernel else read, "gn_attention": 0}
 
 
 def phase_serve() -> dict:
@@ -976,11 +1172,15 @@ def phase_static() -> dict:
         lambda: generate(model, params, {"tokens": prompt}, ServeConfig(max_new_tokens=NEW)))
     if not torch.equal(again, out["outputs"][0]):
         fail("a rerun of batch 0 gave different tokens")
-    again, prof, rerun_s = profiled(
-        lambda: generate(model, params, {"tokens": prompt}, ServeConfig(max_new_tokens=NEW)))
-    if not torch.equal(again, out["outputs"][0]):
-        fail("a rerun of batch 0 gave different tokens")
-    records = check_records("static", record_counts(prof), {
+
+    def rerun():
+        again, prof, seconds = profiled(
+            lambda: generate(model, params, {"tokens": prompt}, ServeConfig(max_new_tokens=NEW)))
+        if not torch.equal(again, out["outputs"][0]):
+            fail("a profiled rerun of batch 0 gave different tokens")
+        return again, prof, seconds
+
+    _, prof, rerun_s, records, traces = traced_rerun("static", rerun, {
         "gn_paged_attention": 0, "gn_rmsnorm": (2 * layers + 1) * (NEW + 1),
         "gn_softmax": layers * (NEW + 1), "gn_attention": 0})
     per_kernel = _device_us(prof)
@@ -989,7 +1189,7 @@ def phase_static() -> dict:
     print(f"[static-profile] generate of batch 0: device busy {busy_s:.3f}s: "
           f"{100 * busy_s / (untraced_ms / 1e3):.1f}% of the untraced run's "
           f"{untraced_ms / 1e3:.3f}s ({100 * busy_s / rerun_s:.1f}% of the traced run's "
-          f"{rerun_s:.3f}s); GN kernel records {json.dumps(records)}; "
+          f"{rerun_s:.3f}s); GN kernel records {json.dumps(records)} (trace {traces}); "
           "top kernels (s): " + json.dumps({k[:60]: v / 1e6 for k, v in top}))
     decoders = model.__dict__.get("_static_decoders", {})
     if {k: d.graphs.captures for k, d in decoders.items()} != {(BATCH, PROMPT + NEW):
@@ -1042,13 +1242,62 @@ def phase_static() -> dict:
            "forward_ms": forward_ms,
            "generate_ms": untraced_ms, "profiled_rerun_seconds": rerun_s,
            "device_busy_seconds": busy_s, "device_busy_share": busy_s / (untraced_ms / 1e3),
-           "kernel_records": records,
+           "kernel_records": records, "traces": traces,
            "launches": launches}
     print(f"[static] {json.dumps(res)}")
     return res
 
 
 # ------------------------------------------------------------------ phase 6 --
+def first_run(label: str, engine, reqs) -> tuple[dict, dict, float]:
+    """A continuous path's first run, its graphs captured on the way, the
+    launch counters set to 0 just before it and read just after: the exact
+    launches of its ticks (for the engine's KV dtype and paged read), no
+    plain version on a CUDA tensor, every request done with its budget,
+    every block back, finite held logits.  Returns (request id -> new
+    tokens, the launches, seconds)."""
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    comps = engine.run(reqs)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
+    want = continuous_want(engine.model.cfg.n_layers, engine.metrics()["model_ticks"],
+                           engine.pool.kv_dtype == "int8", engine.read_path)
+    if launches != want:
+        fail(f"{label}: serving launches {launches} != {want}")
+    if any(plain.values()):
+        fail(f"{label}: plain-version calls on CUDA tensors in the serving run: {plain}")
+    if len(comps) != len(reqs) or any(len(c.new_tokens) != r.max_new_tokens for c, r in
+                                       zip(sorted(comps, key=lambda c: c.request_id), reqs)):
+        fail(f"{label}: not every request completed with its budget")
+    if engine.pool.blocks_in_use or engine.pool.num_free != engine.num_slots:
+        fail(f"{label}: blocks not returned: {engine.pool.blocks_in_use} in use")
+    if not bool(torch.isfinite(engine._last_logits).all()):
+        fail(f"{label}: non-finite logits")
+    return {c.request_id: c.new_tokens for c in comps}, launches, seconds
+
+
+def common_prefix(toks: dict, ref: dict) -> list[float]:
+    """Per request, the share of its new tokens before the first that
+    differs from ``ref``'s."""
+    out = []
+    for i, t in toks.items():
+        want = np.asarray(ref[i])[:len(t)]
+        diff = np.nonzero(t[:len(want)] != want)[0]
+        out.append((int(diff[0]) if diff.size else len(t)) / len(t))
+    return out
+
+
+def serve_stats(engine, seconds: float) -> dict:
+    m = engine.metrics()
+    return {"generated_tokens": m["generated_tokens"], "seconds": seconds,
+            "tokens_per_s": m["generated_tokens"] / seconds, "model_ticks": m["model_ticks"],
+            "fused_ticks": m["fused_ticks"],
+            "mean_tick_ms": float(np.mean([dt * 1e3 for _, _, dt in engine.tick_log]))}
+
+
 def phase_int8(served: dict) -> dict:
     """Phase 4's workload and weights over an int8 pool of the same block
     count, through the engine itself (the launcher has no KV dtype flag, as
@@ -1058,43 +1307,17 @@ def phase_int8(served: dict) -> dict:
     engine = ContinuousEngine(model, model.init(SEED, DEV), num_slots=SLOTS,
                               max_seq=required_max_seq(reqs), chunk=CHUNK, block_size=BLOCK,
                               kv_dtype="int8", device=DEV)
-    torch.cuda.synchronize()
-    counters.reset()
-    t0 = time.perf_counter()
-    comps = engine.run(reqs)
-    seconds = time.perf_counter() - t0
-    launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
-    m = engine.metrics()
-    ticks, layers = m["model_ticks"], model.cfg.n_layers
-    want = continuous_want(layers, ticks, int8=True)
-    if launches != want:
-        fail(f"int8 serving launches {launches} != {want}")
-    if any(plain.values()):
-        fail(f"plain-version calls on CUDA tensors in the int8 serving run: {plain}")
-    if len(comps) != len(reqs) or any(len(c.new_tokens) != r.max_new_tokens for c, r in
-                                       zip(sorted(comps, key=lambda c: c.request_id), reqs)):
-        fail("int8: not every request completed with its budget")
-    if engine.pool.blocks_in_use or engine.pool.num_free != SLOTS:
-        fail(f"int8: blocks not returned: {engine.pool.blocks_in_use} in use")
-    if not bool(torch.isfinite(engine._last_logits).all()):
-        fail("int8: non-finite logits")
+    first, launches, seconds = first_run("int8", engine, reqs)
     if engine.pool.num_blocks != served["num_blocks"]:
         fail(f"int8 pool has {engine.pool.num_blocks} blocks, the fp pool {served['num_blocks']}")
-    first = {c.request_id: c.new_tokens for c in comps}
-    tick_ms = [dt * 1e3 for _, _, dt in engine.tick_log]
-    replays = continuous_replays("int8", engine, reqs, first, want)
+    stats = serve_stats(engine, seconds)
+    m = engine.metrics()
+    replays = continuous_replays("int8", engine, reqs, first, launches)
     # greedy prefix shared with phase 4's fp tokens, per request (not gated)
-    fp = served["new_tokens"]
-    prefix = []
-    for i, toks in first.items():
-        diff = np.nonzero(toks != fp[i])[0]
-        prefix.append((int(diff[0]) if diff.size else len(toks)) / len(toks))
+    prefix = common_prefix(first, served["new_tokens"])
     res = {
-        "requests": len(comps), "generated_tokens": m["generated_tokens"], "seconds": seconds,
-        "tokens_per_s": m["generated_tokens"] / seconds, "model_ticks": ticks,
-        "fused_ticks": m["fused_ticks"], "mean_tick_ms": float(np.mean(tick_ms)),
-        "launches": launches, **replays, "kv_hbm_bytes": engine.pool.hbm_bytes(),
-        "fp_kv_hbm_bytes": served["kv_hbm_bytes"],
+        "requests": len(first), **stats, "launches": launches, **replays,
+        "kv_hbm_bytes": engine.pool.hbm_bytes(), "fp_kv_hbm_bytes": served["kv_hbm_bytes"],
         "hbm_ratio": engine.pool.hbm_bytes() / served["kv_hbm_bytes"],
         "num_blocks": m["num_blocks"], "block_utilization": m["block_utilization"],
         "fp_common_prefix_mean": float(np.mean(prefix)),
@@ -1103,6 +1326,150 @@ def phase_int8(served: dict) -> dict:
     }
     print(f"[int8] {json.dumps(res)}")
     return res
+
+
+# ------------------------------------------------------------------ phase 7 --
+def phase_long_static(flashes: list[dict]) -> dict:
+    """Prompts past 2048 tokens through the static path at full width: per
+    batch of LONG_BATCHES, ``generate`` (NEW new tokens) with its launches
+    exact (the prefill's 24 flash launches and no softmax, 24 softmax
+    launches a decode step); the prefill alone (its launches again); eight
+    replayed decode steps, timed, their logits finite, and the softmax
+    layout their rows ran; the 4096-token batch's perplexity (finite: the
+    8192 batch's f32 logits alone would take ~6 GB more).  Prints the flash
+    kernel's phase 2 times at the same shapes beside them."""
+    model = make_model(get_config(ARCH))
+    params = model.prepare(model.init(SEED, DEV), DEV)
+    layers = model.cfg.n_layers
+    runs, total = [], dict.fromkeys(counters.WRAPPERS, 0)
+    for b, s in LONG_BATCHES:
+        data = DataConfig(vocab=model.cfg.vocab, seq_len=s, global_batch=b, seed=11)
+        prompt = torch.as_tensor(batch_at(data, 0)["tokens"]).to(DEV)
+        counters.reset()
+        out, gen_ms = timed(lambda: generate(model, params, {"tokens": prompt},
+                                             ServeConfig(max_new_tokens=NEW)))
+        launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
+        want = {"gn_rmsnorm": (2 * layers + 1) * (NEW + 1),
+                "gn_rmsnorm_fused": (2 * layers - 1) * (NEW + 1), "gn_paged_attention": 0,
+                "gn_paged_attention_int8": 0, "gn_softmax": layers * NEW, "gn_attention": layers}
+        if launches != want or any(plain.values()):
+            fail(f"long static ({b} x {s}): launches {launches} != {want}, plain {plain}")
+        total = {k: total[k] + launches[k] for k in total}
+        if tuple(out.shape) != (b, s + NEW):
+            fail(f"long static: generate gave {tuple(out.shape)}")
+        decode = static_decoder(model, params, b, s + NEW, torch.device(DEV))
+        counters.reset()
+        (logits, _), prefill_ms = timed(
+            lambda: model.prefill(params, {"tokens": prompt}, s + NEW, cache=decode.cache))
+        pre = counters.launch_counts()
+        if pre["gn_attention"] != layers or pre["gn_softmax"]:
+            fail(f"long static: the {s}-token prefill launched {pre}")
+        if not bool(torch.isfinite(logits[:, -1]).all()):
+            fail("long static: non-finite prefill logits")
+        nxt = logits[:, -1].argmax(-1).to(torch.int32)[:, None]
+        del logits
+        step_ms = []
+        for i in range(8):
+            step, ms = timed(lambda: decode(nxt, s + i))
+            step_ms.append(ms)
+            if not bool(torch.isfinite(step).all()):
+                fail("long static: non-finite decode logits")
+            nxt = step[:, 0].argmax(-1).to(torch.int32)[:, None]
+        layout = softmax_layouts(lambda: decode(nxt, s + 8))
+        run = {"prompts": b, "prompt_tokens": s, "decode_cols": s + NEW,
+               "generate_ms": gen_ms, "tokens_per_s": b * NEW / (gen_ms / 1e3),
+               "prefill_ms": prefill_ms, "decode_ms_per_step": float(np.mean(step_ms[1:])),
+               "decode_softmax_layout": layout, "launches": launches}
+        if s == LONG_BATCHES[0][1]:
+            ppl = perplexity(model, params, {"tokens": out})
+            if not math.isfinite(ppl):
+                fail(f"long static: non-finite perplexity {ppl}")
+            run["perplexity"] = ppl
+        fa = next(f for f in flashes if f["case"] == f"prefill-{s}")
+        run["flash"] = {k: fa[k] for k in ("ms", "bound_ms", "bound_by", "library_ms",
+                                           "plain_group_ms", "max_abs_err", "bad_rows")}
+        print(f"[long-static] {json.dumps(run)}")
+        runs.append(run)
+    model.__dict__.pop("_static_decoders", None)
+    return {"runs": runs, "launches": total}
+
+
+# ------------------------------------------------------------------ phase 8 --
+def phase_long_continuous() -> dict:
+    """Prompts past 2048 tokens through the continuous path at full width:
+    LONG_REQUESTS seeded prompts of LONG_MIN..LONG_MAX tokens, graphed, its
+    captures within the grid's bound, launches exact, drained; a timed
+    rerun and a profiled window of LONG_WINDOW ticks (no eager rerun: phase
+    4 holds graphed against eager); the static oracle's tokens, reported
+    and not gated (random weights give near-flat logits)."""
+    model = make_model(get_config(ARCH))
+    reqs = seeded_requests(model.cfg.vocab, LONG_REQUESTS, LONG_MIN, LONG_MAX, NEW, 1, SEED)
+    engine = ContinuousEngine(model, model.init(SEED, DEV), num_slots=SLOTS,
+                              max_seq=required_max_seq(reqs), chunk=CHUNK, block_size=BLOCK,
+                              device=DEV)
+    first, launches, seconds = first_run("long", engine, reqs)
+    stats = serve_stats(engine, seconds)
+    replays = continuous_replays("long", engine, reqs, first, launches, eager=False,
+                                 window=LONG_WINDOW)
+    widest = max(engine.metrics()["horizon_buckets"])
+    oracle = static_reference(model, engine.params, reqs, ServeConfig())
+    model.__dict__.pop("_static_decoders", None)
+    prefix = common_prefix(first, {r.id: oracle[r.id][r.prompt_len:] for r in reqs})
+    res = {"requests": len(first), "prompt_tokens": int(sum(r.prompt_len for r in reqs)),
+           **stats, "launches": launches, **replays, "widest_bucket": widest,
+           "chain_ranges_at_widest": attn_ops.chain_splits(SLOTS, model.cfg.n_kv_heads, widest,
+                                                           torch.device(DEV))[0],
+           "num_blocks": engine.pool.num_blocks, "kv_hbm_bytes": engine.pool.hbm_bytes(),
+           "static_identical": f"{sum(p == 1.0 for p in prefix)}/{len(prefix)}",
+           "static_common_prefix_mean": float(np.mean(prefix))}
+    print(f"[long] {json.dumps(res)}")
+    return res
+
+
+# ------------------------------------------------------------------ phase 9 --
+# (read, KV dtype, eager rerun): the eager tick of the streamed fp read is
+# held to its graphed run; the other two reuse its code under another arena
+# or read, and their eager ticks (~0.1-0.2 s each) would cost ~40 s a run
+READS = (("streamed", "fp", True), ("streamed", "int8", False), ("gathered", "fp", False))
+
+
+def phase_reads(served: dict, int8: dict) -> dict:
+    """Phase 4's workload and weights through the reference's two jnp paged
+    reads (``FORCE_PAGED_READ``): streamed over the fp and the int8 pool,
+    gathered over the fp pool, each graphed, with phase 4's gates (the
+    softmax kernel launched a layer a tick in place of the paged read) and
+    its replays (the eager rerun for the streamed fp read); tok/s, steady tick and busy share
+    beside phases 4 and 6 (the kernel read), and the greedy prefix shared
+    with phase 4's tokens (reported, not gated)."""
+    model = make_model(get_config(ARCH))
+    reqs = seeded_requests(model.cfg.vocab, REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW, 1, SEED)
+    master = model.init(SEED, DEV)
+    res, total = {}, dict.fromkeys(counters.WRAPPERS, 0)
+    for path, kv_dtype, eager in READS:
+        label = f"reads-{path}-{kv_dtype}"
+        with swapped("FORCE_PAGED_READ", path):
+            engine = ContinuousEngine(model, master, num_slots=SLOTS,
+                                      max_seq=required_max_seq(reqs), chunk=CHUNK,
+                                      block_size=BLOCK, kv_dtype=kv_dtype, device=DEV)
+            if engine.metrics()["read_path"] != path:
+                fail(f"{label}: the engine reports {engine.metrics()['read_path']}")
+            first, launches, seconds = first_run(label, engine, reqs)
+            total = {k: total[k] + launches[k] for k in total}
+            stats = serve_stats(engine, seconds)
+            replays = continuous_replays(label, engine, reqs, first, launches, eager=eager)
+        prefix = common_prefix(first, served["new_tokens"])
+        res[label] = {**stats, "launches": launches, **replays,
+                      "phase4_common_prefix_mean": float(np.mean(prefix)),
+                      "phase4_identical": f"{sum(p == 1.0 for p in prefix)}/{len(prefix)}"}
+        print(f"[{label}] {json.dumps(res[label])}")
+        del engine
+        torch.cuda.empty_cache()
+    keys = ("steady_tokens_per_s", "steady_mean_tick_ms", "device_busy_share")
+    side = {"kernel-fp (phase 4)": {k: served[k] for k in keys},
+            "kernel-int8 (phase 6)": {k: int8[k] for k in keys},
+            **{label: {k: r[k] for k in keys} for label, r in res.items()}}
+    print(f"[reads] {json.dumps(side)}")
+    return {"runs": res, "launches": total}
 
 
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
@@ -1130,16 +1497,27 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     t0 = time.perf_counter()
-    card = phase_build()
-    kern = phase_kernels()
-    phase_parity()
-    served = phase_serve()
-    torch.cuda.empty_cache()
-    static = phase_static()
-    torch.cuda.empty_cache()
-    int8 = phase_int8(served)
+    seconds = {}
+
+    def phase(name, fn, *args):
+        start = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.empty_cache()
+        seconds[name] = round(time.perf_counter() - start, 1)
+        return out
+
+    card = phase("build", phase_build)
+    kern = phase("kernels", phase_kernels)
+    phase("parity", phase_parity)
+    served = phase("serve", phase_serve)
+    static = phase("static", phase_static)
+    int8 = phase("int8", phase_int8, served)
+    long_static = phase("long-static", phase_long_static, kern["gn_attention"])
+    long_cont = phase("long", phase_long_continuous)
+    reads = phase("reads", phase_reads, served, int8)
     by_path = {"continuous": served["launches"], "static": static["launches"],
-               "int8": int8["launches"]}
+               "int8": int8["launches"], "long_static": long_static["launches"],
+               "long_continuous": long_cont["launches"], "reads": reads["launches"]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         # the main path's shape: bf16 tick (fp or int8 KV; the norms' 128
@@ -1156,7 +1534,8 @@ def main() -> int:
             "library_ms": main_case["library_ms"], "shape": main_case["shape"],
             "dtype": main_case["dtype"],
         })
-    print(f"[total] {time.perf_counter() - t0:.1f}s on {card}")
+    print(f"[total] {time.perf_counter() - t0:.1f}s on {card}; per phase (s): "
+          f"{json.dumps(seconds)}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -6,8 +6,9 @@ Builds the config, draws random weights from ``--seed`` with a
 ``--device`` says otherwise.  Two modes, as the reference launcher:
   * static (default): ``--batches`` batches of ``--batch-size`` synthetic
     Zipf-chain prompts of ``--prompt-len`` tokens, each decoded
-    ``--new-tokens`` tokens by ``generate``; one line per batch with its
-    shape, seconds, tok/s and the teacher-forced perplexity of the whole
+    ``--new-tokens`` tokens by ``generate`` (a prompt past 2048 tokens
+    prefills through the GN flash-attention kernel); one line per batch with
+    its shape, seconds, tok/s and the teacher-forced perplexity of the whole
     sequence, then the overall tok/s;
   * ``--continuous``: a seeded numpy workload through ``ContinuousEngine``,
     one line per request and the per-tick phases and times, then the
@@ -20,6 +21,8 @@ Builds the config, draws random weights from ``--seed`` with a
 
 Usage:
   python -m repro_torch.launch.serve --arch internlm2-1.8b --batches 2 --batch-size 8
+  python -m repro_torch.launch.serve --arch internlm2-1.8b --batches 1 --batch-size 4 \
+      --prompt-len 4096
   python -m repro_torch.launch.serve --arch internlm2-1.8b --continuous
   python -m repro_torch.launch.serve --smoke --device cpu [--continuous]
 """

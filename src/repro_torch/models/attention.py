@@ -10,8 +10,14 @@ Contiguous paths:
   * ``attn_prefill`` and ``attn_decode_step`` keep the reference's one-pass
     form: scores by ``torch.matmul`` scaled in the activation dtype, cast to
     f32, masked at -1e30, then the GN softmax kernel over each score row.
-    Prefill past 2048 tokens takes ``chunked_self_attention`` in the
-    reference; the port refuses it.
+  * A prefill past ``CHUNKED_FROM`` (2048) tokens takes the GN
+    flash-attention kernel, causal, where the reference takes
+    ``chunked_self_attention``: the same online GN accumulation (a running
+    max snapped up to the Δ grid, LUT'd rescales, one division by the sum of
+    the numerators), so the (S, S) scores are never materialized.  On the
+    CPU the wrapper runs its plain one-pass version, as every kernel of the
+    port does there.  The reference's ``windowed_chunked`` serves sliding
+    windows, which the port does not serve yet.
   * The slab cache is written in place.
 
 Paged path: every sequence owns a block table into a shared KV arena.  The
@@ -23,6 +29,18 @@ the arena in place.  With int8 arenas (``scales`` given) the write quantizes
 through ``paged_quant_write``, which updates the int8 arena and the
 per-block scale vectors in place; the scale vectors carry an entry for the
 sink block too, set by its writes and never read.
+
+The paged read takes one of three paths (``paged_read_path``): the GN
+paged-attention kernel (``"kernel"``, the default; the reference's
+``"pallas"``), or the reference's two jnp reads, taken only when
+``FORCE_PAGED_READ`` names them: ``"streamed"`` gathers K one tile of
+``STREAM_TILE`` table columns at a time and never holds the K stream, and
+``"gathered"`` materializes each slot's K and V streams, the oracle the
+streamed read is held to bit for bit.  Both keep the reference's rounding
+points: scores in the activation dtype, scaled in it, then cast to f32 and
+masked; the GN softmax kernel over the (N, KV, G, C, T) rows; probabilities
+cast to the value dtype before P·V; int8 blocks gathered first and
+dequantized in the activation dtype by their scale cast to it.
 
 Only the GN softmax is ported (``softmax_impl="gn"``), and no sliding
 window.
@@ -39,7 +57,16 @@ from repro_torch.models.layers import ParamSpec
 from repro_torch.models.rope import apply_rope
 
 NEG_INF = -1e30
-CHUNKED_FROM = 2048  # longer prompts take chunked attention in the reference
+CHUNKED_FROM = 2048  # longer prompts take the flash kernel (the reference: chunked)
+
+# The paged read's path: None (the kernel) or "streamed" / "gathered", the
+# reference's jnp reads, as its own FORCE_PAGED_READ forces them.  An engine
+# fixes the path it was built under and refuses to tick after a change.
+FORCE_PAGED_READ: str | None = None
+READ_PATHS = ("kernel", "streamed", "gathered")
+# table columns the streamed read gathers per score product (the reference
+# unrolls its scan over blocks by 8): ~65 products a layer at 514 columns
+STREAM_TILE = 8
 
 
 def attn_specs(cfg: ModelConfig) -> dict:
@@ -123,13 +150,14 @@ def attn_prefill(cfg: ModelConfig, p: dict, x, positions):
     """Self-attention over the prompt; returns (out (B,S,D), {"k", "v"}:
     (B,S,KV,dh) for the cache)."""
     b, s, _ = x.shape
-    if s > CHUNKED_FROM:
-        raise NotImplementedError(
-            f"a prefill of {s} > {CHUNKED_FROM} tokens takes chunked_self_attention in the "
-            "reference, which is not ported yet (ROADMAP Queue A)")
     q, k, v = _qkv(cfg, p, x, positions)
-    out = _sdpa(cfg, q, k, v, causal_mask(s, s, x.device)).reshape(b, s, cfg.q_features)
-    return out @ p["wo"], {"k": k, "v": v}
+    if s > CHUNKED_FROM:
+        _require_gn(cfg)
+        out = gn_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)), causal=True)
+        out = out.transpose(1, 2)
+    else:
+        out = _sdpa(cfg, q, k, v, causal_mask(s, s, x.device))
+    return out.reshape(b, s, cfg.q_features) @ p["wo"], {"k": k, "v": v}
 
 
 def attn_decode_step(cfg: ModelConfig, p: dict, cache: dict, x, pos):
@@ -203,6 +231,61 @@ def paged_quant_write(flat_arena, scale, new_vals, dest, block_size: int) -> Non
     flat_arena.index_copy_(0, dest, q)
 
 
+def paged_read_path(cfg: ModelConfig) -> str:
+    """The paged read a tick takes (port of the reference's
+    ``paged_read_path``): ``FORCE_PAGED_READ`` when set, else ``"kernel"``,
+    the GN paged-attention kernel.  The reference serves its Pallas kernel
+    only under ``use_pallas``; the port has no such switch."""
+    _require_gn(cfg)
+    if FORCE_PAGED_READ is None:
+        return "kernel"
+    if FORCE_PAGED_READ not in READ_PATHS:
+        raise ValueError(f"FORCE_PAGED_READ must be None or one of {READ_PATHS}, got "
+                         f"{FORCE_PAGED_READ!r}")
+    return FORCE_PAGED_READ
+
+
+def _gather_blocks(arena, scale, tables, dt):
+    """arena[tables]: (N, H', bs, KV, dh) blocks, int8 ones (``scale`` given)
+    dequantized after the gather in ``dt`` by their block's scale cast to
+    ``dt``, as the reference's reads dequantize."""
+    blocks = arena[tables]
+    if scale is None:
+        return blocks
+    return blocks.to(dt) * scale[tables].to(dt)[..., None, None, None]
+
+
+def _paged_read_plain(q, arena_k, arena_v, tables, rows, scales, streamed: bool):
+    """The reference's streamed (``_stream_paged_tiles``) or gathered read.
+
+    q: (N, C, H, dh) rotated, in the activation dtype; arenas (nb + 1, bs,
+    KV, dh); tables: (N, H') int32; rows: (N, C) absolute positions; scales:
+    (k_scale, v_scale) for int8 arenas, else None.  The streamed read
+    gathers K ``STREAM_TILE`` table columns at a time and emits each tile's
+    scores, which are the gathered read's dots column for column; both run
+    the same softmax and the same P·V over the horizon's V blocks.  Returns
+    (N, C, H * dh) in the value dtype."""
+    n, c_len, h, dh = q.shape
+    kv = arena_k.shape[2]
+    dt = q.dtype
+    qg = q.reshape(n, c_len, kv, h // kv, dh)
+    tables = tables.long()
+    k_scale, v_scale = scales if scales is not None else (None, None)
+    if streamed:
+        scores = torch.cat([
+            _scaled_scores(qg, _gather_blocks(arena_k, k_scale, tbl, dt).reshape(n, -1, kv, dh),
+                           dh)
+            for tbl in tables.split(STREAM_TILE, dim=1)], dim=-1)
+    else:
+        k_at = _gather_blocks(arena_k, k_scale, tables, dt).reshape(n, -1, kv, dh)
+        scores = _scaled_scores(qg, k_at, dh)
+    valid = torch.arange(scores.shape[-1], device=q.device)[None, None, :] <= rows[:, :, None]
+    scores = torch.where(valid[:, None, None], scores.float(), NEG_INF)
+    v_at = _gather_blocks(arena_v, v_scale, tables, dt).reshape(n, -1, kv, dh)
+    pmat = gn_softmax(scores).to(v_at.dtype)
+    return torch.einsum("bkgst,btkd->bskgd", pmat, v_at).reshape(n, c_len, h * dh)
+
+
 def attn_paged_chunk(cfg: ModelConfig, p: dict, arena_k, arena_v, x, positions,
                      n_valid, tables, scales=None):
     """Block-paged chunked append-decode, batched over slots.
@@ -213,7 +296,8 @@ def attn_paged_chunk(cfg: ModelConfig, p: dict, arena_k, arena_v, x, positions,
     (s, i) writes absolute position positions[s] + i (if i < n_valid[s]) and
     attends [0, positions[s] + i].  ``scales`` = (k_scale, v_scale), each
     (num_blocks + 1,) f32 and updated in place, marks the arenas as int8:
-    the writes quantize, the read dequantizes per block.  Returns (N, C, D).
+    the writes quantize, the read dequantizes per block.  The read takes
+    ``paged_read_path(cfg)``.  Returns (N, C, D).
     """
     _require_gn(cfg)
     b, c_len, _ = x.shape
@@ -232,6 +316,11 @@ def attn_paged_chunk(cfg: ModelConfig, p: dict, arena_k, arena_v, x, positions,
         else:
             paged_quant_write(flat, scale, vals, dest, bs)
 
-    out = gn_paged_attention_chunk(q, arena_k, arena_v, tables, positions, n_valid,
-                                   scales=scales)
+    path = paged_read_path(cfg)
+    if path == "kernel":
+        out = gn_paged_attention_chunk(q, arena_k, arena_v, tables, positions, n_valid,
+                                       scales=scales)
+    else:
+        out = _paged_read_plain(q, arena_k, arena_v, tables, rows, scales,
+                                streamed=path == "streamed")
     return out.reshape(b, c_len, cfg.q_features).to(x.dtype) @ p["wo"]

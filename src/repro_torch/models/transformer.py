@@ -17,7 +17,7 @@
     graph serves every step;
   * ``init_paged_cache`` / ``fused_step_slots_paged`` / ``_paged_head`` —
     the block-paged serving tick over fp arenas, or int8 arenas with
-    per-block f32 scales.
+    per-block f32 scales, its read named by ``paged_read_path``.
 
 Each layer runs norm -> attention -> norm -> MLP; the head runs one more
 norm and the LM projection.  Every norm that follows a residual add (ln2,
@@ -185,6 +185,14 @@ class Model:
         return self._lm_head(params, x + pending), cache
 
     # ---------------------------------------------------------- paged tick --
+    @property
+    def paged_read_path(self) -> str:
+        """The paged read the serving tick takes: ``"kernel"`` (the GN
+        paged-attention kernel), or the reference's ``"streamed"`` or
+        ``"gathered"`` read when ``attention.FORCE_PAGED_READ`` forces one.
+        The engine fixes it at construction and reports it in ``metrics()``."""
+        return attn.paged_read_path(self.cfg)
+
     def init_paged_cache(self, num_blocks: int, block_size: int, device=None,
                          kv_dtype: str = "fp") -> dict:
         """Block arenas "k", "v" (L, num_blocks + 1, block_size, KV, dh); the

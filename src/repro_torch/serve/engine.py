@@ -26,6 +26,12 @@ later tick replays it (``serve/graphs.py``); on the CPU the same tick runs
 eagerly.  ``generate``'s decode step is captured once per (B, max_seq) the
 same way, its position a device scalar.
 
+The tick reads paged KV through ``model.paged_read_path``: the GN paged
+attention kernel, or the reference's streamed or gathered read when
+``models.attention.FORCE_PAGED_READ`` forces one.  The engine fixes the path
+at construction, reports it as ``metrics()["read_path"]`` and refuses to tick
+after it changed, so no graph is replayed under another read.
+
 Per-tick host<->device traffic: the next tokens come back in one copy;
 positions advance on the device; the active mask, positions and block
 tables are uploaded only when admission, completion or block growth made
@@ -219,6 +225,9 @@ class ContinuousEngine:
         if not 1 <= self.chunk <= self.max_seq:
             raise ValueError(f"chunk {chunk} must be in [1, {self.max_seq}]")
         self.device = resolve_device(device)
+        # the paged read every tick takes, fixed here: a graph captured under
+        # one read is never replayed under another (``step`` refuses a change)
+        self.read_path = model.paged_read_path
         self.params = model.prepare(params, self.device)
         self.pool = BlockPagedKVPool(model, num_slots, max_seq, block_size or self.chunk,
                                      num_blocks, self.device, kv_dtype)
@@ -352,6 +361,11 @@ class ContinuousEngine:
 
     def step(self) -> bool:
         """One engine tick.  Returns False once fully drained."""
+        if self.model.paged_read_path != self.read_path:
+            raise RuntimeError(
+                f"this engine was built to read paged KV through {self.read_path!r}, and "
+                f"FORCE_PAGED_READ now asks for {self.model.paged_read_path!r}: its ticks and "
+                "graphs read one path; build a new engine for another")
         self._admit()
         live = [s for s, st in enumerate(self._slots) if st is not None]
         if not live:
@@ -448,6 +462,7 @@ class ContinuousEngine:
             "block_size": self.pool.block_size,
             "block_utilization": self.pool.peak_blocks_in_use / max(1, self.pool.num_blocks),
             "kv_paged": True,
+            "read_path": self.read_path,
             "horizon_bucket_grid": list(self.horizon_bucket_grid),
             "horizon_buckets": sorted(self._buckets_seen["fused"] | self._buckets_seen["decode"]),
             "fused_buckets": sorted(self._buckets_seen["fused"]),

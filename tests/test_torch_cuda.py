@@ -594,3 +594,131 @@ def test_static_path_on_cuda_launches_the_kernels(cuda):
                                         "gn_softmax": L * (1 + 5), "gn_attention": L}
     assert not any(counters.plain_cuda_calls().values())
     assert np.isfinite(ppl) and out.shape == (3, 17)
+
+
+# ------------------------------------------- long prompts and paged reads --
+@pytest.fixture
+def restore_forced_read():
+    yield
+    t_attn.FORCE_PAGED_READ = None
+
+
+def _long_workload(device):
+    """Reduced internlm2-1.8b at f32, weights from one CPU seed, and two
+    requests of 2049 and 2600 prompt tokens (4 new tokens each)."""
+    cfg = reduce_config(get_config("internlm2-1.8b"), dtype="float32", n_kv_heads=2)
+    model = make_model(cfg)
+    master = model.init(0, "cpu")
+    reqs = seeded_requests(cfg.vocab, 2, 2049, 2600, 4, seed=3)
+    return model, master, reqs
+
+
+def test_long_prompt_generate_on_card_equals_cpu(cuda):
+    """A 3072-token prompt through the flash kernel on the card and its
+    plain version on the CPU: the same greedy tokens."""
+    cfg = reduce_config(get_config("internlm2-1.8b"), dtype="float32", n_kv_heads=2)
+    model = make_model(cfg)
+    master = model.init(0, "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(4).integers(0, cfg.vocab, (2, 3072)))
+    counters.reset()
+    out = {dev: generate(model, model.prepare(master, dev), {"tokens": tokens.to(dev)},
+                         ServeConfig(max_new_tokens=4)).cpu()
+           for dev in (cuda, "cpu")}
+    assert counters.launch_counts()["gn_attention"] == cfg.n_layers
+    assert not any(counters.plain_cuda_calls().values())
+    assert torch.equal(out[cuda], out["cpu"])
+
+
+def test_long_prompt_engine_on_card_equals_static_oracle_and_cpu(cuda):
+    """Prompts past 2048 tokens through the graphed continuous engine on the
+    card: greedy tokens equal to the static oracle on the card (the flash
+    kernel's prefill) and to the CPU engine."""
+    model, master, reqs = _long_workload(cuda)
+    kw = {"num_slots": 2, "max_seq": required_max_seq(reqs), "chunk": 256, "block_size": 64}
+    eng = ContinuousEngine(model, master, device=cuda, **kw)
+    card = {c.request_id: c.tokens for c in eng.run(reqs)}
+    assert eng.metrics()["transfer_guarded_ticks"] == eng.metrics()["model_ticks"]
+    oracle = static_reference(model, eng.params, reqs, ServeConfig())
+    cpu = {c.request_id: c.tokens for c in
+           ContinuousEngine(model, master, device="cpu", **kw).run(reqs)}
+    for rid, toks in card.items():
+        assert np.array_equal(toks, oracle[rid]), rid
+        assert np.array_equal(toks, cpu[rid]), rid
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_streamed_engine_on_card_equals_kernel_read_and_cpu(cuda, restore_forced_read,
+                                                            kv_dtype):
+    """The graphed engine forced to the streamed read at f32: greedy tokens
+    equal to the kernel read's engine on the card and to the streamed CPU
+    engine; its ticks launch the softmax kernel, one a layer, and no paged
+    read."""
+    kernel = _greedy(cuda, "float32", kv_dtype)
+    t_attn.FORCE_PAGED_READ = "streamed"
+    counters.reset()
+    streamed = _greedy(cuda, "float32", kv_dtype)
+    launches = counters.launch_counts()
+    assert launches["gn_softmax"] > 0
+    assert launches["gn_paged_attention"] == launches["gn_paged_attention_int8"] == 0
+    cpu = _greedy("cpu", "float32", kv_dtype)
+    for rid, toks in streamed.items():
+        assert np.array_equal(toks, kernel[rid]), rid
+        assert np.array_equal(toks, cpu[rid]), rid
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_streamed_read_on_card_bitwise_gathered(cuda, restore_forced_read, dtype, kv_dtype):
+    """One fused tick on the card (prefill, decode and parked lanes, an
+    11-column table, so a partial last tile): the streamed read's logits
+    and arenas bit for bit the gathered read's."""
+    cfg = reduce_config(get_config("internlm2-1.8b"), dtype=dtype, n_kv_heads=2)
+    model = make_model(cfg)
+    params = model.prepare(model.init(0, "cpu"), cuda)
+    rng = np.random.default_rng(7)
+    ints = [torch.from_numpy(a).to(cuda) for a in (
+        rng.integers(0, cfg.vocab, (4, 4)).astype(np.int32), np.array([0, 37, 18, 0], np.int32),
+        np.array([4, 1, 3, 0], np.int32), rng.permutation(48)[:44].reshape(4, 11).astype(np.int32))]
+    prior = torch.from_numpy(rng.normal(size=(2, cfg.n_layers, 49, 4, 2, cfg.head_dim))
+                             .astype(np.float32)).to(cuda)
+    got = {}
+    for path in ("streamed", "gathered"):
+        t_attn.FORCE_PAGED_READ = path
+        cache = model.init_paged_cache(48, 4, cuda, kv_dtype)
+        for i, key in enumerate(("k", "v")):
+            if kv_dtype == "fp":
+                cache[key].copy_(prior[i])
+                continue
+            for arena, scale, vals in zip(cache[key], cache[f"{key}_scale"], prior[i]):
+                t_attn.paged_quant_write(arena.flatten(0, 1), scale, vals.flatten(0, 1),
+                                         torch.arange(49 * 4, device=cuda), 4)
+        got[path] = (model.fused_step_slots_paged(params, cache, *ints),
+                     {k: v[:, :48] for k, v in cache.items()})
+    assert torch.equal(got["streamed"][0], got["gathered"][0])
+    for key, arena in got["gathered"][1].items():
+        assert torch.equal(got["streamed"][1][key], arena), key
+
+
+def test_read_path_change_after_capture_is_refused(cuda, restore_forced_read):
+    """An engine that captured its graphs under the kernel read refuses to
+    tick once FORCE_PAGED_READ asks for another read: no graph is replayed
+    under a read it was not captured with.  A new engine takes the new read."""
+    cfg = reduce_config(get_config("internlm2-1.8b"), dtype="float32")
+    model = make_model(cfg)
+    reqs = seeded_requests(cfg.vocab, 3, 4, 20, 4, seed=1)
+    eng = ContinuousEngine(model, model.init(0, cuda), num_slots=2,
+                           max_seq=required_max_seq(reqs), chunk=4, device=cuda)
+    eng.run(reqs)
+    assert eng.metrics()["fused_step_compilations"] > 0
+    t_attn.FORCE_PAGED_READ = "streamed"
+    eng.reset()
+    eng.submit(reqs[0])
+    counters.reset()
+    with pytest.raises(RuntimeError, match="FORCE_PAGED_READ"):
+        eng.step()
+    assert not any(counters.launch_counts().values())
+    fresh = ContinuousEngine(model, model.init(0, cuda), num_slots=2,
+                             max_seq=required_max_seq(reqs), chunk=4, device=cuda)
+    assert fresh.metrics()["read_path"] == "streamed"
+    fresh.run(reqs)
+    assert counters.launch_counts()["gn_paged_attention"] == 0

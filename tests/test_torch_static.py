@@ -169,12 +169,19 @@ def test_continuous_engine_matches_own_static_reference(pair, bs):
 
 
 def test_refuses_long_prefill_and_other_softmax():
+    """A prefill past 2048 tokens takes the GN flash attention (its plain
+    version on the CPU) and is served; with another softmax than GN the
+    long prefill, like the forward, is refused (tests/test_torch_long.py
+    holds the long path against the JAX package)."""
     cfg = registry.reduce_config(registry.get_config(ARCH), dtype="float32")
     model = make_model(cfg)
     params = model.prepare(model.init(0, "cpu"), "cpu")
-    with pytest.raises(NotImplementedError, match="Queue A"):
-        model.prefill(params, {"tokens": torch.zeros(1, 2049, dtype=torch.int32)})
+    long = {"tokens": torch.zeros(1, 2049, dtype=torch.int32)}
+    logits, _ = model.prefill(params, long)
+    assert logits.shape == (1, 2049, cfg.vocab) and bool(torch.isfinite(logits).all())
     exact = make_model(dataclasses.replace(cfg, softmax_impl="exact"))
+    with pytest.raises(NotImplementedError, match="softmax_impl"):
+        exact.prefill(params, long)
     with pytest.raises(NotImplementedError, match="softmax_impl"):
         exact.forward(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
 
