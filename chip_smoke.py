@@ -22,7 +22,9 @@ Phases, each fatal on failure (exit code 1):
                bf16) and in f32 (its CUDA-core design), and at the long
                prefills' shapes (S = 4096 and 8192); the softmax at the long
                decode rows (4128 and 8224 columns), each timed case naming
-               the layout it ran; each attention case names its design;
+               the layout it ran; each attention case names its design; the fp
+               paged read's rows finite exactly where its plain version's are
+               over a NaN or Inf K or V tile;
   3. parity  - full-width internlm2-1.8b cut to 2 layers, kernels on the card
                against plain versions on the CPU, same weights, at float32
                and at bfloat16: one fused paged tick with mixed
@@ -76,8 +78,24 @@ Phases, each fatal on failure (exit code 1):
   9. reads   - phase 4's workload and weights through the reference's
                streamed read (fp and int8 pools) and gathered read (fp),
                forced by ``FORCE_PAGED_READ``, each graphed, with phase 4's
-               checks; their tok/s, tick and busy share beside phases 4 and
-               6, and the greedy prefix shared with phase 4 (not gated).
+               checks (a profiled window of 64 ticks); their tok/s, tick and
+               busy share beside phases 4 and 6, and the greedy prefix shared
+               with phase 4 (not gated);
+ 10. guard   - sampling and the GN sentinels on the continuous path: the
+               sampler's hash words on the card bitwise the CPU's and its
+               device time at the tick's shape; phase 4's workload at
+               temperature 0.7 with phase 4's checks (graphed tokens bitwise
+               the eager tick's, a reset replay identical) and its tok/s and
+               tick beside greedy; the sentinels' cost per tick (greedy runs
+               with them on and off in turns, tokens equal); chaos runs over
+               the fp and the int8 pool at full width (gated: every V-tile,
+               scale and table fault flagged within one tick, its block
+               quarantined, the ledger balanced after every tick, launches
+               exact, every tick a replay, the run drained; reported:
+               K-tile faults as found, and the recovered tokens against the
+               fault-free run's).
+Phases 4-10 serve with the GN sentinels on, the engine's default: a tick
+launches one more norm, the head's σ probe.
 Each path's launch counters are set to 0 just before it runs and read just
 after.  The last two lines are the kernels JSON and {"ok": true, ...}.
 
@@ -119,6 +137,8 @@ from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models.transformer import make_model  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, generate,  # noqa: E402
                                       perplexity, static_decoder, static_reference)
+from repro_torch.serve.faults import FaultInjector  # noqa: E402
+from repro_torch.serve.sampling import counter_bits, sample  # noqa: E402
 from repro_torch.serve.workload import required_max_seq, seeded_requests  # noqa: E402
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate and the op rate per
@@ -142,7 +162,14 @@ BATCHES, BATCH, PROMPT, NEW = 2, 8, 1024, 32
 LONG_BATCHES = ((4, 4096), (2, 8192))
 LONG_REQUESTS, LONG_MIN, LONG_MAX = 8, 2049, 8192
 LONG_BT = -(-(LONG_MAX + NEW) // BLOCK)
-LONG_WINDOW = 64  # ticks of the long continuous rerun that are profiled
+LONG_WINDOW = 64  # ticks of the long continuous rerun (and phases 9, 10) that are profiled
+# phase 10: the sampled run's temperature; the chaos runs inject a fault every
+# CHAOS_EVERY model ticks, CHAOS_FAULTS in all, drawn in turn from each
+# pool's kinds (V tiles only on the fp pool: the kernel read's reduced probe
+# does not see K tiles, which a run of their own reports)
+GUARD_T = 0.7
+CHAOS_EVERY, CHAOS_FAULTS = 10, 9
+CHAOS = {"fp": ("nan_tile", "inf_tile", "table"), "int8": ("scale", "table")}
 # kernel-vs-plain tolerances on the card
 NORM_ATOL_F32 = 4e-6      # sum order and mean vs sum*(1/C): a few f32 ulps at |y| ~ 4
 ATTN_ATOL_F32 = 2e-4      # the reference's own kernel-vs-ref tolerance (online vs one-pass)
@@ -535,8 +562,12 @@ def attn_case(c: int, dtype, gen, max_bt: int = 66) -> dict:
     ones_args, _, _ = attn_inputs(c, torch.float32, gen, v_ones=True, max_bt=max_bt)
     ones_err = (attn_ops.gn_paged_attention_chunk(*ones_args)[lane] - 1.0).abs().max().item()
     empty_read = got[3].abs().max().item()  # the empty sequence must read nothing
+    poison = poisoned_rows(args, lane) if max_bt == 66 else {}
     check["ok"] = (check["bad_rows"] <= FLIP_ROWS * check["rows"] and exact["bad_rows"] == 0
-                   and ones_err <= ONES_ATOL and empty_read == 0.0)
+                   and ones_err <= ONES_ATOL and empty_read == 0.0
+                   and all(p["equal"] for p in poison.values()))
+    if poison:
+        check["poisoned"] = poison
     n, _, h, d = args[0].shape
     hkv = args[1].shape[2]
     b_ms, b_by = attn_bound(args, lengths, n_valid, args[1].element_size(), False)
@@ -551,6 +582,28 @@ def attn_case(c: int, dtype, gen, max_bt: int = 66) -> dict:
         **timings(lambda: attn_ops.gn_paged_attention_chunk(*args),
                   lambda: attn_ref.gn_paged_attention_chunk_ref(*args), None, 20),
     }
+
+
+def poisoned_rows(args, lane) -> dict:
+    """The first block of every other live sequence set to NaN or +Inf in
+    K or in V: per valid row, the kernel's output is finite exactly where
+    its plain version's is (a K tile's nonfinite scores are laundered by
+    the GN exponential; a V tile reaches the rows that read it)."""
+    q, k, v, tables, *ints = args
+    blocks = [int(tables[i, 0]) for i in range(0, tables.shape[0], 2) if bool(lane[i].any())]
+    out = {}
+    for leaf in ("k", "v"):
+        for value in (float("nan"), float("inf")):
+            arenas = [k.clone(), v.clone()]
+            arenas[leaf == "v"][blocks] = value
+            poisoned = (q, *arenas, tables, *ints)
+            fin = [torch.isfinite(fn(*poisoned).float()).flatten(2).all(-1)[lane]
+                   for fn in (attn_ops.gn_paged_attention_chunk,
+                              attn_ref.gn_paged_attention_chunk_ref)]
+            out[f"{leaf}-{value}"] = {"finite_rows": int(fin[0].sum()),
+                                      "plain_finite_rows": int(fin[1].sum()),
+                                      "rows": int(lane.sum()), "equal": torch.equal(*fin)}
+    return out
 
 
 def quantize(arena):
@@ -1081,13 +1134,16 @@ def continuous_replays(label: str, engine, reqs, first: dict, want: dict, eager:
             "kernel_records": records, **eager}
 
 
-def continuous_want(layers: int, ticks: int, int8: bool, read_path: str = "kernel") -> dict:
+def continuous_want(layers: int, ticks: int, int8: bool, read_path: str = "kernel",
+                    sentinels: bool = True) -> dict:
     """The launches of ``ticks`` paged ticks: 24 paged reads (fp or int8
     mode; with the streamed or gathered read 24 softmaxes instead), 49 norms
-    and 47 of them fused, a tick."""
+    (with the sentinels 50: the head's σ probe) and 47 of them fused, a
+    tick."""
     read = layers * ticks
     kernel = read_path == "kernel"
-    return {"gn_rmsnorm": (2 * layers + 1) * ticks, "gn_rmsnorm_fused": (2 * layers - 1) * ticks,
+    return {"gn_rmsnorm": (2 * layers + 1 + sentinels) * ticks,
+            "gn_rmsnorm_fused": (2 * layers - 1) * ticks,
             "gn_paged_attention": read if kernel and not int8 else 0,
             "gn_paged_attention_int8": read if kernel and int8 else 0,
             "gn_softmax": 0 if kernel else read, "gn_attention": 0}
@@ -1119,6 +1175,7 @@ def phase_serve() -> dict:
         fail(f"{plain_on_cuda} plain-version calls on CUDA tensors in the serving run")
     if not bool(torch.isfinite(engine._last_logits).all()):
         fail("non-finite logits")
+    check_silent("serve", engine)
     first = {c.request_id: c.new_tokens for c in comps}
     replays = continuous_replays("serve", engine, reqs, first, want)
     res = {
@@ -1131,6 +1188,8 @@ def phase_serve() -> dict:
         "static_identical": f"{out['static_identical']}/{len(comps)}",
         "mean_common_prefix": float(np.mean(out["common_prefix"])),
         "kv_hbm_bytes": engine.pool.hbm_bytes(), "num_blocks": engine.pool.num_blocks,
+        **{k: m[k] for k in ("sentinel_checks", "sentinel_peak_sum_residual",
+                             "sentinel_peak_sigma_residual")},
     }
     print(f"[serve] {json.dumps(res)}")
     return {**res, "new_tokens": first}
@@ -1264,7 +1323,7 @@ def first_run(label: str, engine, reqs) -> tuple[dict, dict, float]:
     seconds = time.perf_counter() - t0
     launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
     want = continuous_want(engine.model.cfg.n_layers, engine.metrics()["model_ticks"],
-                           engine.pool.kv_dtype == "int8", engine.read_path)
+                           engine.pool.kv_dtype == "int8", engine.read_path, engine.sentinels)
     if launches != want:
         fail(f"{label}: serving launches {launches} != {want}")
     if any(plain.values()):
@@ -1276,7 +1335,16 @@ def first_run(label: str, engine, reqs) -> tuple[dict, dict, float]:
         fail(f"{label}: blocks not returned: {engine.pool.blocks_in_use} in use")
     if not bool(torch.isfinite(engine._last_logits).all()):
         fail(f"{label}: non-finite logits")
+    check_silent(label, engine)
     return {c.request_id: c.new_tokens for c in comps}, launches, seconds
+
+
+def check_silent(label: str, engine) -> None:
+    """A fault-free run: with the sentinels on, every check within its bound."""
+    m = engine.metrics()
+    if m["sentinels"] and (m["sentinel_violations"] or not m["sentinel_checks"]):
+        fail(f"{label}: {m['sentinel_violations']} sentinel violations in a clean run "
+             f"({m['sentinel_checks']} checks)")
 
 
 def common_prefix(toks: dict, ref: dict) -> list[float]:
@@ -1295,7 +1363,9 @@ def serve_stats(engine, seconds: float) -> dict:
     return {"generated_tokens": m["generated_tokens"], "seconds": seconds,
             "tokens_per_s": m["generated_tokens"] / seconds, "model_ticks": m["model_ticks"],
             "fused_ticks": m["fused_ticks"],
-            "mean_tick_ms": float(np.mean([dt * 1e3 for _, _, dt in engine.tick_log]))}
+            "mean_tick_ms": float(np.mean([dt * 1e3 for _, _, dt in engine.tick_log])),
+            **{k: m[k] for k in ("sentinel_checks", "sentinel_peak_sum_residual",
+                                 "sentinel_peak_sigma_residual")}}
 
 
 def phase_int8(served: dict) -> dict:
@@ -1325,7 +1395,7 @@ def phase_int8(served: dict) -> dict:
         "fp_identical": f"{sum(p == 1.0 for p in prefix)}/{len(prefix)}",
     }
     print(f"[int8] {json.dumps(res)}")
-    return res
+    return {**res, "new_tokens": first}
 
 
 # ------------------------------------------------------------------ phase 7 --
@@ -1456,7 +1526,8 @@ def phase_reads(served: dict, int8: dict) -> dict:
             first, launches, seconds = first_run(label, engine, reqs)
             total = {k: total[k] + launches[k] for k in total}
             stats = serve_stats(engine, seconds)
-            replays = continuous_replays(label, engine, reqs, first, launches, eager=eager)
+            replays = continuous_replays(label, engine, reqs, first, launches, eager=eager,
+                                         window=LONG_WINDOW)
         prefix = common_prefix(first, served["new_tokens"])
         res[label] = {**stats, "launches": launches, **replays,
                       "phase4_common_prefix_mean": float(np.mean(prefix)),
@@ -1470,6 +1541,151 @@ def phase_reads(served: dict, int8: dict) -> dict:
             **{label: {k: r[k] for k in keys} for label, r in res.items()}}
     print(f"[reads] {json.dumps(side)}")
     return {"runs": res, "launches": total}
+
+
+# ----------------------------------------------------------------- phase 10 --
+def guard_engine(model, master, reqs, **kw):
+    return ContinuousEngine(model, master, num_slots=SLOTS, max_seq=required_max_seq(reqs),
+                            chunk=CHUNK, block_size=BLOCK, device=DEV, **kw)
+
+
+def sampler_check(vocab: int) -> dict:
+    """The sampler at the tick's shape (SLOTS rows of the vocabulary): its
+    hash words on the card bitwise the CPU's, and its device time."""
+    streams = torch.arange(SLOTS) * 7 + 3
+    pos = torch.arange(SLOTS) * 131 + 1000
+    cpu = counter_bits(SEED, streams, pos, vocab)
+    card = counter_bits(SEED, streams.to(DEV), pos.to(DEV), vocab)
+    if not torch.equal(card.cpu(), cpu):
+        fail("the sampler's hash words on the card differ from the CPU's")
+    logits = torch.randn(SLOTS, vocab, generator=torch.Generator(device=DEV).manual_seed(4),
+                         device=DEV)
+    temps = torch.full((SLOTS,), GUARD_T, device=DEV)
+    args = (logits, temps, SEED, streams.to(DEV), pos.to(DEV))
+    return {"hash_bitwise_cpu": True, "rows": SLOTS, "vocab": vocab,
+            "sample_ms": device_ms(lambda: sample(*args), 20),
+            "argmax_ms": device_ms(lambda: logits.argmax(dim=-1), 20)}
+
+
+def chaos_run(label: str, engine, reqs, kinds: tuple, clean: dict, leaves=None,
+              gated: bool = True) -> dict:
+    """A reset run of ``reqs`` with a fault injected every CHAOS_EVERY model
+    ticks (CHAOS_FAULTS in all, ``kinds`` in turn), the ledger checked after
+    every tick.  Gated: every fault flagged within one tick of its
+    injection, every poisoned block quarantined, launches exact, every tick
+    a replay, nothing plain on the card, the run drained.  Reported: each
+    fault's detection latency (None: missed), and the requests whose tokens
+    equal the fault-free run's ``clean``."""
+    engine.reset()
+    inj = FaultInjector(engine, seed=SEED, leaves=leaves)
+    for req in reqs:
+        engine.submit(req)
+    torch.cuda.synchronize()
+    counters.reset()
+    records = []
+    t0 = time.perf_counter()
+    while engine.step():
+        engine.pool.check_ledger()
+        if (len(records) < CHAOS_FAULTS
+                and engine.model_ticks >= CHAOS_EVERY * (len(records) + 1)):
+            rec = inj.inject(kinds[len(records) % len(kinds)])
+            if rec is not None:
+                records.append(rec)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    m = engine.metrics()
+    latency = []
+    for rec in records:
+        flag = "fault_table_repair" if rec.kind == "table" else "fault"
+        late = [e[1] - rec.step for e in engine.event_log if e[0] == flag and e[1] >= rec.step]
+        latency.append(min(late) if late else None)
+    toks = {c.request_id: c.new_tokens for c in engine.completions}
+    reasons = [c.finish_reason for c in engine.completions]
+    res = {"faults": [f"{r.kind}:{r.leaf or '-'}@{r.step}" for r in records],
+           "latency_ticks": latency, "model_ticks": m["model_ticks"], "seconds": seconds,
+           **{k: m[k] for k in ("sentinel_checks", "sentinel_violations", "quarantined_blocks",
+                                "retries", "table_repairs", "failed_completions",
+                                "preempt_resumes")},
+           "finish_reasons": {r: reasons.count(r) for r in set(reasons)},
+           "clean_identical": f"{sum(np.array_equal(toks.get(i), t) for i, t in clean.items())}"
+                              f"/{len(clean)}"}
+    print(f"[{label}] {json.dumps(res)}")
+    if not gated:
+        return res
+    want = continuous_want(engine.model.cfg.n_layers, m["model_ticks"],
+                           engine.pool.kv_dtype == "int8")
+    missed = [f for f, lat in zip(res["faults"], latency) if lat is None or lat > 1]
+    unquarantined = [r.block for r in records
+                     if r.kind != "table" and r.block not in engine.pool.quarantined]
+    if len(records) < CHAOS_FAULTS or missed or unquarantined:
+        fail(f"{label}: {len(records)} faults, not flagged within a tick: {missed}, poisoned "
+             f"blocks not quarantined: {unquarantined}")
+    if counters.launch_counts() != want or any(counters.plain_cuda_calls().values()):
+        fail(f"{label}: launches {counters.launch_counts()} != {want}, plain "
+             f"{counters.plain_cuda_calls()}")
+    if m["transfer_guarded_ticks"] != m["model_ticks"]:
+        fail(f"{label}: {m['model_ticks'] - m['transfer_guarded_ticks']} ticks not replayed")
+    if len(reasons) != len(reqs) or engine.pool.blocks_in_use or m["fallbacks"]:
+        fail(f"{label}: not drained: {len(reasons)} of {len(reqs)} done, "
+             f"{engine.pool.blocks_in_use} blocks held, {m['fallbacks']} fallbacks")
+    return res
+
+
+def phase_guard(served: dict, int8: dict) -> dict:
+    """Sampling and the GN sentinels at full width, over phase 4's workload
+    and weights (see the module docstring, phase 10)."""
+    model = make_model(get_config(ARCH))
+    reqs = seeded_requests(model.cfg.vocab, REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW, 1, SEED)
+    master = model.init(SEED, DEV)
+    sampler = sampler_check(model.cfg.vocab)
+    print(f"[guard-sampler] {json.dumps(sampler)}")
+    # the sampled run, with phase 4's checks and a profiled window
+    engine = guard_engine(model, master, reqs, cfg=ServeConfig(temperature=GUARD_T, seed=SEED))
+    first, launches, seconds = first_run("guard-sampled", engine, reqs)
+    stats = serve_stats(engine, seconds)
+    replays = continuous_replays("guard-sampled", engine, reqs, first, launches,
+                                 window=LONG_WINDOW)
+    keys = ("steady_tokens_per_s", "steady_mean_tick_ms", "device_busy_share")
+    prefix = common_prefix(first, served["new_tokens"])
+    sampled = {"temperature": GUARD_T, **stats, "launches": launches, **replays,
+               "greedy (phase 4)": {k: served[k] for k in keys},
+               "greedy_identical": f"{sum(p == 1.0 for p in prefix)}/{len(prefix)}"}
+    print(f"[guard-sampled] {json.dumps(sampled)}")
+    del engine
+    # per pool: the sentinels' cost (greedy runs with them on and off, in
+    # turns, tokens equal), then the chaos runs on the engine with them on
+    cost, chaos = {}, {}
+    for kv, before in (("fp", served), ("int8", int8)):
+        on = guard_engine(model, master, reqs, kv_dtype=kv)
+        off = guard_engine(model, master, reqs, kv_dtype=kv, sentinels=False)
+        clean, _, _ = first_run(f"guard-on-{kv}", on, reqs)
+        unguarded, _, _ = first_run(f"guard-off-{kv}", off, reqs)
+        if any(not np.array_equal(t, unguarded[i]) for i, t in clean.items()):
+            fail(f"the sentinels changed the greedy tokens over the {kv} pool")
+        ticks = {"on": [], "off": []}
+        for name, eng in (("on", on), ("off", off), ("off", off), ("on", on)):
+            timed_run(eng, reqs)
+            ticks[name].append(float(np.mean([dt * 1e3 for _, _, dt in eng.tick_log])))
+        same = sum(np.array_equal(t, before["new_tokens"][i]) for i, t in clean.items())
+        cost[kv] = {"tick_ms_on": ticks["on"], "tick_ms_off": ticks["off"],
+                    "probe_ms_per_tick": float(np.mean(ticks["on"]) - np.mean(ticks["off"])),
+                    "earlier_phase_identical": f"{same}/{len(clean)}"}
+        print(f"[guard-cost-{kv}] {json.dumps(cost[kv])}")
+        del off
+        torch.cuda.empty_cache()
+        chaos[kv] = chaos_run(f"guard-chaos-{kv}", on, reqs, CHAOS[kv], clean,
+                              leaves=("v",) if kv == "fp" else None)
+        if kv == "fp":
+            chaos["k_tiles"] = chaos_run("guard-chaos-k", on, reqs, ("nan_tile", "inf_tile"),
+                                         clean, leaves=("k",), gated=False)
+        del on
+        torch.cuda.empty_cache()
+    res = {"sampler": sampler, "sampled": {k: sampled[k] for k in keys}, "cost": cost,
+           "chaos": {k: {f: v[f] for f in ("latency_ticks", "clean_identical",
+                                           "sentinel_violations", "quarantined_blocks")}
+                     for k, v in chaos.items()}}
+    print(f"[guard] {json.dumps(res)}")
+    return {**res, "launches": launches}
 
 
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
@@ -1515,9 +1731,11 @@ def main() -> int:
     long_static = phase("long-static", phase_long_static, kern["gn_attention"])
     long_cont = phase("long", phase_long_continuous)
     reads = phase("reads", phase_reads, served, int8)
+    guard = phase("guard", phase_guard, served, int8)
     by_path = {"continuous": served["launches"], "static": static["launches"],
                "int8": int8["launches"], "long_static": long_static["launches"],
-               "long_continuous": long_cont["launches"], "reads": reads["launches"]}
+               "long_continuous": long_cont["launches"], "reads": reads["launches"],
+               "sampled": guard["launches"]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         # the main path's shape: bf16 tick (fp or int8 KV; the norms' 128

@@ -39,11 +39,13 @@ def exp_lut_tensors(cfg: SoftmaxLUTConfig, device: str) -> tuple[torch.Tensor, t
 def delta_index(delta: torch.Tensor, cfg: SoftmaxLUTConfig) -> torch.Tensor:
     """Δ ≥ 0 (f32) -> its saturating integer grid index, round half to even.
 
-    The clamp happens in float, before the cast, so a masked score's huge Δ
-    saturates instead of wrapping (an out-of-range float->int cast is
-    undefined behaviour on the CPU)."""
+    The reference casts to int32 first and clips the integer after; XLA's
+    cast saturates out-of-range values and sends NaN to 0 (a NaN or +Inf
+    score makes the row's Δ NaN or +Inf).  An out-of-range float->int cast
+    is undefined behaviour in PyTorch, so the same index is formed in float:
+    NaN to 0, then the clip, then the cast."""
     d = torch.round(delta * (1.0 / cfg.step))
-    return d.clamp(0, cfg.max_delta_int).to(torch.int32)
+    return d.nan_to_num(0.0).clamp(0, cfg.max_delta_int).to(torch.int32)
 
 
 def factorized_exp(delta: torch.Tensor, cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT) -> torch.Tensor:

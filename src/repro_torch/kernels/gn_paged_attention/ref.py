@@ -11,6 +11,10 @@ as the Pallas kernel dequantizes each tile after its load
 (``kernel.py:97-104``); the reference's streamed jnp read multiplies in the
 activation dtype instead (``models/attention.py:430``).  A row that sees no
 column at all (an empty sequence) reads nothing and is 0, as in the kernel.
+Blocks past a sequence's context are not read either, as the kernels read
+none (a stale table entry may name any block): their V is taken as 0, so a
+nonfinite tile there cannot reach the output through a zero weight (0 · NaN
+= NaN), which leaves every finite result unchanged.
 
 ``cuda_calls`` counts calls on CUDA tensors, so a run can show that its main
 path never fell back to this version there.
@@ -60,6 +64,8 @@ def gn_paged_attention_chunk_ref(
     lengths = (starts + n_valid).long()
     valid = (col[None, None, :] <= rows[:, :, None]) & (col[None, None, :] < lengths[:, None, None])
     s = torch.where(valid[:, None], s, NEG_INF)
+    read = col[None, :] < (-(-lengths // k_arena.shape[1]) * k_arena.shape[1])[:, None]
+    v = torch.where(read[:, :, None, None], v, 0.0)
     p = gn_softmax(s, cfg)
     out = torch.einsum("nhct,nthd->nchd", p, v)
     out = torch.where(valid.any(dim=-1)[:, :, None, None], out, 0.0)

@@ -1,5 +1,5 @@
 """Serving entry point of the port: static batches or continuous batching,
-greedy, GN datapath.
+greedy or sampled (``--temperature``), GN datapath.
 
 Builds the config, draws random weights from ``--seed`` with a
 ``torch.Generator`` on the device, and serves.  Runs on CUDA unless
@@ -10,20 +10,22 @@ Builds the config, draws random weights from ``--seed`` with a
     prefills through the GN flash-attention kernel); one line per batch with
     its shape, seconds, tok/s and the teacher-forced perplexity of the whole
     sequence, then the overall tok/s;
-  * ``--continuous``: a seeded numpy workload through ``ContinuousEngine``,
-    one line per request and the per-tick phases and times, then the
-    greedy outputs held against ``static_reference`` on the same requests
-    (printed as k/n token-identical).  The two agree token for token on the
-    CPU at float32.  At bfloat16 the paged read keeps its scores in f32
-    where the static path rounds them to bf16, as the reference's does; on
-    a GPU the online paged read and the one-pass static softmax may also
-    break a near-tied argmax differently.
+  * ``--continuous``: a seeded numpy workload through ``ContinuousEngine``
+    (GN sentinels on unless ``--no-sentinels``), one line per request and
+    the per-tick phases and times, the sentinels' counters, then at
+    temperature 0 the greedy outputs held against ``static_reference`` on
+    the same requests (printed as k/n token-identical; a sampled run skips
+    the oracle, as the reference launcher does).  The two agree token for
+    token on the CPU at float32.  At bfloat16 the paged read keeps its
+    scores in f32 where the static path rounds them to bf16, as the
+    reference's does; on a GPU the online paged read and the one-pass
+    static softmax may also break a near-tied argmax differently.
 
 Usage:
   python -m repro_torch.launch.serve --arch internlm2-1.8b --batches 2 --batch-size 8
   python -m repro_torch.launch.serve --arch internlm2-1.8b --batches 1 --batch-size 4 \
       --prompt-len 4096
-  python -m repro_torch.launch.serve --arch internlm2-1.8b --continuous
+  python -m repro_torch.launch.serve --arch internlm2-1.8b --continuous [--temperature 0.7]
   python -m repro_torch.launch.serve --smoke --device cpu [--continuous]
 """
 from __future__ import annotations
@@ -67,6 +69,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--device", default=None, help="default: cuda, raising without a GPU")
     ap.add_argument("--seed", type=int, default=0, help="weights and workload seed")
     ap.add_argument("--new-tokens", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0, help="0: greedy")
     ap.add_argument("--batches", type=int, default=3, help="static: number of batches")
     ap.add_argument("--batch-size", type=int, default=4, help="static: prompts per batch")
     ap.add_argument("--prompt-len", type=int, default=32, help="static: prompt tokens")
@@ -78,6 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--min-prompt", type=int, default=8)
     ap.add_argument("--max-prompt", type=int, default=32)
     ap.add_argument("--stagger", type=int, default=1, help="ticks between arrivals")
+    ap.add_argument("--no-sentinels", action="store_true",
+                    help="continuous: serve without the GN runtime sentinels")
     return ap
 
 
@@ -90,7 +95,8 @@ def _serve_static(model, params, args, device) -> dict:
     cfg = model.cfg
     data = DataConfig(vocab=cfg.vocab, seq_len=args.prompt_len, global_batch=args.batch_size,
                       seed=11)
-    scfg = ServeConfig(max_new_tokens=args.new_tokens)
+    scfg = ServeConfig(max_new_tokens=args.new_tokens, temperature=args.temperature,
+                       seed=args.seed)
     prompts, outputs, ppls, seconds = [], [], [], []
     total_tok = 0
     before = counters.launch_counts()
@@ -127,7 +133,9 @@ def _serve_continuous(model, args, device) -> dict:
     # the engine keeps only its prepared copy of the weights
     engine = ContinuousEngine(model, model.init(args.seed, device), num_slots=args.num_slots,
                               max_seq=required_max_seq(reqs),
-                              chunk=args.chunk, block_size=args.block_size, device=device)
+                              cfg=ServeConfig(temperature=args.temperature, seed=args.seed),
+                              chunk=args.chunk, block_size=args.block_size,
+                              sentinels=not args.no_sentinels, device=device)
     before = counters.launch_counts()
     t0 = time.perf_counter()
     comps = engine.run(reqs)
@@ -141,6 +149,9 @@ def _serve_continuous(model, args, device) -> dict:
           f"/{engine.pool.num_blocks}, horizon buckets fused {m['fused_buckets']} decode "
           f"{m['decode_buckets']}, {m['fused_step_compilations'] + m['decode_compilations']} "
           f"graph captures ({m['capture_seconds']:.2f}s)")
+    print(f"  sentinels {'on' if m['sentinels'] else 'off'}: {m['sentinel_checks']} checks, "
+          f"{m['sentinel_violations']} violations, {m['quarantined_blocks']} quarantined, "
+          f"{m['retries']} retries, {m['fallbacks']} fallbacks")
     for i in range(0, len(engine.tick_log), 8):
         row = "  ".join(f"P{p}D{d} {dt * 1e3:.1f}ms"
                         for p, d, dt in engine.tick_log[i:i + 8])
@@ -150,6 +161,10 @@ def _serve_continuous(model, args, device) -> dict:
               f"[{c.finish_reason}] arrive@{c.arrival_step} admit@{c.admit_step} "
               f"first@{c.first_token_step} finish@{c.finish_step} "
               f"latency {c.latency_s * 1e3:.0f}ms")
+    out = {"engine": engine, "requests": reqs, "completions": comps, "seconds": seconds,
+           "launches": launches}
+    if args.temperature > 0:  # sampled: the greedy oracle does not apply
+        return out
     # the static oracle on the same requests and weights
     ref = static_reference(model, engine.params, reqs, ServeConfig())
     prefix = []
@@ -161,8 +176,7 @@ def _serve_continuous(model, args, device) -> dict:
     same = sum(np.array_equal(c.tokens, ref[c.request_id]) for c in comps)
     print(f"greedy outputs token-identical to static path: {same}/{len(comps)} "
           f"(mean common prefix {np.mean(prefix):.2f} of {args.new_tokens} new tokens)")
-    return {"engine": engine, "requests": reqs, "completions": comps, "seconds": seconds,
-            "launches": launches, "static_identical": same, "common_prefix": prefix}
+    return {**out, "static_identical": same, "common_prefix": prefix}
 
 
 def main(argv=None) -> dict:
@@ -171,7 +185,7 @@ def main(argv=None) -> dict:
     oracle excluded), its wall seconds and, per mode, the outputs (static:
     model, prepared params, prompts, outputs, perplexities; continuous: the
     engine, which a caller may ``reset`` and rerun, requests, completions,
-    and the oracle's identity count and common prefixes)."""
+    and at temperature 0 the oracle's identity count and common prefixes)."""
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
     set_matmul_precision()

@@ -42,6 +42,17 @@ masked; the GN softmax kernel over the (N, KV, G, C, T) rows; probabilities
 cast to the value dtype before P·V; int8 blocks gathered first and
 dequantized in the activation dtype by their scale cast to it.
 
+GN sentinels (``probe=True``): each layer's read also returns its probe,
+which ``paged_probe_word`` turns into an (N, 3) health word a layer: the Σp
+residual with nonfinite values forced to +inf, the share of the tick's int8
+writes that clipped, and a scale-sanity flag over the live horizon.  The streamed and gathered reads
+hold the scores and probabilities, so they give the full Σp probe; the
+kernel keeps them in registers, so its probe is reduced to the finiteness
+of its output, as the reference's Pallas read's (``models/attention.py``
+there).  A NaN or Inf K tile turns the scores nonfinite, and the GN
+exponential launders them into a valid distribution, so the reduced probe
+misses K faults that the full probe catches; V faults reach the output.
+
 Only the GN softmax is ported (``softmax_impl="gn"``), and no sliding
 window.
 """
@@ -196,13 +207,75 @@ def paged_write_indices(rows, n_valid, tables, block_size: int, num_blocks: int)
     return torch.where(lane_ok, dest, num_blocks * block_size).reshape(-1)
 
 
+# GN sentinel: a per-block dequant scale above this is corrupt (the
+# reference's SCALE_SANITY_MAX).  Legitimate scales are QUANT_MARGIN *
+# amax / 127, orders of magnitude below it.
+SCALE_SANITY_MAX = 1e4
+
+
+def _probe_sum_residual(pmat, scores, out, valid, lane_ok):
+    """Sentinel channel 0 per slot (the reference's ``_probe_sum_residual``):
+    the largest |Σp − 1| over the slot's live lanes, +inf when a visible
+    score or a live lane's output is nonfinite.  pmat/scores: (N, KV, G, C,
+    T); out: (N, C, ...) before wo; valid: (N, C, T); lane_ok: (N, C).
+    Returns (N,) f32."""
+    n = pmat.shape[0]
+    lane = lane_ok[:, None, None]
+    sumres = (pmat.float().sum(dim=-1) - 1.0).abs()
+    res = torch.where(lane, sumres, 0.0).reshape(n, -1).amax(dim=1)
+    bad = (~torch.isfinite(scores)) & valid[:, None, None] & lane[..., None]
+    obad = (~torch.isfinite(out.float().reshape(n, out.shape[1], -1))) & lane_ok[:, :, None]
+    return torch.where(bad.reshape(n, -1).any(dim=1) | obad.reshape(n, -1).any(dim=1),
+                       torch.inf, res)
+
+
+def paged_probe_word(probes, positions, n_valid, tables, block_size: int, scales):
+    """The tick's (L, N, 3) sentinel health words, one a layer (the
+    reference's ``paged_probe_word``, which its scan builds a layer at a
+    time; assembled here once a tick from each layer's ``attn_paged_chunk``
+    probe, so the tick adds a few launches a layer, not a dozen).
+
+    Channels: [0] the Σp residual, +inf on a nonfinite live value: the
+    streamed and gathered reads give it per slot (``_probe_sum_residual``);
+    the kernel read gives its output's row sums (N, C) f32, nonfinite
+    exactly when a row holds a NaN or an Inf (a finite bf16 or f32 attention
+    row is a convex mix of V rows, so its sum cannot overflow), which make
+    the channel 0 or +inf; [1] the share of the slot's int8 writes this tick
+    that clipped; [2] 1.0 when a scale of the slot's live horizon is
+    nonfinite, negative or past SCALE_SANITY_MAX (``scales``: the (L, nb +
+    1) k and v scales after the tick's writes, or None).  Parked lanes
+    (n_valid = 0) read stale blocks by design: every channel is 0 there."""
+    dev = positions.device
+    n, layers = positions.shape[0], len(probes)
+    zero = torch.zeros(layers, n, dtype=torch.float32, device=dev)
+    active = (n_valid > 0)[None, :]
+    probe0 = torch.stack([p for p, _ in probes])
+    if probe0.dim() == 3:  # the kernel read's row sums (L, N, C)
+        lane_ok = torch.arange(probe0.shape[2], device=dev)[None, :] < n_valid[:, None]
+        bad = (~torch.isfinite(probe0) & lane_ok).any(dim=2)
+        probe0 = torch.where(bad, torch.inf, 0.0)
+    clip = scalebad = zero
+    if probes[0][1] is not None:
+        clip_tok = torch.stack([c for _, c in probes]).reshape(layers, n, -1)
+        lane_ok = torch.arange(clip_tok.shape[2], device=dev)[None, :] < n_valid[:, None]
+        clip = (clip_tok & lane_ok).float().sum(dim=2) / n_valid.clamp_min(1).float()
+    if scales is not None:
+        max_blk = (positions.long() + n_valid.long().clamp_min(1) - 1) // block_size
+        blk_ok = torch.arange(tables.shape[1], device=dev)[None, :] <= max_blk[:, None]
+        s_at = torch.stack(scales)[:, :, tables.long()]  # (2, L, N, H')
+        bad = (~torch.isfinite(s_at)) | (s_at < 0) | (s_at > SCALE_SANITY_MAX)
+        scalebad = (bad & blk_ok).any(dim=3).any(dim=0).float()
+    return torch.stack([torch.where(active, ch, zero) for ch in (probe0, clip, scalebad)], dim=2)
+
+
 # Headroom on the first-write per-block amax (the reference's QUANT_MARGIN):
 # a block's scale is frozen at its offset-0 write and later appends to the
 # block saturate at +-127 rather than rescale.
 QUANT_MARGIN = 2.0
 
 
-def paged_quant_write(flat_arena, scale, new_vals, dest, block_size: int) -> None:
+def paged_quant_write(flat_arena, scale, new_vals, dest, block_size: int,
+                      return_clip: bool = False):
     """Freeze-at-first-write int8 block scatter, in place (port of the
     reference's ``paged_quant_write``, ``models/attention.py:331``).
 
@@ -213,7 +286,11 @@ def paged_quant_write(flat_arena, scale, new_vals, dest, block_size: int) -> Non
     scale to QUANT_MARGIN * (the amax of every write into it this call) /
     127; every write is quantized by its block's scale after that update,
     rounded half to even and clipped to +-127.  On the same f32 inputs the
-    real blocks' int8 values and scales equal the reference's bit for bit."""
+    real blocks' int8 values and scales equal the reference's bit for bit.
+    With ``return_clip`` it returns an (n_tok,) bool of the writes that
+    saturated (the sentinels' clip channel), else None: a write saturates
+    when its largest |value| over the scale rounds past 127, which is the
+    reference's any(|round(x / s)| > 127) (rounding is monotone)."""
     blk = dest // block_size
     x = new_vals.float()
     amax = x.abs().reshape(x.shape[0], -1).amax(dim=1)  # (n_tok,)
@@ -226,9 +303,12 @@ def paged_quant_write(flat_arena, scale, new_vals, dest, block_size: int) -> Non
     frozen = QUANT_MARGIN * blk_amax / torch.full_like(blk_amax, 127.0)
     scale.copy_(torch.where(first, frozen, scale))
     s_tok = scale[blk]
-    denom = torch.where(s_tok > 0, s_tok, 1.0).reshape((-1,) + (1,) * (x.dim() - 1))
-    q = torch.clamp(torch.round(x / denom), -127.0, 127.0).to(torch.int8)
-    flat_arena.index_copy_(0, dest, q)
+    denom = torch.where(s_tok > 0, s_tok, 1.0)
+    q = torch.round(x / denom.reshape((-1,) + (1,) * (x.dim() - 1)))
+    flat_arena.index_copy_(0, dest, torch.clamp(q, -127.0, 127.0).to(torch.int8))
+    if return_clip:
+        return torch.round(amax / denom) > 127.0
+    return None
 
 
 def paged_read_path(cfg: ModelConfig) -> str:
@@ -255,7 +335,8 @@ def _gather_blocks(arena, scale, tables, dt):
     return blocks.to(dt) * scale[tables].to(dt)[..., None, None, None]
 
 
-def _paged_read_plain(q, arena_k, arena_v, tables, rows, scales, streamed: bool):
+def _paged_read_plain(q, arena_k, arena_v, tables, rows, scales, streamed: bool,
+                      probe_nv=None):
     """The reference's streamed (``_stream_paged_tiles``) or gathered read.
 
     q: (N, C, H, dh) rotated, in the activation dtype; arenas (nb + 1, bs,
@@ -264,7 +345,9 @@ def _paged_read_plain(q, arena_k, arena_v, tables, rows, scales, streamed: bool)
     gathers K ``STREAM_TILE`` table columns at a time and emits each tile's
     scores, which are the gathered read's dots column for column; both run
     the same softmax and the same P·V over the horizon's V blocks.  Returns
-    (N, C, H * dh) in the value dtype."""
+    (N, C, H * dh) in the value dtype; with ``probe_nv`` (the tick's n_valid)
+    also the full Σp probe (``_probe_sum_residual``) of its scores and
+    probabilities, as the reference's two reads return it."""
     n, c_len, h, dh = q.shape
     kv = arena_k.shape[2]
     dt = q.dtype
@@ -283,11 +366,15 @@ def _paged_read_plain(q, arena_k, arena_v, tables, rows, scales, streamed: bool)
     scores = torch.where(valid[:, None, None], scores.float(), NEG_INF)
     v_at = _gather_blocks(arena_v, v_scale, tables, dt).reshape(n, -1, kv, dh)
     pmat = gn_softmax(scores).to(v_at.dtype)
-    return torch.einsum("bkgst,btkd->bskgd", pmat, v_at).reshape(n, c_len, h * dh)
+    out = torch.einsum("bkgst,btkd->bskgd", pmat, v_at)
+    if probe_nv is None:
+        return out.reshape(n, c_len, h * dh)
+    lane_ok = torch.arange(c_len, device=q.device)[None, :] < probe_nv[:, None]
+    return out.reshape(n, c_len, h * dh), _probe_sum_residual(pmat, scores, out, valid, lane_ok)
 
 
 def attn_paged_chunk(cfg: ModelConfig, p: dict, arena_k, arena_v, x, positions,
-                     n_valid, tables, scales=None):
+                     n_valid, tables, scales=None, probe: bool = False):
     """Block-paged chunked append-decode, batched over slots.
 
     x: (N, C, D) in the activation dtype; positions/n_valid: (N,) int32;
@@ -297,7 +384,12 @@ def attn_paged_chunk(cfg: ModelConfig, p: dict, arena_k, arena_v, x, positions,
     attends [0, positions[s] + i].  ``scales`` = (k_scale, v_scale), each
     (num_blocks + 1,) f32 and updated in place, marks the arenas as int8:
     the writes quantize, the read dequantizes per block.  The read takes
-    ``paged_read_path(cfg)``.  Returns (N, C, D).
+    ``paged_read_path(cfg)``.  Returns (N, C, D); with ``probe`` also this
+    layer's sentinel probe (probe0, clip), which ``paged_probe_word`` turns
+    into the layer's health word: probe0 the full Σp probe (N,) of the
+    streamed and gathered reads, or the kernel read's output row sums (N,
+    C) f32 (its finiteness); clip the (N * C,) int8 writes that saturated,
+    or None over fp arenas.
     """
     _require_gn(cfg)
     b, c_len, _ = x.shape
@@ -309,18 +401,26 @@ def attn_paged_chunk(cfg: ModelConfig, p: dict, arena_k, arena_v, x, positions,
     v_new = (x @ p["wv"]).reshape(b, c_len, kv, dh)
 
     dest = paged_write_indices(rows, n_valid, tables, bs, nb)
+    clips = []
     for arena, new, scale in zip((arena_k, arena_v), (k_new, v_new), scales or (None, None)):
         flat, vals = arena.view(-1, kv, dh), new.reshape(-1, kv, dh)
         if scale is None:
             flat.index_copy_(0, dest, vals.to(arena.dtype))
         else:
-            paged_quant_write(flat, scale, vals, dest, bs)
+            clips.append(paged_quant_write(flat, scale, vals, dest, bs, return_clip=probe))
 
     path = paged_read_path(cfg)
     if path == "kernel":
         out = gn_paged_attention_chunk(q, arena_k, arena_v, tables, positions, n_valid,
                                        scales=scales)
+        if probe:  # reduced probe: the probabilities stay in the kernel
+            probe0 = out.reshape(b, c_len, -1).sum(dim=-1, dtype=torch.float32)
     else:
         out = _paged_read_plain(q, arena_k, arena_v, tables, rows, scales,
-                                streamed=path == "streamed")
-    return out.reshape(b, c_len, cfg.q_features).to(x.dtype) @ p["wo"]
+                                streamed=path == "streamed", probe_nv=n_valid if probe else None)
+        if probe:
+            out, probe0 = out
+    out = out.reshape(b, c_len, cfg.q_features).to(x.dtype) @ p["wo"]
+    if not probe:
+        return out
+    return out, (probe0, clips[0] | clips[1] if clips else None)

@@ -17,7 +17,8 @@
     graph serves every step;
   * ``init_paged_cache`` / ``fused_step_slots_paged`` / ``_paged_head`` —
     the block-paged serving tick over fp arenas, or int8 arenas with
-    per-block f32 scales, its read named by ``paged_read_path``.
+    per-block f32 scales, its read named by ``paged_read_path``, and with
+    ``sentinel`` the GN sentinels' per-layer and head probes.
 
 Each layer runs norm -> attention -> norm -> MLP; the head runs one more
 norm and the LM projection.  Every norm that follows a residual add (ln2,
@@ -213,29 +214,55 @@ class Model:
                 cache[key] = torch.zeros(shape[:2], dtype=torch.float32, device=dev)
         return cache
 
-    def fused_step_slots_paged(self, params, cache, tokens, positions, n_valid, tables):
+    def fused_step_slots_paged(self, params, cache, tokens, positions, n_valid, tables,
+                               sentinel: bool = False):
         """One paged serving tick: every slot processes its own C-token chunk
         at its own write offset.  params: ``prepare``d; tokens: (N, C) int;
         positions/n_valid: (N,) int32 (n_valid = 0 parks a lane: no writes);
         tables: (N, max_bt) int32.  Writes the arenas of ``cache`` (and its
         scales, for int8 arenas) in place and returns the logits (N, 1, V) of
-        each slot's row n_valid - 1."""
+        each slot's row n_valid - 1.  With ``sentinel`` it also returns the
+        GN sentinels' health, as the reference's: {"layers": (L, N, 3) f32,
+        one ``attention.paged_probe_word`` a layer, "head": (N,) f32, the
+        final norm's σ residual (``_paged_head``)}, computed on the device."""
         cfg = self.cfg
         x, pending = self._embed(params, tokens), None
         scales = (zip(cache["k_scale"], cache["v_scale"]) if "k_scale" in cache
                   else [None] * cfg.n_layers)
+        probes = []
         for lp, k_arena, v_arena, sc in zip(params["layers"], cache["k"], cache["v"], scales):
             x, h = self._ln1(lp, x, pending)
-            x, pending = self._mlp_residual(lp, x, attn.attn_paged_chunk(
-                cfg, lp["mixer"], k_arena, v_arena, h, positions, n_valid, tables, sc))
-        return self._paged_head(params, x + pending, n_valid)
+            y = attn.attn_paged_chunk(cfg, lp["mixer"], k_arena, v_arena, h, positions, n_valid,
+                                      tables, sc, probe=sentinel)
+            if sentinel:
+                y, pr = y
+                probes.append(pr)
+            x, pending = self._mlp_residual(lp, x, y)
+        if not sentinel:
+            return self._paged_head(params, x + pending, n_valid)
+        logits, head = self._paged_head(params, x + pending, n_valid, probe=True)
+        words = attn.paged_probe_word(
+            probes, positions, n_valid, tables, cache["k"].shape[2],
+            (cache["k_scale"], cache["v_scale"]) if "k_scale" in cache else None)
+        return logits, {"layers": words, "head": head}
 
-    def _paged_head(self, params, x, n_valid):
+    def _paged_head(self, params, x, n_valid, probe: bool = False):
         """Next-token logits per slot: gather row n_valid - 1 (clamped for
-        parked lanes), then project only that row."""
+        parked lanes), then project only that row.  With ``probe`` also the
+        (N,) σ residual |mean(x̂²) − 1| of the model's own norm with unit
+        gamma on the gathered row in f32 (the reference's probe), +inf where
+        the row or its logits are nonfinite, 0 for parked lanes."""
         idx = (n_valid.long() - 1).clamp_min(0)
         xr = x[torch.arange(x.shape[0], device=x.device), idx][:, None]
-        return self._lm_head(params, xr)
+        logits = self._lm_head(params, xr)
+        if not probe:
+            return logits
+        xhat = apply_norm(self.cfg, {"gamma": None}, xr.float())
+        sig = ((xhat * xhat).mean(dim=-1) - 1.0).abs()[:, 0]
+        bad = ((~torch.isfinite(logits.float())).flatten(1).any(dim=1)
+               | (~torch.isfinite(xr.float())).flatten(1).any(dim=1))
+        head = torch.where(n_valid > 0, torch.where(bad, torch.inf, sig), 0.0)
+        return logits, head
 
     def _lm_head(self, params, x):
         return apply_norm(self.cfg, params["final_norm"], x) @ params["lm_head"]["w"]

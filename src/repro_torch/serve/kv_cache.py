@@ -17,12 +17,23 @@ the context length, and the GN softmax maps masked scores to numerators of
 exactly zero, so stale contents are unreachable.  Scales are not zeroed
 either: a recycled block's first write lands at in-block offset 0 and
 freezes its scale anew.
+
+Quarantine (the GN sentinels' containment, as the reference's):
+``quarantine_block`` takes a block out of circulation for good.  A free
+block leaves the free list at once; a block a live chain holds is marked
+doomed and goes to the quarantine set, not the free list, when its slot is
+freed.  ``scrub_blocks`` zeroes quarantined blocks' arena tiles and scales
+in place (a NaN tile read through a stale table entry would poison a healthy
+slot: 0 · NaN = NaN); the tensors keep their addresses, so captured graphs
+keep reading them.  ``check_ledger`` holds free + held + quarantined =
+num_blocks after every free and quarantine.  ``reset`` clears both sets.
 """
 from __future__ import annotations
 
 from collections import deque
 
 import numpy as np
+import torch
 
 from repro_torch import resolve_device
 
@@ -62,6 +73,10 @@ class BlockPagedKVPool:
         self._slot_blocks: dict[int, list[int]] = {}
         self._reserved = np.zeros(self.num_slots, np.int32)  # blocks, whole-request
         self.peak_blocks_in_use = 0
+        # out of circulation for good; doomed: held by a live chain, bound for
+        # quarantine when its slot is freed
+        self.quarantined: set[int] = set()
+        self._doomed: set[int] = set()
 
     def hbm_bytes(self) -> int:
         """Resident device bytes: the arenas (sink block included), the int8
@@ -74,7 +89,7 @@ class BlockPagedKVPool:
 
     @property
     def blocks_in_use(self) -> int:
-        return self.num_blocks - len(self._free_blocks)
+        return self.num_blocks - len(self._free_blocks) - len(self.quarantined)
 
     @property
     def blocks_reserved(self) -> int:
@@ -104,17 +119,64 @@ class BlockPagedKVPool:
 
     def free(self, slot: int) -> None:
         """Release a slot the tick its request finishes: its blocks return to
-        the FIFO free list in allocation order."""
+        the FIFO free list in allocation order, doomed ones to quarantine."""
         if slot not in self._slot_blocks:
             raise ValueError(f"slot {slot} is not allocated")
-        self._free_blocks.extend(self._slot_blocks.pop(slot))
+        for b in self._slot_blocks.pop(slot):
+            self._recycle(b)
         self.positions[slot] = 0
         self._reserved[slot] = 0
         self._free_slots.append(slot)
-        held = sum(len(b) for b in self._slot_blocks.values())
-        if len(self._free_blocks) + held != self.num_blocks:
-            raise RuntimeError(f"block ledger leak: free {len(self._free_blocks)} + "
-                               f"held {held} != {self.num_blocks}")
+        self.check_ledger()
+
+    def _recycle(self, block: int) -> None:
+        if block in self._doomed:
+            self._doomed.discard(block)
+            self.quarantined.add(block)
+        else:
+            self._free_blocks.append(block)
+
+    def chain_of(self, slot: int) -> list[int]:
+        """A copy of ``slot``'s physical block chain, in logical order."""
+        return list(self._slot_blocks[slot])
+
+    def quarantine_block(self, block: int) -> None:
+        """Take ``block`` out of circulation for good: a free block now, a
+        held one (doomed) when its slot is freed.  Idempotent."""
+        b = int(block)
+        if b in self.quarantined or b in self._doomed:
+            return
+        if any(b in chain for chain in self._slot_blocks.values()):
+            self._doomed.add(b)
+            return
+        try:
+            self._free_blocks.remove(b)
+        except ValueError:
+            raise RuntimeError(f"block {b} is neither held nor free: ledger corrupt") from None
+        self.quarantined.add(b)
+        self.check_ledger()
+
+    def scrub_blocks(self, blocks) -> None:
+        """Zero the arena tiles and scales of ``blocks`` in every layer, in
+        place.  A zeroed scale also reads as never written to the
+        freeze-at-first-write quantizer."""
+        blocks = sorted({int(b) for b in blocks})
+        if not blocks:
+            return
+        ix = next(iter(self.cache.values())).new_tensor(blocks, dtype=torch.long)
+        for leaf in self.cache.values():
+            leaf.index_fill_(1, ix, 0)
+
+    def check_ledger(self) -> None:
+        """free + held + quarantined == num_blocks, doomed blocks held and
+        quarantined ones not; raises on a leak."""
+        held = {b for chain in self._slot_blocks.values() for b in chain}
+        free, q = len(self._free_blocks), len(self.quarantined)
+        if free + len(held) + q != self.num_blocks:
+            raise RuntimeError(f"block ledger leak: free {free} + held {len(held)} + "
+                               f"quarantined {q} != {self.num_blocks}")
+        if not self._doomed <= held or self.quarantined & held:
+            raise RuntimeError("a doomed block is not held, or a quarantined one is")
 
     def active_horizon_blocks(self) -> int:
         """Max blocks any live slot holds right now (0 when none does)."""

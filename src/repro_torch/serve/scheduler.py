@@ -14,7 +14,11 @@ from typing import Optional
 
 import numpy as np
 
-FINISH_REASONS = ("length", "stop")
+# the closed set of completion verdicts: 'length' = decode budget spent,
+# 'stop' = stop token, 'failed' = the GN sentinels' retry budget spent (the
+# fault record is in the engine's event log).  The reference's 'rejected'
+# (load shedding) is not ported.
+FINISH_REASONS = ("length", "stop", "failed")
 
 
 def pad_to_grid(tokens, grid: int) -> np.ndarray:
@@ -98,6 +102,11 @@ class FCFSScheduler:
         )
         self._queue.append(queued)
         return rid
+
+    def requeue_front(self, req: Request) -> None:
+        """Put an already submitted request back at the head of the queue
+        (a fault-evicted request keeps its id, padding and arrival)."""
+        self._queue.appendleft(req)
 
     def next_ready_step(self) -> Optional[int]:
         """Arrival step of the head (FCFS is head-blocking), or None."""

@@ -14,7 +14,10 @@ block per row for few) and rows off a 16-byte boundary; the norm's shapes
 cover its three layouts, picked and forced, and its fused residual add,
 held bit for bit to the eager add and to the unfused kernel on the sum.
 The paged read's int8 mode keeps the fp mode's tolerances; ``paged_quant_write`` on the card equals the CPU bit for
-bit.
+bit.  The sampler's hash words on the card equal the CPU's bit for bit; the
+GN sentinels on the card stay silent on a clean run and flag a V-tile fault
+within one tick; the paged kernel's rows are finite where its plain
+version's are over a NaN or Inf K or V tile.
 """
 import numpy as np
 import pytest
@@ -36,6 +39,9 @@ from repro_torch.models import attention as t_attn
 from repro_torch.models.transformer import make_model
 from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, generate, perplexity,
                                       static_reference)
+from repro_torch.serve.faults import FaultInjector
+from repro_torch.serve.sampling import counter_bits, gumbel
+from repro_torch.serve.scheduler import Request
 from repro_torch.serve.workload import required_max_seq, seeded_requests
 
 pytestmark = pytest.mark.cuda
@@ -321,7 +327,10 @@ def test_engine_on_cuda_launches_the_kernels_every_tick(cuda, kv_dtype):
     mode = "gn_paged_attention_int8" if kv_dtype == "int8" else "gn_paged_attention"
     other = "gn_paged_attention" if kv_dtype == "int8" else "gn_paged_attention_int8"
     assert launches[mode] == L * ticks and launches[other] == 0
-    assert launches["gn_rmsnorm"] == (2 * L + 1) * ticks
+    # 2L + 1 norms a tick, and with the GN sentinels (on by default) the
+    # head's σ probe, the model's own norm with unit gamma
+    assert eng.sentinels
+    assert launches["gn_rmsnorm"] == (2 * L + 2) * ticks
     assert launches["gn_rmsnorm_fused"] == (2 * L - 1) * ticks
     assert not any(counters.plain_cuda_calls().values())
     assert eng.pool.blocks_in_use == 0
@@ -722,3 +731,128 @@ def test_read_path_change_after_capture_is_refused(cuda, restore_forced_read):
     assert fresh.metrics()["read_path"] == "streamed"
     fresh.run(reqs)
     assert counters.launch_counts()["gn_paged_attention"] == 0
+
+
+# ------------------------------------------------- sampling and sentinels --
+def test_sampler_hash_on_card_equals_cpu(cuda):
+    """The counter hash is integer arithmetic under 2^63: its words on the
+    card equal the CPU's bit for bit at a tick's shape (8 slots, the full
+    vocabulary); the Gumbel variates agree to a few f32 ulps (log)."""
+    streams = torch.tensor([0, 3, 17, 2**40 + 1, 5, 6, 7, 8])
+    pos = torch.tensor([0, 1, 1000, 2**33, 5, 6, 7, 92543])
+    cpu = counter_bits(11, streams, pos, 92544)
+    card = counter_bits(11, streams.to(cuda), pos.to(cuda), 92544)
+    assert torch.equal(card.cpu(), cpu)
+    g_cpu, g_card = gumbel(cpu), gumbel(card).cpu()
+    assert bool(((g_card - g_cpu).abs() <= 4e-6 * g_cpu.abs().clamp_min(1.0)).all())
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_sampled_engine_graphed_equals_eager_and_replays(cuda, kv_dtype):
+    """At T = 0.7 the graphed engine (sentinels on) draws the eager tick's
+    tokens on the card, bit for bit, and a reset replays them."""
+    cfg = reduce_config(get_config("internlm2-1.8b"), dtype="float32")
+    model = make_model(cfg)
+    master = model.init(0, "cpu")
+    reqs = seeded_requests(cfg.vocab, 6, 4, 40, 8, seed=2)
+
+    def run(eager):
+        eng = ContinuousEngine(model, master, num_slots=2, max_seq=required_max_seq(reqs),
+                               cfg=ServeConfig(temperature=0.7, seed=3), chunk=4, block_size=4,
+                               kv_dtype=kv_dtype, device=cuda)
+        if eager:
+            eng._graphs = None
+        return eng, {c.request_id: c.tokens.tolist() for c in eng.run(reqs)}
+
+    eng, graphed = run(False)
+    assert eng.metrics()["transfer_guarded_ticks"] == eng.metrics()["model_ticks"]
+    assert run(True)[1] == graphed
+    eng.reset()
+    assert {c.request_id: c.tokens.tolist() for c in eng.run(reqs)} == graphed
+    greedy = _greedy(cuda, "float32", kv_dtype)
+    assert any(graphed[i] != greedy[i].tolist() for i in graphed)
+
+
+def _poison(args, leaf: str, value: float):
+    """Poison one block of sequence 0's live chain (its first table entry)."""
+    q, k, v, tables, starts, n_valid = args
+    k, v = k.clone(), v.clone()
+    blk = int(tables[0, 0])
+    (k if leaf == "k" else v)[blk] = value
+    return (q, k, v, tables, starts, n_valid)
+
+
+@pytest.mark.parametrize("value", [float("nan"), float("inf")])
+@pytest.mark.parametrize("leaf", ["k", "v"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_finite_where_plain_is_over_poisoned_tiles(cuda, dtype, leaf, value):
+    """Per valid row, the kernel's output is finite exactly where its plain
+    version's is (both designs: f32 on the CUDA cores, bf16 on the tensor
+    cores), over a NaN or Inf K or V tile in a live chain; the rows that
+    read no poisoned block agree within the kernel's tolerance."""
+    args, lane = _paged(cuda, 16, 16, dtype)
+    args = _poison(args, leaf, value)
+    got = attn_ops.gn_paged_attention_chunk(*args)
+    want = attn_ref.gn_paged_attention_chunk_ref(*args)
+    fin_got = torch.isfinite(got.float()).flatten(2).all(-1)[lane]
+    fin_want = torch.isfinite(want.float()).flatten(2).all(-1)[lane]
+    print(f"{dtype} {leaf} {value}: finite rows kernel {int(fin_got.sum())}, plain "
+          f"{int(fin_want.sum())} of {int(lane.sum())}")
+    assert torch.equal(fin_got, fin_want)
+    blk = int(args[3][0, 0])
+    reads = [(args[3][i, :-(-int(args[4][i] + args[5][i]) // 16)] == blk).any().item()
+             for i in range(args[0].shape[0])]
+    clean = torch.tensor([not r for r in reads], device=cuda)[:, None] & lane
+    _close(got[clean], want[clean], 2e-4, dtype)
+
+
+def _sentinel_engine(cuda, dtype, **kw):
+    cfg = reduce_config(get_config("internlm2-1.8b"), dtype=dtype)
+    model = make_model(cfg)
+    reqs = [Request(tokens=r.tokens, max_new_tokens=6) for r in
+            seeded_requests(cfg.vocab, 3, 5, 9, 6, seed=0)]
+    return ContinuousEngine(model, model.init(0, "cpu"), num_slots=2, max_seq=64, chunk=4,
+                            device=cuda, **kw), reqs
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_sentinels_on_card_silent_when_clean(cuda, dtype, kv_dtype):
+    eng, reqs = _sentinel_engine(cuda, dtype, kv_dtype=kv_dtype)
+    eng.run(reqs)
+    m = eng.metrics()
+    assert m["sentinels"] and m["sentinel_checks"] > 0
+    assert m["sentinel_violations"] == m["quarantined_blocks"] == m["fallbacks"] == 0
+    assert m["transfer_guarded_ticks"] == m["model_ticks"]
+
+
+@pytest.mark.parametrize("kind", ["nan_tile", "inf_tile"])
+def test_sentinels_on_card_flag_v_tiles_and_recover(cuda, kind):
+    """The graphed kernel read on the card at f32: every V-tile fault is
+    flagged within one tick of its injection, its block quarantined and
+    scrubbed, and the recovered tokens equal the fault-free run's; K-tile
+    faults are printed as found (the reduced probe's floor)."""
+    eng, reqs = _sentinel_engine(cuda, "float32")
+    clean = {c.request_id: c.tokens.tolist() for c in eng.run(reqs)}
+    eng.reset()
+    inj = FaultInjector(eng, seed=1, leaves=("v",))
+    for r in reqs:
+        eng.submit(r)
+    records = []
+    while eng.step():
+        if len(records) < 2 and (rec := inj.inject(kind)) is not None:
+            records.append(rec)
+    flagged = [e[1] for e in eng.event_log if e[0] == "fault"]
+    assert records and all(any(0 <= s - r.step <= 1 for s in flagged) for r in records)
+    assert any(r.block in eng.pool.quarantined for r in records)
+    assert {c.request_id: c.tokens.tolist() for c in eng.completions} == clean
+    eng.reset()
+    inj = FaultInjector(eng, seed=1, leaves=("k",))
+    for r in reqs:
+        eng.submit(r)
+    k_records = []
+    while eng.step():
+        if len(k_records) < 2 and (rec := inj.inject(kind)) is not None:
+            k_records.append(rec)
+    print(f"K-tile {kind} on the card: {len(k_records)} injected, "
+          f"{eng.metrics()['sentinel_violations']} violations")

@@ -17,7 +17,7 @@ from repro_torch.configs.registry import get_config, reduce_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.launch import serve as serve_launch
 from repro_torch.models.transformer import make_model
-from repro_torch.serve.engine import ContinuousEngine, ServeConfig
+from repro_torch.serve.engine import ContinuousEngine, ServeConfig, static_reference
 from repro_torch.serve.kv_cache import BlockPagedKVPool
 from repro_torch.serve.scheduler import Request
 from repro_torch.serve.workload import required_max_seq
@@ -165,18 +165,24 @@ def test_admission_waits_for_blocks_and_unservable_raises(reference):
 
 @pytest.mark.parametrize("kw", [
     {"devices": 2}, {"prefix_cache": True}, {"sched": "priority"}, {"preempt": "spill"},
-    {"sentinels": True}, {"paged": False},
-    {"cfg": ServeConfig(temperature=0.8)},
+    {"preempt": "recompute"}, {"paged": False}, {"devices": 4},
 ])
 def test_unported_options_are_refused(reference, kw):
+    # sampling and the GN sentinels are ported (tests/test_torch_sampling.py,
+    # tests/test_torch_sentinels.py); the other options are still refused
     with pytest.raises(NotImplementedError):
         _engine(reference, "float32", 4, **kw)
 
 
 def test_sampled_request_is_refused(reference):
+    """The engine serves a sampled request now; the greedy oracle refuses
+    one, as the reference's does."""
     eng, reqs = _engine(reference, "float32", 4)
-    with pytest.raises(NotImplementedError):
-        eng.submit(Request(tokens=reqs[0].tokens, temperature=0.7))
+    sampled = Request(id=0, tokens=reqs[0].tokens, max_new_tokens=2, temperature=0.7)
+    with pytest.raises(ValueError, match="greedy oracle"):
+        static_reference(eng.model, eng.params, [sampled], ServeConfig())
+    eng.submit(sampled)
+    assert len(eng.run([])) == 1
 
 
 def test_launch_serves_a_seeded_workload_on_cpu(capsys):

@@ -143,13 +143,18 @@ def test_perplexity_matches_jax(pair):
 
 
 def test_sampling_is_refused(pair):
+    """``generate`` samples now (tests/test_torch_sampling.py); the static
+    oracle is greedy only and refuses a sampled request or config."""
     _, _, tmodel, tparams, _ = pair
-    with pytest.raises(NotImplementedError):
-        engine.generate(tmodel, tparams, {"tokens": _tokens(1, 4, 6)},
-                        engine.ServeConfig(temperature=0.7))
+    out = engine.generate(tmodel, tparams, {"tokens": _tokens(1, 4, 6)},
+                          engine.ServeConfig(max_new_tokens=2, temperature=0.7))
+    assert tuple(out.shape) == (1, 6)
     with pytest.raises(ValueError):
         engine.static_reference(tmodel, tparams, [Request(id=0, tokens=np.arange(4),
                                                           temperature=0.7)], engine.ServeConfig())
+    with pytest.raises(ValueError):
+        engine.static_reference(tmodel, tparams, [Request(id=0, tokens=np.arange(4))],
+                                engine.ServeConfig(temperature=0.7))
 
 
 @pytest.mark.parametrize("bs", [4, 8])
