@@ -24,7 +24,14 @@ Phases, each fatal on failure (exit code 1):
                decode rows (4128 and 8224 columns), each timed case naming
                the layout it ran; each attention case names its design; the fp
                paged read's rows finite exactly where its plain version's are
-               over a NaN or Inf K or V tile;
+               over a NaN or Inf K or V tile, and its per-row flags of a
+               nonfinite live score equal to the plain version's; and
+               (``[backward]``) the gradient of each differentiable kernel
+               wrapper (kernel forward, plain backward) against plain
+               autograd through its plain version with the straight-through
+               Jacobian, at f32 at the training shapes cut to 2 q heads: the
+               softmax, the norm (RMS, LayerNorm, fused add) and the flash
+               attention in both designs (f32, bf16);
   3. parity  - full-width internlm2-1.8b cut to 2 layers, kernels on the card
                against plain versions on the CPU, same weights, at float32
                and at bfloat16: one fused paged tick with mixed
@@ -91,9 +98,27 @@ Phases, each fatal on failure (exit code 1):
                the fp and the int8 pool at full width (gated: every V-tile,
                scale and table fault flagged within one tick, its block
                quarantined, the ledger balanced after every tick, launches
-               exact, every tick a replay, the run drained; reported:
-               K-tile faults as found, and the recovered tokens against the
-               fault-free run's).
+               exact, every tick a replay, the run drained; the K-tile run
+               gated alike since the paged read flags nonfinite scores;
+               reported: the recovered tokens against the fault-free run's);
+ 11. train   - full-width, full-depth internlm2-1.8b trained: bf16 compute
+               over f32 masters, TRAIN_STEPS AdamW steps of TRAIN_BATCH x
+               TRAIN_SEQ tokens of one repeated batch in TRAIN_MB
+               microbatches; launches exact (the norm and the flash kernel
+               in every forward, the softmax in every flash backward), every
+               loss and grad_norm finite, the loss falling every step; ms a
+               step, tokens/s, peak memory, a profiled step's busy share, a
+               microbatch's launches in forward and in backward;
+ 12. ckpt    - the same widths cut to 2 layers: 3 steps (Adam moments in
+               bf16), save and restore (params, opt_state), every leaf
+               bitwise, bytes and seconds of both; 8 requests served through
+               ContinuousEngine from the restored (params,), sentinels
+               silent; ``launch.train --smoke --steps 3`` and ``launch.serve
+               --smoke --ckpt`` as subprocesses on the card;
+ 13. table1  - the Table I analogue: the tiny gpt-neo trained TABLE1_STEPS
+               steps with exact ops, evaluated under exact and GN ops (the
+               GN row through the kernels, its launches exact): perplexity,
+               top-1, their changes in percent, the training's seconds.
 Phases 4-10 serve with the GN sentinels on, the engine's default: a tick
 launches one more norm, the head's σ probe.
 Each path's launch counters are set to 0 just before it runs and read just
@@ -107,8 +132,11 @@ import dataclasses
 import functools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -120,7 +148,11 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.analysis import tracekeys  # noqa: E402
+from repro_torch.benchmarks import table1_accuracy  # noqa: E402
+from repro_torch.benchmarks.common import tiny_cfg  # noqa: E402
+from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.core.gn_layernorm import newton_rsqrt  # noqa: E402
 from repro_torch.core.luts import TPU_SOFTMAX_LUT, SoftmaxLUTConfig  # noqa: E402
 from repro_torch.data.synthetic import DataConfig, batch_at, optimal_perplexity  # noqa: E402
 from repro_torch.kernels import _build, counters  # noqa: E402
@@ -140,6 +172,9 @@ from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, generate,  
 from repro_torch.serve.faults import FaultInjector  # noqa: E402
 from repro_torch.serve.sampling import counter_bits, sample  # noqa: E402
 from repro_torch.serve.workload import required_max_seq, seeded_requests  # noqa: E402
+from repro_torch.train.loop import make_train_step  # noqa: E402
+from repro_torch.train.optimizer import (OptimizerConfig, init_opt_state,  # noqa: E402
+                                         tree_leaves, tree_map)
 
 # H100 SXM peaks (NVIDIA data sheet, dense): memory rate and the op rate per
 # input type (bf16 on the tensor cores, f32 on the CUDA cores)
@@ -165,11 +200,23 @@ LONG_BT = -(-(LONG_MAX + NEW) // BLOCK)
 LONG_WINDOW = 64  # ticks of the long continuous rerun (and phases 9, 10) that are profiled
 # phase 10: the sampled run's temperature; the chaos runs inject a fault every
 # CHAOS_EVERY model ticks, CHAOS_FAULTS in all, drawn in turn from each
-# pool's kinds (V tiles only on the fp pool: the kernel read's reduced probe
-# does not see K tiles, which a run of their own reports)
+# pool's kinds (V tiles on the fp pool; K tiles, flagged by the paged
+# kernel's per-row flag of a nonfinite score, in a run of their own)
 GUARD_T = 0.7
 CHAOS_EVERY, CHAOS_FAULTS = 10, 9
 CHAOS = {"fp": ("nan_tile", "inf_tile", "table"), "int8": ("scale", "table")}
+# the training phases: TRAIN_BATCH sequences of TRAIN_SEQ tokens a step (one
+# batch of batch_at, repeated), TRAIN_MB microbatches, TRAIN_STEPS steps;
+# the Table I analogue trains TABLE1_STEPS steps
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MB, TRAIN_STEPS, TABLE1_STEPS = 4, 1024, 2, 4, 300
+# gradients on the card, kernel forward + plain backward against plain
+# autograd through the plain forward with the straight-through Jacobian,
+# relative L2 per input: the softmax and the norm run the same plain
+# backward on forwards that agree to f32 rounding; attention's backward
+# takes the flash kernel's output o (online corrections, 2e-4; a Δ-grid
+# flip on a few rows), and in bf16 o and the gradients round to bf16
+GRAD_REL = {"softmax": 1e-5, "norm": 1e-5, "attention_float32": 1e-3,
+            "attention_bfloat16": 3e-2}
 # kernel-vs-plain tolerances on the card
 NORM_ATOL_F32 = 4e-6      # sum order and mean vs sum*(1/C): a few f32 ulps at |y| ~ 4
 ATTN_ATOL_F32 = 2e-4      # the reference's own kernel-vs-ref tolerance (online vs one-pass)
@@ -588,7 +635,9 @@ def poisoned_rows(args, lane) -> dict:
     """The first block of every other live sequence set to NaN or +Inf in
     K or in V: per valid row, the kernel's output is finite exactly where
     its plain version's is (a K tile's nonfinite scores are laundered by
-    the GN exponential; a V tile reaches the rows that read it)."""
+    the GN exponential; a V tile reaches the rows that read it), and its
+    per-row flags of a nonfinite live score equal the plain version's (set
+    on the rows that read a poisoned K tile, nowhere for a V tile)."""
     q, k, v, tables, *ints = args
     blocks = [int(tables[i, 0]) for i in range(0, tables.shape[0], 2) if bool(lane[i].any())]
     out = {}
@@ -597,12 +646,16 @@ def poisoned_rows(args, lane) -> dict:
             arenas = [k.clone(), v.clone()]
             arenas[leaf == "v"][blocks] = value
             poisoned = (q, *arenas, tables, *ints)
-            fin = [torch.isfinite(fn(*poisoned).float()).flatten(2).all(-1)[lane]
-                   for fn in (attn_ops.gn_paged_attention_chunk,
-                              attn_ref.gn_paged_attention_chunk_ref)]
+            outs = [fn(*poisoned, nonfinite=True) for fn in
+                    (attn_ops.gn_paged_attention_chunk, attn_ref.gn_paged_attention_chunk_ref)]
+            fin = [torch.isfinite(o.float()).flatten(2).all(-1)[lane] for o, _ in outs]
+            flags = [f[lane] for _, f in outs]
             out[f"{leaf}-{value}"] = {"finite_rows": int(fin[0].sum()),
                                       "plain_finite_rows": int(fin[1].sum()),
-                                      "rows": int(lane.sum()), "equal": torch.equal(*fin)}
+                                      "flagged_rows": int(flags[0].any(-1).sum()),
+                                      "rows": int(lane.sum()),
+                                      "equal": torch.equal(*fin) and torch.equal(*flags)
+                                      and bool(flags[0].any()) == (leaf == "k")}
     return out
 
 
@@ -847,6 +900,124 @@ def attention_cases(gen) -> list[dict]:
                 fa_long_case(b, s, gen) for b, s in LONG_BATCHES]
 
 
+def st_softmax(x):
+    """The plain GN softmax under plain autograd, with the reference's
+    straight-through Jacobian: the plain version's value c, the exact
+    softmax derivative at c (c + t - t.detach(), t = c (x - Σ c x))."""
+    c = sm_ref.gn_softmax_ref(x.detach())
+    t = c * (x - (c * x).sum(dim=-1, keepdim=True))
+    return c + t - t.detach()
+
+
+def st_norm(s, gamma, beta, subtract_mean: bool):
+    """The plain GN norm under plain autograd with the straight-through
+    Jacobian: rstd = newton_rsqrt(var + 1e-8) in value, d rstd / d var the
+    exact rsqrt's at it (-rstd^3 / 2)."""
+    s32 = s.float()
+    c = s32 - s32.mean(dim=-1, keepdim=True) if subtract_mean else s32
+    var = c.square().mean(dim=-1, keepdim=True)
+    r = newton_rsqrt(var.detach() + 1e-8)
+    y = c * (r - 0.5 * r ** 3 * (var - var.detach())) * gamma
+    return (y if beta is None else y + beta).to(s.dtype)
+
+
+def st_attention(q, k, v, causal: bool):
+    """One-pass attention in f32 through ``st_softmax``, kv heads repeated."""
+    group = q.shape[1] // k.shape[1]
+    k32, v32 = (t.float().repeat_interleave(group, dim=1) for t in (k, v))
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k32) * q.shape[-1] ** -0.5
+    if causal:
+        sq, sk = s.shape[-2:]
+        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(diagonal=sk - sq)
+        s = torch.where(mask, s, -1e30)
+    return torch.einsum("bhqk,bhkd->bhqd", st_softmax(s), v32)
+
+
+def grads_of(fn, inputs, weights) -> list:
+    """d/d inputs of Σ fn(*inputs) ⊙ weights (fn may return a tuple)."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    out = fn(*leaves)
+    out = out if isinstance(out, tuple) else (out,)
+    return list(torch.autograd.grad(sum((o.float() * w).sum() for o, w in zip(out, weights)),
+                                    leaves))
+
+
+def rel_l2(got, want) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
+
+
+def backward_cases(gen) -> list[dict]:
+    """Each differentiable kernel wrapper's gradient on the card (the
+    kernel forward, the plain backward) against plain autograd through its
+    plain version with the straight-through Jacobian, at f32 at the
+    training shapes (a microbatch of TRAIN_BATCH / TRAIN_MB sequences of
+    TRAIN_SEQ tokens) cut to 2 q heads (one kv head's group): the flash
+    backward's recompute rows for the softmax, the (B·S, 2048) rows for the
+    norm (RMS, LayerNorm, the fused add), the flash attention in f32 (its
+    CUDA-core design) and bf16 (its tensor-core design)."""
+    b, s, d, cols = TRAIN_BATCH // TRAIN_MB, TRAIN_SEQ, 128, 2048
+    res = []
+
+    def draw(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=DEV).to(dtype)
+
+    mask = torch.ones(s, s, dtype=torch.bool, device=DEV).tril()
+    x = torch.where(mask, 3 * draw(b, 2, s, s), -1e30)
+    w = [draw(*x.shape)]
+    got = grads_of(sm_ops.gn_softmax, [x], w)
+    want = grads_of(st_softmax, [x], w)
+    res.append({"name": "gn_softmax", "case": "flash-backward rows", "shape": list(x.shape),
+                "dtype": "float32", "rel_l2": [rel_l2(got[0], want[0])],
+                "tol": GRAD_REL["softmax"]})
+    for mean in (False, True):
+        xs, rs = draw(b * s, cols), draw(b * s, cols)
+        gamma, beta = 1 + 0.1 * draw(cols), (0.1 * draw(cols) if mean else None)
+        inputs = [xs, gamma] + ([beta] if mean else [])
+        w = [draw(b * s, cols)]
+        fn = ((lambda a, g, be: norm_ops.gn_layernorm(a, g, be)) if mean
+              else (lambda a, g: norm_ops.gn_rmsnorm(a, g)))
+        ref = ((lambda a, g, be: st_norm(a, g, be, True)) if mean
+               else (lambda a, g: st_norm(a, g, None, False)))
+        res.append({"name": "gn_rmsnorm", "case": "LayerNorm" if mean else "RMS",
+                    "shape": [b * s, cols], "dtype": "float32", "tol": GRAD_REL["norm"],
+                    "rel_l2": [rel_l2(g, h) for g, h in zip(grads_of(fn, inputs, w),
+                                                            grads_of(ref, inputs, w))]})
+        w2 = [draw(b * s, cols), w[0]]
+        fused = ((lambda a, r, g, be: norm_ops.gn_add_layernorm(a, r, g, be)) if mean
+                 else (lambda a, r, g: norm_ops.gn_add_rmsnorm(a, r, g)))
+        fused_ref = ((lambda a, r, g, be: (a + r, st_norm(a + r, g, be, True))) if mean
+                     else (lambda a, r, g: (a + r, st_norm(a + r, g, None, False))))
+        inputs = [xs, rs, gamma] + ([beta] if mean else [])
+        res.append({"name": "gn_rmsnorm_fused", "case": "LayerNorm" if mean else "RMS",
+                    "shape": [b * s, cols], "dtype": "float32", "tol": GRAD_REL["norm"],
+                    "rel_l2": [rel_l2(g, h) for g, h in zip(grads_of(fused, inputs, w2),
+                                                            grads_of(fused_ref, inputs, w2))]})
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v = draw(b, 2, s, d, dtype=dtype), draw(b, 1, s, d, dtype=dtype), draw(
+            b, 1, s, d, dtype=dtype)
+        w = [draw(b, 2, s, d)]
+        got = grads_of(lambda a, c, e: fa_ops.gn_attention(a, c, e, causal=True), [q, k, v], w)
+        want = grads_of(lambda a, c, e: st_attention(a, c, e, True),
+                        [t.float() for t in (q, k, v)], w)
+        name = str(dtype).split(".")[-1]
+        tol = GRAD_REL[f"attention_{name}"]
+        # dq per q row: within tol of the largest |dq|, a budget of FLIP_ROWS
+        # rows past it (a Δ-grid flip in the kernel's forward)
+        rows = compare(got[0], want[0], tol * want[0].abs().max().item())
+        def step(q=q, k=k, v=v, w=w):
+            return grads_of(lambda a, c, e: fa_ops.gn_attention(a, c, e, causal=True),
+                            [q, k, v], w)
+        res.append({"name": "gn_attention", "case": "causal", "shape": [b, 2, 1, s, s, d],
+                    "dtype": name, "design": fa_ops.design(dtype, TPU_SOFTMAX_LUT),
+                    "rel_l2": [rel_l2(g, h) for g, h in zip(got, want)], "tol": tol,
+                    "dq_bad_rows": rows["bad_rows"], "dq_rows": rows["rows"],
+                    "fwd_bwd_call_ms": call_ms(step, 5)})
+    for r in res:
+        r["ok"] = (all(math.isfinite(e) and e <= r["tol"] for e in r["rel_l2"])
+                   and r.get("dq_bad_rows", 0) <= FLIP_ROWS * r.get("dq_rows", 1))
+    return res
+
+
 def phase_kernels() -> dict:
     gen = torch.Generator(device=DEV).manual_seed(0)
     norms, fused_norms = norm_cases(gen)
@@ -859,8 +1030,11 @@ def phase_kernels() -> dict:
     results = norms + fused_norms + attns + attns_int8 + softmaxes + flashes
     for r in results:
         print(f"[kernels] {json.dumps(r)}")
-    bad = [f"{r['name']} {r.get('case', '')} {r['dtype']} {r['shape']}" for r in results
-           if not r["ok"]]
+    backward = backward_cases(gen)
+    for r in backward:
+        print(f"[backward] {json.dumps(r)}")
+    bad = [f"{r['name']} {r.get('case', '')} {r['dtype']} {r['shape']}"
+           for r in results + backward if not r["ok"]]
     if bad:
         fail(f"kernel vs plain out of tolerance: {bad}")
     return {"gn_rmsnorm": norms, "gn_rmsnorm_fused": fused_norms, "gn_paged_attention": attns,
@@ -1675,9 +1849,9 @@ def phase_guard(served: dict, int8: dict) -> dict:
         torch.cuda.empty_cache()
         chaos[kv] = chaos_run(f"guard-chaos-{kv}", on, reqs, CHAOS[kv], clean,
                               leaves=("v",) if kv == "fp" else None)
-        if kv == "fp":
+        if kv == "fp":  # K tiles: the read's per-row flag of a nonfinite score
             chaos["k_tiles"] = chaos_run("guard-chaos-k", on, reqs, ("nan_tile", "inf_tile"),
-                                         clean, leaves=("k",), gated=False)
+                                         clean, leaves=("k",))
         del on
         torch.cuda.empty_cache()
     res = {"sampler": sampler, "sampled": {k: sampled[k] for k in keys}, "cost": cost,
@@ -1686,6 +1860,202 @@ def phase_guard(served: dict, int8: dict) -> dict:
                      for k, v in chaos.items()}}
     print(f"[guard] {json.dumps(res)}")
     return {**res, "launches": launches}
+
+
+# ----------------------------------------------------------------- phase 11 --
+def train_want(layers: int, passes: int) -> dict:
+    """The launches of ``passes`` forward + backward passes of the dense
+    model: 2L + 1 norms a forward (2L - 1 fused), a flash attention a layer,
+    and in the backward a GN softmax a layer (the flash backward's
+    recompute; the norms' backward is plain torch)."""
+    return {"gn_rmsnorm": (2 * layers + 1) * passes, "gn_rmsnorm_fused": (2 * layers - 1) * passes,
+            "gn_paged_attention": 0, "gn_paged_attention_int8": 0, "gn_softmax": layers * passes,
+            "gn_attention": layers * passes}
+
+
+def train_batch(vocab: int) -> dict:
+    return batch_at(DataConfig(vocab=vocab, seq_len=TRAIN_SEQ, global_batch=TRAIN_BATCH,
+                               seed=1234), 0)
+
+
+def phase_train() -> dict:
+    """Full-width, full-depth training: bf16 compute over f32 masters,
+    TRAIN_STEPS AdamW steps of TRAIN_MB microbatches on one repeated batch.
+    Gated: the launches exact, no plain version on the card, every loss and
+    grad_norm finite, the loss falling every step.  Reported: ms a step (the
+    first apart), tokens/s, peak memory, the device-busy share of a
+    profiled step, and one microbatch's launches in forward and backward."""
+    cfg = get_config(ARCH)
+    model = make_model(cfg)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=TRAIN_STEPS + 2)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, DEV)
+    state = init_opt_state(opt, params)
+    batch = train_batch(cfg.vocab)
+    step = make_train_step(model, opt, TRAIN_MB)
+    losses, norms, step_ms = [], [], []
+    torch.cuda.synchronize()
+    counters.reset()
+    for _ in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(m["grad_norm"]))
+    launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
+    peak = torch.cuda.max_memory_allocated()
+    want = train_want(cfg.n_layers, TRAIN_MB * TRAIN_STEPS)
+    if launches != want or any(plain.values()):
+        fail(f"train: launches {launches} != {want}, plain {plain}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"train: nonfinite loss or grad_norm: {losses}, {norms}")
+    if any(b >= a for a, b in zip(losses, losses[1:])):
+        fail(f"train: the loss did not fall on a repeated batch: {losses}")
+    _, prof, seconds = profiled(lambda: step(params, state, batch))
+    busy = sum(_device_us(prof).values()) / 1e6
+    # one microbatch's forward and backward, counted apart
+    half = {"tokens": torch.as_tensor(batch["tokens"][:TRAIN_BATCH // TRAIN_MB]).to(DEV)}
+    leaves = tree_map(lambda t: t.detach().requires_grad_(True), params)
+    counters.reset()
+    loss, _ = model.loss(model.prepare(leaves, DEV), half)
+    fwd = counters.launch_counts()
+    counters.reset()
+    torch.autograd.grad(loss, tree_leaves(leaves))
+    torch.cuda.synchronize()
+    bwd = counters.launch_counts()
+    del leaves, loss
+    steady = step_ms[1:]
+    res = {"arch": ARCH, "layers": cfg.n_layers, "params": sum(t.numel() for t in
+                                                               tree_leaves(params)),
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "microbatches": TRAIN_MB, "steps": TRAIN_STEPS,
+           "compute_dtype": cfg.dtype, "losses": losses, "grad_norms": norms,
+           "first_step_ms": step_ms[0], "step_ms": steady,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (float(np.mean(steady)) / 1e3),
+           "peak_memory_bytes": peak, "profiled_step_s": seconds, "device_busy_s": busy,
+           "device_busy_share": busy / seconds, "launches": launches,
+           "microbatch_forward_launches": {k: v for k, v in fwd.items() if v},
+           "microbatch_backward_launches": {k: v for k, v in bwd.items() if v},
+           "top_kernels_s": dict(sorted(((k[:60], v / 1e6) for k, v in
+                                         _device_us(prof).items()), key=lambda kv: -kv[1])[:8])}
+    print(f"[train] {json.dumps(res)}")
+    del params, state
+    return res
+
+
+# ----------------------------------------------------------------- phase 12 --
+def phase_ckpt() -> dict:
+    """Train the full widths cut to 2 layers for 3 steps (Adam moments held
+    in bf16), save (params, opt_state), restore it, every leaf bitwise; serve
+    8 requests through ContinuousEngine from the restored (params,) with the
+    sentinels silent; then the launchers as a user runs them, on the card:
+    ``launch.train --smoke --steps 3``, ``launch.serve --smoke --ckpt``, and
+    the same training cut by ``--fail-at 2`` and resumed, whose step-3
+    checkpoint is held against the uninterrupted run's (reported: on the
+    card the embedding's backward sums with atomics, so the two may part
+    in the last bits; the CPU test holds them bitwise)."""
+    cfg = dataclasses.replace(get_config(ARCH), n_layers=2)
+    model = make_model(cfg)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=5, state_dtype="bfloat16")
+    params = model.init(SEED, DEV)
+    state = init_opt_state(opt, params)
+    step = make_train_step(model, opt, TRAIN_MB)
+    batch = train_batch(cfg.vocab)
+    for _ in range(3):
+        params, state, _ = step(params, state, batch)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = store.save(tmp / "ckpt", 3, (params, state), extra={"arch": cfg.name})
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        restored, man = store.restore(tmp / "ckpt", 3, (params, state))
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        saved = store._flatten((params, state))
+        back = store._flatten(restored)
+        bad = [k for k in saved if back[k].dtype != saved[k].dtype
+               or back[k].device != saved[k].device or not torch.equal(
+                   back[k].reshape(-1).view(torch.uint8), saved[k].reshape(-1).view(torch.uint8))]
+        if sorted(back) != sorted(saved) or bad:
+            fail(f"ckpt: restored leaves differ from the saved ones: {bad[:5]}")
+        dtypes = sorted(set(man["dtypes"].values()))
+        (served_params,), _ = store.restore(tmp / "ckpt", 3, (params,))
+        reqs = seeded_requests(cfg.vocab, 8, MIN_PROMPT, 256, 16, 1, SEED)
+        engine = ContinuousEngine(model, served_params, num_slots=SLOTS,
+                                  max_seq=required_max_seq(reqs), chunk=CHUNK, block_size=BLOCK,
+                                  device=DEV)
+        _, served_launches, serve_s = first_run("ckpt-serve", engine, reqs)
+        del engine
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        env.pop("REPRO_FAIL_AT_STEP", None)
+        launchers = {}
+        train = ["repro_torch.launch.train", "--smoke", "--steps", "3"]
+        cut = train + ["--checkpoint-every", "1", "--outdir", str(tmp / "cut")]
+        for name, argv, want_rc in (
+                ("train", train + ["--outdir", str(tmp / "smoke")], 0),
+                ("serve", ["repro_torch.launch.serve", "--smoke", "--ckpt",
+                           str(tmp / "smoke" / "ckpt"), "--batches", "1"], 0),
+                ("train_fail_at_2", cut + ["--fail-at", "2"], 42),
+                ("train_resume", cut, 0)):
+            t0 = time.perf_counter()
+            run = subprocess.run([sys.executable, "-m", *argv], env=env, cwd=ROOT, timeout=300,
+                                 capture_output=True, text=True)
+            launchers[name] = {"rc": run.returncode, "seconds": time.perf_counter() - t0,
+                               "last_line": (run.stdout.strip().splitlines() or [""])[-1]}
+            if run.returncode != want_rc:
+                fail(f"ckpt: launch {name} exited {run.returncode}:\n{run.stdout[-2000:]}\n"
+                     f"{run.stderr[-2000:]}")
+            if name == "serve" and "restored checkpoint step 3" not in run.stdout:
+                fail(f"ckpt: launch.serve did not restore the checkpoint:\n{run.stdout[-2000:]}")
+            if name == "train_resume" and "[resume] from checkpoint step 2" not in run.stdout:
+                fail(f"ckpt: the rerun did not resume from step 2:\n{run.stdout[-2000:]}")
+        whole, _ = store.restore_flat(tmp / "smoke" / "ckpt", 3)
+        resumed, _ = store.restore_flat(tmp / "cut" / "ckpt", 3)
+        gaps = {k: (whole[k].double() - resumed[k].double()).abs().max().item() for k in whole}
+        resume = {"leaves": len(gaps),
+                  "bitwise_leaves": sum(torch.equal(whole[k], resumed[k]) for k in whole),
+                  "max_abs_gap": max(gaps.values()),
+                  "gap_leaves": sorted(k for k, g in gaps.items() if g)[:8]}
+        res = {"layers": cfg.n_layers, "leaves": len(saved), "dtypes": dtypes,
+               "bytes": (path / "arrays.npz").stat().st_size, "save_s": save_s,
+               "restore_s": restore_s, "bitwise": True, "serve_requests": len(reqs),
+               "serve_s": serve_s, "serve_launches": served_launches, "launchers": launchers,
+               "resume_vs_uninterrupted": resume}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"[ckpt] {json.dumps(res)}")
+    return res
+
+
+# ----------------------------------------------------------------- phase 13 --
+def phase_table1() -> dict:
+    """The Table I analogue on the card: the tiny gpt-neo backbone trained
+    TABLE1_STEPS steps with exact ops, evaluated with the same weights under
+    (exact, exact_ln) and (gn, gn_ln): each row's perplexity and top-1, its
+    change in percent, the training's wall seconds.  Gated: finite rows, and
+    the GN row's launches exact (the exact rows and the exact training
+    launch no GN kernel)."""
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_table1_"))
+    try:
+        counters.reset()
+        out = table1_accuracy.run(steps=TABLE1_STEPS, device=DEV, root=tmp)
+        launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    layers, batches = tiny_cfg().n_layers, 4
+    # the GN row's forward over the held-out batches: train_want's forward
+    want = {**train_want(layers, batches), "gn_softmax": 0}
+    if launches != want or any(plain.values()):
+        fail(f"table1: launches {launches} != {want}, plain {plain}")
+    rows = {k: out[k] for k in table1_accuracy.ROWS}
+    if not all(math.isfinite(m["perplexity"]) and 0 <= m["top1_acc"] <= 1 for m in rows.values()):
+        fail(f"table1: rows not finite: {rows}")
+    res = {**rows, "train_seconds": out["train_seconds"], "steps": out["steps"],
+           "launches": launches}
+    print(f"[table1] {json.dumps(res)}")
+    return res
 
 
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
@@ -1732,10 +2102,14 @@ def main() -> int:
     long_cont = phase("long", phase_long_continuous)
     reads = phase("reads", phase_reads, served, int8)
     guard = phase("guard", phase_guard, served, int8)
+    train = phase("train", phase_train)
+    phase("ckpt", phase_ckpt)
+    table1 = phase("table1", phase_table1)
     by_path = {"continuous": served["launches"], "static": static["launches"],
                "int8": int8["launches"], "long_static": long_static["launches"],
                "long_continuous": long_cont["launches"], "reads": reads["launches"],
-               "sampled": guard["launches"]}
+               "sampled": guard["launches"], "train": train["launches"],
+               "table1": table1["launches"]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         # the main path's shape: bf16 tick (fp or int8 KV; the norms' 128

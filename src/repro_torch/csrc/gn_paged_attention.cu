@@ -75,7 +75,8 @@ gn_paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_aren
                           const float* __restrict__ coarse_g,
                           const float* __restrict__ residual_g, T* __restrict__ out,
                           float* __restrict__ part_m, float* __restrict__ part_l,
-                          float* __restrict__ part_acc, int C, int H, int Hkv, int D, int bs,
+                          float* __restrict__ part_acc, int* __restrict__ flags,
+                          int* __restrict__ part_flag, int C, int H, int Hkv, int D, int bs,
                           int max_bt, int split_blocks, int dot_lanes, float sm_scale,
                           gn::ExpLut lut) {
   const int n = blockIdx.x, kvh = blockIdx.y, split = blockIdx.z, tid = threadIdx.x;
@@ -94,6 +95,8 @@ gn_paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_aren
   float* corr_s = l_s + R;              // R        this block's correction
   float* coarse = corr_s + R;           // the two exp ROM tables
   float* residual = coarse + lut.coarse_entries;
+  // R: 1 where the row saw a live score that was NaN or +-Inf
+  int* bad_s = reinterpret_cast<int*>(residual + lut.residual_entries);
 
   for (int i = tid; i < lut.coarse_entries; i += kThreads) coarse[i] = coarse_g[i];
   for (int i = tid; i < lut.residual_entries; i += kThreads) residual[i] = residual_g[i];
@@ -106,6 +109,7 @@ gn_paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_aren
   for (int r = tid; r < R; r += kThreads) {
     m_s[r] = gn::NEG_INF;
     l_s[r] = 0.0f;
+    bad_s[r] = 0;
   }
   const int start = starts[n];
   const int length = start + n_valid[n];
@@ -165,8 +169,13 @@ gn_paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_aren
       const int qpos = start + r % C, col0 = j * bs;
       float* yr = y_s + r * bs;
       float m_cur = gn::NEG_INF;
-      for (int c = lane; c < bs; c += 32) m_cur = fmaxf(m_cur, yr[c]);
+      bool bad = false;  // a live score that is NaN or +-Inf (fmaxf drops a NaN)
+      for (int c = lane; c < bs; c += 32) {
+        m_cur = fmaxf(m_cur, yr[c]);
+        bad = bad || (col0 + c < length && col0 + c <= qpos && !isfinite(yr[c]));
+      }
       for (int o = 16; o > 0; o >>= 1) m_cur = fmaxf(m_cur, __shfl_xor_sync(0xffffffffu, m_cur, o));
+      if (__any_sync(0xffffffffu, bad) && lane == 0) bad_s[r] = 1;
       const float m_old = m_s[r];
       // columns rise with c and both mask bounds are upper bounds, so the
       // row sees a valid column in this block iff it sees the first one
@@ -212,10 +221,14 @@ gn_paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_aren
       if (d0 == 0) {
         part_m[base * R + r] = m_s[r];
         part_l[base * R + r] = l_s[r];
+        if (part_flag) part_flag[base * R + r] = bad_s[r];
       }
     }
     return;
   }
+  if (flags)
+    for (int r = tid; r < R; r += kThreads)
+      flags[((size_t)n * C + r % C) * H + kvh * G + r / C] = bad_s[r];
   // guaranteed normalization: the LUT'd numerators over their own sum; an
   // empty row (l == 0) divides by 1 and stays 0
   for (int r = r0; r < R; r += rstep) {
@@ -236,7 +249,8 @@ gn_paged_attention_kernel(const T* __restrict__ q, const KV* __restrict__ k_aren
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gn_paged_attention_merge(const float* __restrict__ part_m, const float* __restrict__ part_l,
-                         const float* __restrict__ part_acc, const int* __restrict__ starts,
+                         const float* __restrict__ part_acc, const int* __restrict__ part_flag,
+                         int* __restrict__ flags, const int* __restrict__ starts,
                          const int* __restrict__ n_valid, const float* __restrict__ coarse,
                          const float* __restrict__ residual, T* __restrict__ out, int C, int H,
                          int Hkv, int D, int bs, int splits, int split_blocks, gn::ExpLut lut) {
@@ -279,19 +293,25 @@ gn_paged_attention_merge(const float* __restrict__ part_m, const float* __restri
   const int g = r / C, i = r % C;
   out[(((size_t)n * C + i) * H + kvh * G + g) * D + d0] =
       gn::from_float<T>(acc * (1.0f / (l > 0.0f ? l : 1.0f)));
+  if (flags && d0 == 0) {  // the row's flag: any range's
+    int bad = 0;
+    for (int s = 0; s < live; ++s) bad |= part_flag[(base + s) * R + r];
+    flags[((size_t)n * C + i) * H + kvh * G + g] = bad;
+  }
 }
 
 // One block per (sequence, kv head, group of 256 / D rows).
 template <typename T>
 int launch_merge(const float* part_m, const float* part_l, const float* part_acc,
-                 const int* starts, const int* n_valid, const float* coarse,
+                 const int* part_flag, int* flags, const int* starts, const int* n_valid,
+                 const float* coarse,
                  const float* residual, void* out, int N, int C, int H, int Hkv, int D, int bs,
                  int splits, int split_blocks, const gn::ExpLut& lut, cudaStream_t stream) {
   const int rstep = kThreads / D, R = (H / Hkv) * C;
   const size_t smem = (size_t)rstep * (splits + 1) * sizeof(float);
   gn_paged_attention_merge<T><<<dim3(N, Hkv, (R + rstep - 1) / rstep), kThreads, smem, stream>>>(
-      part_m, part_l, part_acc, starts, n_valid, coarse, residual, static_cast<T*>(out), C, H,
-      Hkv, D, bs, splits, split_blocks, lut);
+      part_m, part_l, part_acc, part_flag, flags, starts, n_valid, coarse, residual,
+      static_cast<T*>(out), C, H, Hkv, D, bs, splits, split_blocks, lut);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -299,9 +319,10 @@ template <typename T, typename KV>
 int launch(const void* q, const void* k, const void* v, const float* k_scale,
            const float* v_scale, const int* tables, const int* starts,
            const int* n_valid, const float* coarse, const float* residual, void* out,
-           float* part_m, float* part_l, float* part_acc, int N, int C, int H, int Hkv, int D,
-           int bs, int max_bt, int splits, int split_blocks, int dot_lanes, float sm_scale,
-           const gn::ExpLut& lut, size_t smem, cudaStream_t stream) {
+           float* part_m, float* part_l, float* part_acc, int* flags, int* part_flag, int N,
+           int C, int H, int Hkv, int D, int bs, int max_bt, int splits, int split_blocks,
+           int dot_lanes, float sm_scale, const gn::ExpLut& lut, size_t smem,
+           cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         gn_paged_attention_kernel<T, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -311,11 +332,12 @@ int launch(const void* q, const void* k, const void* v, const float* k_scale,
   gn_paged_attention_kernel<T, KV><<<dim3(N, Hkv, splits), kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const KV*>(k), static_cast<const KV*>(v), k_scale,
       v_scale, tables, starts, n_valid, coarse, residual, static_cast<T*>(out), part_m, part_l,
-      part_acc, C, H, Hkv, D, bs, max_bt, split_blocks, dot_lanes, sm_scale, lut);
+      part_acc, flags, part_flag, C, H, Hkv, D, bs, max_bt, split_blocks, dot_lanes, sm_scale,
+      lut);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  return launch_merge<T>(part_m, part_l, part_acc, starts, n_valid, coarse, residual, out, N, C,
-                         H, Hkv, D, bs, splits, split_blocks, lut, stream);
+  return launch_merge<T>(part_m, part_l, part_acc, part_flag, flags, starts, n_valid, coarse,
+                         residual, out, N, C, H, Hkv, D, bs, splits, split_blocks, lut, stream);
 }
 
 // ------------------------------------------------------- tensor cores (bf16) --
@@ -370,7 +392,8 @@ gn_paged_attention_tc_kernel(const bf16* __restrict__ q, const void* __restrict_
                              const float* __restrict__ coarse_g,
                              const float* __restrict__ residual_g, bf16* __restrict__ out,
                              float* __restrict__ part_m, float* __restrict__ part_l,
-                             float* __restrict__ part_acc, int C, int H, int Hkv, int D, int bs,
+                             float* __restrict__ part_acc, int* __restrict__ flags,
+                             int* __restrict__ part_flag, int C, int H, int Hkv, int D, int bs,
                              int max_bt, int split_blocks, float sm_scale, gn::ExpLut lut) {
   using KV = std::conditional_t<INT8, int8_t, bf16>;
   constexpr int RT = 4 / KS;              // 16-row tiles
@@ -392,13 +415,19 @@ gn_paged_attention_tc_kernel(const bf16* __restrict__ q, const void* __restrict_
   const int j0 = range * split_blocks;
   const int j1 = min(min((length + bs - 1) / bs, max_bt), j0 + split_blocks);
   if (j0 >= j1) {  // no live page: the merge skips the range; an empty chain reads 0
-    if (gridDim.z == 1)
+    if (gridDim.z == 1) {
       for (int idx = tid; idx < R * D; idx += kThreads) {
         const int r = idx / D, d = idx - r * D;
         out[(((size_t)n * C + r % C) * H + kvh * G + r / C) * D + d] = __float2bfloat16_rn(0.0f);
       }
+      if (flags)
+        for (int r = tid; r < R; r += kThreads)
+          flags[((size_t)n * C + r % C) * H + kvh * G + r / C] = 0;
+    }
     return;
   }
+  __shared__ int bad_s[64];  // per row: a live score was NaN or +-Inf
+  for (int r = tid; r < 64; r += kThreads) bad_s[r] = 0;
   const int c_begin = j0 * bs, c_end = min(j1 * bs, length);
   const int n_tiles = (c_end - c_begin + kKeys - 1) / kKeys;
 
@@ -546,6 +575,7 @@ gn_paged_attention_tc_kernel(const bf16* __restrict__ q, const void* __restrict_
       // scores become NEG_INF; a slice every row of the warp sees whole
       // skips the mask.
       float mx[2] = {gn::NEG_INF, gn::NEG_INF};
+      bool bad[2] = {false, false};  // a live score that is NaN or +-Inf (fmaxf drops a NaN)
       const bool whole = __all_sync(0xffffffffu, c0 + KW - 1 <= lim_min);
 #pragma unroll
       for (int nt = 0; nt < NT; ++nt)
@@ -555,10 +585,16 @@ gn_paged_attention_tc_kernel(const bf16* __restrict__ q, const void* __restrict_
           float x = s[nt][e];
           if constexpr (INT8) x = x * ksc[k0 + kk];
           x = x * sm_scale;
-          if (!whole && !(rv[i] && c0 + kk <= lim[i])) x = gn::NEG_INF;
+          if (whole || (rv[i] && c0 + kk <= lim[i]))
+            bad[i] = bad[i] || !isfinite(x);
+          else
+            x = gn::NEG_INF;
           s[nt][e] = x;
           mx[i] = fmaxf(mx[i], x);
         }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (bad[i]) bad_s[rt * 16 + gid + 8 * i] = 1;
       float corr[2];
       bool live[2];
 #pragma unroll
@@ -624,6 +660,15 @@ gn_paged_attention_tc_kernel(const bf16* __restrict__ q, const void* __restrict_
       }
     }
     if constexpr (!INT8) __syncthreads();  // every warp is done with this stage
+  }
+  __syncthreads();  // every row's flag is in
+  if (gridDim.z > 1) {
+    if (part_flag)
+      for (int r = tid; r < R; r += kThreads)
+        part_flag[(((size_t)n * Hkv + kvh) * gridDim.z + range) * R + r] = bad_s[r];
+  } else if (flags) {
+    for (int r = tid; r < R; r += kThreads)
+      flags[((size_t)n * C + r % C) * H + kvh * G + r / C] = bad_s[r];
   }
 
   // fold the key streams of each row tile into stream 0: the grid-snapped
@@ -722,8 +767,9 @@ template <int DP, int KS, bool INT8>
 int launch(const void* q, const void* k, const void* v, const float* k_scale,
            const float* v_scale, const int* tables, const int* starts, const int* n_valid,
            const float* coarse, const float* residual, void* out, float* part_m, float* part_l,
-           float* part_acc, int N, int C, int H, int Hkv, int D, int bs, int max_bt, int splits,
-           int split_blocks, float sm_scale, const gn::ExpLut& lut, cudaStream_t stream) {
+           float* part_acc, int* flags, int* part_flag, int N, int C, int H, int Hkv, int D,
+           int bs, int max_bt, int splits, int split_blocks, float sm_scale,
+           const gn::ExpLut& lut, cudaStream_t stream) {
   const size_t smem = (size_t)(64 / KS) * (DP + 8) * sizeof(bf16) + kv_bytes<DP, INT8>() +
                       (size_t)(lut.max_delta_int + 2) * sizeof(float);
   auto kernel = gn_paged_attention_tc_kernel<DP, KS, INT8>;
@@ -734,12 +780,12 @@ int launch(const void* q, const void* k, const void* v, const float* k_scale,
   }
   kernel<<<dim3(N, Hkv, splits), kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), k, v, k_scale, v_scale, tables, starts, n_valid, coarse,
-      residual, static_cast<bf16*>(out), part_m, part_l, part_acc, C, H, Hkv, D, bs, max_bt,
-      split_blocks, sm_scale, lut);
+      residual, static_cast<bf16*>(out), part_m, part_l, part_acc, flags, part_flag, C, H, Hkv,
+      D, bs, max_bt, split_blocks, sm_scale, lut);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
-  return launch_merge<bf16>(part_m, part_l, part_acc, starts, n_valid, coarse, residual, out, N,
-                            C, H, Hkv, D, bs, splits, split_blocks, lut, stream);
+  return launch_merge<bf16>(part_m, part_l, part_acc, part_flag, flags, starts, n_valid, coarse,
+                            residual, out, N, C, H, Hkv, D, bs, splits, split_blocks, lut, stream);
 }
 
 // the instantiation for (D, R, mode): DP the padded head dim, KS = 4 / row tiles
@@ -747,15 +793,15 @@ template <bool INT8>
 int dispatch(const void* q, const void* k, const void* v, const float* k_scale,
              const float* v_scale, const int* tables, const int* starts, const int* n_valid,
              const float* coarse, const float* residual, void* out, float* part_m,
-             float* part_l, float* part_acc, int N, int C, int H, int Hkv, int D, int bs,
-             int max_bt, int splits, int split_blocks, float sm_scale, const gn::ExpLut& lut,
-             cudaStream_t stream) {
+             float* part_l, float* part_acc, int* flags, int* part_flag, int N, int C, int H,
+             int Hkv, int D, int bs, int max_bt, int splits, int split_blocks, float sm_scale,
+             const gn::ExpLut& lut, cudaStream_t stream) {
   const int R = (H / Hkv) * C;
   auto go = [&](auto dp, auto streams) {
     return launch<decltype(dp)::value, decltype(streams)::value, INT8>(
         q, k, v, k_scale, v_scale, tables, starts, n_valid, coarse, residual, out, part_m,
-        part_l, part_acc, N, C, H, Hkv, D, bs, max_bt, splits, split_blocks, sm_scale, lut,
-        stream);
+        part_l, part_acc, flags, part_flag, N, C, H, Hkv, D, bs, max_bt, splits, split_blocks,
+        sm_scale, lut, stream);
   };
   using I64 = std::integral_constant<int, 64>;
   using I128 = std::integral_constant<int, 128>;
@@ -785,6 +831,9 @@ int dispatch(const void* q, const void* k, const void* v, const float* k_scale,
 // the f32 exp ROM tables.  The chain is cut into `splits` ranges of
 // `split_blocks` blocks; with splits > 1, part_m and part_l (N, Hkv, splits,
 // R) and part_acc (N, Hkv, splits, R, D) are f32 scratch, R = (H/Hkv) * C.
+// flags, when not null, is an (N, C, H) int32 output: 1 where the row saw a
+// live score (visible and inside the length) that was NaN or +-Inf, else 0;
+// with splits > 1 it needs part_flag, (N, Hkv, splits, R) int32 scratch.
 // The caller names the design (ops.py `design`): tensor_core 1 runs the
 // tensor-core design, which takes bf16 q, D % 16 == 0, R <= 64, LUT values of
 // at most 17 bits (value_scale <= 2^17) and q, k, v, out on 16-byte
@@ -794,8 +843,9 @@ int dispatch(const void* q, const void* k, const void* v, const float* k_scale,
 extern "C" int gn_paged_attention_launch(
     const void* q, const void* k, const void* v, const void* k_scale, const void* v_scale,
     const void* tables, const void* starts, const void* n_valid, const void* coarse,
-    const void* residual, void* out, void* part_m, void* part_l, void* part_acc, int N, int C,
-    int H, int Hkv, int D, int bs, int max_bt, int splits, int split_blocks, int dtype,
+    const void* residual, void* out, void* part_m, void* part_l, void* part_acc, void* flags,
+    void* part_flag, int N, int C, int H, int Hkv, int D, int bs, int max_bt, int splits,
+    int split_blocks, int dtype,
     int kv_dtype, int tensor_core, float sm_scale, float step, float inv_step,
     int max_delta_int, int coarse_shift, int residual_mask, int coarse_entries,
     int residual_entries, float value_scale, void* stream) {
@@ -804,7 +854,7 @@ extern "C" int gn_paged_attention_launch(
   if (D < 1 || kThreads % D || splits < 1 ||
       (splits - 1) * split_blocks >= (max_bt > 1 ? max_bt : 1) ||
       (!quant && kv_dtype != dtype) || quant != (k_scale != nullptr) ||
-      quant != (v_scale != nullptr))
+      quant != (v_scale != nullptr) || (flags && splits > 1 && !part_flag))
     return static_cast<int>(cudaErrorInvalidValue);
   const gn::ExpLut lut{step, inv_step, max_delta_int, coarse_shift, residual_mask,
                        coarse_entries, residual_entries, value_scale, 1.0f / value_scale};
@@ -819,31 +869,33 @@ extern "C" int gn_paged_attention_launch(
   float* pm = static_cast<float*>(part_m);
   float* pl = static_cast<float*>(part_l);
   float* pa = static_cast<float*>(part_acc);
+  int* fl = static_cast<int*>(flags);
+  int* pf = static_cast<int*>(part_flag);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (tensor_core) {
     auto aligned = [](const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; };
     if (dtype != 1 || D % 16 || D > 256 || R > 64 || value_scale > 131072.0f || !aligned(q) ||
         !aligned(k) || !aligned(v) || !aligned(out))
       return static_cast<int>(cudaErrorInvalidValue);
-    return quant ? tc::dispatch<true>(q, k, v, ks, vs, t, st, nv, co, re, out, pm, pl, pa, N, C,
-                                      H, Hkv, D, bs, max_bt, splits, split_blocks, sm_scale, lut,
-                                      s)
-                 : tc::dispatch<false>(q, k, v, ks, vs, t, st, nv, co, re, out, pm, pl, pa, N,
-                                       C, H, Hkv, D, bs, max_bt, splits, split_blocks, sm_scale,
-                                       lut, s);
+    return quant ? tc::dispatch<true>(q, k, v, ks, vs, t, st, nv, co, re, out, pm, pl, pa, fl,
+                                      pf, N, C, H, Hkv, D, bs, max_bt, splits, split_blocks,
+                                      sm_scale, lut, s)
+                 : tc::dispatch<false>(q, k, v, ks, vs, t, st, nv, co, re, out, pm, pl, pa, fl,
+                                       pf, N, C, H, Hkv, D, bs, max_bt, splits, split_blocks,
+                                       sm_scale, lut, s);
   }
   // lanes per dot: as many as keep all threads busy on a step's R * bs pairs
   int dot_lanes = 1;
   while (dot_lanes < 32 && 2 * dot_lanes * R * bs <= kThreads) dot_lanes *= 2;
   const size_t floats = (size_t)R * (D + 1) + (size_t)R * D + (size_t)bs * (D + 1) +
-                        (size_t)bs * D + (size_t)R * bs + 3 * (size_t)R + coarse_entries +
+                        (size_t)bs * D + (size_t)R * bs + 4 * (size_t)R + coarse_entries +
                         residual_entries;
   const size_t smem = floats * sizeof(float);
   // instantiate the (q, arena) type pair the codes name
   auto go = [&](auto q_type, auto kv_type) {
     return launch<decltype(q_type), decltype(kv_type)>(
-        q, k, v, ks, vs, t, st, nv, co, re, out, pm, pl, pa, N, C, H, Hkv, D, bs, max_bt,
-        splits, split_blocks, dot_lanes, sm_scale, lut, smem, s);
+        q, k, v, ks, vs, t, st, nv, co, re, out, pm, pl, pa, fl, pf, N, C, H, Hkv, D, bs,
+        max_bt, splits, split_blocks, dot_lanes, sm_scale, lut, smem, s);
   };
   if (dtype == 0) return quant ? go(float{}, int8_t{}) : go(float{}, float{});
   if (dtype == 1)

@@ -12,6 +12,19 @@ up to that width), the CUDA-core design for f32 and for finer LUTs.
 Unlike the TPU wrapper it pads nothing: the kernel masks the ragged edges
 itself.  ``launches`` counts kernel launches and nothing else.  One
 device per process: the kernel runs on the current CUDA device.
+
+The wrapper is differentiable: when grad is on and q, k or v requires it,
+it runs as a ``torch.autograd.Function``.  Its forward is the same kernel
+(the plain version on the CPU) and saves q, k, v and the output o, never
+the probabilities.  Its backward, in plain torch, recomputes the f32
+scores and their GN softmax (the port's softmax kernel on the card, its
+plain version on the CPU), then dS = p ⊙ (dO·Vᵀ − rowsum(dO ⊙ O)): the
+transpose of the reference's straight-through softmax JVP through the
+one-pass attention, whose gradient the reference's training takes (it has
+no Pallas backward).  The kernel's online p and the recomputed one-pass p
+may part by a Δ-grid flip on a score; the gradient is straight-through
+either way.  The backward holds one layer's (B, H, Sq, Sk) f32 scores at a
+time.
 """
 from __future__ import annotations
 
@@ -24,6 +37,7 @@ from repro_torch.core.luts import SoftmaxLUTConfig, TPU_SOFTMAX_LUT
 from repro_torch.kernels import _build
 from repro_torch.kernels.gn_attention import ref
 from repro_torch.kernels.gn_layernorm.ops import DTYPE_CODES
+from repro_torch.kernels.gn_softmax import ops as softmax_ops
 from repro_torch.kernels.gn_softmax.ops import exp_lut_args
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -74,6 +88,48 @@ def _check(q, k, v) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def attention_backward(q, k, v, o, do, cfg: SoftmaxLUTConfig, causal: bool,
+                       sm_scale: float):
+    """(dq, dk, dv) in f32 for the output gradient do: the scores and
+    their GN softmax recomputed (see the module docstring), kv heads
+    summed over their group of q heads."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    q32, do32, o32 = q.float(), do.float(), o.float()
+    k32 = k.float().repeat_interleave(group, dim=1)
+    v32 = v.float().repeat_interleave(group, dim=1)
+    s = torch.einsum("bhqd,bhkd->bhqk", q32, k32) * sm_scale
+    if causal:
+        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(diagonal=sk - sq)
+        s = torch.where(mask, s, ref.NEG_INF)
+    p = softmax_ops.gn_softmax(s, cfg)
+    del s
+    dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
+    ds = p * (torch.einsum("bhqd,bhkd->bhqk", do32, v32)
+              - (do32 * o32).sum(dim=-1, keepdim=True))
+    del p
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, k32) * sm_scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q32) * sm_scale
+    return (dq, dk.reshape(b, hkv, group, sk, d).sum(dim=2),
+            dv.reshape(b, hkv, group, sk, d).sum(dim=2))
+
+
+class _GNAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, cfg, causal, sm_scale):
+        o = _forward(q, k, v, cfg, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.cfg, ctx.causal, ctx.sm_scale = cfg, causal, sm_scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        dq, dk, dv = attention_backward(q, k, v, o, do, ctx.cfg, ctx.causal, ctx.sm_scale)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+
+
 def gn_attention(
     q: torch.Tensor,  # (B, H, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Sk, D)
@@ -82,10 +138,18 @@ def gn_attention(
     causal: bool = False,
     sm_scale: float | None = None,
 ) -> torch.Tensor:
-    """GN attention; returns (B, H, Sq, D) in q's dtype."""
-    global launches
+    """GN attention; returns (B, H, Sq, D) in q's dtype (differentiable;
+    see the module docstring)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5  # the true head dim, as the reference
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return _GNAttention.apply(q, k, v, cfg, causal, sm_scale)
+    return _forward(q, k, v, cfg, causal, sm_scale)
+
+
+def _forward(q, k, v, cfg: SoftmaxLUTConfig, causal: bool, sm_scale: float) -> torch.Tensor:
+    """The plain version for CPU tensors, the kernel for CUDA ones."""
+    global launches
     if q.device.type == "cpu":
         return ref.gn_attention_ref(q, k, v, cfg, causal, sm_scale)
     if q.device.type != "cuda":

@@ -8,6 +8,18 @@ entries and nothing else; ``launches_fused`` counts the fused entry's apart.
 A wrapper does no host sync and allocates only with ``torch.empty``, so a
 CUDA graph can capture it.  One device per process: the kernel runs on the
 current CUDA device.
+
+The wrappers are differentiable: when grad is on and an input requires it,
+the call runs as a ``torch.autograd.Function`` whose forward is the same
+kernel launch (or the plain version on the CPU) and whose backward, in
+plain torch, is the transpose of the reference's straight-through JVP
+(``repro/core/gn_layernorm.py``): the exact LayerNorm/RMSNorm Jacobian at
+the approximated normalizer rstd = newton_rsqrt(var + 1e-8), with the
+gradients of gamma and beta summed over the rows.  The fused entries return
+(s, y); the gradient that reaches s adds to the one that comes back through
+y.  The forward saves only the norm's input s.  The reference has no
+Pallas backward.  With grad off, or no input that needs one, nothing is
+recorded and the call is the kernel's.
 """
 from __future__ import annotations
 
@@ -16,7 +28,7 @@ import functools
 
 import torch
 
-from repro_torch.core.gn_layernorm import rsqrt_lut_tensor
+from repro_torch.core.gn_layernorm import newton_rsqrt, rsqrt_lut_tensor
 from repro_torch.core.luts import INV_SQRT2, PAPER_RSQRT, RsqrtConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels.gn_layernorm import ref
@@ -105,6 +117,64 @@ def _launch(x, r, gamma, beta, cfg: RsqrtConfig, subtract_mean: bool, layout_nam
     return s, y
 
 
+def norm_backward(s, gy, gamma, beta, cfg: RsqrtConfig, subtract_mean: bool):
+    """The straight-through vector-Jacobian product of the GN norm of s
+    (any shape, rows over the last dim) for the output gradient gy: (ds in
+    f32, dgamma, dbeta), the last two f32 row sums or None."""
+    s32, gy32 = s.float(), gy.float()
+    centered = s32 - s32.mean(dim=-1, keepdim=True) if subtract_mean else s32
+    rstd = newton_rsqrt(centered.square().mean(dim=-1, keepdim=True) + 1e-8, cfg)
+    xhat = centered * rstd
+    cols = s.shape[-1]
+    dgamma = (gy32 * xhat).reshape(-1, cols).sum(dim=0) if gamma is not None else None
+    dbeta = gy32.reshape(-1, cols).sum(dim=0) if beta is not None else None
+    t = gy32 * gamma.float() if gamma is not None else gy32
+    dc = rstd * (t - xhat * (xhat * t).mean(dim=-1, keepdim=True))
+    if subtract_mean:
+        dc = dc - dc.mean(dim=-1, keepdim=True)
+    return dc, dgamma, dbeta
+
+
+class _GNNorm(torch.autograd.Function):
+    """The norm (r None) or the fused add + norm, kernel or plain forward."""
+
+    @staticmethod
+    def forward(ctx, x, r, gamma, beta, cfg, subtract_mean, layout_name):
+        out = _forward(x, r, gamma, beta, cfg, subtract_mean, layout_name)
+        s = x if r is None else out[0]
+        ctx.save_for_backward(s, gamma, beta)
+        ctx.cfg, ctx.subtract_mean, ctx.fused = cfg, subtract_mean, r is not None
+        return out
+
+    @staticmethod
+    def backward(ctx, *grads):
+        s, gamma, beta = ctx.saved_tensors
+        gs, gy = grads if ctx.fused else (None, grads[0])
+        ds, dgamma, dbeta = norm_backward(s, gy, gamma, beta, ctx.cfg, ctx.subtract_mean)
+        ds = ds.to(s.dtype)
+        if gs is not None:
+            ds = ds + gs
+        dr = ds if ctx.fused else None
+        return ds, dr, dgamma, dbeta, None, None, None
+
+
+def _norm(x, r, gamma, beta, cfg, subtract_mean, layout_name):
+    """Through ``_GNNorm`` when grad is on and an input needs it."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in (x, r, gamma, beta)):
+        return _GNNorm.apply(x, r, gamma, beta, cfg, subtract_mean, layout_name)
+    return _forward(x, r, gamma, beta, cfg, subtract_mean, layout_name)
+
+
+def _forward(x, r, gamma, beta, cfg, subtract_mean, layout_name):
+    """The plain version for a CPU tensor, one kernel launch for a CUDA one."""
+    if x.device.type == "cpu":
+        if r is None:
+            return ref.gn_layernorm_ref(x, gamma, beta, cfg, subtract_mean)
+        return ref.gn_add_layernorm_ref(x, r, gamma, beta, cfg, subtract_mean)
+    return _launch(x, r, gamma, beta, cfg, subtract_mean, layout_name)
+
+
 def _device(x, what: str) -> str:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"{what} runs on cpu or cuda tensors, got {x.device}")
@@ -116,9 +186,8 @@ def gn_layernorm(x, gamma=None, beta=None, cfg: RsqrtConfig = PAPER_RSQRT,
     """GN LayerNorm over the last dim of any shape (RMS with subtract_mean=False).
     ``layout`` forces one of ``LAYOUTS`` on the card (tests, measurements);
     None leaves the pick to the kernel."""
-    if _device(x, "gn_layernorm") == "cpu":
-        return ref.gn_layernorm_ref(x, gamma, beta, cfg, subtract_mean)
-    return _launch(x, None, gamma, beta, cfg, subtract_mean, layout)
+    _device(x, "gn_layernorm")
+    return _norm(x, None, gamma, beta, cfg, subtract_mean, layout)
 
 
 def gn_rmsnorm(x, gamma=None, cfg: RsqrtConfig = PAPER_RSQRT, *, layout: str | None = None):
@@ -138,9 +207,8 @@ def gn_add_layernorm(x, r, gamma=None, beta=None, cfg: RsqrtConfig = PAPER_RSQRT
                          f"{tuple(r.shape)} on {r.device}")
     if x.dtype not in DTYPE_CODES:
         raise TypeError(f"gn_add_layernorm takes {list(DTYPE_CODES)}, got {x.dtype}")
-    if _device(x, "gn_add_layernorm") == "cpu":
-        return ref.gn_add_layernorm_ref(x, r, gamma, beta, cfg, subtract_mean)
-    return _launch(x, r, gamma, beta, cfg, subtract_mean, layout)
+    _device(x, "gn_add_layernorm")
+    return _norm(x, r, gamma, beta, cfg, subtract_mean, layout)
 
 
 def gn_add_rmsnorm(x, r, gamma=None, cfg: RsqrtConfig = PAPER_RSQRT, *,

@@ -11,7 +11,11 @@ wrapper's ``scales=``).  ``design`` picks the kernel's design: the
 tensor-core design for bf16 q (over bf16 or int8 arenas) when the LUT
 numerators split exactly into two bf16, D is a multiple of 16, at most 64
 rows share a block and the pointers sit on 16 bytes; the CUDA-core design
-otherwise.  ``launches`` counts the kernel's launches over fp arenas and
+otherwise.  With ``nonfinite`` the read also returns, per (N, C, H) row, an
+int32 flag: 1 where a live score (visible and inside the length) was NaN or
++-Inf.  The GN exponential turns such a row into a finite distribution, so
+the output alone cannot show a poisoned K tile; the GN sentinels read the
+flag.  ``launches`` counts the kernel's launches over fp arenas and
 ``launches_int8`` those over int8 arenas, and nothing else.  One device per
 process: the kernel runs on the current CUDA device.
 """
@@ -31,7 +35,7 @@ from repro_torch.kernels.gn_paged_attention import ref
 from repro_torch.kernels.gn_softmax.ops import exp_lut_args
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 14 + [_I] * 12 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
+_ARGTYPES = [_P] * 16 + [_I] * 12 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
 INT8_CODE = 2  # the entry's kv dtype code of an int8 arena
 MAX_ROWS = 64  # q rows (G * C) one block of the tensor-core design holds
 # pages a chain range may hold (two 64-key tiles); None sizes the ranges by
@@ -129,18 +133,20 @@ def gn_paged_attention_chunk(
     cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT,
     sm_scale: float | None = None,
     scales: tuple[torch.Tensor, torch.Tensor] | None = None,  # ((nb,), (nb,)) f32
-) -> torch.Tensor:
+    nonfinite: bool = False,
+):
     """Chunked-query paged read.  Row i of sequence n attends the logical
     stream [0, starts[n] + i], bounded by starts + n_valid; rows past
     n_valid are don't-care.  ``scales`` = (k_scale, v_scale) marks the arenas
     as int8, dequantized per physical block in f32 after each load.  Returns
-    (N, C, H, D) in q's dtype."""
+    (N, C, H, D) in q's dtype; with ``nonfinite`` also the (N, C, H) int32
+    flags of rows that saw a nonfinite live score."""
     global launches, launches_int8
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     if q.device.type == "cpu":
         return ref.gn_paged_attention_chunk_ref(q, k_arena, v_arena, tables, starts,
-                                                n_valid, cfg, sm_scale, scales)
+                                                n_valid, cfg, sm_scale, scales, nonfinite)
     if q.device.type != "cuda":
         raise ValueError(f"gn_paged_attention runs on cpu or cuda tensors, got {q.device}")
     _check(q, k_arena, v_arena, tables, starts, n_valid, scales)
@@ -151,18 +157,25 @@ def gn_paged_attention_chunk(
     tensor_core = call_design(q, k_arena, v_arena, cfg) == TENSOR_CORE
     coarse, residual = exp_lut_tensors(cfg, str(q.device))
     splits, split_blocks = chain_splits(n, hkv, max_bt, q.device)
-    part = [None, None, None]  # per-range (m, l, acc) for the merge kernel
+    part = [None, None, None, None]  # per-range (m, l, acc, flag) for the merge kernel
+    rows = (h // hkv) * c
     if splits > 1:
-        rows = (h // hkv) * c
-        part = [torch.empty(n, hkv, splits, rows, device=q.device),
-                torch.empty(n, hkv, splits, rows, device=q.device),
-                torch.empty(n, hkv, splits, rows, d, device=q.device)]
+        part[:3] = [torch.empty(n, hkv, splits, rows, device=q.device),
+                    torch.empty(n, hkv, splits, rows, device=q.device),
+                    torch.empty(n, hkv, splits, rows, d, device=q.device)]
+    flags = None
+    if nonfinite:
+        flags = torch.empty(n, c, h, dtype=torch.int32, device=q.device)
+        if splits > 1:
+            part[3] = torch.empty(n, hkv, splits, rows, dtype=torch.int32, device=q.device)
     scale_ptrs = (None, None) if scales is None else (scales[0].data_ptr(), scales[1].data_ptr())
     kv_code = DTYPE_CODES[q.dtype] if scales is None else INT8_CODE
     rc = _entry()(
         q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *scale_ptrs, tables.data_ptr(),
         starts.data_ptr(), n_valid.data_ptr(), coarse.data_ptr(), residual.data_ptr(),
-        out.data_ptr(), *(None if t is None else t.data_ptr() for t in part),
+        out.data_ptr(), *(None if t is None else t.data_ptr() for t in part[:3]),
+        None if flags is None else flags.data_ptr(),
+        None if part[3] is None else part[3].data_ptr(),
         n, c, h, hkv, d, bs, max_bt, splits, split_blocks, DTYPE_CODES[q.dtype], kv_code,
         int(tensor_core), float(sm_scale), *exp_lut_args(cfg), torch.cuda.current_stream(q.device).cuda_stream,
     )
@@ -171,4 +184,4 @@ def gn_paged_attention_chunk(
         launches += 1
     else:
         launches_int8 += 1
-    return out
+    return (out, flags) if nonfinite else out

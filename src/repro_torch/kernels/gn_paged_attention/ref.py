@@ -14,7 +14,9 @@ column at all (an empty sequence) reads nothing and is 0, as in the kernel.
 Blocks past a sequence's context are not read either, as the kernels read
 none (a stale table entry may name any block): their V is taken as 0, so a
 nonfinite tile there cannot reach the output through a zero weight (0 · NaN
-= NaN), which leaves every finite result unchanged.
+= NaN), which leaves every finite result unchanged.  With ``nonfinite`` it
+also returns the kernel's per-row flag: 1 where a live score was NaN or
++-Inf, as (N, C, H) int32.
 
 ``cuda_calls`` counts calls on CUDA tensors, so a run can show that its main
 path never fell back to this version there.
@@ -41,7 +43,8 @@ def gn_paged_attention_chunk_ref(
     cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT,
     sm_scale: float | None = None,
     scales: tuple[torch.Tensor, torch.Tensor] | None = None,  # ((nb,), (nb,)) f32
-) -> torch.Tensor:
+    nonfinite: bool = False,
+):
     """Row i of sequence n attends the gathered stream [0, starts[n] + i],
     bounded by the post-write context starts + n_valid.  Returns (N, C, H, D)."""
     global cuda_calls
@@ -63,10 +66,13 @@ def gn_paged_attention_chunk_ref(
     rows = starts.long()[:, None] + torch.arange(c, device=q.device)[None, :]
     lengths = (starts + n_valid).long()
     valid = (col[None, None, :] <= rows[:, :, None]) & (col[None, None, :] < lengths[:, None, None])
+    if nonfinite:
+        flags = ((~torch.isfinite(s)) & valid[:, None]).any(dim=-1)  # (N, H, C)
+        flags = flags.transpose(1, 2).to(torch.int32).contiguous()
     s = torch.where(valid[:, None], s, NEG_INF)
     read = col[None, :] < (-(-lengths // k_arena.shape[1]) * k_arena.shape[1])[:, None]
     v = torch.where(read[:, :, None, None], v, 0.0)
     p = gn_softmax(s, cfg)
     out = torch.einsum("nhct,nthd->nchd", p, v)
     out = torch.where(valid.any(dim=-1)[:, :, None, None], out, 0.0)
-    return out.to(q.dtype)
+    return (out.to(q.dtype), flags) if nonfinite else out.to(q.dtype)

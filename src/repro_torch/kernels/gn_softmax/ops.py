@@ -6,6 +6,14 @@ version (``ref``); for a CUDA tensor it launches ``csrc/gn_softmax.cu`` on
 the current stream, or raises.  Nothing is padded: the kernel masks the
 ragged edge itself.  ``launches`` counts kernel launches and nothing else.
 One device per process: the kernel runs on the current CUDA device.
+
+The wrapper is differentiable: when grad is on and x requires it, it runs
+as a ``torch.autograd.Function`` whose forward is the same kernel (or the
+plain version on the CPU) and whose backward, in plain torch, is the
+transpose of the reference's straight-through JVP
+(``repro/core/gn_softmax.py``): dx = p ⊙ (g − Σ p ⊙ g) at the approximated
+p, in f32.  The reference has no Pallas backward.  With grad off, or an
+input that needs none, nothing is recorded and the call is the kernel's.
 """
 from __future__ import annotations
 
@@ -41,8 +49,37 @@ def exp_lut_args(cfg: SoftmaxLUTConfig) -> tuple:
             cfg.residual_entries, float(1 << cfg.lut_value_bits))
 
 
+def softmax_backward(p: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The straight-through vector-Jacobian product of the GN softmax at
+    its output p: p ⊙ (g − Σ p ⊙ g) over the last dim, in f32."""
+    p32, g32 = p.float(), g.float()
+    return p32 * (g32 - (p32 * g32).sum(dim=-1, keepdim=True))
+
+
+class _GNSoftmax(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, cfg):
+        p = _forward(x, cfg)
+        ctx.save_for_backward(p)
+        ctx.x_dtype = x.dtype
+        return p
+
+    @staticmethod
+    def backward(ctx, g):
+        (p,) = ctx.saved_tensors
+        return softmax_backward(p, g).to(ctx.x_dtype), None
+
+
 def gn_softmax(x: torch.Tensor, cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT) -> torch.Tensor:
-    """GN softmax over the last dim of an arbitrarily shaped tensor."""
+    """GN softmax over the last dim of an arbitrarily shaped tensor
+    (differentiable; see the module docstring)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _GNSoftmax.apply(x, cfg)
+    return _forward(x, cfg)
+
+
+def _forward(x: torch.Tensor, cfg: SoftmaxLUTConfig) -> torch.Tensor:
+    """The plain version for a CPU tensor, the kernel for a CUDA one."""
     global launches
     if x.device.type == "cpu":
         return ref.gn_softmax_ref(x, cfg)

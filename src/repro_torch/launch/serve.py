@@ -2,7 +2,9 @@
 greedy or sampled (``--temperature``), GN datapath.
 
 Builds the config, draws random weights from ``--seed`` with a
-``torch.Generator`` on the device, and serves.  Runs on CUDA unless
+``torch.Generator`` on the device, or restores ``(params,)`` from the latest
+step of ``--ckpt`` (a training checkpoint of either package: its ``0/...``
+keys), and serves.  Runs on CUDA unless
 ``--device`` says otherwise.  Two modes, as the reference launcher:
   * static (default): ``--batches`` batches of ``--batch-size`` synthetic
     Zipf-chain prompts of ``--prompt-len`` tokens, each decoded
@@ -27,6 +29,7 @@ Usage:
       --prompt-len 4096
   python -m repro_torch.launch.serve --arch internlm2-1.8b --continuous [--temperature 0.7]
   python -m repro_torch.launch.serve --smoke --device cpu [--continuous]
+  python -m repro_torch.launch.serve --smoke --device cpu --ckpt runs/default/ckpt
 """
 from __future__ import annotations
 
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.checkpoint import store
 from repro_torch.configs.registry import get_config, list_archs, reduce_config
 from repro_torch.data.synthetic import DataConfig, batch_at
 from repro_torch.kernels import counters
@@ -83,6 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--stagger", type=int, default=1, help="ticks between arrivals")
     ap.add_argument("--no-sentinels", action="store_true",
                     help="continuous: serve without the GN runtime sentinels")
+    ap.add_argument("--ckpt", default=None, help="checkpoint dir to restore the weights from")
     return ap
 
 
@@ -126,12 +131,12 @@ def _serve_static(model, params, args, device) -> dict:
             "seconds": dt_all, "generated_tokens": total_tok, "launches": launches}
 
 
-def _serve_continuous(model, args, device) -> dict:
+def _serve_continuous(model, master, args, device) -> dict:
     cfg = model.cfg
     reqs = seeded_requests(cfg.vocab, args.requests, args.min_prompt, args.max_prompt,
                            args.new_tokens, args.stagger, args.seed)
     # the engine keeps only its prepared copy of the weights
-    engine = ContinuousEngine(model, model.init(args.seed, device), num_slots=args.num_slots,
+    engine = ContinuousEngine(model, master, num_slots=args.num_slots,
                               max_seq=required_max_seq(reqs),
                               cfg=ServeConfig(temperature=args.temperature, seed=args.seed),
                               chunk=args.chunk, block_size=args.block_size,
@@ -195,10 +200,16 @@ def main(argv=None) -> dict:
     if args.dtype:
         cfg = dataclasses.replace(cfg, dtype=args.dtype)
     model = make_model(cfg)
+    master = model.init(args.seed, device)
+    if args.ckpt:
+        step = store.latest_step(args.ckpt)
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {args.ckpt}")
+        (master,), _ = store.restore(args.ckpt, step, (master,))
+        print(f"restored checkpoint step {step} from {args.ckpt}")
     if args.continuous:
-        return _serve_continuous(model, args, device)
-    return _serve_static(model, model.prepare(model.init(args.seed, device), device), args,
-                         device)
+        return _serve_continuous(model, master, args, device)
+    return _serve_static(model, model.prepare(master, device), args, device)
 
 
 if __name__ == "__main__":

@@ -2,15 +2,23 @@
 ``repro/models/attention.py``): the contiguous paths of training-style
 scoring, static prefill and slab decode, and the block-paged serving tick.
 
+The softmax is ``cfg.softmax_impl``: ``"gn"`` (the paper's Algorithm 1,
+through the port's GN kernels) or ``"exact"`` (the FP32 baseline of the
+accuracy experiments, ``core.exact_softmax`` in plain torch, as the
+reference computes it in jnp outside any Pallas kernel).  Any other name
+is refused.
+
 Contiguous paths:
-  * ``self_attention`` (``Model.forward``) runs the GN flash-attention
-    kernel on every call.  The reference takes its Pallas kernel only under
-    ``cfg.use_pallas`` and the one-pass ``_sdpa`` otherwise; the two compute
-    the same function, and the port reads no ``use_pallas``.
+  * ``self_attention`` (``Model.forward``, the training forward) runs the
+    GN flash-attention kernel on every GN call.  The reference takes its
+    Pallas kernel only under ``cfg.use_pallas`` and the one-pass ``_sdpa``
+    otherwise; the two compute the same function, and the port reads no
+    ``use_pallas``.  The exact softmax runs the one-pass ``_sdpa``.
   * ``attn_prefill`` and ``attn_decode_step`` keep the reference's one-pass
     form: scores by ``torch.matmul`` scaled in the activation dtype, cast to
-    f32, masked at -1e30, then the GN softmax kernel over each score row.
-  * A prefill past ``CHUNKED_FROM`` (2048) tokens takes the GN
+    f32, masked at -1e30, then the softmax over each score row (the GN
+    softmax kernel, or the exact one).
+  * A GN prefill or forward past ``CHUNKED_FROM`` (2048) tokens takes the GN
     flash-attention kernel, causal, where the reference takes
     ``chunked_self_attention``: the same online GN accumulation (a running
     max snapped up to the Δ grid, LUT'd rescales, one division by the sum of
@@ -18,6 +26,8 @@ Contiguous paths:
     CPU the wrapper runs its plain one-pass version, as every kernel of the
     port does there.  The reference's ``windowed_chunked`` serves sliding
     windows, which the port does not serve yet.
+  * Exact attention past ``CHUNKED_FROM`` tokens is refused: the reference
+    runs ``chunked_self_attention`` there, which the port does not have.
   * The slab cache is written in place.
 
 Paged path: every sequence owns a block table into a shared KV arena.  The
@@ -31,36 +41,39 @@ per-block scale vectors in place; the scale vectors carry an entry for the
 sink block too, set by its writes and never read.
 
 The paged read takes one of three paths (``paged_read_path``): the GN
-paged-attention kernel (``"kernel"``, the default; the reference's
-``"pallas"``), or the reference's two jnp reads, taken only when
-``FORCE_PAGED_READ`` names them: ``"streamed"`` gathers K one tile of
+paged-attention kernel (``"kernel"``, the default for GN; the reference's
+``"pallas"``), or the reference's two jnp reads, the streamed one the
+default for the exact softmax (the kernel is GN-only), either taken for GN
+only when ``FORCE_PAGED_READ`` names it: ``"streamed"`` gathers K one tile of
 ``STREAM_TILE`` table columns at a time and never holds the K stream, and
 ``"gathered"`` materializes each slot's K and V streams, the oracle the
 streamed read is held to bit for bit.  Both keep the reference's rounding
 points: scores in the activation dtype, scaled in it, then cast to f32 and
 masked; the GN softmax kernel over the (N, KV, G, C, T) rows; probabilities
 cast to the value dtype before P·V; int8 blocks gathered first and
-dequantized in the activation dtype by their scale cast to it.
+dequantized in the activation dtype by their scale cast to it; the softmax
+of ``cfg.softmax_impl``.
 
 GN sentinels (``probe=True``): each layer's read also returns its probe,
 which ``paged_probe_word`` turns into an (N, 3) health word a layer: the Σp
 residual with nonfinite values forced to +inf, the share of the tick's int8
 writes that clipped, and a scale-sanity flag over the live horizon.  The streamed and gathered reads
 hold the scores and probabilities, so they give the full Σp probe; the
-kernel keeps them in registers, so its probe is reduced to the finiteness
-of its output, as the reference's Pallas read's (``models/attention.py``
-there).  A NaN or Inf K tile turns the scores nonfinite, and the GN
-exponential launders them into a valid distribution, so the reduced probe
-misses K faults that the full probe catches; V faults reach the output.
+kernel keeps them in registers, so its probe is the finiteness of its
+output (V faults reach it) and its per-row flag of a nonfinite live score
+(K faults: the GN exponential launders nonfinite scores into a valid
+distribution, so the output alone misses them, as the reference's Pallas
+read's reduced probe does; the reference's default engine reads through
+the streamed path, whose full probe sees the scores).
 
-Only the GN softmax is ported (``softmax_impl="gn"``), and no sliding
-window.
+No sliding window is ported.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.gn_softmax import exact_softmax
 from repro_torch.kernels.gn_attention.ops import gn_attention
 from repro_torch.kernels.gn_paged_attention.ops import gn_paged_attention_chunk
 from repro_torch.kernels.gn_softmax.ops import gn_softmax
@@ -90,11 +103,24 @@ def attn_specs(cfg: ModelConfig) -> dict:
     }
 
 
-def _require_gn(cfg: ModelConfig) -> None:
-    if cfg.softmax_impl != "gn":
+def _softmax(cfg: ModelConfig):
+    """The row softmax of ``cfg.softmax_impl`` (the reference's
+    ``get_softmax``): the GN kernel's wrapper, or the exact softmax."""
+    if cfg.softmax_impl == "gn":
+        return gn_softmax
+    if cfg.softmax_impl == "exact":
+        return exact_softmax
+    raise NotImplementedError(
+        f"the port's attention runs softmax_impl 'gn' or 'exact'; {cfg.softmax_impl!r} is not "
+        "ported")
+
+
+def _refuse_long_exact(cfg: ModelConfig, s: int) -> None:
+    if s > CHUNKED_FROM and cfg.softmax_impl != "gn":
         raise NotImplementedError(
-            f"the port's attention runs the GN kernels; softmax_impl={cfg.softmax_impl!r} "
-            "is not ported")
+            f"softmax_impl={cfg.softmax_impl!r} past {CHUNKED_FROM} tokens ({s}): the reference "
+            "runs chunked_self_attention there, which the port does not have; the port's "
+            "long path is the GN flash kernel")
 
 
 def _split_heads(x, n_heads, head_dim):
@@ -112,13 +138,13 @@ def _scaled_scores(qg, k, head_dim):
 
 def _sdpa(cfg: ModelConfig, q, k, v, mask):
     """q: (B,S,H,dh), k/v: (B,T,KV,dh), mask: (B,1,S,T) or (1,1,S,T) bool.
-    One-pass GN attention through the softmax kernel."""
-    _require_gn(cfg)
+    One-pass attention through the softmax of ``cfg.softmax_impl``."""
+    softmax = _softmax(cfg)
     b, s, h, dh = q.shape
     kv = k.shape[2]
     scores = _scaled_scores(q.reshape(b, s, kv, h // kv, dh), k, dh).float()
     scores = torch.where(mask[:, :, None], scores, NEG_INF)
-    p = gn_softmax(scores).to(v.dtype)
+    p = softmax(scores).to(v.dtype)
     return torch.einsum("bkgst,btkd->bskgd", p, v).reshape(b, s, h, dh)
 
 
@@ -139,13 +165,22 @@ def _qkv(cfg: ModelConfig, p: dict, x, positions):
 
 
 def self_attention(cfg: ModelConfig, p: dict, x, positions, causal: bool = True):
-    """x: (B, S, D), positions: (B, S) -> (B, S, D) through the GN
-    flash-attention kernel (q, k, v moved to its (B, heads, S, dh) layout)."""
-    _require_gn(cfg)
+    """x: (B, S, D), positions: (B, S) -> (B, S, D): GN through the
+    flash-attention kernel (q, k, v moved to its (B, heads, S, dh) layout;
+    differentiable, ``kernels/gn_attention/ops.py``), the exact softmax
+    through the one-pass ``_sdpa`` in plain torch."""
     b, s, _ = x.shape
-    q, k, v = (t.transpose(1, 2).contiguous() for t in _qkv(cfg, p, x, positions))
-    out = gn_attention(q, k, v, causal=causal)
-    return out.transpose(1, 2).reshape(b, s, cfg.q_features) @ p["wo"]
+    _softmax(cfg)
+    _refuse_long_exact(cfg, s)
+    q, k, v = _qkv(cfg, p, x, positions)
+    if cfg.softmax_impl == "gn":
+        q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        out = gn_attention(q, k, v, causal=causal).transpose(1, 2)
+    else:
+        mask = causal_mask(s, s, x.device) if causal else torch.ones(
+            1, 1, s, s, dtype=torch.bool, device=x.device)
+        out = _sdpa(cfg, q, k, v, mask)
+    return out.reshape(b, s, cfg.q_features) @ p["wo"]
 
 
 # ------------------------------------------------------------ slab cache --
@@ -163,7 +198,7 @@ def attn_prefill(cfg: ModelConfig, p: dict, x, positions):
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
     if s > CHUNKED_FROM:
-        _require_gn(cfg)
+        _refuse_long_exact(cfg, s)
         out = gn_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)), causal=True)
         out = out.transpose(1, 2)
     else:
@@ -176,7 +211,7 @@ def attn_decode_step(cfg: ModelConfig, p: dict, cache: dict, x, pos):
     tensor on x's device (as the reference traces it, so one CUDA graph
     serves every step); cache: this layer's {"k", "v"} slabs (B,T,KV,dh),
     whose slot ``pos`` is written in place.  Returns (out (B,1,D), cache)."""
-    _require_gn(cfg)
+    softmax = _softmax(cfg)
     b = x.shape[0]
     kv, dh = cfg.n_kv_heads, cfg.head_dim
     q, k_new, v_new = _qkv(cfg, p, x, pos.reshape(1, 1).expand(b, 1))
@@ -187,7 +222,7 @@ def attn_decode_step(cfg: ModelConfig, p: dict, cache: dict, x, pos):
     valid = torch.arange(k.shape[1], device=x.device) <= pos
     scores = _scaled_scores(q.reshape(b, 1, kv, cfg.n_heads // kv, dh), k, dh).float()
     scores = torch.where(valid, scores, NEG_INF)
-    pmat = gn_softmax(scores).to(v.dtype)
+    pmat = softmax(scores).to(v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", pmat, v).reshape(b, 1, cfg.q_features)
     return out @ p["wo"], cache
 
@@ -239,21 +274,26 @@ def paged_probe_word(probes, positions, n_valid, tables, block_size: int, scales
     streamed and gathered reads give it per slot (``_probe_sum_residual``);
     the kernel read gives its output's row sums (N, C) f32, nonfinite
     exactly when a row holds a NaN or an Inf (a finite bf16 or f32 attention
-    row is a convex mix of V rows, so its sum cannot overflow), which make
-    the channel 0 or +inf; [1] the share of the slot's int8 writes this tick
-    that clipped; [2] 1.0 when a scale of the slot's live horizon is
-    nonfinite, negative or past SCALE_SANITY_MAX (``scales``: the (L, nb +
-    1) k and v scales after the tick's writes, or None).  Parked lanes
-    (n_valid = 0) read stale blocks by design: every channel is 0 there."""
+    row is a convex mix of V rows, so its sum cannot overflow), and the
+    kernel's (N, C, H) flags of rows that saw a nonfinite live score, which
+    make the channel +inf on a live lane with either, else 0; [1] the share
+    of the slot's int8 writes this tick that clipped; [2] 1.0 when a scale
+    of the slot's live horizon is nonfinite, negative or past
+    SCALE_SANITY_MAX (``scales``: the (L, nb + 1) k and v scales after the
+    tick's writes, or None).  Parked lanes (n_valid = 0) read stale blocks
+    by design: every channel is 0 there."""
     dev = positions.device
     n, layers = positions.shape[0], len(probes)
     zero = torch.zeros(layers, n, dtype=torch.float32, device=dev)
     active = (n_valid > 0)[None, :]
-    probe0 = torch.stack([p for p, _ in probes])
-    if probe0.dim() == 3:  # the kernel read's row sums (L, N, C)
-        lane_ok = torch.arange(probe0.shape[2], device=dev)[None, :] < n_valid[:, None]
-        bad = (~torch.isfinite(probe0) & lane_ok).any(dim=2)
+    if isinstance(probes[0][0], tuple):  # the kernel read's row sums and score flags
+        sums = torch.stack([p[0] for p, _ in probes])  # (L, N, C)
+        flags = torch.stack([p[1] for p, _ in probes]).amax(dim=3)  # (L, N, C)
+        lane_ok = torch.arange(sums.shape[2], device=dev)[None, :] < n_valid[:, None]
+        bad = ((~torch.isfinite(sums) | (flags > 0)) & lane_ok).any(dim=2)
         probe0 = torch.where(bad, torch.inf, 0.0)
+    else:
+        probe0 = torch.stack([p for p, _ in probes])
     clip = scalebad = zero
     if probes[0][1] is not None:
         clip_tok = torch.stack([c for _, c in probes]).reshape(layers, n, -1)
@@ -314,14 +354,19 @@ def paged_quant_write(flat_arena, scale, new_vals, dest, block_size: int,
 def paged_read_path(cfg: ModelConfig) -> str:
     """The paged read a tick takes (port of the reference's
     ``paged_read_path``): ``FORCE_PAGED_READ`` when set, else ``"kernel"``,
-    the GN paged-attention kernel.  The reference serves its Pallas kernel
-    only under ``use_pallas``; the port has no such switch."""
-    _require_gn(cfg)
+    the GN paged-attention kernel, for the GN softmax, and ``"streamed"``
+    for the exact one, as the reference.  The reference serves its Pallas
+    kernel only under ``use_pallas``; the port has no such switch.  The
+    kernel is GN-only."""
+    _softmax(cfg)
     if FORCE_PAGED_READ is None:
-        return "kernel"
+        return "kernel" if cfg.softmax_impl == "gn" else "streamed"
     if FORCE_PAGED_READ not in READ_PATHS:
         raise ValueError(f"FORCE_PAGED_READ must be None or one of {READ_PATHS}, got "
                          f"{FORCE_PAGED_READ!r}")
+    if FORCE_PAGED_READ == "kernel" and cfg.softmax_impl != "gn":
+        raise NotImplementedError(f"the paged kernel read is GN-only, not "
+                                  f"softmax_impl={cfg.softmax_impl!r}")
     return FORCE_PAGED_READ
 
 
@@ -336,7 +381,7 @@ def _gather_blocks(arena, scale, tables, dt):
 
 
 def _paged_read_plain(q, arena_k, arena_v, tables, rows, scales, streamed: bool,
-                      probe_nv=None):
+                      probe_nv=None, softmax=gn_softmax):
     """The reference's streamed (``_stream_paged_tiles``) or gathered read.
 
     q: (N, C, H, dh) rotated, in the activation dtype; arenas (nb + 1, bs,
@@ -347,7 +392,8 @@ def _paged_read_plain(q, arena_k, arena_v, tables, rows, scales, streamed: bool,
     the same softmax and the same P·V over the horizon's V blocks.  Returns
     (N, C, H * dh) in the value dtype; with ``probe_nv`` (the tick's n_valid)
     also the full Σp probe (``_probe_sum_residual``) of its scores and
-    probabilities, as the reference's two reads return it."""
+    probabilities, as the reference's two reads return it.  ``softmax``: the
+    config's row softmax (``_softmax``)."""
     n, c_len, h, dh = q.shape
     kv = arena_k.shape[2]
     dt = q.dtype
@@ -365,7 +411,7 @@ def _paged_read_plain(q, arena_k, arena_v, tables, rows, scales, streamed: bool,
     valid = torch.arange(scores.shape[-1], device=q.device)[None, None, :] <= rows[:, :, None]
     scores = torch.where(valid[:, None, None], scores.float(), NEG_INF)
     v_at = _gather_blocks(arena_v, v_scale, tables, dt).reshape(n, -1, kv, dh)
-    pmat = gn_softmax(scores).to(v_at.dtype)
+    pmat = softmax(scores).to(v_at.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", pmat, v_at)
     if probe_nv is None:
         return out.reshape(n, c_len, h * dh)
@@ -387,11 +433,11 @@ def attn_paged_chunk(cfg: ModelConfig, p: dict, arena_k, arena_v, x, positions,
     ``paged_read_path(cfg)``.  Returns (N, C, D); with ``probe`` also this
     layer's sentinel probe (probe0, clip), which ``paged_probe_word`` turns
     into the layer's health word: probe0 the full Σp probe (N,) of the
-    streamed and gathered reads, or the kernel read's output row sums (N,
-    C) f32 (its finiteness); clip the (N * C,) int8 writes that saturated,
-    or None over fp arenas.
+    streamed and gathered reads, or the kernel read's pair (its output's
+    row sums (N, C) f32, its (N, C, H) flags of a nonfinite live score);
+    clip the (N * C,) int8 writes that saturated, or None over fp arenas.
     """
-    _require_gn(cfg)
+    softmax = _softmax(cfg)
     b, c_len, _ = x.shape
     nb, bs = arena_k.shape[0] - 1, arena_k.shape[1]
     kv, dh = cfg.n_kv_heads, cfg.head_dim
@@ -412,12 +458,14 @@ def attn_paged_chunk(cfg: ModelConfig, p: dict, arena_k, arena_v, x, positions,
     path = paged_read_path(cfg)
     if path == "kernel":
         out = gn_paged_attention_chunk(q, arena_k, arena_v, tables, positions, n_valid,
-                                       scales=scales)
-        if probe:  # reduced probe: the probabilities stay in the kernel
-            probe0 = out.reshape(b, c_len, -1).sum(dim=-1, dtype=torch.float32)
+                                       scales=scales, nonfinite=probe)
+        if probe:  # the probabilities stay in the kernel: its output and its flags
+            out, flags = out
+            probe0 = (out.reshape(b, c_len, -1).sum(dim=-1, dtype=torch.float32), flags)
     else:
         out = _paged_read_plain(q, arena_k, arena_v, tables, rows, scales,
-                                streamed=path == "streamed", probe_nv=n_valid if probe else None)
+                                streamed=path == "streamed", probe_nv=n_valid if probe else None,
+                                softmax=softmax)
         if probe:
             out, probe0 = out
     out = out.reshape(b, c_len, cfg.q_features).to(x.dtype) @ p["wo"]

@@ -7,9 +7,12 @@
   * ``prepare(params, device)``                 — the tree the forward runs on:
     moved to the device, the matmul weights cast once to ``cfg.dtype``
     (what the reference's ``.astype(dt)`` at every einsum computes), and
-    ``layers`` split into a per-layer list of views;
+    ``layers`` split into a per-layer list of views; differentiable, so a
+    training step runs it on f32 masters that require grad (the
+    reference's ``_cast_for_compute``) and the gradients reach them;
   * ``forward``                                 — teacher-forced logits over
-    every position, self-attention through the GN flash-attention kernel;
+    every position, self-attention through the GN flash-attention kernel
+    (or the one-pass exact softmax); ``loss`` — the mean next-token NLL;
   * ``cache_specs`` / ``init_cache`` / ``prefill`` / ``decode_step`` — the
     static path over a dense slab cache (L, B, max_seq, KV, dh) per k and v,
     written in place, its score rows through the GN softmax kernel; the
@@ -91,9 +94,10 @@ class Model:
             lambda k, t: t.to(dev, dt if k in _MATMUL_LEAVES else torch.float32),
             params,
         )
-        stacked = tree["layers"]
+        # one unbind a leaf: its backward stacks the layers' gradients once
+        unbound = _tree_map(lambda _, t: t.unbind(0), tree["layers"])
         tree["layers"] = [
-            _tree_map(lambda _, t, i=i: t[i], stacked) for i in range(self.cfg.n_layers)
+            _tree_map(lambda _, t, i=i: t[i], unbound) for i in range(self.cfg.n_layers)
         ]
         return tree
 
@@ -129,6 +133,17 @@ class Model:
             x, pending = self._mlp_residual(
                 lp, x, attn.self_attention(cfg, lp["mixer"], h, positions))
         return self._lm_head(params, x + pending)
+
+    def loss(self, params, batch: dict):
+        """(mean next-token NLL, {"nll": it}) of batch["tokens"] (B, S): the
+        f32 log-softmax of the shifted logits, as the reference's dense
+        ``Model.loss`` (its MoE terms do not apply).  Differentiable through
+        ``prepare`` back to f32 masters."""
+        logits = self.forward(params, batch).float()[:, :-1]
+        targets = torch.as_tensor(batch["tokens"]).to(logits.device)[:, 1:].long()
+        logp = torch.log_softmax(logits, dim=-1)
+        loss = -logp.gather(-1, targets[..., None])[..., 0].mean()
+        return loss, {"nll": loss}
 
     def cache_specs(self, batch: int, max_seq: int) -> dict:
         """The static path's slab cache, name -> (shape, dtype):

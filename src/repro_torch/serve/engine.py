@@ -43,10 +43,11 @@ after it changed, so no graph is replayed under another read.
 
 GN runtime sentinels (``sentinels=None`` = on, as the reference's): the
 captured tick also computes a health word per live slot, the Σp residual of
-every layer's read (+inf on nonfinite values; output finiteness alone on the
-kernel read), the int8 clip share, the scale sanity of the live horizon and
-the final norm's σ residual, and it comes back in the tick's one
-device->host copy beside the tokens.  The host checks it against the GN
+every layer's read (+inf on nonfinite values; on the kernel read its
+output's finiteness and its flag of a nonfinite score), the int8 clip
+share, the scale sanity of the live horizon and the final norm's σ
+residual, and it comes back in the tick's one device->host copy beside the
+tokens.  The host checks it against the GN
 bounds (``_sentinel_scan``): a violating slot's chain is scanned, its
 corrupt blocks quarantined and scrubbed, and the request re-prefills prompt
 + generated tokens from the head of the queue (recompute resume), at most
@@ -338,6 +339,11 @@ class ContinuousEngine:
         self._replayed_ticks = 0  # ... of which as a graph replay
         self.fused_ticks = 0      # ... of which carried a prefill lane
         self.generated_tokens = 0
+        # the reference's occupancy counters, summed over model ticks: live
+        # slots, prefilling slots, and attended columns (bucket * block size)
+        self._active_steps = 0
+        self._prefill_lane_steps = 0
+        self._attended_tokens = 0
         # (prefill lanes, decode lanes, host seconds) per model tick
         self.tick_log: list[tuple[int, int, float]] = []
         # the horizon buckets each step kind ran at since the reset
@@ -651,6 +657,7 @@ class ContinuousEngine:
         bucket = next(b for b in self.horizon_bucket_grid if b >= horizon)
         kind = "fused" if prefills else "decode"
         self._buckets_seen[kind].add(bucket)
+        self._attended_tokens += bucket * self.pool.block_size
         if self.pool.tables_dirty:
             self._tables_fresh.clear()
             self.pool.tables_dirty = False
@@ -678,6 +685,8 @@ class ContinuousEngine:
             health = {"layers": words[:split].reshape(-1, n, 3), "head": words[split:]}
         self.pool.advance({s: takes.get(s, 1) for s in live})
         self.model_ticks += 1
+        self._active_steps += len(live)
+        self._prefill_lane_steps += len(prefills)
         self.tick_log.append((len(prefills), len(decoders), time.perf_counter() - t0))
         if health is not None:
             # before the tokens land: a violating slot's token is never kept
@@ -720,14 +729,28 @@ class ContinuousEngine:
         return self.completions
 
     def metrics(self) -> dict:
+        """The reference's telemetry keys with its meanings (computed on the
+        host, outside the captured tick), and the port's own: ``ticks``,
+        ``model_ticks``, ``completed`` (= ``completions``), the peak
+        residuals and ``capture_seconds``.  ``kv_hbm_bytes`` counts the
+        port's resident pool, its write-sink block included."""
         graphs = self._graphs
         return {
             "ticks": self.step_count,
             "model_ticks": self.model_ticks,
             "fused_ticks": self.fused_ticks,
             "generated_tokens": self.generated_tokens,
+            "completions": len(self.completions),
             "completed": len(self.completions),
+            "mean_slot_utilization": self._active_steps / max(1, self.model_ticks
+                                                               * self.num_slots),
+            "prefill_lane_fraction": self._prefill_lane_steps / max(1, self._active_steps),
+            "chunk": self.chunk,
+            "intake_padding": self.scheduler.intake_padding,
+            "kv_hbm_bytes": self.pool.hbm_bytes(),
             "peak_blocks_in_use": self.pool.peak_blocks_in_use,
+            "peak_blocks_reserved": self.pool.peak_blocks_reserved,
+            "mean_attended_tokens_per_tick": self._attended_tokens / max(1, self.model_ticks),
             "kv_dtype": self.pool.kv_dtype,
             "num_blocks": self.pool.num_blocks,
             "block_size": self.pool.block_size,

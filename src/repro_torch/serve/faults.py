@@ -17,8 +17,8 @@ Fault classes and the sentinel channel that catches each:
     A V tile reaches the read's output and every read's probe catches it.
     A K tile turns the scores nonfinite, and the GN exponential launders
     them into a valid distribution: the full Σp probe of the streamed and
-    gathered reads sees the scores, the kernel read's reduced probe (its
-    output's finiteness) misses it.
+    gathered reads sees the scores, the kernel read its per-row flag of a
+    nonfinite live score (its output stays finite).
 ``scale``
     One per-block int8 dequant scale set to one of {NaN, +Inf, -1.0, 1e6}:
     the scale-sanity channel.

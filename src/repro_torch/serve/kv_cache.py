@@ -73,6 +73,7 @@ class BlockPagedKVPool:
         self._slot_blocks: dict[int, list[int]] = {}
         self._reserved = np.zeros(self.num_slots, np.int32)  # blocks, whole-request
         self.peak_blocks_in_use = 0
+        self.peak_blocks_reserved = 0
         # out of circulation for good; doomed: held by a live chain, bound for
         # quarantine when its slot is freed
         self.quarantined: set[int] = set()
@@ -115,6 +116,7 @@ class BlockPagedKVPool:
         slot = self._free_slots.popleft()
         self._slot_blocks[slot] = []
         self._reserved[slot] = self.blocks_for(reserve_tokens)
+        self.peak_blocks_reserved = max(self.peak_blocks_reserved, self.blocks_reserved)
         return slot
 
     def free(self, slot: int) -> None:

@@ -77,8 +77,37 @@ class Completion:
         return np.concatenate([self.prompt_tokens, self.new_tokens])
 
     @property
+    def ttft_s(self) -> float:
+        return self.first_token_time - self.admit_time
+
+    @property
     def latency_s(self) -> float:
         return self.finish_time - self.admit_time
+
+    # the reference's arrival-anchored fields on the engine's step clock,
+    # deterministic under replay (ttft_s starts at admission and hides the
+    # queue wait)
+    @property
+    def queue_wait_steps(self) -> int:
+        """Engine steps spent waiting for admission (arrival -> admit)."""
+        return self.admit_step - self.arrival_step
+
+    @property
+    def ttft_steps(self) -> int:
+        """Arrival -> first generated token on the step clock; -1 without one."""
+        if self.first_token_step < 0:
+            return -1
+        return self.first_token_step - self.arrival_step
+
+    @property
+    def tpot_steps(self) -> float:
+        """Mean steps per generated token after the first (1.0 for an
+        uninterrupted decode; a recompute resume inflates it); 0.0 below two
+        tokens."""
+        n = int(np.asarray(self.new_tokens).shape[0])
+        if n < 2:
+            return 0.0
+        return (self.finish_step - self.first_token_step) / (n - 1)
 
 
 class FCFSScheduler:
@@ -89,6 +118,7 @@ class FCFSScheduler:
         self.chunk_grid = int(chunk_grid)
         self._queue: deque[Request] = deque()
         self._next_id = 0
+        self._pad_tokens = 0  # total intake padding (bucketing overhead)
 
     def submit(self, req: Request) -> int:
         """Enqueue a bucketed *copy* of ``req`` and return its id."""
@@ -100,8 +130,15 @@ class FCFSScheduler:
         queued.padded_tokens = (
             pad_to_grid(queued.tokens, self.chunk_grid) if self.chunk_grid else None
         )
+        if self.chunk_grid:
+            self._pad_tokens += int(queued.padded_tokens.shape[0]) - queued.prompt_len
         self._queue.append(queued)
         return rid
+
+    @property
+    def intake_padding(self) -> int:
+        """Total pad tokens added by bucketing (<= grid - 1 per request)."""
+        return self._pad_tokens
 
     def requeue_front(self, req: Request) -> None:
         """Put an already submitted request back at the head of the queue

@@ -16,8 +16,9 @@ held bit for bit to the eager add and to the unfused kernel on the sum.
 The paged read's int8 mode keeps the fp mode's tolerances; ``paged_quant_write`` on the card equals the CPU bit for
 bit.  The sampler's hash words on the card equal the CPU's bit for bit; the
 GN sentinels on the card stay silent on a clean run and flag a V-tile fault
-within one tick; the paged kernel's rows are finite where its plain
-version's are over a NaN or Inf K or V tile.
+within one tick, K tiles too; the paged kernel's rows are finite where its
+plain version's are over a NaN or Inf K or V tile, and its per-row flags of
+a nonfinite live score equal the plain version's (fp and int8 arenas).
 """
 import numpy as np
 import pytest
@@ -789,11 +790,17 @@ def test_paged_kernel_finite_where_plain_is_over_poisoned_tiles(cuda, dtype, lea
     """Per valid row, the kernel's output is finite exactly where its plain
     version's is (both designs: f32 on the CUDA cores, bf16 on the tensor
     cores), over a NaN or Inf K or V tile in a live chain; the rows that
-    read no poisoned block agree within the kernel's tolerance."""
+    read no poisoned block agree within the kernel's tolerance; the flags
+    of a nonfinite live score equal the plain version's on every valid row
+    (set on the rows that read the K tile, nowhere for a V tile)."""
     args, lane = _paged(cuda, 16, 16, dtype)
     args = _poison(args, leaf, value)
-    got = attn_ops.gn_paged_attention_chunk(*args)
-    want = attn_ref.gn_paged_attention_chunk_ref(*args)
+    got, flags = attn_ops.gn_paged_attention_chunk(*args, nonfinite=True)
+    want, want_flags = attn_ref.gn_paged_attention_chunk_ref(*args, nonfinite=True)
+    assert torch.equal(flags[lane], want_flags[lane])
+    assert bool(flags[lane].any()) == (leaf == "k")
+    again = attn_ops.gn_paged_attention_chunk(*args)  # the output, bit for bit, without flags
+    assert torch.equal(got.view(torch.uint8), again.view(torch.uint8))
     fin_got = torch.isfinite(got.float()).flatten(2).all(-1)[lane]
     fin_want = torch.isfinite(want.float()).flatten(2).all(-1)[lane]
     print(f"{dtype} {leaf} {value}: finite rows kernel {int(fin_got.sum())}, plain "
@@ -804,6 +811,23 @@ def test_paged_kernel_finite_where_plain_is_over_poisoned_tiles(cuda, dtype, lea
              for i in range(args[0].shape[0])]
     clean = torch.tensor([not r for r in reads], device=cuda)[:, None] & lane
     _close(got[clean], want[clean], 2e-4, dtype)
+
+
+@pytest.mark.parametrize("c", [1, 16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_kernel_flags_nonfinite_scales_int8(cuda, dtype, c):
+    """int8 arenas: a NaN or +Inf k_scale turns that block's scores
+    nonfinite; per valid row the kernel's flags equal the plain version's,
+    both designs, one chain range and many."""
+    args, lane = _paged(cuda, c, 16, dtype)
+    args, (ks, vs) = _quantized(args, seed=5)
+    tables = args[3]
+    ks = ks.clone()
+    ks[int(tables[0, 0])] = float("nan")
+    ks[int(tables[2, 0])] = float("inf")
+    got, flags = attn_ops.gn_paged_attention_chunk(*args, scales=(ks, vs), nonfinite=True)
+    _, want = attn_ref.gn_paged_attention_chunk_ref(*args, scales=(ks, vs), nonfinite=True)
+    assert torch.equal(flags[lane], want[lane]) and bool(flags[lane].any())
 
 
 def _sentinel_engine(cuda, dtype, **kw):
@@ -830,8 +854,8 @@ def test_sentinels_on_card_silent_when_clean(cuda, dtype, kv_dtype):
 def test_sentinels_on_card_flag_v_tiles_and_recover(cuda, kind):
     """The graphed kernel read on the card at f32: every V-tile fault is
     flagged within one tick of its injection, its block quarantined and
-    scrubbed, and the recovered tokens equal the fault-free run's; K-tile
-    faults are printed as found (the reduced probe's floor)."""
+    scrubbed, and the recovered tokens equal the fault-free run's; the same
+    for K-tile faults, which the read's per-row flag carries to the probe."""
     eng, reqs = _sentinel_engine(cuda, "float32")
     clean = {c.request_id: c.tokens.tolist() for c in eng.run(reqs)}
     eng.reset()
@@ -856,3 +880,6 @@ def test_sentinels_on_card_flag_v_tiles_and_recover(cuda, kind):
             k_records.append(rec)
     print(f"K-tile {kind} on the card: {len(k_records)} injected, "
           f"{eng.metrics()['sentinel_violations']} violations")
+    flagged = [e[1] for e in eng.event_log if e[0] == "fault"]
+    assert k_records and all(any(0 <= s - r.step <= 1 for s in flagged) for r in k_records)
+    assert {c.request_id: c.tokens.tolist() for c in eng.completions} == clean

@@ -21,10 +21,10 @@ of 5, 9, 7 tokens, 6 new tokens each, 2 slots, chunk 4, max_seq 64).
     counters and quarantined set for ``nan_tile``, ``inf_tile``, ``scale``
     (int8) and ``table``, and tokens equal to the JAX static oracle's;
   * on the kernel read: V-tile faults flagged within one tick and recovered;
-    K-tile faults missed (no violation), the reduced probe's floor, as
-    ``bit_flip`` is the floor of every read: the kernel keeps its scores and
-    probabilities, its probe sees only its output, and a poisoned K tile
-    leaves the output finite;
+    K-tile faults flagged at the ticks where the JAX engine's streamed read
+    (its default) flags them and recovered to the fault-free tokens, through
+    the read's per-row flag of a nonfinite live score (a poisoned K tile
+    leaves the output finite); ``bit_flip`` is the floor of every read;
   * a clean run silent; the sentinels off miss a fault; the retry budget
     spent gives "failed"; the int8 fallback (forced, and by the clip
     watchdog) completes with the oracle's tokens; the ledger balanced and
@@ -112,6 +112,15 @@ def dense():
         rows = jax_static_reference(jmodel, jparams, refs, JaxServeConfig(max_new_tokens=6))
         oracle[key] = {r.id: rows[r.id][len(r.tokens):].tolist() for r in refs}
     runs = {}
+    for kind in ("nan_tile", "inf_tile"):  # K tiles only, the JAX engine on its default read
+        eng = JaxEngine(jmodel, jparams, num_slots=2, max_seq=64,
+                        cfg=JaxServeConfig(max_new_tokens=6), chunk=CHUNK)
+        records = _drive(eng, _JaxKTiles(eng, seed=1), kind, _requests(JaxRequest, jcfg.vocab))
+        runs["k", kind] = {"records": [_record(r) for r in records],
+                           "event_log": [tuple(e) for e in eng.event_log],
+                           "metrics": {k: eng.metrics()[k] for k in METRIC_KEYS},
+                           "tokens": {c.request_id: c.new_tokens.tolist()
+                                      for c in eng.completions}}
     for kind, kv_dtype in FAULT_CASES:
         eng = JaxEngine(jmodel, jparams, num_slots=2, max_seq=64,
                         cfg=JaxServeConfig(max_new_tokens=6), chunk=CHUNK, kv_dtype=kv_dtype)
@@ -130,6 +139,15 @@ def dense():
 
 
 FAULT_CASES = (("nan_tile", "fp"), ("inf_tile", "fp"), ("scale", "int8"), ("table", "fp"))
+
+
+class _JaxKTiles(JaxFaultInjector):
+    """The reference's injector narrowed to K tiles, as the port's
+    ``leaves=("k",)`` narrows it: the leaf draw keeps its place in the
+    seeded sequence, so one seed hits the same targets in both."""
+
+    def _arena_items(self, want_scale):
+        return [(k, v) for k, v in super()._arena_items(want_scale) if want_scale or k == "k"]
 
 
 def _engine(dense, **kw):
@@ -225,6 +243,16 @@ def test_plain_paged_read_over_poisoned_tiles_as_pallas_kernel(leaf, value):
         assert not fin_mine[0].any() and fin_mine[1:].all()
     np.testing.assert_allclose(mine[clean], ref[clean], atol=2e-4, rtol=0)
     assert clean.tolist() == [False, True, True, True]
+    # the per-row flag: a nonfinite live score, on the rows that read a
+    # poisoned K tile; a stale entry is never read, a V tile not a score
+    out, flags = attn_ops.gn_paged_attention_chunk(*(torch.from_numpy(a) for a in args),
+                                                   nonfinite=True)
+    np.testing.assert_array_equal(out.numpy(), mine)
+    assert flags.dtype == torch.int32
+    lane = np.arange(4)[None, :] < args[5][:, None]
+    want = lane[:, :, None] & (~clean[:, None, None] if leaf == "k" else False)
+    np.testing.assert_array_equal(flags.numpy().astype(bool) & lane[:, :, None],
+                                  np.broadcast_to(want, flags.shape))
 
 
 # --------------------------------------------------------------- probes --
@@ -305,19 +333,27 @@ def test_kernel_read_flags_v_tiles_within_a_tick(dense, kind):
 
 @pytest.mark.parametrize("kind", ["nan_tile", "inf_tile"])
 def test_kernel_read_misses_k_tiles(dense, kind):
-    """The reduced probe's floor, pinned: a NaN or Inf K tile makes the
-    scores nonfinite, the GN exponential launders them into a valid
-    distribution, and the read's output, the one thing the kernel read's
-    probe sees, stays finite.  No violation; the run drains.  The streamed
-    read's full probe catches the same faults (the JAX parity above)."""
+    """K tiles on the kernel read, no longer missed: a NaN or Inf K tile
+    makes the scores nonfinite, the GN exponential launders them into a
+    valid distribution and the output stays finite, so the read's per-row
+    flag of a nonfinite live score carries the fault to the probe.  The
+    same records, event log (every flag at the JAX engine's tick), counters
+    and quarantined blocks as the JAX engine on its default (streamed)
+    read, and the fault-free tokens."""
     eng = _engine(dense)
+    assert eng.read_path == "kernel"
     records = _drive(eng, FaultInjector(eng, seed=1, leaves=("k",)), kind,
                      _requests(Request, eng.model.cfg.vocab))
+    want = dense["runs"]["k", kind]
     assert records and all(r.leaf == "k" for r in records)
+    assert [_record(r) for r in records] == want["records"]
+    assert eng.event_log == want["event_log"]
     m = eng.metrics()
-    assert m["sentinel_checks"] > 0
-    assert m["sentinel_violations"] == m["quarantined_blocks"] == m["retries"] == 0
-    assert len(eng.completions) == 3
+    assert {k: m[k] for k in METRIC_KEYS} == want["metrics"]
+    assert m["sentinel_violations"] >= len(records) and m["retries"] >= 1
+    assert any(r.block in eng.pool.quarantined for r in records)
+    assert _tokens(eng) == dense["oracle"] == want["tokens"]
+    _assert_ledger(eng.pool)
 
 
 def test_bit_flip_below_detection_floor(dense):

@@ -3,9 +3,10 @@
 ``static_reference`` with stop-token truncation and ``perplexity``; the
 synthetic corpus; the port's continuous engine against its own static
 oracle; and the launcher's static and continuous modes.  Reduced
-internlm2-1.8b (4 q / 4 kv heads) and a GQA variant (4 q / 2 kv heads); the
-same weights through ``convert.py`` and the same numpy tokens on both
-sides.  On the CPU both attention kernels run their plain one-pass
+internlm2-1.8b (4 q / 4 kv heads), a GQA variant (4 q / 2 kv heads), and
+reduced stablelm-1.6b (gn_ln) and gpt-neo-1.3b (gn_ln, gelu; Table I's
+backbone); the same weights through ``convert.py`` and the same numpy
+tokens on both sides.  On the CPU both attention kernels run their plain one-pass
 versions, so the port and the JAX one-pass path agree to float association
 (1e-5 on logits of |logit| < 1 at f32), and to the online corrections'
 Q1.15 rounding against the Pallas kernel in interpret mode (2e-4)."""
@@ -36,14 +37,17 @@ ARCH = "internlm2-1.8b"
 LOGITS_ATOL = 1e-5
 
 
-@pytest.fixture(scope="module", params=[4, 2], ids=["mha", "gqa2"])
+@pytest.fixture(scope="module", params=[(ARCH, 4), (ARCH, 2), ("stablelm-1.6b", None),
+                                        ("gpt-neo-1.3b", None)],
+                ids=["mha", "gqa2", "stablelm", "gptneo"])
 def pair(request):
     """(JAX model, JAX params, port model, the port's prepared params, its
-    f32 masters) from the same weights, float32, n_kv_heads = the fixture's
-    parameter."""
-    over = {"dtype": "float32", "n_kv_heads": request.param}
-    jmodel = jax_make_model(jax_registry.reduce_config(jax_registry.get_config(ARCH), **over))
-    tmodel = make_model(registry.reduce_config(registry.get_config(ARCH), **over))
+    f32 masters) from the same weights, float32, for the fixture's arch
+    (internlm2-1.8b at n_kv_heads 4 and 2)."""
+    arch, kv = request.param
+    over = {"dtype": "float32", **({"n_kv_heads": kv} if kv else {})}
+    jmodel = jax_make_model(jax_registry.reduce_config(jax_registry.get_config(arch), **over))
+    tmodel = make_model(registry.reduce_config(registry.get_config(arch), **over))
     jparams = jmodel.init(jax.random.PRNGKey(0))
     tparams = params_from_numpy(tmodel, jax.tree.map(np.asarray, jparams), device="cpu")
     return jmodel, jparams, tmodel, tmodel.prepare(tparams, "cpu"), tparams
@@ -175,9 +179,12 @@ def test_continuous_engine_matches_own_static_reference(pair, bs):
 
 def test_refuses_long_prefill_and_other_softmax():
     """A prefill past 2048 tokens takes the GN flash attention (its plain
-    version on the CPU) and is served; with another softmax than GN the
-    long prefill, like the forward, is refused (tests/test_torch_long.py
-    holds the long path against the JAX package)."""
+    version on the CPU) and is served; the exact softmax serves the forward
+    (tests/test_torch_train.py holds it against the JAX package) but its
+    long prefill, which the reference runs chunked, is refused, and a
+    softmax the port does not have is refused everywhere
+    (tests/test_torch_long.py holds the long path against the JAX
+    package)."""
     cfg = registry.reduce_config(registry.get_config(ARCH), dtype="float32")
     model = make_model(cfg)
     params = model.prepare(model.init(0, "cpu"), "cpu")
@@ -187,8 +194,11 @@ def test_refuses_long_prefill_and_other_softmax():
     exact = make_model(dataclasses.replace(cfg, softmax_impl="exact"))
     with pytest.raises(NotImplementedError, match="softmax_impl"):
         exact.prefill(params, long)
+    short = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
+    assert bool(torch.isfinite(exact.forward(params, short)).all())
+    other = make_model(dataclasses.replace(cfg, softmax_impl="pseudo"))
     with pytest.raises(NotImplementedError, match="softmax_impl"):
-        exact.forward(params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+        other.forward(params, short)
 
 
 # ------------------------------------------------------- synthetic corpus --
