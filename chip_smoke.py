@@ -116,9 +116,25 @@ Phases, each fatal on failure (exit code 1):
                silent; ``launch.train --smoke --steps 3`` and ``launch.serve
                --smoke --ckpt`` as subprocesses on the card;
  13. table1  - the Table I analogue: the tiny gpt-neo trained TABLE1_STEPS
-               steps with exact ops, evaluated under exact and GN ops (the
-               GN row through the kernels, its launches exact): perplexity,
-               top-1, their changes in percent, the training's seconds.
+               steps with exact ops, evaluated under exact, GN and the
+               bit-accurate hwsim ops (the GN row through the kernels, its
+               launches exact): perplexity, top-1, their changes in
+               percent, the training's seconds;
+ 14. tables  - the paper's comparison path: (a) on phase 13's checkpoint
+               (one temporary root for both), Table I's rows (the GN and
+               hwsim rows gated within 0.1% perplexity of FP32), Table II,
+               Fig. 5 (the GN rows' errors gated below their edges), the
+               Fig. 2 sweep with the paged reads' Σp bound (gated) and
+               Table III; (b) full-width gpt-neo-1.3b in bf16 (random
+               weights) through ``perplexity`` over 4 x 1024 tokens under
+               FP32, Table II's pairs and the hwsim pair: a forward's ms,
+               peak memory and perplexity, GN kernels launched only in the
+               (gn, gn_ln) row (gated); (c) layer 0's score rows and
+               pre-norm rows at that width, 2048 of each through every
+               softmax and norm name on the card and on the CPU (the
+               hwsim bitwise, the rest within stated tolerances; gated),
+               each name's ms over all the rows, the hwsim's loops' ms,
+               and Fig. 5's fractions beside the tiny backbone's.
 Phases 4-10 serve with the GN sentinels on, the engine's default: a tick
 launches one more norm, the head's σ probe.
 Each path's launch counters are set to 0 just before it runs and read just
@@ -148,10 +164,13 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.analysis import tracekeys  # noqa: E402
-from repro_torch.benchmarks import table1_accuracy  # noqa: E402
+from repro_torch.benchmarks import (fig5_norm_error, norm_error_study,  # noqa: E402
+                                    table1_accuracy, table2_score_tasks, table3_hw_cost)
 from repro_torch.benchmarks.common import tiny_cfg  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.core import baselines, get_norm, get_softmax  # noqa: E402
+from repro_torch.core.fixedpoint import lod, shift_subtract_div  # noqa: E402
 from repro_torch.core.gn_layernorm import newton_rsqrt  # noqa: E402
 from repro_torch.core.luts import TPU_SOFTMAX_LUT, SoftmaxLUTConfig  # noqa: E402
 from repro_torch.data.synthetic import DataConfig, batch_at, optimal_perplexity  # noqa: E402
@@ -2030,20 +2049,17 @@ def phase_ckpt() -> dict:
 
 
 # ----------------------------------------------------------------- phase 13 --
-def phase_table1() -> dict:
+def phase_table1(root: Path) -> dict:
     """The Table I analogue on the card: the tiny gpt-neo backbone trained
-    TABLE1_STEPS steps with exact ops, evaluated with the same weights under
-    (exact, exact_ln) and (gn, gn_ln): each row's perplexity and top-1, its
-    change in percent, the training's wall seconds.  Gated: finite rows, and
-    the GN row's launches exact (the exact rows and the exact training
-    launch no GN kernel)."""
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_table1_"))
-    try:
-        counters.reset()
-        out = table1_accuracy.run(steps=TABLE1_STEPS, device=DEV, root=tmp)
-        launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+    TABLE1_STEPS steps with exact ops (its checkpoint under ``root``, which
+    phase 14 reads), evaluated with the same weights under (exact,
+    exact_ln), (gn, gn_ln) and (gn_hwsim, gn_ln_hwsim): each row's
+    perplexity and top-1, its change in percent, the training's wall
+    seconds.  Gated: finite rows, and the GN row's launches exact (the
+    exact and hwsim rows and the exact training launch no GN kernel)."""
+    counters.reset()
+    out = table1_accuracy.run(steps=TABLE1_STEPS, device=DEV, root=root)
+    launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
     layers, batches = tiny_cfg().n_layers, 4
     # the GN row's forward over the held-out batches: train_want's forward
     want = {**train_want(layers, batches), "gn_softmax": 0}
@@ -2055,6 +2071,165 @@ def phase_table1() -> dict:
     res = {**rows, "train_seconds": out["train_seconds"], "steps": out["steps"],
            "launches": launches}
     print(f"[table1] {json.dumps(res)}")
+    return res
+
+
+# ----------------------------------------------------------------- phase 14 --
+# Table I's GN rows against FP32 on the tiny backbone, perplexity change in %
+TABLE1_PPL_PCT = 0.1
+# full width: gpt-neo-1.3b (the paper's perplexity backbone) in bf16, random
+# weights from SEED, perplexity over TABLES_BATCH x TABLES_SEQ Zipf-chain
+# tokens under each pair; card against CPU over TABLES_ROWS sampled rows
+TABLES_ARCH, TABLES_BATCH, TABLES_SEQ, TABLES_ROWS = "gpt-neo-1.3b", 4, 1024, 2048
+FULL_PAIRS = {"FP32": ("exact", "exact_ln"), **table2_score_tasks.METHODS,
+              "FP32+Ours(hwsim)": ("gn_hwsim", "gn_ln_hwsim")}
+# card against CPU: name -> (atol relative to the row's largest |output|, the
+# share of rows allowed past it, the largest gap any row may show relative
+# to that scale).  The baselines' are those the CPU tests hold them to
+# against the JAX package (baselines.PARITY_TOL: one ulp of an exponential or
+# a sum in another order moves a floor quantizer one step or a row 2x); the
+# float functions agree to a few f32 roundings; the hwsim is bitwise
+CARD_TOL = {"exact": (1e-6, 0.0, 0.0), "gn": (1e-6, 0.0, 0.0), "gn_hwsim": (0.0, 0.0, 0.0),
+            "exact_ln": (1e-6, 0.0, 0.0), "gn_ln": (1e-6, 0.0, 0.0),
+            "gn_ln_hwsim": (0.0, 0.0, 0.0), "exact_rms": (1e-6, 0.0, 0.0),
+            "gn_rms": (1e-6, 0.0, 0.0), **baselines.PARITY_TOL}
+
+
+def card_against_cpu(name: str, fn, rows) -> dict:
+    """``fn`` on the card and on the CPU over the same f32 rows: bitwise, or
+    the share of rows past CARD_TOL[name] and the largest gap."""
+    got, want = fn(rows).float().cpu(), fn(rows.cpu()).float()
+    atol, budget, step = CARD_TOL[name]
+    bitwise = torch.equal(got.view(torch.int32), want.view(torch.int32))
+    gap = (got.double() - want.double()).abs().amax(dim=-1)
+    rel = gap / want.double().abs().amax(dim=-1).clamp_min(1e-30)
+    res = {"bitwise": bitwise, "rows_past": float((rel > atol).double().mean()),
+           "max_rel": float(rel.max()), "max_abs_err": float(gap.max())}
+    must_be_bitwise = atol == 0.0 and step == 0.0
+    if not bitwise and (must_be_bitwise or res["rows_past"] > budget
+                        or res["max_rel"] > max(atol, step)):
+        fail(f"tables: {name} on the card against the CPU: {res}, tolerance {CARD_TOL[name]}")
+    return res
+
+
+def tables_tiny(root: Path, table1: dict) -> dict:
+    """(a) On the tiny backbone phase 13 trained (its checkpoint under
+    ``root``): Table I's rows from phase 13, Table II, Fig. 5, the Fig. 2
+    sweep and the study's paged reads, Table III.  Gated: every row finite,
+    the GN rows of Table I within TABLE1_PPL_PCT of FP32, the GN rows' Fig. 5
+    errors below fig5_norm_error.GN_EDGES, the paged reads within their
+    analytic bound."""
+    t1 = {k: table1[k] for k in table1_accuracy.ROWS}
+    print(f"[tables-table1] {json.dumps(t1)}")
+    for label in ("FP32+Ours", "FP32+Ours(hwsim)"):
+        if not abs(t1[label]["ppl_delta_%"]) <= TABLE1_PPL_PCT:
+            fail(f"tables: Table I {label} perplexity {t1[label]['ppl_delta_%']:+.4f}% of FP32, "
+                 f"past {TABLE1_PPL_PCT}%")
+    t2 = table2_score_tasks.run(steps=TABLE1_STEPS, device=DEV, root=root)
+    print(f"[tables-table2] {json.dumps(t2)}")
+    if not all(math.isfinite(m["perplexity"]) and 0 <= m["top1_acc"] <= 1 for m in t2.values()):
+        fail(f"tables: Table II rows not finite: {t2}")
+    f5 = fig5_norm_error.run(steps=TABLE1_STEPS, device=DEV, root=root)
+    print(f"[tables-fig5] {json.dumps(f5)}")
+    for fam, edges in fig5_norm_error.GN_EDGES.items():
+        for name, edge in edges.items():
+            if not f5[fam][name]["max"] < edge:
+                fail(f"tables: Fig. 5 {fam}/{name} max error {f5[fam][name]['max']} >= {edge}")
+    study = norm_error_study.run(device=DEV)
+    print(f"[tables-fig2] {json.dumps(study)}")
+    if not all(r["ok"] for r in study["paged"].values()):
+        fail(f"tables: the paged reads' Σp past their bound: {study['paged']}")
+    t3 = table3_hw_cost.run(device=DEV, root=root)
+    print(f"[tables-table3] {json.dumps({k: {c: v for c, v in m.items() if c != 'ops'} for k, m in t3.items()})}")
+    return {"table1": t1, "table2": t2, "fig5": f5, "study": study, "table3": t3}
+
+
+def tables_full_width() -> tuple[dict, dict, dict]:
+    """(b) Full-width gpt-neo-1.3b in bf16, random weights from SEED:
+    ``perplexity`` over TABLES_BATCH x TABLES_SEQ tokens under every pair of
+    FULL_PAIRS, each the ms of a forward (after a warm-up), the peak device
+    memory and the (random-weight, finiteness-only) perplexity.  Gated: the
+    GN kernels launched only in the (gn, gn_ln) row, exactly its forward's;
+    no plain version on the card.  (c) Layer 0's score rows (causal) and the
+    pre-norm rows captured on the card; TABLES_ROWS of each sampled through
+    every name of get_softmax and get_norm on the card and on the CPU
+    (card_against_cpu), each name's ms over all the rows, the hwsim loops'
+    ms at these shapes, and Fig. 5's fractions over the sampled rows."""
+    cfg = get_config(TABLES_ARCH)
+    base = make_model(cfg)
+    master = base.init(SEED, DEV)
+    params = base.prepare(master, DEV)
+    tokens = torch.as_tensor(batch_at(DataConfig(vocab=cfg.vocab, seq_len=TABLES_SEQ,
+                                                 global_batch=TABLES_BATCH, seed=SEED), 0)
+                             ["tokens"]).to(DEV)
+    layers = cfg.n_layers
+    gn_want = {**train_want(layers, 1), "gn_softmax": 0}
+    rows = {}
+    for label, (sm, nm) in FULL_PAIRS.items():
+        model = make_model(dataclasses.replace(cfg, softmax_impl=sm, norm_impl=nm))
+        before, plain0 = counters.launch_counts(), counters.plain_cuda_calls()
+        with torch.no_grad():
+            perplexity(model, params, {"tokens": tokens})  # warm-up
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()  # weights, f32 masters, tokens
+            ppl, ms = timed(lambda: perplexity(model, params, {"tokens": tokens}))
+        peak = torch.cuda.max_memory_allocated()
+        after, plain1 = counters.launch_counts(), counters.plain_cuda_calls()
+        launches = {k: after[k] - before[k] for k in after}
+        want = ({k: 2 * v for k, v in gn_want.items()} if (sm, nm) == ("gn", "gn_ln")
+                else dict.fromkeys(after, 0))
+        if launches != want or plain1 != plain0:
+            fail(f"tables: {label} ({sm}, {nm}) launches {launches} != {want}, plain "
+                 f"{plain0} -> {plain1}")
+        if not math.isfinite(ppl):
+            fail(f"tables: {label} perplexity {ppl} at full width")
+        rows[label] = {"impls": [sm, nm], "forward_ms": ms, "peak_memory_bytes": peak,
+                       "forward_peak_over_resident_bytes": peak - resident, "perplexity": ppl, "launches": {k: v for k, v in launches.items() if v}}
+    rows["hwsim_over_gn"] = (rows["FP32+Ours(hwsim)"]["forward_ms"]
+                             / rows["Proposed(GN)"]["forward_ms"])
+    print(f"[tables-fullwidth] {json.dumps({'arch': TABLES_ARCH, 'dtype': cfg.dtype, 'batch': [TABLES_BATCH, TABLES_SEQ], **rows})}")
+    del params
+    # (c) layer 0's inputs at this width, from the f32 masters
+    scores, acts = fig5_norm_error.collect_attention_inputs(cfg, master, [tokens])
+    del master
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    pick = (lambda x: x[torch.randperm(x.shape[0], generator=gen, device=DEV)[:TABLES_ROWS]
+                        .sort().values])
+    s_rows, a_rows = pick(scores), pick(acts)
+    card, ms = {}, {}
+    for name in CARD_TOL:
+        fn, full = ((get_softmax(name), scores) if name in fig5_norm_error.SOFTMAXES
+                    else (get_norm(name), acts))
+        card[name] = card_against_cpu(name, fn, s_rows if full is scores else a_rows)
+        ms[name] = call_ms(lambda: fn(full), 3, warmup=1)
+    z = torch.randint(1 << 15, 1 << 22, (scores.shape[0], 1), generator=gen, device=DEV)
+    var = torch.randint(1, 1 << 30, (acts.shape[0], 1), generator=gen, device=DEV)
+    loops = {"shift_subtract_div_ms": call_ms(lambda: shift_subtract_div(1 << 15, z, 24), 3, 1),
+             "shift_subtract_div_rows": z.shape[0],
+             "lod_ms": call_ms(lambda: lod(var), 3, 1), "lod_rows": var.shape[0]}
+    fractions = fig5_norm_error.histograms(s_rows, a_rows)
+    out = {"score_rows": list(scores.shape), "norm_rows": list(acts.shape),
+           "sampled": TABLES_ROWS, "card_vs_cpu": card, "ms_all_rows": ms, "hwsim_loops": loops,
+           "fig5_frac_below_0.2e-6": {fam: {k: h["frac_below_0.2e-6"] for k, h in d.items()}
+                                      for fam, d in fractions.items()}}
+    print(f"[tables-card-vs-cpu] {json.dumps(out)}")
+    return rows, out
+
+
+def phase_tables(root: Path, table1: dict) -> dict:
+    """The paper's comparison path: (a) the tables on the tiny backbone,
+    (b) the pairs' forwards at full width, (c) every name on the card
+    against the CPU at full-width shapes."""
+    counters.reset()
+    tiny = tables_tiny(root, table1)
+    full, card = tables_full_width()
+    launches = counters.launch_counts()
+    res = {"launches": launches,
+           "table1_fig5_frac_below_0.2e-6": {fam: {k: h["frac_below_0.2e-6"] for k, h in d.items()}
+                                             for fam, d in tiny["fig5"].items()},
+           "full_width_fig5_frac_below_0.2e-6": card["fig5_frac_below_0.2e-6"],
+           "hwsim_over_gn": full["hwsim_over_gn"]}
+    print(f"[tables] {json.dumps(res)}")
     return res
 
 
@@ -2104,12 +2279,17 @@ def main() -> int:
     guard = phase("guard", phase_guard, served, int8)
     train = phase("train", phase_train)
     phase("ckpt", phase_ckpt)
-    table1 = phase("table1", phase_table1)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_tables_"))  # phases 13 and 14
+    try:
+        table1 = phase("table1", phase_table1, root)
+        tables = phase("tables", phase_tables, root, table1)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
     by_path = {"continuous": served["launches"], "static": static["launches"],
                "int8": int8["launches"], "long_static": long_static["launches"],
                "long_continuous": long_cont["launches"], "reads": reads["launches"],
                "sampled": guard["launches"], "train": train["launches"],
-               "table1": table1["launches"]}
+               "table1": table1["launches"], "tables": tables["launches"]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         # the main path's shape: bf16 tick (fp or int8 KV; the norms' 128

@@ -1,15 +1,16 @@
-"""Table I analogue: FP32 against FP32 + Ours (port of the FP32 and
-FP32+Ours rows of ``benchmarks/table1_accuracy.py``).
+"""Table I analogue: FP32 against FP32 + Ours (port of
+``benchmarks/table1_accuracy.py``).
 
 The paper's claim: injecting GN-Softmax and GN-LayerNorm into an
 FP32-trained model leaves both task families unchanged (GLUE +0.07%, SQuAD
 -0.01%, perplexity -0.09%).  Here: the reduced gpt-neo-1.3b trained with
 exact ops (``common.train_tiny``), evaluated with the same weights under
-(exact, exact_ln) and (gn, gn_ln): held-out perplexity (score) and top-1
-next-token accuracy (rank) on the synthetic corpus, whose entropy floor is
-known, and each row's change against FP32 in percent.  On the card the GN
-row runs the port's CUDA kernels (flash attention, norm).  The reference's
-hwsim row is not ported (ROADMAP Queue A 2).
+(exact, exact_ln), (gn, gn_ln) and the bit-accurate integer datapaths
+(gn_hwsim, gn_ln_hwsim): held-out perplexity (score) and top-1 next-token
+accuracy (rank) on the synthetic corpus, whose entropy floor is known, and
+each row's change against FP32 in percent.  On the card the GN row runs the
+port's CUDA kernels (flash attention, norm); the hwsim row runs its integer
+datapaths in plain torch, as the reference runs them in jnp.
 
 Usage:
   python -m repro_torch.benchmarks.table1_accuracy [--steps 300] [--device cpu]
@@ -21,7 +22,8 @@ from pathlib import Path
 
 from repro_torch.benchmarks.common import eval_metrics, train_tiny, with_impls, writeout
 
-ROWS = {"FP32": ("exact", "exact_ln"), "FP32+Ours": ("gn", "gn_ln")}
+ROWS = {"FP32": ("exact", "exact_ln"), "FP32+Ours": ("gn", "gn_ln"),
+        "FP32+Ours(hwsim)": ("gn_hwsim", "gn_ln_hwsim")}
 
 
 def run(steps: int = 300, device=None, root: Path | None = None) -> dict:
@@ -46,10 +48,10 @@ def main(argv=None) -> dict:
     ap.add_argument("--outdir", default=None, help="default: runs/table1")
     args = ap.parse_args(argv)
     out = run(args.steps, args.device, Path(args.outdir) if args.outdir else None)
-    print(f"{'impl':12s} {'ppl':>9s} {'dppl%':>9s} {'top1':>8s} {'dacc%':>8s}")
+    print(f"{'impl':18s} {'ppl':>9s} {'dppl%':>9s} {'top1':>8s} {'dacc%':>8s}")
     for label in ROWS:
         m = out[label]
-        print(f"{label:12s} {m['perplexity']:9.4f} {m['ppl_delta_%']:9.4f} "
+        print(f"{label:18s} {m['perplexity']:9.4f} {m['ppl_delta_%']:9.4f} "
               f"{m['top1_acc']:8.4f} {m['acc_delta_%']:8.4f}")
     print(f"(optimal ppl = {out['FP32']['optimal_perplexity']:.3f}; training "
           f"{out['train_seconds']:.1f}s for {out['steps']} steps)")

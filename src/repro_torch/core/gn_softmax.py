@@ -1,15 +1,17 @@
 """GN-Softmax (the paper's Algorithm 1), float-faithful, in PyTorch.
 
 Counterpart of ``repro/core/gn_softmax.py``: ``exact_softmax`` (the FP32
-oracle) and ``gn_softmax`` (two-LUT factorized exponential on a fixed-point
+oracle), ``gn_softmax`` (two-LUT factorized exponential on a fixed-point
 Δ grid, renormalized by the sum of the approximated numerators, so
-``Σp = 1`` up to the reciprocal's rounding however coarse the exponential).
+``Σp = 1`` up to the reciprocal's rounding however coarse the exponential),
+``gn_softmax_hwsim`` (the bit-accurate integer datapath of Fig. 3) and
+``gn_log_softmax``.
 
 The exponential indexes the ROM tables directly (coarse[Δ >> (3+f)] ·
 residual[Δ & (R·2^f − 1)], rounded to Q1.15); the reference computes the
 same entries arithmetically, and the two agree bitwise on every Δ-grid
-point.  The hwsim integer datapath and the straight-through JVP are not
-ported yet.
+point.  The straight-through JVP lives with the kernel wrapper
+(``kernels/gn_softmax/ops.py``).
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import functools
 import torch
 
 from repro_torch.core import luts
+from repro_torch.core.fixedpoint import RECIP_BITS, shift_subtract_div
 from repro_torch.core.luts import SoftmaxLUTConfig, TPU_SOFTMAX_LUT
 
 
@@ -44,8 +47,19 @@ def delta_index(delta: torch.Tensor, cfg: SoftmaxLUTConfig) -> torch.Tensor:
     score makes the row's Δ NaN or +Inf).  An out-of-range float->int cast
     is undefined behaviour in PyTorch, so the same index is formed in float:
     NaN to 0, then the clip, then the cast."""
-    d = torch.round(delta * (1.0 / cfg.step))
+    return _saturate(torch.round(delta * (1.0 / cfg.step)), cfg)
+
+
+def _saturate(d: torch.Tensor, cfg: SoftmaxLUTConfig) -> torch.Tensor:
+    """A rounded f32 grid index -> int32 in [0, max_delta_int], as XLA's
+    saturating cast and the clip after it give it."""
     return d.nan_to_num(0.0).clamp(0, cfg.max_delta_int).to(torch.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def exp_lut_int_tensors(cfg: SoftmaxLUTConfig, device: str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The (coarse, residual) ROM tables as Q1.vb int64 tensors on ``device``."""
+    return tuple(torch.from_numpy(t.astype("int64")).to(device) for t in luts.exp_luts_int(cfg))
 
 
 def factorized_exp(delta: torch.Tensor, cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT) -> torch.Tensor:
@@ -68,3 +82,32 @@ def gn_softmax(x: torch.Tensor, cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT) -> torc
     y = factorized_exp(delta, cfg)
     z = y.sum(dim=-1, keepdim=True)
     return (y * (1.0 / z)).to(x.dtype)
+
+
+def gn_softmax_hwsim(x: torch.Tensor, cfg: SoftmaxLUTConfig = luts.PAPER_SOFTMAX_LUT,
+                     recip_bits: int = RECIP_BITS) -> torch.Tensor:
+    """Bit-accurate integer datapath of Fig. 3 (max-sub -> LUTs -> FxP_Div).
+
+    The unit quantizes Δ onto its INT grid (in hardware the quantizer lives
+    upstream); everything after that is integer: Q1.vb ROM entries, a
+    truncating integer product, one restoring shift-subtract division per
+    row for the reciprocal scale, and a shift-add rescale rounded to
+    nearest.  Bitwise the reference on every input, masked (-1e30), NaN
+    and ±Inf scores included: the grid index is formed as ``delta_index``
+    forms it (NaN to 0, the clip in float, then the cast)."""
+    coarse, residual = exp_lut_int_tensors(cfg, str(x.device))
+    vb = cfg.lut_value_bits
+    x32 = x.float()
+    delta = x32.amax(dim=-1, keepdim=True) - x32
+    d = _saturate(torch.round(delta / cfg.step), cfg).long()
+    y = (coarse[d >> (3 + cfg.frac_bits)] * residual[d & (cfg.residual_entries - 1)]) >> vb
+    z = y.sum(dim=-1, keepdim=True).clamp_min(1)  # the Δ = 0 term keeps z >= ~2^vb
+    # FxP_Div: S = floor(2^recip_bits * 2^vb / Z), then every y rescaled
+    s = shift_subtract_div(1 << vb, z, recip_bits)
+    p_int = (y * s + (1 << (vb - 1))) >> vb
+    return (p_int.float() / float(1 << recip_bits)).to(x.dtype)
+
+
+def gn_log_softmax(x: torch.Tensor, cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT) -> torch.Tensor:
+    """log(gn_softmax) with a numerically safe floor (for perplexity eval)."""
+    return torch.log(gn_softmax(x, cfg).float().clamp_min(1e-30))

@@ -59,6 +59,16 @@ def exp_luts(cfg: SoftmaxLUTConfig) -> tuple[np.ndarray, np.ndarray]:
     return coarse_q.astype(np.float32), residual_q.astype(np.float32)
 
 
+def exp_luts_int(cfg: SoftmaxLUTConfig) -> tuple[np.ndarray, np.ndarray]:
+    """Integer (Q1.f) LUT entries for the bit-accurate hwsim datapath."""
+    coarse, residual = exp_luts(cfg)
+    scale = float(1 << cfg.lut_value_bits)
+    return (
+        np.round(coarse * scale).astype(np.int32),
+        np.round(residual * scale).astype(np.int32),
+    )
+
+
 @dataclasses.dataclass(frozen=True)
 class RsqrtConfig:
     """LOD + mantissa-LUT initial guess, then ``iters`` NR-rsqrt steps."""

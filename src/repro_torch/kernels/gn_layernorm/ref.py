@@ -8,7 +8,7 @@ run can show that its main path never fell back to this version there.
 """
 from __future__ import annotations
 
-from repro_torch.core import gn_layernorm as core
+from repro_torch.core.gn_layernorm import _gn_normalize
 from repro_torch.core.luts import PAPER_RSQRT, RsqrtConfig
 
 cuda_calls = 0
@@ -19,7 +19,7 @@ def gn_layernorm_ref(x, gamma=None, beta=None, cfg: RsqrtConfig = PAPER_RSQRT,
     global cuda_calls
     if x.is_cuda:
         cuda_calls += 1
-    return core._gn_normalize(x, gamma, beta, cfg, subtract_mean)
+    return _gn_normalize(x, gamma, beta, cfg, subtract_mean)
 
 
 def gn_add_layernorm_ref(x, r, gamma=None, beta=None, cfg: RsqrtConfig = PAPER_RSQRT,
@@ -29,4 +29,4 @@ def gn_add_layernorm_ref(x, r, gamma=None, beta=None, cfg: RsqrtConfig = PAPER_R
     if x.is_cuda:
         cuda_calls += 1
     s = x + r
-    return s, core._gn_normalize(s, gamma, beta, cfg, subtract_mean)
+    return s, _gn_normalize(s, gamma, beta, cfg, subtract_mean)

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core import gn_softmax as core
+from repro_torch.core.gn_softmax import gn_softmax as core_gn_softmax
 from repro_torch.core.luts import SoftmaxLUTConfig, TPU_SOFTMAX_LUT
 
 cuda_calls = 0
@@ -22,4 +22,4 @@ def gn_softmax_ref(x: torch.Tensor, cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT) -> 
     global cuda_calls
     if x.is_cuda:
         cuda_calls += 1
-    return core.gn_softmax(x, cfg)
+    return core_gn_softmax(x, cfg)

@@ -2,22 +2,23 @@
 ``repro/models/attention.py``): the contiguous paths of training-style
 scoring, static prefill and slab decode, and the block-paged serving tick.
 
-The softmax is ``cfg.softmax_impl``: ``"gn"`` (the paper's Algorithm 1,
-through the port's GN kernels) or ``"exact"`` (the FP32 baseline of the
-accuracy experiments, ``core.exact_softmax`` in plain torch, as the
-reference computes it in jnp outside any Pallas kernel).  Any other name
-is refused.
+The softmax is ``cfg.softmax_impl``, any name of ``core.get_softmax``:
+``"gn"`` (the paper's Algorithm 1) runs through the port's GN kernels;
+every other name (the exact FP32 softmax, the bit-accurate ``gn_hwsim``,
+the prior-work baselines of Table II) runs its ``core`` function in plain
+torch, as the reference computes them in jnp outside any Pallas kernel.
+An unknown name raises ``KeyError``, as the reference's ``get_softmax``.
 
 Contiguous paths:
   * ``self_attention`` (``Model.forward``, the training forward) runs the
     GN flash-attention kernel on every GN call.  The reference takes its
     Pallas kernel only under ``cfg.use_pallas`` and the one-pass ``_sdpa``
     otherwise; the two compute the same function, and the port reads no
-    ``use_pallas``.  The exact softmax runs the one-pass ``_sdpa``.
+    ``use_pallas``.  Every other softmax runs the one-pass ``_sdpa``.
   * ``attn_prefill`` and ``attn_decode_step`` keep the reference's one-pass
     form: scores by ``torch.matmul`` scaled in the activation dtype, cast to
     f32, masked at -1e30, then the softmax over each score row (the GN
-    softmax kernel, or the exact one).
+    softmax kernel, or the ``core`` function of the other names).
   * A GN prefill or forward past ``CHUNKED_FROM`` (2048) tokens takes the GN
     flash-attention kernel, causal, where the reference takes
     ``chunked_self_attention``: the same online GN accumulation (a running
@@ -28,6 +29,9 @@ Contiguous paths:
     windows, which the port does not serve yet.
   * Exact attention past ``CHUNKED_FROM`` tokens is refused: the reference
     runs ``chunked_self_attention`` there, which the port does not have.
+    The one-pass-only names (``gn_hwsim`` and the baselines) stay one-pass
+    at every length, as the reference's ``_use_chunked`` keeps them, so the
+    (S, S) scores are materialized.
   * The slab cache is written in place.
 
 Paged path: every sequence owns a block table into a shared KV arena.  The
@@ -43,7 +47,8 @@ sink block too, set by its writes and never read.
 The paged read takes one of three paths (``paged_read_path``): the GN
 paged-attention kernel (``"kernel"``, the default for GN; the reference's
 ``"pallas"``), or the reference's two jnp reads, the streamed one the
-default for the exact softmax (the kernel is GN-only), either taken for GN
+default for the exact softmax and the gathered one for the one-pass-only
+names (the kernel is GN-only), either taken for GN
 only when ``FORCE_PAGED_READ`` names it: ``"streamed"`` gathers K one tile of
 ``STREAM_TILE`` table columns at a time and never holds the K stream, and
 ``"gathered"`` materializes each slot's K and V streams, the oracle the
@@ -73,7 +78,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.gn_softmax import exact_softmax
+from repro_torch.core import get_softmax
 from repro_torch.kernels.gn_attention.ops import gn_attention
 from repro_torch.kernels.gn_paged_attention.ops import gn_paged_attention_chunk
 from repro_torch.kernels.gn_softmax.ops import gn_softmax
@@ -105,18 +110,15 @@ def attn_specs(cfg: ModelConfig) -> dict:
 
 def _softmax(cfg: ModelConfig):
     """The row softmax of ``cfg.softmax_impl`` (the reference's
-    ``get_softmax``): the GN kernel's wrapper, or the exact softmax."""
+    ``get_softmax``): the GN kernel's wrapper for ``"gn"``, else the
+    ``core`` function of the name (``KeyError`` for an unknown one)."""
     if cfg.softmax_impl == "gn":
         return gn_softmax
-    if cfg.softmax_impl == "exact":
-        return exact_softmax
-    raise NotImplementedError(
-        f"the port's attention runs softmax_impl 'gn' or 'exact'; {cfg.softmax_impl!r} is not "
-        "ported")
+    return get_softmax(cfg.softmax_impl)
 
 
 def _refuse_long_exact(cfg: ModelConfig, s: int) -> None:
-    if s > CHUNKED_FROM and cfg.softmax_impl != "gn":
+    if s > CHUNKED_FROM and cfg.softmax_impl == "exact":
         raise NotImplementedError(
             f"softmax_impl={cfg.softmax_impl!r} past {CHUNKED_FROM} tokens ({s}): the reference "
             "runs chunked_self_attention there, which the port does not have; the port's "
@@ -167,7 +169,7 @@ def _qkv(cfg: ModelConfig, p: dict, x, positions):
 def self_attention(cfg: ModelConfig, p: dict, x, positions, causal: bool = True):
     """x: (B, S, D), positions: (B, S) -> (B, S, D): GN through the
     flash-attention kernel (q, k, v moved to its (B, heads, S, dh) layout;
-    differentiable, ``kernels/gn_attention/ops.py``), the exact softmax
+    differentiable, ``kernels/gn_attention/ops.py``), every other softmax
     through the one-pass ``_sdpa`` in plain torch."""
     b, s, _ = x.shape
     _softmax(cfg)
@@ -197,8 +199,8 @@ def attn_prefill(cfg: ModelConfig, p: dict, x, positions):
     (B,S,KV,dh) for the cache)."""
     b, s, _ = x.shape
     q, k, v = _qkv(cfg, p, x, positions)
-    if s > CHUNKED_FROM:
-        _refuse_long_exact(cfg, s)
+    _refuse_long_exact(cfg, s)
+    if s > CHUNKED_FROM and cfg.softmax_impl == "gn":
         out = gn_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)), causal=True)
         out = out.transpose(1, 2)
     else:
@@ -354,13 +356,13 @@ def paged_quant_write(flat_arena, scale, new_vals, dest, block_size: int,
 def paged_read_path(cfg: ModelConfig) -> str:
     """The paged read a tick takes (port of the reference's
     ``paged_read_path``): ``FORCE_PAGED_READ`` when set, else ``"kernel"``,
-    the GN paged-attention kernel, for the GN softmax, and ``"streamed"``
-    for the exact one, as the reference.  The reference serves its Pallas
-    kernel only under ``use_pallas``; the port has no such switch.  The
-    kernel is GN-only."""
+    the GN paged-attention kernel, for the GN softmax, ``"streamed"`` for
+    the exact one and ``"gathered"`` for the one-pass-only names, as the
+    reference.  The reference serves its Pallas kernel only under
+    ``use_pallas``; the port has no such switch.  The kernel is GN-only."""
     _softmax(cfg)
     if FORCE_PAGED_READ is None:
-        return "kernel" if cfg.softmax_impl == "gn" else "streamed"
+        return {"gn": "kernel", "exact": "streamed"}.get(cfg.softmax_impl, "gathered")
     if FORCE_PAGED_READ not in READ_PATHS:
         raise ValueError(f"FORCE_PAGED_READ must be None or one of {READ_PATHS}, got "
                          f"{FORCE_PAGED_READ!r}")

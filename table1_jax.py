@@ -1,13 +1,12 @@
 #!/usr/bin/env python3
-"""The reference's Table I rows FP32 and FP32+Ours, run with the JAX package
-on the CPU, to stand beside the port's (``python -m
+"""The reference's Table I rows FP32, FP32+Ours and FP32+Ours(hwsim), run
+with the JAX package on the CPU, to stand beside the port's (``python -m
 repro_torch.benchmarks.table1_accuracy``, ``chip_smoke.py`` phase 13).
 
 Calls the reference's own ``benchmarks.common.train_tiny`` and
-``eval_metrics`` for the two rows, as ``benchmarks/table1_accuracy.py``
-does; that script's third row (hwsim) needs ``jax.experimental.enable_x64``,
-which this JAX lacks, so the name is aliased to ``jax.enable_x64`` here and
-the row is left out.  The checkpoint goes to a temporary directory, not to
+``eval_metrics`` for the three rows, as ``benchmarks/table1_accuracy.py``
+does; the hwsim row needs ``jax.experimental.enable_x64``, which this JAX
+lacks, so the name is aliased to ``jax.enable_x64`` here.  The checkpoint goes to a temporary directory, not to
 the reference's ``experiments/artifacts``.  Prints one JSON line: per row
 the perplexity, top-1, their changes in percent against FP32, and the
 training's wall seconds.
@@ -30,7 +29,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 from benchmarks import common  # noqa: E402
 
-ROWS = {"FP32": ("exact", "exact_ln"), "FP32+Ours": ("gn", "gn_ln")}
+ROWS = {"FP32": ("exact", "exact_ln"), "FP32+Ours": ("gn", "gn_ln"),
+        "FP32+Ours(hwsim)": ("gn_hwsim", "gn_ln_hwsim")}
 
 
 def main(argv=None) -> dict:

@@ -2,6 +2,7 @@
 package on shared numpy inputs: LUTs and grid indices bitwise, the float
 datapaths within a few ulps, the guarantees (masked numerators exactly 0,
 Σp = 1 to (t+1)·2⁻²³) on the port's own outputs."""
+import ast
 import importlib
 
 import jax.numpy as jnp
@@ -9,15 +10,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.core import api as jax_api
 from repro.core import luts as jax_luts
 from repro_torch.core import get_norm, get_softmax
-from repro_torch.core import gn_layernorm as t_ln
-from repro_torch.core import gn_softmax as t_sm
 from repro_torch.core import luts as t_luts
 
-# the modules, not the same-named functions repro.core re-exports
+# the modules, not the same-named functions repro.core and repro_torch.core
+# re-export
 jax_sm = importlib.import_module("repro.core.gn_softmax")
 jax_ln = importlib.import_module("repro.core.gn_layernorm")
+t_sm = importlib.import_module("repro_torch.core.gn_softmax")
+t_ln = importlib.import_module("repro_torch.core.gn_layernorm")
 
 CFG = t_luts.TPU_SOFTMAX_LUT
 
@@ -128,11 +131,18 @@ def test_gn_norm_guarantees_unit_sigma():
 
 
 def test_api_names_and_unknown_names_raise():
-    assert get_softmax("gn") is t_sm.gn_softmax
-    assert get_softmax("exact") is t_sm.exact_softmax
-    for bad in ("gn_hwsim", "softermax", "nope"):
-        with pytest.raises(KeyError):
-            get_softmax(bad)
-    for bad in ("gn_ln_hwsim", "integer_ln", "rmsnorm", "nope"):
-        with pytest.raises(KeyError):
-            get_norm(bad)
+    """The port's two name tables are the reference's, name for name, the
+    plain ``gn`` and ``exact`` functions among them; any other name raises
+    ``KeyError``, as the reference's does."""
+    names = {}
+    for table in (get_softmax, get_norm, jax_api.get_softmax, jax_api.get_norm):
+        with pytest.raises(KeyError) as err:
+            table("nope")
+        names[table] = ast.literal_eval(str(err.value).split("have ", 1)[1].rstrip("'\""))
+    assert names[get_softmax] == names[jax_api.get_softmax]
+    assert names[get_norm] == names[jax_api.get_norm]
+    assert get_softmax("gn") is t_sm.gn_softmax and get_softmax("exact") is t_sm.exact_softmax
+    for name in names[get_softmax]:
+        assert callable(get_softmax(name))
+    for name in names[get_norm]:
+        assert callable(get_norm(name))

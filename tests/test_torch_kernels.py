@@ -18,7 +18,8 @@ from repro.kernels.gn_paged_attention import ops as jax_attn_ops
 from repro.kernels.gn_paged_attention.ref import gn_paged_attention_chunk_ref
 from repro.kernels.gn_softmax import ops as jax_sm_ops
 from repro.kernels.gn_softmax.ref import gn_softmax_ref as jax_gn_softmax_ref
-from repro_torch.core import gn_layernorm as core_ln
+from repro_torch.core.gn_layernorm import gn_layernorm as core_gn_layernorm
+from repro_torch.core.gn_layernorm import gn_rmsnorm as core_gn_rmsnorm
 from repro_torch.core.gn_softmax import delta_index, factorized_exp
 from repro_torch.core.luts import SoftmaxLUTConfig
 from repro_torch.kernels.gn_attention import ops as fa_ops
@@ -180,8 +181,8 @@ def test_apply_add_norm_is_the_add_then_apply_norm(arch, dtype):
 def test_norm_wrappers_run_the_core_datapath_on_cpu():
     x = torch.from_numpy(np.random.default_rng(6).normal(size=(5, 64)).astype(np.float32))
     g = torch.linspace(0.5, 1.5, 64)
-    assert torch.equal(norm_ops.gn_rmsnorm(x, g), core_ln.gn_rmsnorm(x, g))
-    assert torch.equal(norm_ops.gn_layernorm(x, g, g), core_ln.gn_layernorm(x, g, g))
+    assert torch.equal(norm_ops.gn_rmsnorm(x, g), core_gn_rmsnorm(x, g))
+    assert torch.equal(norm_ops.gn_layernorm(x, g, g), core_gn_layernorm(x, g, g))
 
 
 # ------------------------------------------------------------- GN softmax --

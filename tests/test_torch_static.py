@@ -181,10 +181,11 @@ def test_refuses_long_prefill_and_other_softmax():
     """A prefill past 2048 tokens takes the GN flash attention (its plain
     version on the CPU) and is served; the exact softmax serves the forward
     (tests/test_torch_train.py holds it against the JAX package) but its
-    long prefill, which the reference runs chunked, is refused, and a
-    softmax the port does not have is refused everywhere
-    (tests/test_torch_long.py holds the long path against the JAX
-    package)."""
+    long prefill, which the reference runs chunked, is refused; a
+    one-pass-only softmax (a baseline, as ``pseudo``) serves the long
+    prefill one-pass, as the reference's ``_use_chunked`` keeps it; a name
+    neither package has raises ``KeyError`` (tests/test_torch_long.py holds
+    the long path against the JAX package)."""
     cfg = registry.reduce_config(registry.get_config(ARCH), dtype="float32")
     model = make_model(cfg)
     params = model.prepare(model.init(0, "cpu"), "cpu")
@@ -197,8 +198,10 @@ def test_refuses_long_prefill_and_other_softmax():
     short = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
     assert bool(torch.isfinite(exact.forward(params, short)).all())
     other = make_model(dataclasses.replace(cfg, softmax_impl="pseudo"))
-    with pytest.raises(NotImplementedError, match="softmax_impl"):
-        other.forward(params, short)
+    logits, _ = other.prefill(params, long)
+    assert logits.shape == (1, 2049, cfg.vocab) and bool(torch.isfinite(logits).all())
+    with pytest.raises(KeyError, match="nope"):
+        make_model(dataclasses.replace(cfg, softmax_impl="nope")).forward(params, short)
 
 
 # ------------------------------------------------------- synthetic corpus --

@@ -333,9 +333,14 @@ def test_refusals_past_2048_and_of_other_impls():
             model.paged_read_path
     finally:
         t_attn.FORCE_PAGED_READ = None
-    with pytest.raises(NotImplementedError, match="softermax"):
-        make_model(dataclasses.replace(cfg, softmax_impl="softermax")).forward(
-            params, {"tokens": torch.zeros(1, 4, dtype=torch.int32)})
+    short = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
+    with pytest.raises(KeyError, match="nope"):  # as the reference's get_softmax
+        make_model(dataclasses.replace(cfg, softmax_impl="nope")).forward(params, short)
+    with pytest.raises(KeyError, match="nope"):
+        make_model(dataclasses.replace(cfg, norm_impl="nope")).forward(params, short)
+    softermax = make_model(dataclasses.replace(cfg, softmax_impl="softermax"))
+    assert bool(torch.isfinite(softermax.forward(params, short)).all())
+    assert softermax.paged_read_path == "gathered"
     with pytest.raises(NotImplementedError, match="Queue A 8"):
         train_launch.main(["--smoke", "--device", "cpu", "--mesh", "2x2"])
     with pytest.raises(NotImplementedError, match="2048"):
