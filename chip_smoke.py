@@ -31,7 +31,9 @@ Phases, each fatal on failure (exit code 1):
                autograd through its plain version with the straight-through
                Jacobian, at f32 at the training shapes cut to 2 q heads: the
                softmax, the norm (RMS, LayerNorm, fused add) and the flash
-               attention in both designs (f32, bf16);
+               attention in both designs (f32, bf16); the paged read over the
+               prefix cache's tables (six lanes sharing 72 leading blocks, a
+               forked partial tail block), fp and int8 mode;
   3. parity  - full-width internlm2-1.8b cut to 2 layers, kernels on the card
                against plain versions on the CPU, same weights, at float32
                and at bfloat16: one fused paged tick with mixed
@@ -135,8 +137,38 @@ Phases, each fatal on failure (exit code 1):
                hwsim bitwise, the rest within stated tolerances; gated),
                each name's ms over all the rows, the hwsim's loops' ms,
                and Fig. 5's fractions beside the tiny backbone's.
-Phases 4-10 serve with the GN sentinels on, the engine's default: a tick
-launches one more norm, the head's σ probe.
+ 15. prefix  - chat behind one system prompt at full width (phase 4's model, 8
+               slots, chunk 16, block 16): 32 users over a 1024-token system
+               prompt, 4 personas of 128 and a 64-token turn, 32 new tokens,
+               an arrival every 2 ticks; the prefix cache off and on (fp
+               pool), on over the int8 pool, on over a tight arena of 5
+               footprints.  Gated: launches exact in every run, every fork
+               read back bitwise its source (arenas and scales), captures
+               within the bucket grid, a reset rerun's tokens equal, the
+               cache-on run's eager tick bitwise the graphed one (with a
+               profiled window), the ledger balanced and evictions in the
+               tight run; at 2 layers and f32 the greedy tokens with the
+               cache on equal those with it off (fp, int8).  Reported: tok/s
+               and tick (first run, steady), TTFT in steps and ms, hit rate,
+               forks, evictions, cached blocks, each request's greedy prefix
+               shared with the cache-off run;
+ 16. sla     - interactive and batch traffic at full width: 48 requests of
+               ``sla_requests`` (base 256 tokens, 16 / 128 new) over an
+               arena of 160 blocks, FCFS, priority + recompute, priority +
+               spill (fp and int8) and priority + spill with a shedding
+               watermark.  Gated: launches exact, every request completed
+               with its budget or rejected while of class batch and never
+               admitted, every spill and restore read back bitwise (arenas,
+               scales, the held-logits row), the shedding run's eager tick
+               bitwise the graphed one, a reset rerun of each engine's first
+               run equal; at 2 layers and f32 the preempted requests' tokens
+               equal the preempt-off priority run's (recompute, spill).  The
+               fp runs share one engine (its graphs), the policy set between
+               runs.
+               Reported: TTFT p50/p99 per class in steps and ms, tok/s,
+               preemptions, resumes, rejections, spill bytes.
+Phases 4-10, 15 and 16 serve with the GN sentinels on, the engine's default:
+a tick launches one more norm, the head's σ probe.
 Each path's launch counters are set to 0 just before it runs and read just
 after.  The last two lines are the kernels JSON and {"ok": true, ...}.
 
@@ -190,7 +222,8 @@ from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, generate,  
                                       perplexity, static_decoder, static_reference)
 from repro_torch.serve.faults import FaultInjector  # noqa: E402
 from repro_torch.serve.sampling import counter_bits, sample  # noqa: E402
-from repro_torch.serve.workload import required_max_seq, seeded_requests  # noqa: E402
+from repro_torch.serve.workload import (required_max_seq, seeded_requests,  # noqa: E402
+                                        shared_prefix_requests, sla_requests)
 from repro_torch.train.loop import make_train_step  # noqa: E402
 from repro_torch.train.optimizer import (OptimizerConfig, init_opt_state,  # noqa: E402
                                          tree_leaves, tree_map)
@@ -224,6 +257,18 @@ LONG_WINDOW = 64  # ticks of the long continuous rerun (and phases 9, 10) that a
 GUARD_T = 0.7
 CHAOS_EVERY, CHAOS_FAULTS = 10, 9
 CHAOS = {"fp": ("nan_tile", "inf_tile", "table"), "int8": ("scale", "table")}
+# phase 15: chat behind one system prompt (a 1024-token system prompt, 4
+# personas of 128, a user turn of 64, 32 new tokens, an arrival every 2
+# ticks); the tight run's arena holds PREFIX_TIGHT full footprints
+PREFIX = {"n_users": 32, "n_personas": 4, "system_len": 1024, "persona_len": 128,
+          "user_len": 64, "max_new_tokens": 32, "stagger": 2}
+PREFIX_TIGHT = 5
+# phase 16: interactive and batch traffic on one card (the reference's rate
+# and bursts) over an arena of SLA_BLOCKS blocks (four 640-token
+# footprints), so that interactive heads must preempt; the shedding run's
+# watermark, in blocks (two arenas of backlog)
+SLA = {"n_requests": 48, "base_len": 256, "max_new_interactive": 16, "max_new_batch": 128}
+SLA_BLOCKS, SLA_SHED = 160, 320
 # the training phases: TRAIN_BATCH sequences of TRAIN_SEQ tokens a step (one
 # batch of batch_at, repeated), TRAIN_MB microbatches, TRAIN_STEPS steps;
 # the Table I analogue trains TABLE1_STEPS steps
@@ -733,6 +778,57 @@ def attn_int8_case(c: int, dtype, gen, max_bt: int = 66) -> dict:
     }
 
 
+
+def alias_case(int8: bool, gen, c: int = CHUNK, dtype=torch.bfloat16) -> dict:
+    """The prefix cache's tables at phase 2's widths (N 8, C 16, H16/Hkv8/D128,
+    block 16, phase 15's 78 columns): lanes 0-5 read one 72-block prefix (the
+    1152-token system + persona prompt), lane 0 four blocks of its own past
+    it, lane 1 a forked copy (another id, the same contents; in int8 mode
+    the int8 block and its scale) of lane 0's block 72, partially filled;
+    lanes 6-7 own their chains; stale entries past every length.  Held
+    against the plain version at phase 2's tolerances."""
+    n, h, hkv, d, bs, max_bt = SLOTS, 16, 8, 128, BLOCK, 78
+    rng = np.random.default_rng(15 + int8)
+    nb = 6 * 6 + 72 + 2 * max_bt + 8
+    perm = iter(rng.permutation(nb).tolist())
+    prefix = [next(perm) for _ in range(72)]
+    tables = rng.integers(0, nb, size=(n, max_bt))
+    lengths = np.zeros(n, np.int64)
+    for i in range(n):
+        need = 76 if i == 0 else int(rng.integers(73, max_bt + 1))
+        chain = list(prefix) if i < 6 else []
+        chain += [next(perm) for _ in range(need - len(chain))]
+        tables[i, :need] = chain
+        lengths[i] = (need - 1) * bs + int(rng.integers(1, bs + 1))
+    src, fork = int(tables[0, 72]), int(tables[1, 72])
+    lengths[1] = 72 * bs + int(rng.integers(2, bs))  # inside the forked block
+    tables[1, 73:] = rng.integers(0, nb, size=max_bt - 73)
+    n_valid = np.minimum(rng.integers(1, c + 1, size=n), lengths)
+    q = torch.randn(n, c, h, d, generator=gen, device=DEV).to(dtype)
+    k = torch.randn(nb, bs, hkv, d, generator=gen, device=DEV).to(dtype)
+    v = torch.randn(nb, bs, hkv, d, generator=gen, device=DEV).to(dtype)
+    scales = None
+    if int8:
+        (k, ks), (v, vs) = quantize(k), quantize(v)
+        scales = (ks, vs)
+    for t in (k, v, *(scales or ())):
+        t[fork] = t[src]
+    ints = [torch.as_tensor(a, dtype=torch.int32).to(DEV)
+            for a in (tables, lengths - n_valid, n_valid)]
+    args = (q, k, v, *ints)
+    lane = torch.as_tensor(np.arange(c)[None, :] < n_valid[:, None]).to(DEV)
+    got = attn_ops.gn_paged_attention_chunk(*args, scales=scales)
+    want = attn_ref.gn_paged_attention_chunk_ref(*args, scales=scales)
+    rel = 0.0 if dtype == torch.float32 else BF16_REL
+    check = compare(got[lane], want[lane], ATTN_ATOL_F32, rel)
+    check["ok"] = check["bad_rows"] <= FLIP_ROWS * check["rows"]
+    return {"name": "gn_paged_attention_int8" if int8 else "gn_paged_attention",
+            "case": "aliased", "design": attn_ops.call_design(*args[:3]),
+            "shape": {"N": n, "C": c, "H": h, "Hkv": hkv, "D": d, "block": bs,
+                      "max_len": int(lengths.max()), "shared_blocks": 72, "sharing_lanes": 6,
+                      "forked": [src, fork], "kv": "int8" if int8 else "fp"},
+            "dtype": str(dtype).split(".")[-1], **check}
+
 def softmax_rows(rows: int, cols: int, dtype, gen, visible=None, scale: float = 3.0):
     """Random logits with columns past ``visible(row)`` masked at -1e30, as
     the model's score rows are; returns (x, mask of the masked entries)."""
@@ -1046,6 +1142,9 @@ def phase_kernels() -> dict:
     flashes = attention_cases(gen)
     attns_int8 = [attn_int8_case(c, torch.bfloat16, gen) for c in (CHUNK, 1)]
     attns_int8.append(attn_int8_case(CHUNK, torch.bfloat16, gen, max_bt=LONG_BT))
+    # the prefix cache's aliased tables (phase 15), after the main cases
+    attns.append(alias_case(False, gen))
+    attns_int8.append(alias_case(True, gen))
     results = norms + fused_norms + attns + attns_int8 + softmaxes + flashes
     for r in results:
         print(f"[kernels] {json.dumps(r)}")
@@ -2233,6 +2332,330 @@ def phase_tables(root: Path, table1: dict) -> dict:
     return res
 
 
+# ----------------------------------------------------------- phases 15, 16 --
+def served_run(label: str, engine, reqs) -> dict:
+    """``reqs`` through a reset engine, one ``step`` at a time with the host
+    clock (``time.time``, as the completions' stamps) read at each step's
+    start; the launch counters set to 0 just before and read just after:
+    the launches exact for the ticks run, no plain version on the card, the
+    ledger balanced, only cached blocks left resident, finite held logits,
+    the sentinels silent."""
+    engine.reset()
+    for req in reqs:
+        engine.submit(req)
+    starts = {}
+    torch.cuda.synchronize()
+    counters.reset()
+    t0 = time.perf_counter()
+    while True:
+        starts.setdefault(engine.step_count, time.time())
+        if not engine.step():
+            break
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
+    m = engine.metrics()
+    want = continuous_want(engine.model.cfg.n_layers, m["model_ticks"],
+                           engine.pool.kv_dtype == "int8", engine.read_path, engine.sentinels)
+    if launches != want:
+        fail(f"{label}: serving launches {launches} != {want}")
+    if any(plain.values()):
+        fail(f"{label}: plain-version calls on CUDA tensors in the serving run: {plain}")
+    engine.pool.check_ledger()
+    if (engine.pool.blocks_in_use != engine.pool.cached_blocks
+            or engine.pool.num_free != engine.num_slots):
+        fail(f"{label}: {engine.pool.blocks_in_use} blocks in use, "
+             f"{engine.pool.cached_blocks} cached, {engine.pool.num_free} slots free")
+    if not bool(torch.isfinite(engine._last_logits).all()):
+        fail(f"{label}: non-finite logits")
+    check_silent(label, engine)
+    comps = list(engine.completions)
+    return {"tokens": {c.request_id: c.new_tokens for c in comps}, "completions": comps,
+            "launches": launches, "seconds": seconds, "starts": starts,
+            "tick_ms": float(np.mean([dt * 1e3 for _, _, dt in engine.tick_log])),
+            "tokens_per_s": m["generated_tokens"] / seconds, "model_ticks": m["model_ticks"]}
+
+
+def ttft(run: dict, klass=None) -> dict:
+    """TTFT over the served requests (of ``klass``): on the step clock
+    (arrival -> first token) and in ms (the host clock at the first step at
+    or after the arrival -> the first token's stamp); p50, p99 and mean."""
+    steps, ms = [], []
+    for c in run["completions"]:
+        if c.finish_reason == "rejected" or (klass and c.req_class != klass):
+            continue
+        steps.append(c.ttft_steps)
+        start = min(s for s in run["starts"] if s >= c.arrival_step)
+        ms.append((c.first_token_time - run["starts"][start]) * 1e3)
+    if not steps:
+        return {"n": 0}
+    return {"n": len(steps), **{f"{name}_{q}": float(np.percentile(vals, p))
+                                for name, vals in (("steps", steps), ("ms", ms))
+                                for q, p in (("p50", 50), ("p99", 99))},
+            "steps_mean": float(np.mean(steps)), "ms_mean": float(np.mean(ms))}
+
+
+def checked_forks(pool) -> list:
+    """Wrap the pool's fork: after each, its destination block read back
+    equals its source in every leaf (the arenas and, over int8, the
+    scales).  Returns the list of verdicts, one per fork."""
+    verdicts, fork = [], pool.fork_block
+
+    def checked(src: int, dst: int) -> None:
+        fork(src, dst)
+        verdicts.append(all(torch.equal(leaf[:, dst], leaf[:, src])
+                            for leaf in pool.cache.values()))
+
+    pool.fork_block = checked
+    return verdicts
+
+
+def checked_spills(engine) -> dict:
+    """Wrap the spill path: each payload equals its chain's blocks at the
+    eviction, each restore leaves the new chain equal to the payload, and the
+    resumed slot's held-logits row equals the spilled one (read back after
+    the admission pass), in every leaf.  Returns the running counts."""
+    pool, st = engine.pool, {"spills": 0, "restores": 0, "bytes": 0, "bad": []}
+    extract, restore, admit = pool.extract_blocks, pool.restore_blocks, engine._admit
+
+    def chain_blocks(slot, n):
+        ix = torch.tensor(pool.chain_of(slot)[:n], dtype=torch.long, device=DEV)
+        return {k: leaf.index_select(1, ix).cpu() for k, leaf in pool.cache.items()}
+
+    def checked_extract(slot):
+        payload = extract(slot)
+        n = payload["len"]
+        now = chain_blocks(slot, n)
+        if any(not torch.equal(now[k], t[:, :n]) for k, t in payload["layers"].items()):
+            st["bad"].append(("spill", engine.step_count, slot))
+        st["spills"] += 1
+        st["bytes"] += sum(t.numel() * t.element_size() for t in payload["layers"].values())
+        return payload
+
+    def checked_restore(slot, payload):
+        restore(slot, payload)
+        n = payload["len"]
+        now = chain_blocks(slot, n)
+        if any(not torch.equal(now[k], t[:, :n]) for k, t in payload["layers"].items()):
+            st["bad"].append(("restore", engine.step_count, slot))
+        st["restores"] += 1
+
+    def checked_admit():
+        spilled = {rid: sus.spill["last_logits"] for rid, sus in engine._suspended.items()
+                   if sus.spill is not None}
+        first = len(engine.event_log)
+        admit()
+        for e in engine.event_log[first:]:
+            if e[0] == "resume" and e[2] in spilled:
+                if not torch.equal(engine._last_logits[e[3]].cpu(), spilled[e[2]]):
+                    st["bad"].append(("logits", engine.step_count, e[3]))
+
+    pool.extract_blocks, pool.restore_blocks, engine._admit = (checked_extract, checked_restore,
+                                                               checked_admit)
+    return st
+
+
+def small_model():
+    """Phase 3's cut: the full widths at 2 layers, float32."""
+    model = make_model(dataclasses.replace(get_config(ARCH), n_layers=2, dtype="float32"))
+    return model, model.init(SEED, DEV)
+
+
+def phase_prefix() -> dict:
+    """Chat behind one system prompt at full width (module docstring, phase
+    15): the prefix cache off and on over the fp pool, on over the int8
+    pool, and on over a tight arena; then the 2-layer f32 cut's tokens with
+    the cache on equal to those with it off, fp and int8."""
+    model = make_model(get_config(ARCH))
+    master = model.init(SEED, DEV)
+    reqs = shared_prefix_requests(model.cfg, **PREFIX)
+    max_seq = required_max_seq(reqs)
+    footprint = -(-max_seq // BLOCK)
+    runs = (("prefix-off", {}), ("prefix-on", {"prefix_cache": True}),
+            ("prefix-int8", {"prefix_cache": True, "kv_dtype": "int8"}),
+            ("prefix-tight", {"prefix_cache": True, "num_blocks": PREFIX_TIGHT * footprint}))
+    res, total, off = {}, dict.fromkeys(counters.WRAPPERS, 0), None
+    for label, kw in runs:
+        engine = ContinuousEngine(model, master, num_slots=SLOTS, max_seq=max_seq, chunk=CHUNK,
+                                  block_size=BLOCK, device=DEV, **kw)
+        forks = checked_forks(engine.pool)
+        first = served_run(label, engine, reqs)
+        m = engine.metrics()
+        check_graphs(label, m)
+        if len(first["completions"]) != len(reqs) or any(
+                len(t) != PREFIX["max_new_tokens"] for t in first["tokens"].values()):
+            fail(f"{label}: not every request completed with its budget")
+        if not all(forks) or len(forks) != m.get("prefix_forks", 0):
+            fail(f"{label}: {forks.count(False)} of {len(forks)} forks not bitwise "
+                 f"({m.get('prefix_forks', 0)} counted)")
+        total = {k: total[k] + first["launches"][k] for k in total}
+        captures = (m["fused_step_compilations"], m["decode_compilations"])
+        if label == "prefix-on":  # the timed, profiled and eager reruns
+            replays = continuous_replays(label, engine, reqs, first["tokens"],
+                                         first["launches"], window=LONG_WINDOW)
+        else:
+            replays = {}
+        steady = served_run(label, engine, reqs)
+        if any(not np.array_equal(t, steady["tokens"][i]) for i, t in first["tokens"].items()):
+            fail(f"{label}: reset + rerun gave different tokens")
+        m = engine.metrics()
+        if (m["fused_step_compilations"], m["decode_compilations"]) != captures:
+            fail(f"{label}: the rerun captured again")
+        if label == "prefix-tight" and not m["prefix_evictions"]:
+            fail(f"{label}: no eviction in an arena of {engine.pool.num_blocks} blocks")
+        if label == "prefix-off":
+            off = first["tokens"]
+        prefix = common_prefix(first["tokens"], off)
+        res[label] = {
+            "num_blocks": engine.pool.num_blocks, "model_ticks": first["model_ticks"],
+            "fused_ticks": m["fused_ticks"], "first_tokens_per_s": first["tokens_per_s"],
+            "first_mean_tick_ms": first["tick_ms"], "steady_tokens_per_s": steady["tokens_per_s"],
+            "steady_mean_tick_ms": steady["tick_ms"], "ttft": ttft(steady),
+            "captures": {"fused": captures[0], "decode": captures[1]},
+            **{k: m[k] for k in ("prefix_hit_rate", "prefix_hit_requests", "prefix_forks",
+                                 "prefix_evictions", "prefix_cached_blocks", "prefix_inserts",
+                                 "peak_blocks_in_use") if k in m},
+            "launches": first["launches"],
+            **{k: replays[k] for k in ("device_busy_share", "eager_mean_tick_ms",
+                                       "profiled_ticks") if k in replays},
+            # full width bf16, random weights: reported, not gated
+            "off_common_prefix_mean": float(np.mean(prefix)),
+            "off_identical": f"{sum(p == 1.0 for p in prefix)}/{len(prefix)}"}
+        print(f"[{label}] {json.dumps(res[label])}")
+        del engine
+        torch.cuda.empty_cache()
+    # the 2-layer f32 cut: the cache changes no greedy token
+    small, small_master = small_model()
+    identity = {}
+    for kv in ("fp", "int8"):
+        toks = {}
+        for on in (False, True):
+            engine = ContinuousEngine(small, small_master, num_slots=SLOTS, max_seq=max_seq,
+                                      chunk=CHUNK, block_size=BLOCK, kv_dtype=kv,
+                                      prefix_cache=on, device=DEV)
+            toks[on] = {c.request_id: c.new_tokens for c in engine.run(reqs)}
+            hits = engine.metrics().get("prefix_hit_requests", 0)
+            del engine
+        same = sum(np.array_equal(t, toks[True][i]) for i, t in toks[False].items())
+        identity[kv] = f"{same}/{len(toks[False])}"
+        if same != len(reqs) or not hits:
+            fail(f"prefix-2l-{kv}: {same} of {len(reqs)} requests kept their greedy tokens with "
+                 f"the cache on ({hits} hits)")
+    torch.cuda.empty_cache()
+    print(f"[prefix] {json.dumps({'small_f32_identical': identity})}")
+    return {"runs": res, "launches": total, "small_f32_identical": identity}
+
+
+def set_policy(engine, sched: str, preempt: str, shed: int = 0) -> None:
+    """Give ``engine`` another SLA policy: its ``reset`` (at the next run)
+    builds the scheduler from these, and its graphs, which no policy
+    enters, are kept, so a run after the first captures nothing new."""
+    engine.sched_policy, engine.preempt_mode, engine.shed_backlog = sched, preempt, shed
+
+
+def phase_sla() -> dict:
+    """Interactive and batch traffic on one card at full width (module
+    docstring, phase 16): FCFS, priority with recompute and with spill
+    preemption, and priority + spill with a shedding watermark on one engine
+    over the fp pool (the policy set between runs), spill over the int8
+    pool; then the 2-layer f32 cut's preempted requests' tokens equal to the
+    preempt-off priority run's."""
+    model = make_model(get_config(ARCH))
+    master = model.init(SEED, DEV)
+    reqs = sla_requests(model.cfg, **SLA)
+    by_id = {r.id: r for r in reqs}
+    max_seq = required_max_seq(reqs)
+    runs = (("sla-fcfs", "fp", ("fcfs", "off")), ("sla-recompute", "fp", ("priority", "recompute")),
+            ("sla-spill", "fp", ("priority", "spill")),
+            ("sla-shed", "fp", ("priority", "spill", SLA_SHED)),
+            ("sla-spill-int8", "int8", ("priority", "spill")))
+    res, total, engine = {}, dict.fromkeys(counters.WRAPPERS, 0), None
+    for label, kv, policy in runs:
+        fresh = engine is None or engine.pool.kv_dtype != kv
+        if fresh:
+            del engine
+            torch.cuda.empty_cache()
+            engine = ContinuousEngine(model, master, num_slots=SLOTS, max_seq=max_seq,
+                                      chunk=CHUNK, block_size=BLOCK, num_blocks=SLA_BLOCKS,
+                                      sched="priority", preempt="spill", kv_dtype=kv, device=DEV)
+            spills = checked_spills(engine)
+        set_policy(engine, *policy)
+        spills.update(spills=0, restores=0, bytes=0)
+        captures = engine.metrics()
+        captures = (captures["fused_step_compilations"], captures["decode_compilations"])
+        first = served_run(label, engine, reqs)
+        m = engine.metrics()
+        check_graphs(label, m)
+        entered = {e[2] for e in engine.event_log if e[0] in ("admit", "resume")}
+        for c in first["completions"]:
+            if c.finish_reason == "rejected":
+                if c.req_class != "batch" or c.request_id in entered:
+                    fail(f"{label}: request {c.request_id} ({c.req_class}) rejected after "
+                         "admission or not of class batch")
+            elif (c.finish_reason != "length"
+                  or len(c.new_tokens) != by_id[c.request_id].max_new_tokens):
+                fail(f"{label}: request {c.request_id} finished {c.finish_reason} with "
+                     f"{len(c.new_tokens)} tokens")
+        if len(first["completions"]) != len(reqs) or spills["bad"]:
+            fail(f"{label}: {len(first['completions'])} of {len(reqs)} done; spill round trips "
+                 f"not bitwise: {spills['bad']}")
+        if policy[1] == "spill" and not (spills["spills"] and spills["restores"]):
+            fail(f"{label}: no spill round trip ({spills})")
+        total = {k: total[k] + first["launches"][k] for k in total}
+        spilled = {k: spills[k] for k in ("spills", "bytes")}
+        steady, eager = first, {}
+        if fresh:  # the run captured its engine's graphs: a reset rerun, equal
+            steady = served_run(label, engine, reqs)
+            if any(not np.array_equal(t, steady["tokens"][i])
+                   for i, t in first["tokens"].items()):
+                fail(f"{label}: reset + rerun gave different tokens")
+        if label == "sla-shed":  # the eager tick on the same run, bitwise
+            eager = eager_against_graphed(label, engine, reqs, first["tokens"],
+                                          engine_state(engine))
+        m = engine.metrics()
+        res[label] = {
+            "model_ticks": first["model_ticks"], "first_run_captured": fresh,
+            "new_captures": {"fused": m["fused_step_compilations"] - captures[0],
+                             "decode": m["decode_compilations"] - captures[1]},
+            "first_tokens_per_s": first["tokens_per_s"], "first_mean_tick_ms": first["tick_ms"],
+            "steady_tokens_per_s": steady["tokens_per_s"], "steady_mean_tick_ms": steady["tick_ms"],
+            "ttft": {k: ttft(steady, k) for k in ("interactive", "batch")},
+            **{k: m[k] for k in ("preemptions", "preempt_resumes", "rejections",
+                                 "peak_blocks_in_use")},
+            "spills": spilled["spills"], "spill_bytes": spilled["bytes"],
+            "launches": first["launches"],
+            **{k: eager[k] for k in ("eager_mean_tick_ms",) if k in eager}}
+        print(f"[{label}] {json.dumps(res[label])}")
+    del engine
+    torch.cuda.empty_cache()
+    # the 2-layer f32 cut: preemption changes no greedy token (one engine,
+    # the policy set between runs)
+    small, small_master = small_model()
+    engine = ContinuousEngine(small, small_master, num_slots=SLOTS, max_seq=max_seq, chunk=CHUNK,
+                              block_size=BLOCK, num_blocks=SLA_BLOCKS, sched="priority",
+                              device=DEV)
+    toks, identity = {}, {}
+    for mode in ("off", "recompute", "spill"):
+        set_policy(engine, "priority", mode)
+        engine.reset()
+        comps = engine.run(reqs)
+        toks[mode] = {c.request_id: c.new_tokens for c in comps}
+        if mode == "off":
+            continue
+        preempted = [c.request_id for c in comps if c.preemptions]
+        same = sum(np.array_equal(toks["off"][i], toks[mode][i]) for i in preempted)
+        everyone = sum(np.array_equal(t, toks[mode][i]) for i, t in toks["off"].items())
+        identity[mode] = {"preempted_identical": f"{same}/{len(preempted)}",
+                          "all_identical": f"{everyone}/{len(reqs)}"}
+        if not preempted or same != len(preempted):
+            fail(f"sla-2l-{mode}: {same} of {len(preempted)} preempted requests kept the "
+                 "preempt-off run's greedy tokens")
+    del engine
+    torch.cuda.empty_cache()
+    print(f"[sla] {json.dumps({'small_f32_identical': identity})}")
+    return {"runs": res, "launches": total, "small_f32_identical": identity}
+
+
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "gn_rmsnorm": ("src/repro_torch/csrc/gn_layernorm.cu",
                    "src/repro/kernels/gn_layernorm/kernel.py:81"),
@@ -2285,11 +2708,14 @@ def main() -> int:
         tables = phase("tables", phase_tables, root, table1)
     finally:
         shutil.rmtree(root, ignore_errors=True)
+    prefix = phase("prefix", phase_prefix)
+    sla = phase("sla", phase_sla)
     by_path = {"continuous": served["launches"], "static": static["launches"],
                "int8": int8["launches"], "long_static": long_static["launches"],
                "long_continuous": long_cont["launches"], "reads": reads["launches"],
                "sampled": guard["launches"], "train": train["launches"],
-               "table1": table1["launches"], "tables": tables["launches"]}
+               "table1": table1["launches"], "tables": tables["launches"],
+               "prefix": prefix["launches"], "sla": sla["launches"]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         # the main path's shape: bf16 tick (fp or int8 KV; the norms' 128

@@ -1,8 +1,9 @@
 """Serving engines (port of ``repro/serve/engine.py``): the static path
 (``generate``, ``perplexity``, ``static_reference``) and the
 continuous-batching engine with chunked prefill fused into the tick
-(``ContinuousEngine``: FCFS, block-paged fp or int8 KV, one device, GN
-runtime sentinels on by default).
+(``ContinuousEngine``: FCFS or priority admission, block-paged fp or int8
+KV, one device, GN runtime sentinels on by default, an optional radix
+prefix cache, preemption by spill or recompute, and shedding).
 
 The static path serves uniform-length prompt batches: one prefill over a
 dense slab cache, then one decode step per new token; greedy, it is the
@@ -33,13 +34,33 @@ one contiguous table per bucket) is allocated once and updated in place, so
 on the card each (kind, bucket) is captured into a CUDA graph at its first
 tick and every later tick replays it (``serve/graphs.py``); on the CPU the
 same tick runs eagerly.  ``generate``'s decode step is captured once per
-(B, max_seq) the same way, its position a device scalar.
+(B, max_seq) the same way, its position a device scalar.  Everything that
+writes the device state between ticks writes it in place: the pool's
+forks, restores and scrubs, and a spilled request's held-logits row.
 
 The tick reads paged KV through ``model.paged_read_path``: the GN paged
 attention kernel, or the reference's streamed or gathered read when
 ``models.attention.FORCE_PAGED_READ`` forces one.  The engine fixes the path
 at construction, reports it as ``metrics()["read_path"]`` and refuses to tick
 after it changed, so no graph is replayed under another read.
+
+Prefix sharing (``prefix_cache=True``): admission looks the prompt up in a
+radix index of finished prompt prefixes (``serve/prefix_cache.py``), capped
+at prompt_len - 1, attaches the fully matched blocks read-only, forks a
+partially matched one, charges the reservation only for the unshared tail
+and starts the prefill at the shared length.  Full prompt blocks are indexed
+when their prefill completes, the partial prompt tail when the request
+finishes.  Greedy tokens equal the unshared run's: only prompt KV, computed
+by the same tick at the same positions, is shared.
+
+The SLA control plane (``sched="priority"``, ``preempt``, ``aging_steps``,
+``shed_backlog``): class-aware admission with an aging bound
+(``PriorityScheduler``); an interactive head that cannot place evicts the
+latest admitted batch request it outranks, which resumes later by re-
+prefilling prompt + generated tokens (``"recompute"``) or by restoring its
+spilled blocks, scales and held-logits row bit for bit (``"spill"``); and
+arrived batch backlog past the watermark is rejected (``"rejected"``).
+Every admit, resume, preempt, reject and finish lands in ``event_log``.
 
 GN runtime sentinels (``sentinels=None`` = on, as the reference's): the
 captured tick also computes a health word per live slot, the Σp residual of
@@ -64,11 +85,10 @@ when admission, completion or block growth made their host mirrors dirty (a
 bucket's table also when the tick first reads it after that); a fused tick
 also uploads its staged chunk.
 
-Not ported, and refused with an error rather than ignored: the prefix
-cache, priority scheduling and preemption, snapshots, multi-device pools
-(and so device-loss aggregation), and the continuous engine's slab pool.
-``kv_dtype="int8"`` serves over int8 arenas with per-block f32 scales frozen
-at each block's first write.
+Not ported, and refused with an error rather than ignored: snapshots,
+multi-device pools (and so device-loss aggregation), and the continuous
+engine's slab pool.  ``kv_dtype="int8"`` serves over int8 arenas with
+per-block f32 scales frozen at each block's first write.
 """
 from __future__ import annotations
 
@@ -85,8 +105,10 @@ from repro_torch.models.attention import SCALE_SANITY_MAX
 from repro_torch.models.transformer import Model
 from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.kv_cache import BlockPagedKVPool
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.sampling import sample
-from repro_torch.serve.scheduler import Completion, FCFSScheduler, Request, pad_to_grid
+from repro_torch.serve.scheduler import (Completion, FCFSScheduler, PriorityScheduler, Request,
+                                         pad_to_grid)
 
 # GN sentinel bounds (the reference's).  Σp residual: SENTINEL_SUM_SLACK ·
 # (t + 1) · ε of the activation dtype, t the slot's attended width (the
@@ -236,23 +258,23 @@ class _SlotState:
     prefill_len: int = 0
     first_token_step: int = -1
     first_token_time: float = 0.0
+    preemptions: int = 0          # times the request was evicted
 
 
 @dataclasses.dataclass
 class _Suspended:
-    """A fault-evicted request's state until admission takes it back; it
-    resumes by re-prefilling prompt + ``generated``."""
+    """An evicted request's state until admission takes it back.  ``spill``
+    is None for a recompute resume (re-prefill prompt + ``generated``) and
+    for a spill resume holds what the slot held: the chain's payload
+    (``pool.extract_blocks``), the position, the prefill bookkeeping and
+    the held-logits row."""
     generated: list
     admit_step: int
     admit_time: float
     first_token_step: int
     first_token_time: float
-
-
-def _refuse(name: str, value, default) -> None:
-    if value != default:
-        raise NotImplementedError(
-            f"ContinuousEngine({name}={value!r}) is not ported yet (only {default!r})")
+    preemptions: int
+    spill: Optional[dict] = None
 
 
 class ContinuousEngine:
@@ -260,12 +282,26 @@ class ContinuousEngine:
                  cfg: ServeConfig = ServeConfig(), chunk: int = 8, block_size: int = 0, num_blocks: int = 0,
                  devices: int = 1, paged: Optional[bool] = None,
                  prefix_cache: bool = False, sched: str = "fcfs", preempt: str = "off",
+                 aging_steps: int = 64, shed_backlog: int = 0,
                  kv_dtype: str = "fp", sentinels: Optional[bool] = None,
                  fault_retry_budget: int = 3, clip_fallback_frac: float = 0.5,
                  clip_patience: int = 3, device_loss_min_slots: int = 2, device=None):
-        for name, value, default in (("devices", devices, 1), ("prefix_cache", prefix_cache, False),
-                                     ("sched", sched, "fcfs"), ("preempt", preempt, "off")):
-            _refuse(name, value, default)
+        if devices != 1:
+            raise NotImplementedError(
+                f"ContinuousEngine(devices={devices!r}) is not ported yet (only 1)")
+        # the SLA control plane, as the reference's: the policy is an engine
+        # argument so reset() rebuilds an equal scheduler; preemption needs
+        # the priority policy (its victims are chosen by the rank rule, and
+        # under FCFS a requeued victim would head the queue again)
+        if sched not in ("fcfs", "priority"):
+            raise ValueError(f"sched must be 'fcfs' or 'priority', got {sched!r}")
+        if preempt not in ("off", "recompute", "spill"):
+            raise ValueError(f"preempt must be 'off', 'recompute' or 'spill', got {preempt!r}")
+        if preempt != "off" and sched != "priority":
+            raise ValueError("preempt requires sched='priority': victim eligibility is the "
+                             "priority rank rule")
+        self.sched_policy, self.preempt_mode = sched, preempt
+        self.aging_steps, self.shed_backlog = int(aging_steps), int(shed_backlog)
         if kv_dtype not in ("fp", "int8"):
             raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")
         if paged is False:
@@ -290,6 +326,11 @@ class ContinuousEngine:
         self.params = model.prepare(params, self.device)
         self.pool = BlockPagedKVPool(model, num_slots, max_seq, block_size or self.chunk,
                                      num_blocks, self.device, kv_dtype)
+        # the radix prefix index (opt-in: a retaining cache keeps blocks
+        # resident after a drain)
+        self.prefix = PrefixCache(self.pool.block_size) if prefix_cache else None
+        if self.prefix is not None:
+            self.pool.attach_prefix_cache(self.prefix)
         # the horizon-bucket grid, as the reference's: each tick reads the
         # smallest power-of-two bucket of block-table columns that covers the
         # live block horizon, so a tick has one shape per (step kind, bucket)
@@ -332,7 +373,7 @@ class ContinuousEngine:
         self._tables_fresh: set[int] = set()  # buckets whose buffer holds the host tables
         self._lanes_dirty = True
         self._slots: list[Optional[_SlotState]] = [None] * n
-        self.scheduler = FCFSScheduler(chunk_grid=self.chunk)
+        self.scheduler = self._make_scheduler()
         self.step_count = 0
         self.completions: list[Completion] = []
         self.model_ticks = 0      # ticks that ran the model
@@ -352,7 +393,16 @@ class ContinuousEngine:
         # sentinel verdict, each with its step), as the reference's
         self.event_log: list[tuple] = []
         self._suspended: dict[int, _Suspended] = {}
+        self._preemptions = 0
         self._resumes = 0
+        self._rejections = 0
+        # prefix sharing (pool.reset() cleared the index): cached prompt
+        # tokens, admitted prompt tokens, hitting requests, and per request
+        # its hit {tokens, blocks, forked, device}
+        self._prefix_hit_tokens = 0
+        self._prefix_prompt_tokens = 0
+        self._prefix_hit_requests = 0
+        self.request_prefix_hits: dict[int, dict] = {}
         self._sentinel_checks = 0
         self._sentinel_violations = 0
         self._retries = 0
@@ -363,11 +413,27 @@ class ContinuousEngine:
         # the largest finite Σp and σ residuals checked: the margin to the bounds
         self._peak = {"sum": 0.0, "sigma": 0.0}
 
+    def _make_scheduler(self) -> FCFSScheduler:
+        """The scheduler of the engine's policy, built anew on every reset."""
+        if self.sched_policy == "priority":
+            return PriorityScheduler(chunk_grid=self.chunk, prefix_cache=self.prefix,
+                                     aging_steps=self.aging_steps,
+                                     shed_backlog=self.shed_backlog)
+        return FCFSScheduler(chunk_grid=self.chunk, prefix_cache=self.prefix)
+
     def submit(self, req: Request) -> int:
         return self.scheduler.submit(req)
 
     # ------------------------------------------------------------ admission --
     def _admit(self) -> None:
+        """Page empty slots in for ready requests (no forward pass: the fused
+        tick drains each prompt chunk by chunk).  Shedding first; then per
+        head: a prefix lookup (fresh requests only), placement, or an
+        interactive head's preemption of a batch victim, or the head waits."""
+        self._tick_admitted: set[int] = set()  # slots filled this pass
+        live_units, unit_fn = self._shed_signal()
+        for req in self.scheduler.poll_shed(self.step_count, live_units, unit_fn):
+            self._reject(req)
         while True:
             head = self.scheduler.peek_ready(self.step_count)
             if head is None:
@@ -380,37 +446,163 @@ class ContinuousEngine:
                 raise ValueError(f"request {head.id}: footprint {footprint} tokens needs "
                                  f"{self.pool.blocks_for(footprint)} blocks, the arena has "
                                  f"{self.pool.num_blocks} — unservable at any occupancy")
-            # FCFS: the head waits for a free slot AND its whole reservation
-            if not self.pool.num_free or not self.pool.can_reserve(footprint):
+            # a resuming request skips the lookup: a spill rebuilds the exact
+            # chain its payload came from, and a recompute re-prefills prompt
+            # + generated tokens, which the prompt-only index does not cover
+            hit = None
+            resuming = head.id in self._suspended
+            if self.prefix is not None and not resuming:
+                # capped at prompt_len - 1: the first sampled token needs the
+                # request's own last prompt position to run through prefill
+                hit = self.prefix.lookup(head.tokens, cap=head.prompt_len - 1)
+                if hit is not None and not (self.pool.num_free and self.pool.can_reserve(
+                        footprint, prefix=hit)):
+                    hit = None
+            if hit is None and not (self.pool.num_free and self.pool.can_reserve(footprint)):
+                # the head waits for a free slot AND its whole reservation,
+                # unless it may evict a batch victim it outranks
+                if self._try_preempt(head):
+                    continue
                 break
             req = self.scheduler.pop_ready(self.step_count)
             sus = self._suspended.pop(req.id, None)
-            slot = self.pool.allocate(reserve_tokens=footprint)
-            if sus is None:
-                padded, prefill_len = req.padded_tokens, req.prompt_len
-            else:
+            slot = self.pool.allocate(reserve_tokens=footprint, prefix=hit)
+            if hit is not None:
+                self.pool.attach_prefix(slot, hit)
+            if sus is not None and sus.spill is not None:
+                # spill resume: a fresh chain of the spilled length, filled
+                # with the payload (other physical ids, same logical order),
+                # and the held-logits row written back in place
+                sp = sus.spill
+                self.pool.insert(slot, sp["position"])
+                self.pool.restore_blocks(slot, sp["kv"])
+                self._last_logits[slot].copy_(sp["last_logits"])
+                padded, written = sp["padded"], sp["written"]
+                phase, prefill_len = sp["phase"], sp["prefill_len"]
+            elif sus is not None:
                 # recompute resume: prefill prompt + generated anew; chunked
                 # prefill is token-identical to the decode that made them, so
                 # the held logits end where the uninterrupted run's were
                 seq = np.concatenate([np.asarray(req.tokens, np.int32),
                                       np.asarray(sus.generated, np.int32)])
                 padded, prefill_len = pad_to_grid(seq, self.chunk), int(seq.shape[0])
+                self.pool.insert(slot, 0)
+                written, phase = 0, "prefilling"
+            else:
+                shared = hit.shared_len if hit is not None else 0
+                self.pool.insert(slot, shared)
+                padded = req.padded_tokens
+                if shared:
+                    # the prefill starts at the shared length, so its chunks
+                    # run [shared + k * chunk, ... + chunk): pad the prompt to
+                    # cover the last one (the intake's grid padding falls
+                    # short when shared is not chunk-aligned)
+                    need = shared + -(-(req.prompt_len - shared) // self.chunk) * self.chunk
+                    if padded.shape[0] < need:
+                        padded = np.concatenate([np.asarray(req.tokens, np.int32),
+                                                 np.zeros(need - req.prompt_len, np.int32)])
+                    self._prefix_hit_tokens += shared
+                    self._prefix_hit_requests += 1
+                    self.request_prefix_hits[req.id] = {
+                        "tokens": shared, "blocks": len(hit.blocks),
+                        "forked": hit.tail_src is not None, "device": hit.device}
+                written, phase, prefill_len = shared, "prefilling", req.prompt_len
+            if self.prefix is not None and not resuming:
+                self._prefix_prompt_tokens += req.prompt_len
             temp = self.cfg.temperature if req.temperature is None else req.temperature
             self._temps[slot], self._rids[slot] = float(temp), req.id
             self._slots[slot] = _SlotState(
                 req=req, admit_step=sus.admit_step if sus else self.step_count,
                 admit_time=sus.admit_time if sus else time.time(),
-                generated=sus.generated if sus else [], padded=padded, prefill_len=prefill_len,
+                generated=sus.generated if sus else [], padded=padded, phase=phase,
+                written=written, prefill_len=prefill_len,
                 first_token_step=sus.first_token_step if sus else -1,
-                first_token_time=sus.first_token_time if sus else 0.0)
+                first_token_time=sus.first_token_time if sus else 0.0,
+                preemptions=sus.preemptions if sus else 0)
             self._lanes_dirty = True
             self._clip_streak[slot] = 0
+            self._tick_admitted.add(slot)
             if sus is not None:
                 self._resumes += 1
             self.event_log.append(("resume" if sus else "admit", self.step_count, req.id, slot, 0))
 
+    def _shed_signal(self) -> tuple:
+        """(live reservation, a request's footprint), in blocks: the
+        scheduler's shedding watermark reads them."""
+        return (self.pool.blocks_reserved,
+                lambda r: self.pool.blocks_for(r.prompt_len + r.max_new_tokens))
+
+    def _try_preempt(self, head: Request) -> bool:
+        """Evict one batch victim so the interactive ``head`` can place: the
+        latest admitted live batch slot the head outranks under the
+        scheduler's rank rule (an aged victim is immune: no admit/preempt
+        livelock), never one admitted in this pass."""
+        if self.preempt_mode == "off" or head.req_class != "interactive":
+            return False
+        best = None
+        for s, st in enumerate(self._slots):
+            if (st is None or st.req.req_class != "batch" or s in self._tick_admitted
+                    or not self.scheduler.outranks(head.arrival_step, st.req.arrival_step)):
+                continue
+            if best is None or (st.admit_step, s) > (self._slots[best].admit_step, best):
+                best = s
+        if best is None:
+            return False
+        self._preempt(best)
+        return True
+
+    def _preempt(self, slot: int) -> None:
+        """Evict ``slot``'s request to the head of its class.  Spill copies
+        the chain (arenas and scales), the held-logits row and the prefill
+        bookkeeping to the host first; recompute drops the chain.  The freed
+        blocks are recycled unzeroed: under GN an eviction edits tables and
+        lengths, never memory."""
+        st = self._slots[slot]
+        rid = st.req.id
+        spill = None
+        if self.preempt_mode == "spill":
+            spill = {"kv": self.pool.extract_blocks(slot),
+                     "position": int(self.pool.positions[slot]), "padded": st.padded,
+                     "written": st.written, "prefill_len": st.prefill_len, "phase": st.phase,
+                     "last_logits": self._last_logits[slot].to("cpu", copy=True)}
+        self._suspended[rid] = _Suspended(
+            generated=st.generated, admit_step=st.admit_step, admit_time=st.admit_time,
+            first_token_step=st.first_token_step, first_token_time=st.first_token_time,
+            preemptions=st.preemptions + 1, spill=spill)
+        self._slots[slot] = None
+        self.pool.free(slot)
+        self.scheduler.requeue_front(st.req)
+        self._preemptions += 1
+        self._lanes_dirty = True
+        self.event_log.append(("preempt", self.step_count, rid, self.preempt_mode, slot))
+
+    def _reject(self, req: Request) -> None:
+        """A shed request's completion: finish_reason 'rejected'."""
+        now = time.time()
+        self.completions.append(Completion(
+            request_id=req.id, prompt_tokens=np.asarray(req.tokens, np.int32),
+            new_tokens=np.zeros(0, np.int32), finish_reason="rejected",
+            arrival_step=req.arrival_step, admit_step=-1, first_token_step=-1,
+            finish_step=self.step_count, admit_time=now, first_token_time=now,
+            finish_time=now, req_class=req.req_class, preemptions=0))
+        self._rejections += 1
+        self.event_log.append(("reject", self.step_count, req.id))
+
+    def _prefix_insert(self, slot: int, up_to: int) -> None:
+        """Index ``slot``'s prompt prefix [0, up_to) in the radix cache: its
+        full blocks when the prefill completes, its partial tail when the
+        request finishes.  Generated tokens are never indexed."""
+        if up_to > 0:
+            self.prefix.insert(np.asarray(self._slots[slot].req.tokens[:up_to], np.int32),
+                               self.pool.chain_of(slot)[:self.pool.blocks_for(up_to)])
+
     def _finish(self, slot: int, reason: str) -> None:
         st = self._slots[slot]
+        # a recompute-resumed slot prefilled prompt + generated, but its
+        # first blocks_for(prompt_len) blocks still hold the prompt's KV
+        if (self.prefix is not None and st.written >= st.req.prompt_len
+                and st.req.prompt_len % self.pool.block_size):
+            self._prefix_insert(slot, st.req.prompt_len)
         self.completions.append(Completion(
             request_id=st.req.id,
             prompt_tokens=np.asarray(st.req.tokens, np.int32),
@@ -423,6 +615,8 @@ class ContinuousEngine:
             admit_time=st.admit_time,
             first_token_time=st.first_token_time,
             finish_time=time.time(),
+            req_class=st.req.req_class,
+            preemptions=st.preemptions,
         ))
         self.event_log.append(("finish", self.step_count, st.req.id, reason))
         self._slots[slot] = None
@@ -550,7 +744,8 @@ class ContinuousEngine:
         rid = st.req.id
         self._suspended[rid] = _Suspended(
             generated=st.generated, admit_step=st.admit_step, admit_time=st.admit_time,
-            first_token_step=st.first_token_step, first_token_time=st.first_token_time)
+            first_token_step=st.first_token_step, first_token_time=st.first_token_time,
+            preemptions=st.preemptions + 1)
         self._slots[slot] = None
         self.pool.free(slot)
         self.scheduler.requeue_front(st.req)
@@ -650,6 +845,9 @@ class ContinuousEngine:
                  for s in prefills}
         for s in live:
             self.pool.ensure(s, int(self.pool.positions[s]) + takes.get(s, 1))
+            if self.prefix is not None:
+                # the block this tick's first write lands in is the slot's own
+                self.pool.write_barrier(s, int(self.pool.positions[s]))
         # the tick reads the smallest bucket of table columns that covers the
         # live block horizon: reads scale with live context, and a tick has
         # one shape per (step kind, bucket)
@@ -699,6 +897,9 @@ class ContinuousEngine:
             st.written += takes[s]
             if st.written == st.prefill_len:
                 st.phase = "decoding"  # the first token samples next tick
+                if self.prefix is not None:
+                    bs = self.pool.block_size
+                    self._prefix_insert(s, st.req.prompt_len // bs * bs)
         for s in decoders:
             st = self._slots[s]
             if st is None:  # evicted, failed or fallen back this tick
@@ -719,8 +920,8 @@ class ContinuousEngine:
         """Serve a workload to completion; returns completions in finish order."""
         for req in requests:
             self.submit(req)
-        # 2x per-request work: a fault-evicted request pays (part of) its
-        # prefill again on resume
+        # 2x per-request work: an evicted request pays (part of) its prefill
+        # again on resume
         budget = 10_000 + 2 * sum(r.arrival_step + r.max_new_tokens
                                   + -(-r.prompt_len // self.chunk) for r in requests)
         while self.step():
@@ -768,7 +969,13 @@ class ContinuousEngine:
             "fallbacks": self._fallbacks,
             "table_repairs": self._table_repairs,
             "failed_completions": sum(c.finish_reason == "failed" for c in self.completions),
+            # the SLA control plane: its policy and its counters
+            "sched": self.sched_policy,
+            "preempt_mode": self.preempt_mode,
+            "preemptions": self._preemptions,
             "preempt_resumes": self._resumes,
+            "rejections": self._rejections,
+            "shed_count": getattr(self.scheduler, "shed_count", 0),
             # the largest finite residuals checked (not reference keys): the
             # Σp residual is 0 on the kernel read, whose probe is finiteness
             "sentinel_peak_sum_residual": self._peak["sum"],
@@ -785,10 +992,26 @@ class ContinuousEngine:
             "decode_compilations": graphs.captures.get("decode", 0) if graphs else 0,
             "prefill_compilations": 0,
             "capture_seconds": graphs.capture_seconds if graphs else 0.0,
+            "prefix_cache": self.prefix is not None,
             # the reference counts ticks dispatched under a guard that refuses
             # implicit host->device transfers; a graph replay moves no host
             # data into the tick (its inputs are staged before), so the port
             # counts its replayed ticks, against decode_steps = model ticks
             "decode_steps": self.model_ticks,
             "transfer_guarded_ticks": self._replayed_ticks,
+            **self._prefix_metrics(),
         }
+
+    def _prefix_metrics(self) -> dict:
+        """The reference's ``prefix_*`` keys, with a prefix cache: the hit
+        rate is token-weighted (cached prompt tokens over admitted ones)."""
+        if self.prefix is None:
+            return {}
+        return {"prefix_hit_rate": self._prefix_hit_tokens / max(1, self._prefix_prompt_tokens),
+                "prefix_hit_tokens": self._prefix_hit_tokens,
+                "prefix_prompt_tokens": self._prefix_prompt_tokens,
+                "prefix_hit_requests": self._prefix_hit_requests,
+                "prefix_forks": self.pool.prefix_forks,
+                "prefix_evictions": self.pool.prefix_evictions,
+                "prefix_cached_blocks": self.pool.cached_blocks,
+                "prefix_inserts": self.prefix.inserts}

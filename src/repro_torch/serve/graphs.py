@@ -19,6 +19,12 @@ step's ~900 launches leave the host once per key instead of once per step.
     ``fn`` returned at capture, which each replay overwrites.
 A capture or a replay that fails raises; nothing falls back to eager.
 
+No Python garbage collection runs during a capture: a collection there may
+free a graph held by a dead reference cycle (an engine whose prefix cache
+points back at its pool, a model holding its static decoders), and
+destroying a graph while another stream is capturing invalidates that
+capture.  Dead graphs are freed at the next collection after it.
+
 Launch counting: the kernels' wrappers count in Python, at capture and not
 at replay.  The runner keeps what a capture counted and adds it on every
 replay, and drops what the warm-up and the capture itself counted (the
@@ -28,6 +34,7 @@ executed on the path.
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Hashable
 
@@ -72,8 +79,14 @@ class StepGraphs:
         main.wait_stream(self._side)
         before = counters.snapshot()
         graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool):
-            out = fn()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.graph(graph, pool=self.pool):
+                out = fn()
+        finally:
+            if collecting:
+                gc.enable()
         after = counters.snapshot()
         counters.add([s - a for s, a in zip(start, after)])
         self.capture_seconds += time.perf_counter() - t0

@@ -2,10 +2,11 @@
 ``repro/serve/kv_cache.py``), fp or int8 (``kv_dtype``).
 
 Device state: the shared block arenas of ``model.init_paged_cache``, and for
-int8 arenas their per-block f32 scales.  Host state: per-slot positions,
-per-slot block tables (a numpy mirror the engine uploads when
-``tables_dirty``), FIFO free lists for slots and blocks, and per-slot
-whole-request block reservations.
+int8 arenas their per-block f32 scales; every leaf has the block axis as
+axis 1.  Host state: per-slot positions, per-slot block tables (a numpy
+mirror the engine uploads when ``tables_dirty``), FIFO free lists for slots
+and blocks, per-slot whole-request block reservations, and a refcount per
+block.
 
 Reservation contract: ``allocate(reserve_tokens=n)`` admits a request only
 after ``can_reserve(n)`` said the arena can cover its whole footprint
@@ -18,15 +19,29 @@ exactly zero, so stale contents are unreachable.  Scales are not zeroed
 either: a recycled block's first write lands at in-block offset 0 and
 freezes its scale anew.
 
+Prefix sharing (``attach_prefix_cache``): a slot owns the blocks ``ensure``
+popped for it (refcount 1), attaches cached full blocks of a ``PrefixHit``
+read-only (refcount + 1), and the cache holds one reference per indexed
+block; a block returns to the FIFO free list only at refcount 0, so
+recycling order is unchanged when nothing is shared.  A reservation charges
+only the unshared tail, and a partially shared block is forked (copied into
+a private block) when the slot attaches, before its first write
+(``write_barrier`` asserts no live slot writes a shared block).  Under block
+pressure ``_pop_block`` reclaims the cache's LRU cache-only blocks.
+
+Every device write here is in place (``copy_``, ``index_copy_``,
+``index_fill_``): the fork, the preemption restore and the scrub keep the
+arenas' addresses, so the engine's captured tick graphs keep reading them.
+
 Quarantine (the GN sentinels' containment, as the reference's):
 ``quarantine_block`` takes a block out of circulation for good.  A free
-block leaves the free list at once; a block a live chain holds is marked
-doomed and goes to the quarantine set, not the free list, when its slot is
-freed.  ``scrub_blocks`` zeroes quarantined blocks' arena tiles and scales
-in place (a NaN tile read through a stale table entry would poison a healthy
-slot: 0 · NaN = NaN); the tensors keep their addresses, so captured graphs
-keep reading them.  ``check_ledger`` holds free + held + quarantined =
-num_blocks after every free and quarantine.  ``reset`` clears both sets.
+block leaves the free list at once; a live one (refcount > 0) is marked
+doomed and goes to the quarantine set, not the free list, when its last
+reference drops.  ``scrub_blocks`` zeroes quarantined blocks' arena tiles
+and scales (a NaN tile read through a stale table entry would poison a
+healthy slot: 0 · NaN = NaN).  ``check_ledger`` holds free + live
+(refcount > 0) + quarantined = num_blocks after every recycle and
+quarantine.  ``reset`` clears both sets and the prefix index.
 """
 from __future__ import annotations
 
@@ -58,13 +73,14 @@ class BlockPagedKVPool:
         # physical ids; entries past a slot's allocated prefix are stale but
         # never read (the kernel stops at the context length)
         self.tables = np.zeros((self.num_slots, self.max_blocks_per_slot), np.int32)
+        self.prefix_cache = None  # bound by attach_prefix_cache
         self.reset()
 
     def reset(self) -> None:
         """Free everything and restore canonical slot and block order, so a
         reset engine replays a workload with identical slot assignment and
         block tables (stale arena contents and scales are mask-guarded or
-        re-frozen, not zeroed)."""
+        re-frozen, not zeroed); the prefix index is cleared too."""
         self.positions[:] = 0
         self.tables[:] = 0
         self.tables_dirty = True
@@ -72,12 +88,21 @@ class BlockPagedKVPool:
         self._free_blocks: deque[int] = deque(range(self.num_blocks))
         self._slot_blocks: dict[int, list[int]] = {}
         self._reserved = np.zeros(self.num_slots, np.int32)  # blocks, whole-request
+        # owner = 1, each sharing attach and each index entry + 1
+        self.refcounts = np.zeros(self.num_blocks, np.int32)
+        self._shared = np.zeros(self.num_slots, np.int32)  # attached, not owned
+        self._owned = np.zeros(self.num_slots, np.int32)   # popped for the slot
+        self.prefix_forks = 0
+        self.prefix_evictions = 0
         self.peak_blocks_in_use = 0
         self.peak_blocks_reserved = 0
-        # out of circulation for good; doomed: held by a live chain, bound for
-        # quarantine when its slot is freed
+        # out of circulation for good; doomed: live, bound for quarantine
+        # when its last reference drops
         self.quarantined: set[int] = set()
         self._doomed: set[int] = set()
+        if self.prefix_cache is not None:
+            self.prefix_cache.clear()
+        self.check_ledger()
 
     def hbm_bytes(self) -> int:
         """Resident device bytes: the arenas (sink block included), the int8
@@ -96,38 +121,62 @@ class BlockPagedKVPool:
     def blocks_reserved(self) -> int:
         return int(self._reserved.sum())
 
+    @property
+    def unfilled(self) -> int:
+        """Blocks promised to live slots and not yet popped for them: per
+        slot, reserved minus owned (cached and shared blocks belong to no
+        reservation)."""
+        return int((self._reserved - self._owned).sum())
+
     def blocks_for(self, tokens: int) -> int:
         return -(-int(tokens) // self.block_size)
 
-    def can_reserve(self, tokens: int) -> bool:
-        """True if the free blocks, minus what live slots were promised but
-        have not yet taken, cover a ``tokens``-long request."""
-        unfilled = self.blocks_reserved - self.blocks_in_use
-        return len(self._free_blocks) - unfilled >= self.blocks_for(tokens)
+    def can_reserve(self, tokens: int, prefix=None) -> bool:
+        """True if the free blocks, plus the cache's evictable ones, minus
+        what live slots were promised and have not yet taken, cover a
+        ``tokens``-long request.  A ``prefix`` hit discounts its fully shared
+        blocks (attached, not allocated) and takes the hit's own blocks out
+        of the evictable supply (attaching pins them, the fork source too)."""
+        need = self.blocks_for(tokens)
+        avail = len(self._free_blocks)
+        if self.prefix_cache is not None:
+            avail += self.prefix_cache.evictable_count(self.refcounts)
+        if prefix is not None:
+            need -= len(prefix.blocks)
+            held = list(prefix.blocks) + ([prefix.tail_src] if prefix.tail_src is not None
+                                          else [])
+            avail -= sum(1 for b in held if self.refcounts[b] == 1)
+        return avail - self.unfilled >= need
 
-    def allocate(self, reserve_tokens: int = 0) -> int:
+    def allocate(self, reserve_tokens: int = 0, prefix=None) -> int:
+        """A free slot reserving ``reserve_tokens``' blocks, less the blocks
+        ``prefix`` attaches (its fork block still counts: it is allocated)."""
         if not self._free_slots:
             raise RuntimeError("BlockPagedKVPool: no free slot")
-        if reserve_tokens and not self.can_reserve(reserve_tokens):
+        need = self.blocks_for(reserve_tokens) - (len(prefix.blocks) if prefix else 0)
+        if reserve_tokens and not self.can_reserve(reserve_tokens, prefix):
             raise RuntimeError(
-                f"BlockPagedKVPool exhausted: {self.blocks_for(reserve_tokens)} blocks "
-                f"wanted, {len(self._free_blocks)} free minus "
-                f"{self.blocks_reserved - self.blocks_in_use} reserved")
+                f"BlockPagedKVPool exhausted: {need} blocks wanted, "
+                f"{len(self._free_blocks)} free minus {self.unfilled} reserved")
         slot = self._free_slots.popleft()
         self._slot_blocks[slot] = []
-        self._reserved[slot] = self.blocks_for(reserve_tokens)
+        self._reserved[slot] = need
+        self._shared[slot] = self._owned[slot] = 0
         self.peak_blocks_reserved = max(self.peak_blocks_reserved, self.blocks_reserved)
         return slot
 
     def free(self, slot: int) -> None:
-        """Release a slot the tick its request finishes: its blocks return to
-        the FIFO free list in allocation order, doomed ones to quarantine."""
+        """Release a slot's references the tick its request finishes: blocks
+        at refcount 0 return to the FIFO free list in chain order (doomed
+        ones to quarantine); blocks the cache or another slot holds stay."""
         if slot not in self._slot_blocks:
             raise ValueError(f"slot {slot} is not allocated")
         for b in self._slot_blocks.pop(slot):
-            self._recycle(b)
+            self.refcounts[b] -= 1
+            if self.refcounts[b] == 0:
+                self._recycle(b)
         self.positions[slot] = 0
-        self._reserved[slot] = 0
+        self._reserved[slot] = self._shared[slot] = self._owned[slot] = 0
         self._free_slots.append(slot)
         self.check_ledger()
 
@@ -144,17 +193,18 @@ class BlockPagedKVPool:
 
     def quarantine_block(self, block: int) -> None:
         """Take ``block`` out of circulation for good: a free block now, a
-        held one (doomed) when its slot is freed.  Idempotent."""
+        live one (refcount > 0, held by a chain or only by the prefix index)
+        when its last reference drops.  Idempotent."""
         b = int(block)
         if b in self.quarantined or b in self._doomed:
             return
-        if any(b in chain for chain in self._slot_blocks.values()):
+        if self.refcounts[b] > 0:
             self._doomed.add(b)
             return
         try:
             self._free_blocks.remove(b)
         except ValueError:
-            raise RuntimeError(f"block {b} is neither held nor free: ledger corrupt") from None
+            raise RuntimeError(f"block {b} is neither live nor free: ledger corrupt") from None
         self.quarantined.add(b)
         self.check_ledger()
 
@@ -170,37 +220,69 @@ class BlockPagedKVPool:
             leaf.index_fill_(1, ix, 0)
 
     def check_ledger(self) -> None:
-        """free + held + quarantined == num_blocks, doomed blocks held and
-        quarantined ones not; raises on a leak."""
-        held = {b for chain in self._slot_blocks.values() for b in chain}
+        """free + live (refcount > 0) + quarantined == num_blocks, doomed
+        blocks live and quarantined ones unreferenced; raises on a leak."""
         free, q = len(self._free_blocks), len(self.quarantined)
-        if free + len(held) + q != self.num_blocks:
-            raise RuntimeError(f"block ledger leak: free {free} + held {len(held)} + "
+        live = int((self.refcounts > 0).sum())
+        if free + live + q != self.num_blocks:
+            raise RuntimeError(f"block ledger leak: free {free} + live {live} + "
                                f"quarantined {q} != {self.num_blocks}")
-        if not self._doomed <= held or self.quarantined & held:
-            raise RuntimeError("a doomed block is not held, or a quarantined one is")
+        if any(self.refcounts[b] <= 0 for b in self._doomed):
+            raise RuntimeError("a doomed block has refcount <= 0 and was never recycled")
+        if any(self.refcounts[b] != 0 for b in self.quarantined):
+            raise RuntimeError("a quarantined block is still referenced")
 
     def active_horizon_blocks(self) -> int:
         """Max blocks any live slot holds right now (0 when none does)."""
         return max((len(b) for b in self._slot_blocks.values()), default=0)
 
     def ensure(self, slot: int, position: int) -> None:
-        """Grow ``slot``'s block table to cover positions [0, position)."""
+        """Grow ``slot``'s block table to cover positions [0, position)
+        (attached shared blocks are free growth: no reservation paid them)."""
         if position > self.max_seq:
             raise ValueError(f"position {position} exceeds max_seq {self.max_seq}")
         blocks = self._slot_blocks[slot]
         need = self.blocks_for(position)
-        if need > self._reserved[slot]:
+        if need - self._shared[slot] > self._reserved[slot]:
             raise RuntimeError(
                 f"slot {slot}: {need} blocks exceed its reservation "
-                f"{int(self._reserved[slot])}; allocate(reserve_tokens=...) must cover "
-                "the full prompt + decode footprint")
+                f"{int(self._reserved[slot])} + {int(self._shared[slot])} shared; "
+                "allocate(reserve_tokens=...) must cover the full prompt + decode footprint")
         while len(blocks) < need:
-            b = self._free_blocks.popleft()
+            b = self._pop_block(f"mid-sequence (slot {slot})")
+            self.refcounts[b] = 1
+            self._owned[slot] += 1
             self.tables[slot, len(blocks)] = b
             blocks.append(b)
             self.tables_dirty = True
+
+    def _pop_block(self, context: str) -> int:
+        """The oldest free block, reclaiming the cache's LRU cache-only
+        blocks under pressure; admission's accounting makes a failure here
+        a bug, not a load condition."""
+        if not self._free_blocks and self.prefix_cache is not None:
+            evicted = self.prefix_cache.evict_lru(self.refcounts)
+            if evicted is not None:
+                self.prefix_evictions += 1
+                self.cache_unref(evicted)
+        if not self._free_blocks:
+            raise RuntimeError(f"BlockPagedKVPool exhausted {context}: reservation "
+                               "accounting should have prevented this")
+        b = self._free_blocks.popleft()
         self.peak_blocks_in_use = max(self.peak_blocks_in_use, self.blocks_in_use)
+        return b
+
+    def insert(self, slot: int, position: int) -> None:
+        """Start ``slot`` at ``position`` (0 for a fresh prefill, the shared
+        length after a prefix attach, a spilled request's position before
+        its restore), its chain ensured to cover it."""
+        if slot not in self._slot_blocks:
+            raise ValueError(f"slot {slot} is not allocated")
+        if position > self.max_seq:
+            raise ValueError(f"position {position} exceeds max_seq {self.max_seq}")
+        self.positions[slot] = position
+        if position:
+            self.ensure(slot, position)
 
     def advance(self, slots: dict) -> None:
         """Advance positions by {slot: tokens committed this tick}."""
@@ -209,3 +291,105 @@ class BlockPagedKVPool:
             if new > self.max_seq:
                 raise ValueError(f"slot {slot}: position {new} exceeds max_seq {self.max_seq}")
             self.positions[slot] = new
+
+    # ------------------------------------------------------- prefix sharing --
+    def attach_prefix_cache(self, cache) -> None:
+        """Bind a ``PrefixCache``: it indexes this pool's blocks (one
+        reference per entry) and the pool reclaims its LRU cache-only blocks
+        under pressure."""
+        self.prefix_cache = cache
+        cache.pool = self
+
+    def cache_ref(self, block: int) -> None:
+        self.refcounts[block] += 1
+
+    def cache_unref(self, block: int) -> None:
+        self.refcounts[block] -= 1
+        if self.refcounts[block] == 0:
+            self._recycle(int(block))
+            self.check_ledger()
+
+    @property
+    def cached_blocks(self) -> int:
+        return 0 if self.prefix_cache is None else self.prefix_cache.cached_blocks()
+
+    def attach_prefix(self, slot: int, prefix) -> None:
+        """Wire a freshly allocated slot to a ``PrefixHit``: the fully matched
+        blocks attach read-only (refcount + 1), and a partially matched tail
+        block is forked now into a block the slot owns, before the slot can
+        write into it.  The fork source is pinned across the fork's pop."""
+        if slot not in self._slot_blocks or self._slot_blocks[slot]:
+            raise ValueError(f"slot {slot} must be freshly allocated")
+        chain = self._slot_blocks[slot]
+        for b in prefix.blocks:
+            self.refcounts[b] += 1
+            self.tables[slot, len(chain)] = b
+            chain.append(b)
+        self._shared[slot] = len(prefix.blocks)
+        if prefix.tail_src is not None:
+            self.refcounts[prefix.tail_src] += 1
+            dst = self._pop_block(f"forking for slot {slot}")
+            self.refcounts[dst] = 1
+            self._owned[slot] += 1
+            self.tables[slot, len(chain)] = dst
+            chain.append(dst)
+            self.fork_block(prefix.tail_src, dst)
+            self.refcounts[prefix.tail_src] -= 1
+            self.prefix_forks += 1
+        self.tables_dirty = True
+
+    def fork_block(self, src: int, dst: int) -> None:
+        """Copy block ``src`` onto block ``dst`` in every leaf, in place:
+        the arenas in every layer and, over an int8 pool, the scales (a
+        forked block keeps its donor's frozen scale: the tenant's first write
+        lands past offset 0, so no write refreezes it)."""
+        for leaf in self.cache.values():
+            leaf[:, dst].copy_(leaf[:, src])
+
+    def write_barrier(self, slot: int, position: int) -> None:
+        """The block ``slot``'s next write lands in must be its own
+        (refcount 1); attach-time forking makes this hold by construction,
+        so a trip is a sharing bug."""
+        idx = int(position) // self.block_size
+        chain = self._slot_blocks.get(slot, ())
+        if idx < len(chain) and self.refcounts[chain[idx]] != 1:
+            raise RuntimeError(f"COW violation: slot {slot} would write block {chain[idx]} "
+                               f"with refcount {int(self.refcounts[chain[idx]])}")
+
+    # ------------------------------------------------------ preemption spill --
+    def _spill_pad(self, n: int) -> int:
+        """A chain length padded to the next power of two (at most
+        ``max_blocks_per_slot``): the reference's payload shape."""
+        b = 1
+        while b < n:
+            b *= 2
+        return min(b, self.max_blocks_per_slot)
+
+    def extract_blocks(self, slot: int) -> dict:
+        """Copy ``slot``'s chain out of the arenas (and scales) into host
+        memory: ``{"len": n, "layers": {leaf: (L, n_padded, ...) tensor}}``,
+        lanes past ``n`` repeating the last block.  The payload is values
+        only: a restore into other physical blocks is exact."""
+        chain = self.chain_of(slot)
+        if not chain:
+            return {"len": 0, "layers": None}
+        idx = chain + [chain[-1]] * (self._spill_pad(len(chain)) - len(chain))
+        ix = torch.tensor(idx, dtype=torch.long, device=self.device)
+        return {"len": len(chain),
+                "layers": {k: leaf.index_select(1, ix).cpu() for k, leaf in self.cache.items()}}
+
+    def restore_blocks(self, slot: int, payload: dict) -> None:
+        """Copy a spilled payload into ``slot``'s freshly ensured chain, in
+        place.  Lanes past ``len`` name the last block again with its own
+        values, so the duplicate indices carry equal data."""
+        n = int(payload["len"])
+        if n == 0:
+            return
+        chain = self._slot_blocks[slot]
+        if len(chain) < n:
+            raise ValueError(f"slot {slot}: restore needs {n} blocks ensured, the chain has "
+                             f"{len(chain)}: call insert(slot, position) first")
+        idx = chain[:n] + [chain[n - 1]] * (self._spill_pad(n) - n)
+        ix = torch.tensor(idx, dtype=torch.long, device=self.device)
+        for k, leaf in self.cache.items():
+            leaf.index_copy_(1, ix, payload["layers"][k].to(self.device))

@@ -18,7 +18,11 @@ bit.  The sampler's hash words on the card equal the CPU's bit for bit; the
 GN sentinels on the card stay silent on a clean run and flag a V-tile fault
 within one tick, K tiles too; the paged kernel's rows are finite where its
 plain version's are over a NaN or Inf K or V tile, and its per-row flags of
-a nonfinite live score equal the plain version's (fp and int8 arenas).
+a nonfinite live score equal the plain version's (fp and int8 arenas).  The
+prefix cache and preemption on the card: a COW fork and a spill restore bit
+for bit (fp and int8, in place), the paged read over tables that share
+leading blocks and hold a forked tail against its plain version, and graphed
+ticks right after forks and restores bitwise the eager ones.
 """
 import numpy as np
 import pytest
@@ -41,9 +45,12 @@ from repro_torch.models.transformer import make_model
 from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, generate, perplexity,
                                       static_reference)
 from repro_torch.serve.faults import FaultInjector
+from repro_torch.serve.kv_cache import BlockPagedKVPool
+from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.sampling import counter_bits, gumbel
 from repro_torch.serve.scheduler import Request
-from repro_torch.serve.workload import required_max_seq, seeded_requests
+from repro_torch.serve.workload import (required_max_seq, seeded_requests,
+                                        shared_prefix_requests, sla_requests)
 
 pytestmark = pytest.mark.cuda
 BF16_REL = 2.0 ** -7
@@ -883,3 +890,158 @@ def test_sentinels_on_card_flag_v_tiles_and_recover(cuda, kind):
     flagged = [e[1] for e in eng.event_log if e[0] == "fault"]
     assert k_records and all(any(0 <= s - r.step <= 1 for s in flagged) for r in k_records)
     assert {c.request_id: c.tokens.tolist() for c in eng.completions} == clean
+
+
+# ------------------------------------------ prefix cache and preemption --
+def _filled_pool(cuda, kv_dtype, seed):
+    """A pool on the card whose real blocks hold random values of each
+    leaf's dtype (int8 arenas, f32 scales), so a moved block shows."""
+    model = make_model(reduce_config(get_config("internlm2-1.8b"), dtype="float32"))
+    pool = BlockPagedKVPool(model, num_slots=3, max_seq=32, block_size=4, num_blocks=12,
+                            device=cuda, kv_dtype=kv_dtype)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    for leaf in pool.cache.values():
+        if leaf.dtype == torch.int8:
+            leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=g, device=cuda))
+        else:
+            leaf.copy_(torch.rand(leaf.shape, generator=g, device=cuda) + 0.01)
+    return pool
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_fork_and_spill_restore_bitwise_on_card(cuda, kv_dtype):
+    """An attach-time fork copies its source block bit for bit in every leaf
+    and touches no other block; a spill restored into another chain is bit
+    for bit; both write the arenas and scales in place."""
+    pool = _filled_pool(cuda, kv_dtype, seed=5)
+    pool.attach_prefix_cache(PrefixCache(4))
+    ptrs = {k: v.data_ptr() for k, v in pool.cache.items()}
+    before = {k: v.clone() for k, v in pool.cache.items()}
+    s0 = pool.allocate(reserve_tokens=16)
+    pool.ensure(s0, 16)
+    chain0 = pool.chain_of(s0)
+    tokens = np.arange(14, dtype=np.int32)
+    pool.prefix_cache.insert(tokens, chain0[:4])
+    pool.free(s0)
+    hit = pool.prefix_cache.lookup(tokens)
+    s1 = pool.allocate(reserve_tokens=16, prefix=hit)
+    pool.attach_prefix(s1, hit)
+    dst = pool.chain_of(s1)[3]
+    for k, leaf in pool.cache.items():
+        assert torch.equal(leaf[:, dst], before[k][:, hit.tail_src]), k
+        keep = torch.arange(leaf.shape[1], device=cuda) != dst
+        assert torch.equal(leaf[:, keep], before[k][:, keep]), k
+    pool.ensure(s1, 16)
+    chain1 = pool.chain_of(s1)
+    values = {k: v[:, chain1].clone() for k, v in pool.cache.items()}
+    payload = pool.extract_blocks(s1)
+    assert payload["len"] == 4 and all(t.device.type == "cpu" for t in payload["layers"].values())
+    pool.free(s1)
+    hold = pool.allocate(reserve_tokens=16)
+    pool.ensure(hold, 16)
+    s2 = pool.allocate(reserve_tokens=16)
+    pool.ensure(s2, 16)
+    chain2 = pool.chain_of(s2)
+    assert chain2 != chain1
+    pool.restore_blocks(s2, payload)
+    for k, leaf in pool.cache.items():
+        assert torch.equal(leaf[:, chain2], values[k]), k
+    assert {k: v.data_ptr() for k, v in pool.cache.items()} == ptrs
+
+
+def _aliased(cuda, c, dtype, seed=0):
+    """Tables whose lanes share leading physical blocks: lanes 0-4 read one
+    6-block prefix; lane 1 continues through a forked copy (another id, the
+    same contents) of lane 0's partially filled block 6; lanes 5-7 own their
+    chains; stale entries past every length."""
+    rng = np.random.default_rng(seed)
+    n, h, kv, d, bs, max_bt = 8, 8, 2, 64, 16, 12
+    nb = 64
+    perm = rng.permutation(nb)
+    shared, rest = list(perm[:6]), iter(perm[6:])
+    tables = rng.integers(0, nb, size=(n, max_bt))
+    lengths = np.zeros(n, np.int64)
+    for i in range(n):
+        own = [] if i >= 5 else list(shared)
+        need = int(rng.integers(7, max_bt + 1))
+        own += [next(rest) for _ in range(need - len(own))]
+        tables[i, :need] = own
+        lengths[i] = (need - 1) * bs + int(rng.integers(1, bs + 1))
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(n, c, h, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(nb, bs, kv, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(nb, bs, kv, d, generator=g, device=cuda).to(dtype)
+    fork = int(tables[1, 6])
+    k[fork], v[fork] = k[tables[0, 6]], v[tables[0, 6]]
+    lengths[1] = 6 * bs + int(rng.integers(2, bs))  # inside the forked block
+    tables[1, 7:] = rng.integers(0, nb, size=max_bt - 7)
+    n_valid = np.minimum(rng.integers(1, c + 1, size=n), lengths)
+    ints = [torch.as_tensor(a, dtype=torch.int32, device=cuda)
+            for a in (tables, lengths - n_valid, n_valid)]
+    lane = torch.as_tensor(np.arange(c)[None] < n_valid[:, None], device=cuda)
+    return (q, k, v, *ints), lane, (int(tables[0, 6]), fork)
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c", [1, 16])
+def test_paged_read_over_aliased_tables_matches_plain(cuda, c, dtype, int8):
+    """The prefix cache's tables (shared leading blocks, a forked tail) read
+    through the kernel as through its plain version (the int8 mode with the
+    fork's scale copied with its block)."""
+    args, lane, (src, fork) = _aliased(cuda, c, dtype)
+    scales = None
+    if int8:
+        args, scales = _quantized(args, seed=c)
+        for t in (args[1], args[2], *scales):
+            t[fork] = t[src]
+    got = attn_ops.gn_paged_attention_chunk(*args, scales=scales)
+    want = attn_ref.gn_paged_attention_chunk_ref(*args, scales=scales)
+    rel = BF16_REL if dtype == torch.bfloat16 else 0.0
+    err = (got[lane].float() - want[lane].float()).abs() - (2e-4 + rel * want[lane].float().abs())
+    rows = err.shape[0] * err.shape[1]
+    assert (err > 0).any(-1).sum().item() <= max(1, 0.01 * rows)
+
+
+def _engine_state(eng):
+    nb = eng.pool.num_blocks
+    return {"last_logits": eng._last_logits.clone(),
+            **{k: v[:, :nb].clone() for k, v in eng.pool.cache.items()}}
+
+
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_graphed_ticks_after_forks_and_restores_equal_eager(cuda, kv_dtype):
+    """Graphed ticks right after a COW fork (the shared-prefix workload) and
+    after a spill restore (the two-class workload under priority + spill)
+    give the eager tick's tokens, held logits and arenas bit for bit, every
+    tick a replay; the tokens equal the CPU engine's at f32."""
+    cfg = reduce_config(get_config("internlm2-1.8b"), dtype="float32")
+    model = make_model(cfg)
+    master = model.init(0, "cpu")
+    cases = (
+        (shared_prefix_requests(cfg, n_users=6, n_personas=2, system_len=12, persona_len=6,
+                                user_len=5, max_new_tokens=4, stagger=7),
+         {"prefix_cache": True, "num_blocks": 32}),
+        (sla_requests(cfg, n_requests=8, base_len=8, rate=0.6, seed=13, max_new_interactive=4,
+                      max_new_batch=8),
+         {"sched": "priority", "preempt": "spill", "aging_steps": 32}),
+    )
+    for reqs, kw in cases:
+        def run(device, eager=False):
+            eng = ContinuousEngine(model, master, num_slots=2, max_seq=32, chunk=4, block_size=4,
+                                   kv_dtype=kv_dtype, device=device, **kw)
+            if eager:
+                eng._graphs = None
+            toks = {c.request_id: c.tokens.tolist() for c in eng.run(reqs)}
+            return eng, toks
+
+        eng, graphed = run(cuda)
+        m = eng.metrics()
+        assert m["transfer_guarded_ticks"] == m["model_ticks"]
+        assert m.get("prefix_forks", 0) > 0 or m["preemptions"] > 0
+        state = _engine_state(eng)
+        eager_eng, eager = run(cuda, eager=True)
+        assert eager == graphed
+        now = _engine_state(eager_eng)
+        assert all(torch.equal(state[k], now[k]) for k in state)
+        assert run("cpu")[1] == graphed

@@ -173,8 +173,10 @@ def test_step_graphs_capture_once_and_count_launches_per_replay(monkeypatch):
     has no card): one warm-up and one capture per key, then a replay on
     every call, captures counted per step kind, and the launch counters
     moved by what the capture counted on each replay, never by the warm-up
-    or the capture itself."""
+    or the capture itself; Python's garbage collector paused for each
+    capture only."""
     import contextlib
+    import gc
 
     from repro_torch.kernels.gn_layernorm import ops as norm_ops
     from repro_torch.kernels.gn_paged_attention import ops as paged_ops
@@ -186,11 +188,13 @@ def test_step_graphs_capture_once_and_count_launches_per_replay(monkeypatch):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", lambda g, pool=None: contextlib.nullcontext())
     calls = {"fn": 0, "warmup": 0}
+    collecting = []  # the garbage collector's state at each call
     out = torch.zeros(3)
 
     def tick(name, norms):
         def fn():
             calls[name] += 1
+            collecting.append((name, gc.isenabled()))
             norm_ops.launches += norms
             paged_ops.launches += 1
             return out
@@ -203,6 +207,8 @@ def test_step_graphs_capture_once_and_count_launches_per_replay(monkeypatch):
         assert graphs.run(("fused", 4), tick("fn", 5), tick("warmup", 5)) is out
     assert graphs.run(("decode", 4), tick("fn", 2), tick("warmup", 2)) is out
     assert calls == {"fn": 2, "warmup": 2} and _FakeGraph.replays == 4
+    # no collection inside a capture (it could free a dead graph mid-capture)
+    assert collecting == [("warmup", True), ("fn", False)] * 2 and gc.isenabled()
     assert graphs.captures == {"fused": 1, "decode": 1}
     launches = counters.launch_counts()
     assert (launches["gn_rmsnorm"], launches["gn_paged_attention"]) == (3 * 5 + 2, 4)

@@ -28,8 +28,9 @@ of 5, 9, 7 tokens, 6 new tokens each, 2 slots, chunk 4, max_seq 64).
   * a clean run silent; the sentinels off miss a fault; the retry budget
     spent gives "failed"; the int8 fallback (forced, and by the clip
     watchdog) completes with the oracle's tokens; the ledger balanced and
-    no quarantined block recycled through churn (the reference's
-    preempt="off" cases); the pool's quarantine, doom and in-place scrub.
+    no quarantined block recycled through churn (the reference's property
+    over preempt "off", "spill" and "recompute"); the pool's quarantine, doom
+    and in-place scrub.
 """
 import jax
 import jax.numpy as jnp
@@ -433,17 +434,28 @@ def test_clip_watchdog_falls_back_after_its_patience(dense):
     assert eng.completions[0].new_tokens.tolist() == dense["oracle6"][0]
 
 
-@pytest.mark.parametrize("seed", [0, 7, 123])
-@pytest.mark.parametrize("kind", ["nan_tile", "inf_tile"])
-def test_quarantine_never_leaks_under_churn(dense, seed, kind):
-    """The reference's property over (seed, kind) with preempt="off" (the
-    port has no preemption): across admit / finish / fault churn no
-    quarantined block re-enters a chain or the free list, and the ledger
-    balances after every step."""
+# (preempt, kind, seed); the preempt="off" cases keep their ids
+CHURN = [(p, k, s) for p in ("off", "spill", "recompute") for k in ("nan_tile", "inf_tile")
+         for s in (0, 7, 123)]
+
+
+@pytest.mark.parametrize("preempt,kind,seed", CHURN,
+                         ids=[f"{k}-{s}" if p == "off" else f"{p}-{k}-{s}" for p, k, s in CHURN])
+def test_quarantine_never_leaks_under_churn(dense, preempt, kind, seed):
+    """The reference's property over (seed, kind, preempt): across admit /
+    preempt / resume / finish / fault churn no quarantined block re-enters
+    a chain or the free list, and the ledger balances after every step.
+    With preemption, request 2 is interactive and requests 0 and 3 batch, as
+    the reference's."""
     t_attn.FORCE_PAGED_READ = "streamed"
-    eng = _engine(dense, cfg=ServeConfig(max_new_tokens=4))
+    kw = {} if preempt == "off" else {"sched": "priority", "preempt": preempt}
+    eng = _engine(dense, cfg=ServeConfig(max_new_tokens=4), **kw)
     inj = FaultInjector(eng, seed=seed)
-    for r in _requests(Request, eng.model.cfg.vocab, lens=(5, 9, 7, 6, 8), max_new=4, seed=seed):
+    reqs = _requests(Request, eng.model.cfg.vocab, lens=(5, 9, 7, 6, 8), max_new=4, seed=seed)
+    if preempt != "off":
+        for i, klass in ((0, "batch"), (2, "interactive"), (3, "batch")):
+            reqs[i].req_class = klass
+    for r in reqs:
         eng.submit(r)
     injected, ever = 0, set()
     while eng.step():
@@ -513,11 +525,11 @@ def test_injector_refusals_and_device_loss(dense):
 
 
 def test_finish_reason_closed_set():
-    assert FINISH_REASONS == ("length", "stop", "failed")
+    assert FINISH_REASONS == ("length", "stop", "rejected", "failed")
     kw = dict(request_id=0, prompt_tokens=np.zeros(1, np.int32), new_tokens=np.zeros(0, np.int32),
               arrival_step=0, admit_step=0, first_token_step=0, finish_step=0, admit_time=0.0,
               first_token_time=0.0, finish_time=0.0)
     for reason in FINISH_REASONS:
         Completion(finish_reason=reason, **kw)
     with pytest.raises(ValueError, match="finish_reason"):
-        Completion(finish_reason="rejected", **kw)
+        Completion(finish_reason="cancelled", **kw)

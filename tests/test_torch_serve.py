@@ -2,10 +2,11 @@
 of the mixed workload identical to the reference ``ContinuousEngine`` at
 float32 over block sizes {4, 8}, full drain, reset-replay, the engine's
 telemetry (``metrics()`` and ``Completion``) equal to the reference's on
-their shared keys, the pool's block bookkeeping, and the refusals of what
-is not ported.  Three reduced dense configs: internlm2-1.8b (gn_rms, GQA,
-SwiGLU), stablelm-1.6b (gn_ln, MHA) and gpt-neo-1.3b (gn_ln, gelu; Table
-I's backbone)."""
+their shared keys, the pool's block bookkeeping, the prefix cache and the
+SLA options on the same workload, and the refusals of what is not ported.
+Three reduced dense configs: internlm2-1.8b (gn_rms, GQA, SwiGLU),
+stablelm-1.6b (gn_ln, MHA) and gpt-neo-1.3b (gn_ln, gelu; Table I's
+backbone)."""
 import jax
 import numpy as np
 import pytest
@@ -217,15 +218,29 @@ def test_admission_waits_for_blocks_and_unservable_raises(reference):
         eng.run([Request(id=0, tokens=_prompt(eng.model.cfg.vocab, 8, 340), max_new_tokens=2)])
 
 
-@pytest.mark.parametrize("kw", [
-    {"devices": 2}, {"prefix_cache": True}, {"sched": "priority"}, {"preempt": "spill"},
-    {"preempt": "recompute"}, {"paged": False}, {"devices": 4},
-])
+@pytest.mark.parametrize("kw", [{"devices": 2}, {"paged": False}, {"devices": 4}])
 def test_unported_options_are_refused(reference, kw):
-    # sampling and the GN sentinels are ported (tests/test_torch_sampling.py,
-    # tests/test_torch_sentinels.py); the other options are still refused
+    # sampling, the GN sentinels, the prefix cache and the SLA control plane
+    # are ported (tests/test_torch_sampling.py, test_torch_sentinels.py,
+    # test_torch_prefix.py, test_torch_sla.py); more devices and the slab
+    # pool are still refused
     with pytest.raises(NotImplementedError):
         _engine(reference, "float32", 4, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"prefix_cache": True}, {"sched": "priority"}, {"sched": "priority", "preempt": "spill"},
+    {"sched": "priority", "preempt": "recompute"},
+])
+def test_prefix_and_sla_options_serve_the_fcfs_tokens(reference, kw):
+    """The options the earlier slices refused: on the mixed workload (all
+    requests interactive, no prefix shared past a block) each serves the
+    JAX FCFS engine's greedy tokens and drains."""
+    eng, reqs = _engine(reference, "float32", 4, **kw)
+    assert _tokens(eng.run(reqs)) == reference["float32", 4]
+    m = eng.metrics()
+    assert m["preemptions"] == m["rejections"] == 0 and eng.pool.num_free == eng.pool.num_slots
+    assert m["sched"] == kw.get("sched", "fcfs") and m["prefix_cache"] == ("prefix_cache" in kw)
 
 
 def test_sampled_request_is_refused(reference):
