@@ -33,7 +33,12 @@ Phases, each fatal on failure (exit code 1):
                softmax, the norm (RMS, LayerNorm, fused add) and the flash
                attention in both designs (f32, bf16); the paged read over the
                prefix cache's tables (six lanes sharing 72 leading blocks, a
-               forked partial tail block), fp and int8 mode;
+               forked partial tail block), fp and int8 mode; for phases 17
+               and 18 the paged read at llama4-scout's group of 5 (40 q over
+               8 kv heads; C = 16 on the CUDA-core design, C = 1 on the
+               tensor cores; fp and int8), the norm at widths 256, 768, 2560
+               and 5120, and the softmax over 16-column router rows and over
+               an MLA tick's 40-head score rows;
   3. parity  - full-width internlm2-1.8b cut to 2 layers, kernels on the card
                against plain versions on the CPU, same weights, at float32
                and at bfloat16: one fused paged tick with mixed
@@ -167,7 +172,35 @@ Phases, each fatal on failure (exit code 1):
                runs.
                Reported: TTFT p50/p99 per class in steps and ms, tok/s,
                preemptions, resumes, rejections, spill bytes.
-Phases 4-10, 15 and 16 serve with the GN sentinels on, the engine's default:
+ 17. mla     - minicpm3-4b (MLA: latent arenas c_kv 256 and k_rope 32 a
+               token, read through the streamed read and the GN softmax
+               kernel, both latents normed by the GN norm kernel) at full
+               width and depth, random weights, phase 4's workload: the
+               continuous path over the fp and the int8 latent pool (each
+               with launches exact, captures within the grid, a timed
+               rerun, and a rerun in which every captured graph's first
+               tick runs graphed and eager from one device state, bitwise,
+               and ticks FAMILY_START.. are traced: busy share, busy time
+               by kind of kernel, the GN kernels' records) and a chaos run
+               over each (a NaN latent tile, a corrupt scale; flagged within
+               one tick, quarantined), the sentinels' cost a tick (the
+               window's ticks with them off), the prefix cache over phase
+               15's chat workload (forks bitwise, hits), ``generate`` over 8 x 1024
+               tokens with 32 new and ``perplexity`` (launches exact); the
+               pool's bytes a token beside phase 4's; at 2 layers f32 the
+               engine's tokens equal the static oracle's and the CPU engine's
+               (gated);
+ 18. moe     - llama4-scout-17b-a16e (16 experts, top-1 GShard routing
+               through the GN softmax kernel, 40 q / 8 kv heads: the paged
+               read at a group of 5) at full width cut to MOE_LAYERS layers,
+               phase 4's workload over the fp pool through the kernel read
+               with phase 4's checks; the routing of the eager rerun per
+               tick kind (dropped share, expert load); the paged read's
+               design and device ms at group 5 from phase 2; ``generate`` and
+               the flash-kernel ``perplexity`` (launches exact); at 2 layers
+               f32 the card's engine tokens equal the CPU engine's on the
+               streamed read (gated).
+Phases 4-10 and 15-18 serve with the GN sentinels on, the engine's default:
 a tick launches one more norm, the head's σ probe.
 Each path's launch counters are set to 0 just before it runs and read just
 after.  The last two lines are the kernels JSON and {"ok": true, ...}.
@@ -217,6 +250,8 @@ from repro_torch.kernels.gn_softmax import ops as sm_ops  # noqa: E402
 from repro_torch.kernels.gn_softmax import ref as sm_ref  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
+from repro_torch.models import moe as moe_mod  # noqa: E402
+from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.transformer import make_model  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, generate,  # noqa: E402
                                       perplexity, static_decoder, static_reference)
@@ -269,6 +304,22 @@ PREFIX_TIGHT = 5
 # watermark, in blocks (two arenas of backlog)
 SLA = {"n_requests": 48, "base_len": 256, "max_new_interactive": 16, "max_new_batch": 128}
 SLA_BLOCKS, SLA_SHED = 160, 320
+# phases 17-18: the MLA family at full depth and the MoE family cut to
+# MOE_LAYERS layers (memory: ~2.08e9 parameters a layer, f32 masters and
+# their bf16 copy resident at once); the 2-layer f32 identity runs on the
+# card and the CPU serve FAMILY_SMALL = (requests, shortest and longest
+# prompt, new tokens)
+MLA_ARCH, MOE_ARCH, MOE_LAYERS = "minicpm3-4b", "llama4-scout-17b-a16e", 4
+FAMILY_SMALL = (4, 32, 64, 8)
+# the deep MLA tick's lean checks: a window of FAMILY_WINDOW ticks from
+# FAMILY_START on (timed, traced; the sentinels' cost), past the last
+# capture of the fused ticks' buckets (tick 32 of phase 4's workload; a
+# traced MLA tick holds ~4k kernel records, each ~0.3 ms of the profiler's
+# host time), FAMILY_FAULTS faults in each chaos run; the MoE tick's
+# profiled window, MOE_WINDOW ticks
+FAMILY_START, FAMILY_WINDOW, FAMILY_FAULTS, MOE_WINDOW = 40, 4, 3, 16
+# the new widths of the norm: MLA's kv and q latents, the two d_models
+FAMILY_NORM_WIDTHS = (256, 768, 2560, 5120)
 # the training phases: TRAIN_BATCH sequences of TRAIN_SEQ tokens a step (one
 # batch of batch_at, repeated), TRAIN_MB microbatches, TRAIN_STEPS steps;
 # the Table I analogue trains TABLE1_STEPS steps
@@ -351,10 +402,11 @@ def record_counts(prof) -> dict:
     return {e.key: e.count for e in prof.key_averages() if str(e.device_type).endswith("CUDA")}
 
 
-def traced_rerun(label: str, rerun, want: dict) -> tuple:
+def traced_rerun(label: str, rerun, want) -> tuple:
     """``rerun()`` -> (result, its CUDA-only trace, seconds), a profiled
     rerun that checks its own result, with the GN kernels' device records in
-    its trace held against the launches the run executed (``want``): an
+    its trace held against the launches the run executed (``want``, or
+    ``want()`` read after each rerun when it is callable): an
     independent check of the counters, which a graph replay ticks by what
     its capture counted.  A record count above the launches fails at once.
     CUPTI reports the kernels of replayed graphs but loses records of some
@@ -366,8 +418,10 @@ def traced_rerun(label: str, rerun, want: dict) -> tuple:
     no trace holds.  That every captured kernel ran is shown exactly by the
     eager rerun (bitwise the graphed one) and the counters by the launch
     gates.  Returns (result, trace, seconds, records, traces taken)."""
+    wanted = want
     for attempt in range(1, TRACE_ATTEMPTS + 1):
         out, prof, seconds = rerun()
+        want = wanted() if callable(wanted) else wanted
         counts = record_counts(prof)
         got = dict.fromkeys(KERNEL_NAMES, 0)
         for key, n in counts.items():
@@ -424,12 +478,23 @@ def check_graphs(label: str, m: dict) -> None:
              f"{m['model_ticks']} ticks were not graph replays")
 
 
-def timed_run(engine, reqs) -> tuple[dict, float]:
-    """A reset and a run of ``reqs``: (request id -> new tokens, seconds)."""
+def timed_run(engine, reqs, marks: list | None = None) -> tuple[dict, float]:
+    """A reset and a run of ``reqs``: (request id -> new tokens, seconds).
+    With ``marks`` the run is stepped by hand and ``marks[i]`` gets the host
+    clock at which model tick i began (the last entry: the run's end)."""
     engine.reset()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    toks = {c.request_id: c.new_tokens for c in engine.run(reqs)}
+    if marks is None:
+        toks = {c.request_id: c.new_tokens for c in engine.run(reqs)}
+    else:
+        for req in reqs:
+            engine.submit(req)
+        marks.append(t0)
+        while engine.step():
+            if engine.model_ticks == len(marks):
+                marks.append(time.perf_counter())
+        toks = {c.request_id: c.new_tokens for c in engine.completions}
     torch.cuda.synchronize()
     return toks, time.perf_counter() - t0
 
@@ -599,19 +664,23 @@ def norm_cases(gen) -> tuple[list[dict], list[dict]]:
     norms += [norm_case(SLOTS * CHUNK, torch.float32, gen, subtract_mean=True),
               norm_case(rows[2], torch.bfloat16, gen, cols=7168)]
     fused = [fused_norm_case(n, torch.bfloat16, gen) for n in (rows[0], rows[2])]
+    # phases 17-18: MLA's kv and q latents (256, 768) and minicpm3-4b's and
+    # llama4-scout's d_model (2560, 5120) at a tick's rows
+    norms += [norm_case(rows[0], torch.bfloat16, gen, cols=w) for w in FAMILY_NORM_WIDTHS]
     return norms, fused
 
 
 def attn_inputs(c: int, dtype, gen, v_ones: bool = False, exact: bool = False,
-                max_bt: int = 66):
-    """N=8 sequences at serving widths (H16/Hkv8/D128, block 16): lengths up to
+                max_bt: int = 66, h: int = 16):
+    """N=8 sequences at serving widths (H16/Hkv8/D128, block 16; ``h`` 40 is
+    llama4-scout's 40 q heads over 8 kv heads, a group of 5): lengths up to
     ``max_bt`` blocks (66: 1056 tokens, phase 4's; LONG_BT: 8224, the long
     phases'), shuffled tables with stale ids past each length, one empty row.
     ``exact``: q and k in {-1, 0, 1}, q nonzero on 8 head dims only, under a
     scale of 1/8: every score is exact in f32 whatever the summation order,
     lies on the Δ grid and within one logit unit, so no score can flip a Δ
     rounding and every online correction is a fine Q1.15 factor."""
-    n, h, hkv, d, bs = SLOTS, 16, 8, 128, BLOCK
+    n, hkv, d, bs = SLOTS, 8, 128, BLOCK
     rng = np.random.default_rng(c)
     lengths = rng.integers(1, max_bt * bs + 1, size=n)
     lengths[3] = 0  # an empty sequence reads nothing
@@ -656,21 +725,21 @@ def attn_bound(args, lengths, n_valid, kv_item: int, scales: bool) -> tuple[floa
     return bound(nbytes, 4 * h * d * seen, q.dtype)
 
 
-def attn_case(c: int, dtype, gen, max_bt: int = 66) -> dict:
+def attn_case(c: int, dtype, gen, max_bt: int = 66, h: int = 16) -> dict:
     rel = 0.0 if dtype == torch.float32 else BF16_REL
-    args, lengths, n_valid = attn_inputs(c, dtype, gen, max_bt=max_bt)
+    args, lengths, n_valid = attn_inputs(c, dtype, gen, max_bt=max_bt, h=h)
     lane = torch.as_tensor(np.arange(c)[None, :] < n_valid[:, None]).to(DEV)
     got = attn_ops.gn_paged_attention_chunk(*args)
     check = compare(got[lane], attn_ref.gn_paged_attention_chunk_ref(*args)[lane],
                     ATTN_ATOL_F32, rel)
     # scores exact, on the Δ grid and one logit wide: no flip is possible,
     # so every row must agree to the Q1.15 rounding of the corrections alone
-    ex_args, _, _ = attn_inputs(c, dtype, gen, exact=True, max_bt=max_bt)
+    ex_args, _, _ = attn_inputs(c, dtype, gen, exact=True, max_bt=max_bt, h=h)
     exact = compare(attn_ops.gn_paged_attention_chunk(*ex_args, sm_scale=1 / 8)[lane],
                     attn_ref.gn_paged_attention_chunk_ref(*ex_args, sm_scale=1 / 8)[lane],
                     EXACT_ATOL, rel)
     # exact-ones: V = 1 turns each valid row into sum(p) = 1
-    ones_args, _, _ = attn_inputs(c, torch.float32, gen, v_ones=True, max_bt=max_bt)
+    ones_args, _, _ = attn_inputs(c, torch.float32, gen, v_ones=True, max_bt=max_bt, h=h)
     ones_err = (attn_ops.gn_paged_attention_chunk(*ones_args)[lane] - 1.0).abs().max().item()
     empty_read = got[3].abs().max().item()  # the empty sequence must read nothing
     poison = poisoned_rows(args, lane) if max_bt == 66 else {}
@@ -735,12 +804,12 @@ def quantize(arena):
     return q8.view(nb + 1, bs, hkv, d), scale
 
 
-def attn_int8_case(c: int, dtype, gen, max_bt: int = 66) -> dict:
+def attn_int8_case(c: int, dtype, gen, max_bt: int = 66, h: int = 16) -> dict:
     """The int8 mode against its plain version: random arenas quantized on
     the card; exact scores (k in {-1, 0, 1} stored at scale 1, q likewise,
     sm_scale 1/8); V = 1 stored at scale 1; the empty sequence."""
     rel = 0.0 if dtype == torch.float32 else BF16_REL
-    (q, k_fp, v_fp, *ints), lengths, n_valid = attn_inputs(c, dtype, gen, max_bt=max_bt)
+    (q, k_fp, v_fp, *ints), lengths, n_valid = attn_inputs(c, dtype, gen, max_bt=max_bt, h=h)
     lane = torch.as_tensor(np.arange(c)[None, :] < n_valid[:, None]).to(DEV)
     (k8, ks), (v8, vs) = quantize(k_fp), quantize(v_fp)
     del k_fp, v_fp
@@ -748,7 +817,7 @@ def attn_int8_case(c: int, dtype, gen, max_bt: int = 66) -> dict:
     got = attn_ops.gn_paged_attention_chunk(*args, scales=scales)
     check = compare(got[lane], attn_ref.gn_paged_attention_chunk_ref(*args, scales=scales)[lane],
                     ATTN_ATOL_F32, rel)
-    (eq, ek, ev, *eints), _, _ = attn_inputs(c, dtype, gen, exact=True, max_bt=max_bt)
+    (eq, ek, ev, *eints), _, _ = attn_inputs(c, dtype, gen, exact=True, max_bt=max_bt, h=h)
     ev8, evs = quantize(ev)
     ek8 = torch.cat([ek.to(torch.int8), torch.zeros_like(ek[:1], dtype=torch.int8)])
     ex_args, ex_scales = (eq, ek8, ev8, *eints), (torch.ones_like(evs), evs)
@@ -907,6 +976,14 @@ def softmax_cases(gen) -> list[dict]:
     out.append(softmax_case("ragged", x, masked))
     x, _ = softmax_rows(16, 92544, torch.float32, gen, scale=8.0)
     out.append(softmax_case("vocab", x, None))
+    # phase 18's router rows (a static prefill's 8192 tokens over 16
+    # experts) and phase 17's MLA score rows (a tick's N * 40 heads * C rows
+    # over its 1056-column horizon, causally masked per lane)
+    x, _ = softmax_rows(BATCH * PROMPT, 16, torch.float32, gen)
+    out.append(softmax_case("router", x, None, iters=50))
+    x, masked = softmax_rows(SLOTS * 40 * CHUNK, PROMPT + NEW, torch.float32, gen,
+                             visible=lambda r: PROMPT - CHUNK + r % CHUNK)
+    out.append(softmax_case("mla-tick", x, masked, iters=20))
     for frac_bits, delta_scale in ((0, 1.0), (3, 1.0), (4, 0.5)):
         x, masked = softmax_rows(4096, 200, torch.float32, gen, visible=lambda r: r % 200,
                                  scale=8.0)
@@ -1145,6 +1222,11 @@ def phase_kernels() -> dict:
     # the prefix cache's aliased tables (phase 15), after the main cases
     attns.append(alias_case(False, gen))
     attns_int8.append(alias_case(True, gen))
+    # phase 18: llama4-scout's group of 5 (40 q heads over 8 kv heads): 80 q
+    # rows a kv head at C = 16, past the tensor cores' 64 (the CUDA-core
+    # design), 5 at C = 1 (the tensor cores), fp and int8
+    attns += [attn_case(c, torch.bfloat16, gen, h=40) for c in (CHUNK, 1)]
+    attns_int8 += [attn_int8_case(c, torch.bfloat16, gen, h=40) for c in (CHUNK, 1)]
     results = norms + fused_norms + attns + attns_int8 + softmaxes + flashes
     for r in results:
         print(f"[kernels] {json.dumps(r)}")
@@ -1347,6 +1429,29 @@ def window_run(engine, reqs, start: int, ticks: int, trace: bool = False):
     return {c.request_id: c.new_tokens for c in engine.completions}, seconds, prof
 
 
+def timed_replay(label: str, engine, reqs, first: dict, want: dict,
+                 marks: list | None = None) -> tuple:
+    """After a continuous path's first run (which captured its graphs): the
+    capture contract, then a timed rerun (``timed_run``, ``marks``), every
+    tick a replay, its launch counters gated as ``want`` (the first run's),
+    its tokens as ``first``, and no capture more.  Returns (the captures per
+    kind, the rerun's seconds, its ``metrics()``)."""
+    m = engine.metrics()
+    check_graphs(label, m)
+    captures = (m["fused_step_compilations"], m["decode_compilations"])
+    counters.reset()
+    again, steady_s = timed_run(engine, reqs, marks)
+    if counters.launch_counts() != want:
+        fail(f"{label}: replayed launches {counters.launch_counts()} != {want}")
+    if any(not np.array_equal(first[i], again[i]) for i in first):
+        fail(f"{label}: reset + rerun gave different tokens")
+    m = engine.metrics()
+    check_graphs(label, m)
+    if (m["fused_step_compilations"], m["decode_compilations"]) != captures:
+        fail(f"{label}: the rerun captured again: {captures} -> {m}")
+    return captures, steady_s, m
+
+
 def continuous_replays(label: str, engine, reqs, first: dict, want: dict, eager: bool = True,
                        window: int | None = None) -> dict:
     """After a continuous path's first run (which captured its graphs): the
@@ -1357,19 +1462,7 @@ def continuous_replays(label: str, engine, reqs, first: dict, want: dict, eager:
     of the run, its busy share taken against the same ticks of an untraced
     rerun; then (``eager``) the eager tick on the same workload, bitwise
     against the graphed one."""
-    m = engine.metrics()
-    check_graphs(label, m)
-    captures = (m["fused_step_compilations"], m["decode_compilations"])
-    counters.reset()
-    again, steady_s = timed_run(engine, reqs)
-    if counters.launch_counts() != want:
-        fail(f"{label}: replayed launches {counters.launch_counts()} != {want}")
-    if any(not np.array_equal(first[i], again[i]) for i in first):
-        fail(f"{label}: reset + rerun gave different tokens")
-    m = engine.metrics()
-    check_graphs(label, m)
-    if (m["fused_step_compilations"], m["decode_compilations"]) != captures:
-        fail(f"{label}: the rerun captured again: {captures} -> {m}")
+    captures, steady_s, m = timed_replay(label, engine, reqs, first, want)
     steady_tick_ms = [dt * 1e3 for _, _, dt in engine.tick_log]
     state = engine_state(engine)
     ticks = m["model_ticks"]
@@ -1427,18 +1520,56 @@ def continuous_replays(label: str, engine, reqs, first: dict, want: dict, eager:
 
 
 def continuous_want(layers: int, ticks: int, int8: bool, read_path: str = "kernel",
-                    sentinels: bool = True) -> dict:
-    """The launches of ``ticks`` paged ticks: 24 paged reads (fp or int8
-    mode; with the streamed or gathered read 24 softmaxes instead), 49 norms
-    (with the sentinels 50: the head's σ probe) and 47 of them fused, a
-    tick."""
+                    sentinels: bool = True, mla: bool = False, moe: bool = False) -> dict:
+    """The launches of ``ticks`` paged ticks: a paged read a layer (fp or
+    int8 mode; with the streamed or gathered read a softmax instead), 2L + 1
+    norms (with the sentinels one more: the head's σ probe) and 2L - 1 of
+    them fused, a tick.  MLA reads through the streamed read and norms its
+    two latents (2L more norms); MoE adds a router softmax a layer."""
     read = layers * ticks
     kernel = read_path == "kernel"
-    return {"gn_rmsnorm": (2 * layers + 1 + sentinels) * ticks,
+    return {"gn_rmsnorm": (2 * layers + 1 + sentinels + 2 * layers * mla) * ticks,
             "gn_rmsnorm_fused": (2 * layers - 1) * ticks,
             "gn_paged_attention": read if kernel and not int8 else 0,
             "gn_paged_attention_int8": read if kernel and int8 else 0,
-            "gn_softmax": 0 if kernel else read, "gn_attention": 0}
+            "gn_softmax": (0 if kernel else read) + read * moe, "gn_attention": 0}
+
+
+def want_for(engine, ticks: int, passes=()) -> dict:
+    """``continuous_want`` for ``engine``'s model, pool, read and sentinels,
+    plus the static passes of its int8 -> fp fallbacks (``passes``, from
+    ``fallback_passes``; ``static_want``)."""
+    cfg = engine.model.cfg
+    want = continuous_want(cfg.n_layers, ticks, engine.pool.kv_dtype == "int8",
+                           engine.read_path, engine.sentinels, mla=cfg.mla is not None,
+                           moe=cfg.moe is not None)
+    for n in passes:
+        want = {k: v + static_want(cfg, n)[k] for k, v in want.items()}
+    return want
+
+
+class fallback_passes:
+    """Within the block, the static passes of each of ``engine``'s int8 ->
+    fp fallbacks (its ``generate``: a prefill and a decode step a remaining
+    token; none when nothing remains), listed as they happen."""
+
+    def __init__(self, engine):
+        self.engine, self.passes = engine, []
+
+    def __enter__(self) -> list:
+        engine, self.saved = self.engine, self.engine._int8_fallback
+
+        def counted(slot):
+            st = engine._slots[slot]
+            remaining = st.req.max_new_tokens - len(st.generated)
+            self.passes.append(remaining + 1 if remaining > 0 else 0)
+            self.saved(slot)
+
+        engine._int8_fallback = counted
+        return self.passes
+
+    def __exit__(self, *exc):
+        self.engine._int8_fallback = self.saved
 
 
 def phase_serve() -> dict:
@@ -1600,22 +1731,28 @@ def phase_static() -> dict:
 
 
 # ------------------------------------------------------------------ phase 6 --
-def first_run(label: str, engine, reqs) -> tuple[dict, dict, float]:
+def first_run(label: str, engine, reqs,
+              fallbacks_ok: bool = False) -> tuple[dict, dict, float]:
     """A continuous path's first run, its graphs captured on the way, the
     launch counters set to 0 just before it and read just after: the exact
     launches of its ticks (for the engine's KV dtype and paged read), no
     plain version on a CUDA tensor, every request done with its budget,
-    every block back, finite held logits.  Returns (request id -> new
-    tokens, the launches, seconds)."""
+    every block back, finite held logits.  A request the int8 clip
+    watchdog moves to the fp static path fails the run unless
+    ``fallbacks_ok``; then that ``generate``'s launches are counted in
+    (``static_want``: a prefill and a decode step a remaining token).
+    Returns (request id -> new tokens, the launches, seconds)."""
     torch.cuda.synchronize()
     counters.reset()
     t0 = time.perf_counter()
-    comps = engine.run(reqs)
+    with fallback_passes(engine) as passes:
+        comps = engine.run(reqs)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
-    want = continuous_want(engine.model.cfg.n_layers, engine.metrics()["model_ticks"],
-                           engine.pool.kv_dtype == "int8", engine.read_path, engine.sentinels)
+    if passes and not fallbacks_ok:
+        fail(f"{label}: {len(passes)} requests fell back from int8 to the fp static path")
+    want = want_for(engine, engine.metrics()["model_ticks"], passes)
     if launches != want:
         fail(f"{label}: serving launches {launches} != {want}")
     if any(plain.values()):
@@ -1860,14 +1997,16 @@ def sampler_check(vocab: int) -> dict:
 
 
 def chaos_run(label: str, engine, reqs, kinds: tuple, clean: dict, leaves=None,
-              gated: bool = True) -> dict:
+              gated: bool = True, faults: int = CHAOS_FAULTS,
+              fallbacks_ok: bool = False) -> dict:
     """A reset run of ``reqs`` with a fault injected every CHAOS_EVERY model
-    ticks (CHAOS_FAULTS in all, ``kinds`` in turn), the ledger checked after
+    ticks (``faults`` in all, ``kinds`` in turn), the ledger checked after
     every tick.  Gated: every fault flagged within one tick of its
     injection, every poisoned block quarantined, launches exact, every tick
-    a replay, nothing plain on the card, the run drained.  Reported: each
-    fault's detection latency (None: missed), and the requests whose tokens
-    equal the fault-free run's ``clean``."""
+    a replay, nothing plain on the card, the run drained (with no int8 ->
+    fp fallback unless ``fallbacks_ok``: their static launches are then
+    counted in).  Reported: each fault's detection latency (None: missed),
+    and the requests whose tokens equal the fault-free run's ``clean``."""
     engine.reset()
     inj = FaultInjector(engine, seed=SEED, leaves=leaves)
     for req in reqs:
@@ -1876,13 +2015,14 @@ def chaos_run(label: str, engine, reqs, kinds: tuple, clean: dict, leaves=None,
     counters.reset()
     records = []
     t0 = time.perf_counter()
-    while engine.step():
-        engine.pool.check_ledger()
-        if (len(records) < CHAOS_FAULTS
-                and engine.model_ticks >= CHAOS_EVERY * (len(records) + 1)):
-            rec = inj.inject(kinds[len(records) % len(kinds)])
-            if rec is not None:
-                records.append(rec)
+    with fallback_passes(engine) as passes:
+        while engine.step():
+            engine.pool.check_ledger()
+            if (len(records) < faults
+                    and engine.model_ticks >= CHAOS_EVERY * (len(records) + 1)):
+                rec = inj.inject(kinds[len(records) % len(kinds)])
+                if rec is not None:
+                    records.append(rec)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     m = engine.metrics()
@@ -1904,12 +2044,11 @@ def chaos_run(label: str, engine, reqs, kinds: tuple, clean: dict, leaves=None,
     print(f"[{label}] {json.dumps(res)}")
     if not gated:
         return res
-    want = continuous_want(engine.model.cfg.n_layers, m["model_ticks"],
-                           engine.pool.kv_dtype == "int8")
+    want = want_for(engine, m["model_ticks"], passes)
     missed = [f for f, lat in zip(res["faults"], latency) if lat is None or lat > 1]
     unquarantined = [r.block for r in records
                      if r.kind != "table" and r.block not in engine.pool.quarantined]
-    if len(records) < CHAOS_FAULTS or missed or unquarantined:
+    if len(records) < faults or missed or unquarantined:
         fail(f"{label}: {len(records)} faults, not flagged within a tick: {missed}, poisoned "
              f"blocks not quarantined: {unquarantined}")
     if counters.launch_counts() != want or any(counters.plain_cuda_calls().values()):
@@ -1917,7 +2056,8 @@ def chaos_run(label: str, engine, reqs, kinds: tuple, clean: dict, leaves=None,
              f"{counters.plain_cuda_calls()}")
     if m["transfer_guarded_ticks"] != m["model_ticks"]:
         fail(f"{label}: {m['model_ticks'] - m['transfer_guarded_ticks']} ticks not replayed")
-    if len(reasons) != len(reqs) or engine.pool.blocks_in_use or m["fallbacks"]:
+    if (len(reasons) != len(reqs) or engine.pool.blocks_in_use
+            or (m["fallbacks"] and not fallbacks_ok)):
         fail(f"{label}: not drained: {len(reasons)} of {len(reqs)} done, "
              f"{engine.pool.blocks_in_use} blocks held, {m['fallbacks']} fallbacks")
     return res
@@ -2355,8 +2495,7 @@ def served_run(label: str, engine, reqs) -> dict:
     seconds = time.perf_counter() - t0
     launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
     m = engine.metrics()
-    want = continuous_want(engine.model.cfg.n_layers, m["model_ticks"],
-                           engine.pool.kv_dtype == "int8", engine.read_path, engine.sentinels)
+    want = want_for(engine, m["model_ticks"])
     if launches != want:
         fail(f"{label}: serving launches {launches} != {want}")
     if any(plain.values()):
@@ -2656,6 +2795,472 @@ def phase_sla() -> dict:
     return {"runs": res, "launches": total, "small_f32_identical": identity}
 
 
+# ------------------------------------------------------------ phases 17-18 --
+def static_want(cfg, passes: int, flash: bool = False) -> dict:
+    """The launches of ``passes`` static passes (a prefill or a decode step
+    each; a forward with ``flash``): 2L + 1 norms (MLA: 2L more, its
+    latents), 2L - 1 of them fused; a softmax a layer for the one-pass
+    attention (the flash kernel instead with ``flash``), and one more a
+    layer for the MoE router."""
+    L, mla, moe = cfg.n_layers, cfg.mla is not None, cfg.moe is not None
+    return {"gn_rmsnorm": (2 * L + 1 + 2 * L * mla) * passes,
+            "gn_rmsnorm_fused": (2 * L - 1) * passes, "gn_paged_attention": 0,
+            "gn_paged_attention_int8": 0,
+            "gn_softmax": (L * (not flash) + L * moe) * passes,
+            "gn_attention": L * passes if flash else 0}
+
+
+def family_static(label: str, model, params) -> dict:
+    """``generate`` over BATCH x PROMPT tokens with NEW new ones (its decode
+    step a graph replay), then the teacher-forced ``perplexity`` of the
+    outputs' last PROMPT tokens; the launch counters set to 0 before each
+    and read after, both exact; finite outputs."""
+    data = DataConfig(vocab=model.cfg.vocab, seq_len=PROMPT, global_batch=BATCH, seed=SEED)
+    prompts = torch.as_tensor(batch_at(data, 0)["tokens"]).to(DEV)
+    counters.reset()
+    out, gen_ms = timed(lambda: generate(model, params, {"tokens": prompts},
+                                         ServeConfig(max_new_tokens=NEW)))
+    launches = counters.launch_counts()
+    want = static_want(model.cfg, NEW + 1)
+    again, steady_ms = timed(lambda: generate(model, params, {"tokens": prompts},
+                                              ServeConfig(max_new_tokens=NEW)))
+    # the last PROMPT tokens of each output (the 32 new ones among them):
+    # BATCH * PROMPT tokens split into whole MoE groups of 2048
+    scored = {"tokens": out[:, -PROMPT:].contiguous()}
+    counters.reset()
+    ppl, ppl_ms = timed(lambda: perplexity(model, params, scored))
+    ppl_launches = counters.launch_counts()
+    ppl_want = static_want(model.cfg, 1, flash=model.cfg.mla is None)
+    if launches != want or ppl_launches != ppl_want:
+        fail(f"{label}: static launches {launches} != {want}, or perplexity's "
+             f"{ppl_launches} != {ppl_want}")
+    if any(counters.plain_cuda_calls().values()):
+        fail(f"{label}: plain versions on CUDA tensors: {counters.plain_cuda_calls()}")
+    if not torch.equal(again, out) or not math.isfinite(ppl):
+        fail(f"{label}: generate's rerun differs, or perplexity {ppl}")
+    res = {"batch": BATCH, "prompt": PROMPT, "new_tokens": NEW, "generate_ms": gen_ms,
+           "steady_generate_ms": steady_ms,
+           "steady_tokens_per_s": BATCH * NEW / (steady_ms / 1e3), "perplexity": ppl,
+           "perplexity_ms": ppl_ms, "launches": launches, "perplexity_launches": ppl_launches}
+    print(f"[{label}-static] {json.dumps(res)}")
+    return {**res, "launches": {k: launches[k] + ppl_launches[k] for k in launches}}
+
+
+def small_identity(label: str, arch: str) -> dict:
+    """The 2-layer f32 cut of ``arch`` (full widths) on FAMILY_SMALL's
+    workload: the card's engine tokens equal the static oracle's on the card
+    (MLA) and the port's CPU engine's on the same weights (both on the
+    streamed read, the MoE's dead lanes read alike there); gated."""
+    small = make_model(dataclasses.replace(get_config(arch), n_layers=2, dtype="float32"))
+    master = small.init(SEED, DEV)
+    n, lo, hi, new = FAMILY_SMALL
+    reqs = seeded_requests(small.cfg.vocab, n, lo, hi, new, 1, SEED)
+    kw = {"num_slots": SLOTS, "max_seq": required_max_seq(reqs), "chunk": CHUNK,
+          "block_size": BLOCK}
+    clock = [time.perf_counter()]
+    with swapped("FORCE_PAGED_READ", "streamed"):
+        card = ContinuousEngine(small, master, device=DEV, **kw)
+        toks = {c.request_id: c.tokens for c in card.run(reqs)}
+        oracle = static_reference(small, card.params, reqs, ServeConfig())
+        del card
+        clock.append(time.perf_counter())
+        # into pinned host memory: a pageable copy of llama4-scout's 25 GB
+        # of f32 leaves ran at ~2.2 GB/s
+        cpu_master = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                    pin_memory=DEV != "cpu").copy_(t), master)
+        del master
+        torch.cuda.empty_cache()
+        clock.append(time.perf_counter())
+        cpu = ContinuousEngine(small, cpu_master, device="cpu", **kw)
+        cpu_toks = {c.request_id: c.tokens for c in cpu.run(reqs)}
+        clock.append(time.perf_counter())
+    same_oracle = sum(np.array_equal(t, oracle[i]) for i, t in toks.items())
+    same_cpu = sum(np.array_equal(t, cpu_toks[i]) for i, t in toks.items())
+    res = {"oracle_identical": f"{same_oracle}/{n}", "cpu_identical": f"{same_cpu}/{n}",
+           "seconds": dict(zip(("card", "to_cpu", "cpu"), np.diff(clock).tolist()))}
+    print(f"[{label}-2l-f32] {json.dumps(res)}")
+    if same_cpu != n or (small.cfg.moe is None and same_oracle != n):
+        fail(f"{label}: at 2 layers f32 the card's engine tokens part from the CPU's or the "
+             f"static oracle's: {res}")
+    return res
+
+
+def window_seconds(engine, reqs, start: int, ticks: int) -> float:
+    """A reset run of ``reqs`` stopped after model tick ``start + ticks``:
+    the host seconds of ticks [start, start + ticks)."""
+    engine.reset()
+    for req in reqs:
+        engine.submit(req)
+    while engine.model_ticks < start and engine.step():
+        pass
+
+    def window():
+        while engine.model_ticks < start + ticks and engine.step():
+            pass
+
+    return timed(window)[1] / 1e3
+
+
+class checked_graphs:
+    """Within the block, the first tick of each (step kind, bucket) that
+    ``skip(model tick)`` does not exclude runs twice from one device state:
+    the graph's replay, then (the state put back) the eager tick.  Their
+    outputs (tokens and health words), held logits, positions and real
+    arena blocks (int8 scales included) must be bitwise equal; the run goes
+    on from the eager tick's state.  ``keys`` lists the (kind, bucket)
+    checked, ``eager_ms`` the eager ticks' times and ``seconds`` the time
+    the checks added to the run."""
+
+    def __init__(self, label: str, engine, skip):
+        self.label, self.engine, self.skip = label, engine, skip
+        self.keys, self.eager_ms, self.seconds = [], [], 0.0
+
+    def state(self) -> dict:
+        engine, nb = self.engine, self.engine.pool.num_blocks
+        return {"last_logits": engine._last_logits.clone(), "pos": engine._pos_dev.clone(),
+                **{k: v[:, :nb].clone() for k, v in engine.pool.cache.items()}}
+
+    def restore(self, state: dict) -> None:
+        engine, nb = self.engine, self.engine.pool.num_blocks
+        engine._last_logits.copy_(state["last_logits"])
+        engine._pos_dev.copy_(state["pos"])
+        for k, v in engine.pool.cache.items():
+            v[:, :nb].copy_(state[k])
+
+    def __enter__(self):
+        engine, run = self.engine, self.engine._run_tick
+
+        def checked(kind: str, bucket: int):
+            key = (kind, bucket)
+            if key in self.keys or self.skip(engine.model_ticks):
+                return run(kind, bucket)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            before = self.state()
+            graphed = run(kind, bucket).clone()  # the graph's output buffer is static
+            after = self.state()
+            self.restore(before)
+            graphs, engine._graphs = engine._graphs, None
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            try:
+                eager = run(kind, bucket)
+            finally:
+                engine._graphs = graphs
+            torch.cuda.synchronize()
+            self.eager_ms.append((time.perf_counter() - t1) * 1e3)
+            now = self.state()
+            bad = [k for k in after if not torch.equal(after[k], now[k])]
+            if not torch.equal(eager, graphed) or bad:
+                fail(f"{self.label}: tick {engine.model_ticks} ({kind}, bucket {bucket}) eager "
+                     f"differs from its graph: output {torch.equal(eager, graphed)}, state {bad}")
+            self.keys.append(key)
+            self.seconds += time.perf_counter() - t0
+            return eager
+
+        engine._run_tick = checked
+        return self
+
+    def __exit__(self, *exc):
+        del self.engine._run_tick
+
+
+KERNEL_KINDS = (("gemm", ("nvjet", "gemm", "cutlass", "sm90_xmma")), ("gn", ("gn_",)),
+                ("index", ("index",)), ("cat", ("Cat",)), ("reduce", ("reduce",)),
+                ("elementwise", ("elementwise",)))
+
+
+def kernel_kinds(per_kernel: dict) -> dict:
+    """Device time per kind of kernel name, as shares of the busy time."""
+    busy, out = sum(per_kernel.values()), {}
+    for name, us in per_kernel.items():
+        kind = next((k for k, keys in KERNEL_KINDS if any(key in name for key in keys)), "other")
+        out[kind] = out.get(kind, 0.0) + us / busy
+    return dict(sorted(out.items(), key=lambda kv: -kv[1]))
+
+
+def family_replays(label: str, engine, reqs, first: dict, launches: dict) -> dict:
+    """Phase 4's checks at a lean cost for the deep MLA tick:
+    ``timed_replay`` (the host clock marked at every model tick); then one
+    more rerun in which the first tick of every captured graph runs
+    twice, graphed and eager, bitwise (``checked_graphs``), and ticks
+    [FAMILY_START, FAMILY_START + FAMILY_WINDOW) are traced, unchecked:
+    their busy share against the same ticks of the timed rerun, the GN
+    kernels' device records against the window's launches (gated as
+    ``want_for``, with the static passes of a fallback in the window).  The
+    rerun's tokens and final state must equal the timed rerun's, and every
+    captured graph must have been checked."""
+    marks = []
+    captures, steady_s, m = timed_replay(label, engine, reqs, first, launches, marks=marks)
+    state = engine_state(engine)
+    ticks = m["model_ticks"]
+    start, stop = FAMILY_START, FAMILY_START + FAMILY_WINDOW
+    if ticks < stop:
+        fail(f"{label}: {ticks} model ticks, fewer than the window's end {stop}")
+    base_s = marks[stop] - marks[start]
+    res = {"captures": {"fused": captures[0], "decode": captures[1]},
+           "capture_seconds": m["capture_seconds"], "steady_seconds": steady_s,
+           "steady_tokens_per_s": m["generated_tokens"] / steady_s,
+           "steady_mean_tick_ms": float(np.mean([dt * 1e3 for _, _, dt in engine.tick_log]))}
+    window = {}
+
+    def rerun():
+        engine.reset()
+        for req in reqs:
+            engine.submit(req)
+        with checked_graphs(label, engine, lambda t: start <= t < stop) as checks:
+            while engine.model_ticks < start and engine.step():
+                pass
+
+            def traced():
+                counters.reset()
+                with fallback_passes(engine) as passes:
+                    while engine.model_ticks < stop and engine.step():
+                        pass
+                window.update(launches=counters.launch_counts(), passes=passes)
+
+            _, prof, seconds = profiled(traced)
+            while engine.step():
+                pass
+        toks = {c.request_id: c.new_tokens for c in engine.completions}
+        if any(not np.array_equal(first[i], toks[i]) for i in first):
+            fail(f"{label}: the checked rerun gave different tokens")
+        window["checks"] = checks
+        return toks, prof, seconds
+
+    def want() -> dict:
+        expect = want_for(engine, FAMILY_WINDOW, window["passes"])
+        if window["launches"] != expect:
+            fail(f"{label}: the window's launches {window['launches']} != {expect}")
+        return {name: sum(expect[k] for k in keys) for name, keys in (
+            ("gn_paged_attention", ("gn_paged_attention", "gn_paged_attention_int8")),
+            ("gn_rmsnorm", ("gn_rmsnorm",)), ("gn_softmax", ("gn_softmax",)),
+            ("gn_attention", ("gn_attention",)))}
+
+    _, prof, _, records, traces = traced_rerun(label, rerun, want)
+    checks = window["checks"]
+    captured = ({("fused", b) for b in m["fused_buckets"]}
+                | {("decode", b) for b in m["decode_buckets"]})
+    bad = [k for k, v in state.items() if not torch.equal(v, engine_state(engine)[k])]
+    if set(checks.keys) != captured or bad:
+        fail(f"{label}: graphs checked against their eager tick {sorted(checks.keys)} != "
+             f"captured {sorted(captured)}, or the checked rerun's final {bad} differ")
+    per_kernel = _device_us(prof)
+    busy_s = sum(per_kernel.values()) / 1e6
+    top = sorted(per_kernel.items(), key=lambda kv: -kv[1])[:8]
+    kinds = kernel_kinds(per_kernel)
+    print(f"[{label}-profile] ticks {start}..{stop} of {ticks} traced: device busy "
+          f"{busy_s:.4f}s, {100 * busy_s / base_s:.1f}% of the timed rerun's {base_s:.4f}s "
+          f"over them; GN kernel records {json.dumps(records)} (trace {traces}); busy share "
+          f"by kind: {json.dumps(kinds)}; top kernels (s): "
+          + json.dumps({k[:60]: v / 1e6 for k, v in top}))
+    res.update(window_ticks=[start, stop], window_seconds=base_s,
+               window_mean_tick_ms=base_s / FAMILY_WINDOW * 1e3,
+               device_busy_seconds=busy_s, device_busy_share=busy_s / base_s,
+               kernel_records=records, busy_share_by_kind=kinds,
+               top_kernels_s={k[:60]: v / 1e6 for k, v in top},
+               window_fallbacks=len(window["passes"]),
+               eager_checked=[f"{k}:{b}" for k, b in checks.keys],
+               eager_mean_tick_ms=float(np.mean(checks.eager_ms)),
+               eager_check_seconds=checks.seconds)
+    return res
+
+
+def phase_mla(served: dict) -> dict:
+    """minicpm3-4b at full width and depth (module docstring, phase 17)."""
+    model = make_model(get_config(MLA_ARCH))
+    master = model.init(SEED, DEV)
+    reqs = seeded_requests(model.cfg.vocab, REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW, 1, SEED)
+    res, total = {}, dict.fromkeys(counters.WRAPPERS, 0)
+    params = None
+    stages = {}
+    for kv in ("fp", "int8"):
+        label = f"mla-{kv}"
+        t0 = time.perf_counter()
+        engine = guard_engine(model, master, reqs, kv_dtype=kv)
+        if engine.read_path != "streamed":
+            fail(f"{label}: the MLA tick reads through {engine.read_path!r}, not 'streamed'")
+        # int8 MLA clips: a request whose latent writes saturate past the
+        # watchdog's share finishes on the fp static path
+        first, launches, seconds = first_run(label, engine, reqs, fallbacks_ok=kv == "int8")
+        stats = serve_stats(engine, seconds)
+        fallbacks = engine.metrics()["fallbacks"]
+        replays = family_replays(label, engine, reqs, first, launches)
+        total = {k: total[k] + launches[k] for k in total}
+        per_token = engine.pool.hbm_bytes() / (engine.pool.num_blocks * BLOCK)
+        stages[kv] = time.perf_counter() - t0
+        # an injected fault over this pool, flagged within a tick and
+        # contained, over the workload's first SLOTS requests
+        t0 = time.perf_counter()
+        chaos = chaos_run(f"{label}-chaos", engine, reqs[:SLOTS],
+                          ("nan_tile",) if kv == "fp" else ("scale",),
+                          {r.id: first[r.id] for r in reqs[:SLOTS]},
+                          faults=FAMILY_FAULTS, fallbacks_ok=kv == "int8")
+        stages[f"{kv}-chaos"] = time.perf_counter() - t0
+        res[kv] = {**stats, "launches": launches, "fallbacks": fallbacks, **replays,
+                   "kv_hbm_bytes": engine.pool.hbm_bytes(),
+                   "kv_bytes_per_token": per_token,
+                   "kv_bytes_per_token_layer": per_token / model.cfg.n_layers,
+                   "chaos_latency_ticks": chaos["latency_ticks"]}
+        print(f"[{label}] {json.dumps(res[kv])}")
+        if kv == "fp":
+            params = engine.params
+            # the sentinels' cost a tick: the window's ticks with them off
+            # (on its first run: every graph of the window's bucket was
+            # captured before it) against the timed rerun's with them on
+            t0 = time.perf_counter()
+            off = guard_engine(model, master, reqs, sentinels=False)
+            ticks = {"on": replays["window_mean_tick_ms"],
+                     "off": window_seconds(off, reqs, FAMILY_START, FAMILY_WINDOW)
+                     / FAMILY_WINDOW * 1e3}
+            res["probe_ms_per_tick"] = ticks["on"] - ticks["off"]
+            res["probe_window_tick_ms"] = ticks
+            del off
+            stages["probe"] = time.perf_counter() - t0
+        del engine
+        torch.cuda.empty_cache()
+    internlm_per_token = served["kv_hbm_bytes"] / (served["num_blocks"] * BLOCK)
+    res["internlm2_kv_bytes_per_token"] = internlm_per_token
+    # the prefix cache over phase 15's chat workload
+    t0 = time.perf_counter()
+    chat = shared_prefix_requests(model.cfg, **PREFIX)
+    engine = ContinuousEngine(model, master, num_slots=SLOTS, max_seq=required_max_seq(chat),
+                              chunk=CHUNK, block_size=BLOCK, prefix_cache=True, device=DEV)
+    forks = checked_forks(engine.pool)
+    run = served_run("mla-prefix", engine, chat)
+    m = engine.metrics()
+    check_graphs("mla-prefix", m)
+    if not all(forks) or len(forks) != m["prefix_forks"] or not m["prefix_hit_requests"]:
+        fail(f"mla-prefix: {forks.count(False)} of {len(forks)} forks not bitwise, "
+             f"{m['prefix_hit_requests']} hits")
+    total = {k: total[k] + run["launches"][k] for k in total}
+    res["prefix"] = {"tokens_per_s": run["tokens_per_s"], "mean_tick_ms": run["tick_ms"],
+                     "model_ticks": run["model_ticks"], "ttft": ttft(run),
+                     **{k: m[k] for k in ("prefix_hit_rate", "prefix_hit_requests",
+                                          "prefix_forks")}}
+    print(f"[mla-prefix] {json.dumps(res['prefix'])}")
+    del engine, master
+    torch.cuda.empty_cache()
+    stages["prefix"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    static = family_static("mla", model, params)
+    total = {k: total[k] + static["launches"][k] for k in total}
+    del params
+    model.__dict__.pop("_static_decoders", None)
+    torch.cuda.empty_cache()
+    res["static"] = {k: static[k] for k in ("steady_tokens_per_s", "steady_generate_ms",
+                                            "perplexity", "perplexity_ms")}
+    stages["static"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["small_f32"] = small_identity("mla", MLA_ARCH)
+    stages["small_f32"] = time.perf_counter() - t0
+    res["stage_seconds"] = stages
+    keys = ("probe_ms_per_tick", "internlm2_kv_bytes_per_token", "static", "small_f32",
+            "stage_seconds")
+    print(f"[mla] {json.dumps({k: res[k] for k in keys})}")
+    return {**res, "launches": total}
+
+
+def cast_matmul_leaves(model, master: dict) -> dict:
+    """``master`` with its matmul leaves cast to the activation dtype in
+    place, one leaf at a time (each f32 leaf freed as its copy replaces it):
+    ``prepare`` then casts nothing, and its tree is the one an f32 master
+    gives.  The f32 masters of llama4-scout's 4 layers (~42 GB) and their
+    bf16 copy do not fit beside a pool on one card at once."""
+    dt = getattr(torch, model.cfg.dtype)
+
+    def cast(tree):
+        for key, leaf in tree.items():
+            if isinstance(leaf, dict):
+                cast(leaf)
+            elif key in transformer_mod._MATMUL_LEAVES:
+                tree[key] = leaf.to(dt)
+
+    cast(master)
+    return master
+
+
+class routing_log:
+    """Within the block, every MoE layer's call records the tick kind (C:
+    16 fused, 1 decode), its kept choices' share and the tokens kept per
+    expert (the routing computed again beside the layer's own; read after
+    the run, so the layer's work is unchanged)."""
+
+    def __enter__(self):
+        self.saved, self.calls = moe_mod.apply_moe, []
+
+        def logged(cfg, p, x):
+            out = self.saved(cfg, p, x)
+            r = moe_mod.route(cfg, p, x)
+            self.calls.append((x.shape[1], r["keep"].float().mean(),
+                               (r["onehot"] * r["keep"][..., None]).sum(dim=(0, 1, 2))))
+            return out
+
+        moe_mod.apply_moe = logged
+        return self
+
+    def __exit__(self, *exc):
+        moe_mod.apply_moe = self.saved
+
+    def summary(self) -> dict:
+        out = {}
+        for c, kind in ((CHUNK, "fused"), (1, "decode")):
+            calls = [(k, e) for cc, k, e in self.calls if cc == c]
+            if calls:
+                load = torch.stack([e for _, e in calls]).sum(0).float()
+                out[kind] = {"layer_calls": len(calls),
+                             "dropped_frac": 1.0 - float(torch.stack([k for k, _ in calls]).mean()),
+                             "expert_load": (load / load.sum()).tolist()}
+        return out
+
+
+def phase_moe(kern: dict) -> dict:
+    """llama4-scout-17b-a16e at full width cut to MOE_LAYERS layers (module
+    docstring, phase 18)."""
+    t0, stages = time.perf_counter(), {}
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS)
+    model = make_model(cfg)
+    master = cast_matmul_leaves(model, model.init(SEED, DEV))
+    reqs = seeded_requests(cfg.vocab, REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW, 1, SEED)
+    engine = guard_engine(model, master, reqs)
+    del master
+    if engine.read_path != "kernel":
+        fail(f"moe: the tick reads through {engine.read_path!r}, not the kernel")
+    first, launches, seconds = first_run("moe", engine, reqs)
+    stats = serve_stats(engine, seconds)
+    with routing_log() as log:  # the eager rerun (last) runs the layers' Python
+        replays = continuous_replays("moe", engine, reqs, first, launches, window=MOE_WINDOW)
+    routing = log.summary()
+    reads = {f"C={r['shape']['C']} {r['name']}": {k: r[k] for k in ("design", "ms", "bound_ms",
+                                                                     "plain_ms")}
+             for r in kern["gn_paged_attention"] + kern["gn_paged_attention_int8"]
+             if r["shape"].get("H") == 40 and "case" not in r}
+    res = {**stats, "launches": launches,
+           **{k: replays[k] for k in ("steady_tokens_per_s", "steady_mean_tick_ms",
+                                      "device_busy_share", "eager_mean_tick_ms", "captures")},
+           "routing": routing, "paged_read_group5": reads}
+    print(f"[moe] {json.dumps(res)}")
+    params = engine.params
+    del engine
+    torch.cuda.empty_cache()
+    stages["continuous"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    static = family_static("moe", model, params)
+    del params
+    model.__dict__.pop("_static_decoders", None)
+    torch.cuda.empty_cache()
+    res["static"] = {k: static[k] for k in ("steady_tokens_per_s", "steady_generate_ms",
+                                            "perplexity", "perplexity_ms")}
+    stages["static"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["small_f32"] = small_identity("moe", MOE_ARCH)
+    stages["small_f32"] = time.perf_counter() - t0
+    res["stage_seconds"] = stages
+    print(f"[moe-stages] {json.dumps(stages)}")
+    total = {k: launches[k] + static["launches"][k] for k in launches}
+    return {**res, "launches": total}
+
+
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "gn_rmsnorm": ("src/repro_torch/csrc/gn_layernorm.cu",
                    "src/repro/kernels/gn_layernorm/kernel.py:81"),
@@ -2710,12 +3315,15 @@ def main() -> int:
         shutil.rmtree(root, ignore_errors=True)
     prefix = phase("prefix", phase_prefix)
     sla = phase("sla", phase_sla)
+    mla = phase("mla", phase_mla, served)
+    moe = phase("moe", phase_moe, kern)
     by_path = {"continuous": served["launches"], "static": static["launches"],
                "int8": int8["launches"], "long_static": long_static["launches"],
                "long_continuous": long_cont["launches"], "reads": reads["launches"],
                "sampled": guard["launches"], "train": train["launches"],
                "table1": table1["launches"], "tables": tables["launches"],
-               "prefix": prefix["launches"], "sla": sla["launches"]}
+               "prefix": prefix["launches"], "sla": sla["launches"], "mla": mla["launches"],
+               "moe": moe["launches"]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         # the main path's shape: bf16 tick (fp or int8 KV; the norms' 128

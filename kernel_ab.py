@@ -58,6 +58,12 @@ capture its graphs, where ROOT's engine replays them) and once under a
 CUDA-only profiler: one JSON line a turn with the mean tick ms, the device
 busy seconds and the paged read's device seconds (read and merge).
 
+    python3 kernel_ab.py --mla PARENT_ROOT . . PARENT_ROOT
+
+serves the same workload through full-width minicpm3-4b (62 layers, random
+weights from seed 0) over the fp latent pool, each root in a process of its
+own: one JSON line a root, as ``--serve``'s continuous lines.
+
     python3 kernel_ab.py --serve PARENT_ROOT . . PARENT_ROOT
 
 serves phase 4's workload (above) over the fp pool and over the int8 pool
@@ -372,7 +378,8 @@ def ticks(root: str) -> list[dict]:
     return out
 
 
-def serve(root: str) -> list[dict]:
+def serve(root: str, arch: str = "internlm2-1.8b", kvs: tuple = ("fp", "int8"),
+          static: bool = True) -> list[dict]:
     sys.path.insert(0, str(Path(root).resolve() / "src"))
     import time
 
@@ -395,11 +402,11 @@ def serve(root: str) -> list[dict]:
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    model = make_model(get_config("internlm2-1.8b"))
+    model = make_model(get_config(arch))
     master = model.init(0, "cuda")
     reqs = seeded_requests(model.cfg.vocab, 16, 32, 1024, 32, 1, 0)
     out = []
-    for kv in ("fp", "int8"):
+    for kv in kvs:
         engine = eng.ContinuousEngine(model, master, num_slots=8, max_seq=required_max_seq(reqs),
                                       chunk=16, block_size=16, kv_dtype=kv, device="cuda")
         line = {"root": root, "path": f"continuous_{kv}", "cold_seconds": timed(
@@ -417,6 +424,8 @@ def serve(root: str) -> list[dict]:
         out.append(line)
         del engine
         torch.cuda.empty_cache()
+    if not static:
+        return out
     params = model.prepare(master, "cuda")
     del master
     tokens = torch.as_tensor(np.random.default_rng(0).integers(0, model.cfg.vocab, size=(8, 1024)),
@@ -445,7 +454,8 @@ def main(argv: list[str]) -> int:
         print(json.dumps(one(argv[1])))
         return 0
     modes = {"--ticks": ticks, "--norm-layouts": norm_layouts, "--forward": forward,
-             "--serve-one": serve}
+             "--serve-one": serve,
+             "--mla-one": lambda root: serve(root, "minicpm3-4b", ("fp",), static=False)}
     if len(argv) == 2 and argv[0] in modes:
         for line in modes[argv[0]](argv[1]):
             print(json.dumps(line))
@@ -454,8 +464,8 @@ def main(argv: list[str]) -> int:
         print(__doc__, file=sys.stderr)
         return 2
     mode = "--one"
-    if argv[0] == "--serve":
-        mode, argv = "--serve-one", argv[1:]
+    if argv[0] in ("--serve", "--mla"):
+        mode, argv = f"{argv[0]}-one", argv[1:]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[card] {card}")

@@ -1,4 +1,5 @@
-"""Architecture registry of the port: the dense configs it can serve.
+"""Architecture registry of the port: the configs it can serve (dense, the
+MLA latent-attention one and the top-k MoE one).
 
 Each entry is copied from ``repro/configs/registry.py``; ``reduce_config``
 is the reference's systematic shrink for CPU tests, copied as it is.
@@ -41,11 +42,29 @@ INTERNLM2_1_8B = register(ModelConfig(
     vocab=92544, norm_impl="gn_rms", rope_theta=1000000.0,
 ))
 
+MINICPM3_4B = register(ModelConfig(
+    name="minicpm3-4b", family="dense",
+    microbatches=8,
+    n_layers=62, d_model=2560, n_heads=40, n_kv_heads=40, d_ff=6400,
+    vocab=73448, norm_impl="gn_rms",
+    mla=MLAConfig(q_lora_rank=768, kv_lora_rank=256,
+                  qk_nope_head_dim=64, qk_rope_head_dim=32, v_head_dim=64),
+    head_dim=96,  # qk_nope + qk_rope
+))
+
 STABLELM_1_6B = register(ModelConfig(
     name="stablelm-1.6b", family="dense",
     microbatches=2,
     n_layers=24, d_model=2048, n_heads=32, n_kv_heads=32, d_ff=5632,
     vocab=100352, norm_impl="gn_ln",
+))
+
+LLAMA4_SCOUT = register(ModelConfig(
+    name="llama4-scout-17b-a16e", family="moe",
+    microbatches=8,
+    n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8, d_ff=8192,
+    vocab=202048, norm_impl="gn_rms", rope_theta=500000.0,
+    moe=MoEConfig(num_experts=16, top_k=1),
 ))
 
 GPT_NEO_1_3B = register(ModelConfig(

@@ -1,7 +1,10 @@
-"""Dense-family model (port of the dense paths of
+"""Decoder-only model (port of the dense, MLA and MoE paths of
 ``repro/models/transformer.py``).
 
-``Model(cfg)`` exposes:
+``Model(cfg)`` serves the dense full-attention family, its MLA mixer
+(``cfg.mla``, minicpm3-4b: ``models/mla.py``) and its top-k MoE MLP
+(``cfg.moe``, llama4-scout: ``models/moe.py``); every other family and
+sliding windows are refused.  It exposes:
   * ``param_specs()`` / ``init(seed, device)`` — the reference's parameter
     tree (stacked ``layers``), f32 masters, drawn from a ``torch.Generator``;
   * ``prepare(params, device)``                 — the tree the forward runs on:
@@ -11,10 +14,13 @@
     training step runs it on f32 masters that require grad (the
     reference's ``_cast_for_compute``) and the gradients reach them;
   * ``forward``                                 — teacher-forced logits over
-    every position, self-attention through the GN flash-attention kernel
-    (or the one-pass exact softmax); ``loss`` — the mean next-token NLL;
+    every position (with ``aux=True`` also the reference's MoE aux sums),
+    self-attention through the GN flash-attention kernel (or the one-pass
+    exact softmax; MLA one-pass); ``loss`` — the mean next-token NLL, plus
+    the reference's MoE terms;
   * ``cache_specs`` / ``init_cache`` / ``prefill`` / ``decode_step`` — the
-    static path over a dense slab cache (L, B, max_seq, KV, dh) per k and v,
+    static path over a slab cache per layer leaf (k and v (L, B, max_seq,
+    KV, dh), or MLA's latents c_kv and k_rope (L, B, max_seq, width)),
     written in place, its score rows through the GN softmax kernel; the
     decode step takes its position as a device tensor too, so one CUDA
     graph serves every step;
@@ -23,13 +29,13 @@
     per-block f32 scales, its read named by ``paged_read_path``, and with
     ``sentinel`` the GN sentinels' per-layer and head probes.
 
-Each layer runs norm -> attention -> norm -> MLP; the head runs one more
-norm and the LM projection.  Every norm that follows a residual add (ln2,
-and ln1 of every layer but the first) takes the add with it in one fused
-launch (``apply_add_norm``): a layer's MLP output is carried into the next
-layer's ln1, and the last one is added before the head.  Projections stay
-``torch.matmul``, as the reference leaves them to XLA outside any Pallas
-kernel.
+Each layer runs norm -> mixer -> norm -> MLP (or MoE); the head runs one
+more norm and the LM projection.  Every norm that follows a residual add
+(ln2, and ln1 of every layer but the first) takes the add with it in one
+fused launch (``apply_add_norm``): a layer's MLP output is carried into the
+next layer's ln1, and the last one is added before the head.  Projections
+stay ``torch.matmul``, as the reference leaves them to XLA outside any
+Pallas kernel.
 """
 from __future__ import annotations
 
@@ -38,6 +44,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
+from repro_torch.models import mla as mla_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
     apply_add_norm,
     apply_mlp,
@@ -50,9 +58,12 @@ from repro_torch.models.layers import (
     stack_specs,
 )
 
-# leaves the forward multiplies in the activation dtype; norms stay f32 and
-# the embedding table stays f32 (rows are gathered first, then cast)
-_MATMUL_LEAVES = {"wq", "wk", "wv", "wo", "wi", "wg", "w"}
+# leaves the forward multiplies in the activation dtype (the reference casts
+# each at its use: attention, MLA's latent projections, the MoE router and
+# experts); norms, MLA's latent gammas and the embedding table stay f32
+# (rows are gathered first, then cast)
+_MATMUL_LEAVES = {"wq", "wk", "wv", "wo", "wi", "wg", "w",
+                  "wq_a", "wq_b", "wkv_a", "wkv_b", "router"}
 
 
 def _tree_map(fn, tree, key=None):
@@ -63,16 +74,18 @@ def _tree_map(fn, tree, key=None):
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if (cfg.family != "dense" or cfg.mla is not None or cfg.moe is not None
+        if ((cfg.family, cfg.moe is None) not in (("dense", True), ("moe", False))
                 or cfg.sliding_window):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense full-attention family is ported")
+                f"{cfg.name}: only the dense full-attention family, with MLA or a top-k MoE "
+                f"MLP, is ported (family {cfg.family!r}, sliding_window {cfg.sliding_window})")
         self.cfg = cfg
 
     def param_specs(self) -> dict:
         cfg = self.cfg
-        block = {"ln1": norm_specs(cfg), "mixer": attn.attn_specs(cfg),
-                 "ln2": norm_specs(cfg), "mlp": mlp_specs(cfg)}
+        mixer = mla_mod.mla_specs(cfg) if cfg.mla is not None else attn.attn_specs(cfg)
+        block = {"ln1": norm_specs(cfg), "mixer": mixer, "ln2": norm_specs(cfg),
+                 "mlp": moe_mod.moe_specs(cfg) if cfg.moe is not None else mlp_specs(cfg)}
         return {
             "embed": embed_specs(cfg),
             "layers": stack_specs(block, cfg.n_layers),
@@ -113,42 +126,70 @@ class Model:
             return x, apply_norm(self.cfg, lp["ln1"], x)
         return apply_add_norm(self.cfg, lp["ln1"], x, pending)
 
-    def _mlp_residual(self, lp, x, y):
-        """Adds the attention output y to the residual stream x, then ln2 and
-        the MLP: (residual stream, MLP output still to be added)."""
+    def _mlp_residual(self, lp, x, y, aux=None):
+        """Adds the mixer output y to the residual stream x, then ln2 and the
+        MLP or MoE: (residual stream, its output still to be added).  A
+        list ``aux`` collects each MoE layer's aux dict."""
         x, h = apply_add_norm(self.cfg, lp["ln2"], x, y)
-        return x, apply_mlp(self.cfg, lp["mlp"], h)
+        if self.cfg.moe is None:
+            return x, apply_mlp(self.cfg, lp["mlp"], h)
+        y, layer_aux = moe_mod.apply_moe(self.cfg, lp["mlp"], h)
+        if aux is not None:
+            aux.append(layer_aux)
+        return x, y
 
     # --------------------------------------------------------- static path --
-    def forward(self, params, batch: dict):
-        """Teacher-forced logits (B, S, V) of batch["tokens"] (B, S).  The
-        reference also returns MoE aux losses, which the dense family lacks."""
+    def forward(self, params, batch: dict, aux: bool = False):
+        """Teacher-forced logits (B, S, V) of batch["tokens"] (B, S); with
+        ``aux`` the pair (logits, {"load_balance", "router_z"}), the MoE aux
+        losses summed over the layers (0-d f32, zero without MoE), as the
+        reference's ``forward`` returns them."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=x.device).expand(tokens.shape)
-        pending = None
+        pending, auxs = None, []
         for lp in params["layers"]:
             x, h = self._ln1(lp, x, pending)
-            x, pending = self._mlp_residual(
-                lp, x, attn.self_attention(cfg, lp["mixer"], h, positions))
-        return self._lm_head(params, x + pending)
+            if cfg.mla is not None:
+                y = mla_mod.mla_self_attention(cfg, lp["mixer"], h, positions)
+            else:
+                y = attn.self_attention(cfg, lp["mixer"], h, positions)
+            x, pending = self._mlp_residual(lp, x, y, auxs)
+        logits = self._lm_head(params, x + pending)
+        if not aux:
+            return logits
+        zero = torch.zeros((), dtype=torch.float32, device=x.device)
+        return logits, {key: sum((a[key] for a in auxs), zero)
+                        for key in ("load_balance", "router_z")}
 
     def loss(self, params, batch: dict):
-        """(mean next-token NLL, {"nll": it}) of batch["tokens"] (B, S): the
-        f32 log-softmax of the shifted logits, as the reference's dense
-        ``Model.loss`` (its MoE terms do not apply).  Differentiable through
-        ``prepare`` back to f32 masters."""
-        logits = self.forward(params, batch).float()[:, :-1]
+        """(loss, metrics) of batch["tokens"] (B, S): the mean next-token NLL
+        from the f32 log-softmax of the shifted logits, plus for MoE the
+        reference's 0.01 * load_balance / L + 1e-3 * router_z / L (its aux
+        then in the metrics), as the reference's ``Model.loss``.
+        Differentiable through ``prepare`` back to f32 masters."""
+        cfg = self.cfg
+        logits, aux = self.forward(params, batch, aux=True)
+        logits = logits.float()[:, :-1]
         targets = torch.as_tensor(batch["tokens"]).to(logits.device)[:, 1:].long()
         logp = torch.log_softmax(logits, dim=-1)
         loss = -logp.gather(-1, targets[..., None])[..., 0].mean()
-        return loss, {"nll": loss}
+        metrics = {"nll": loss}
+        if cfg.moe is not None:
+            loss = loss + 0.01 * aux["load_balance"] / cfg.n_layers
+            loss = loss + 1e-3 * aux["router_z"] / cfg.n_layers
+            metrics.update(aux)
+        return loss, metrics
 
     def cache_specs(self, batch: int, max_seq: int) -> dict:
         """The static path's slab cache, name -> (shape, dtype):
-        (L, B, max_seq, KV, dh) per k and v."""
-        per_layer = attn.attn_cache_shape(self.cfg, batch, max_seq)
+        (L, B, max_seq, KV, dh) per k and v, or for MLA (L, B, max_seq,
+        width) per latent c_kv and k_rope."""
+        if self.cfg.mla is not None:
+            per_layer = mla_mod.mla_cache_shape(self.cfg, batch, max_seq)
+        else:
+            per_layer = attn.attn_cache_shape(self.cfg, batch, max_seq)
         return {k: ((self.cfg.n_layers, *shape), dt) for k, (shape, dt) in per_layer.items()}
 
     def init_cache(self, batch: int, max_seq: int, device=None) -> dict:
@@ -176,12 +217,13 @@ class Model:
             for slab in cache.values():
                 slab.zero_()
         positions = torch.arange(s, device=x.device).expand(b, s)
+        prefill = mla_mod.mla_prefill if cfg.mla is not None else attn.attn_prefill
         pending = None
-        for lp, k_slab, v_slab in zip(params["layers"], cache["k"], cache["v"]):
+        for i, lp in enumerate(params["layers"]):
             x, h = self._ln1(lp, x, pending)
-            y, kv = attn.attn_prefill(cfg, lp["mixer"], h, positions)
-            k_slab[:, :s] = kv["k"]
-            v_slab[:, :s] = kv["v"]
+            y, kv = prefill(cfg, lp["mixer"], h, positions)
+            for name, new in kv.items():
+                cache[name][i, :, :s] = new
             x, pending = self._mlp_residual(lp, x, y)
         return self._lm_head(params, x + pending), cache
 
@@ -194,9 +236,10 @@ class Model:
         x, pending = self._embed(params, token), None
         if not isinstance(pos, torch.Tensor):
             pos = torch.full((), pos, dtype=torch.int32, device=x.device)
-        for lp, k_slab, v_slab in zip(params["layers"], cache["k"], cache["v"]):
+        step = mla_mod.mla_decode_step if cfg.mla is not None else attn.attn_decode_step
+        for i, lp in enumerate(params["layers"]):
             x, h = self._ln1(lp, x, pending)
-            y, _ = attn.attn_decode_step(cfg, lp["mixer"], {"k": k_slab, "v": v_slab}, h, pos)
+            y, _ = step(cfg, lp["mixer"], {name: slab[i] for name, slab in cache.items()}, h, pos)
             x, pending = self._mlp_residual(lp, x, y)
         return self._lm_head(params, x + pending), cache
 
@@ -206,27 +249,41 @@ class Model:
         """The paged read the serving tick takes: ``"kernel"`` (the GN
         paged-attention kernel), or the reference's ``"streamed"`` or
         ``"gathered"`` read when ``attention.FORCE_PAGED_READ`` forces one.
-        The engine fixes it at construction and reports it in ``metrics()``."""
+        The engine fixes it at construction and reports it in ``metrics()``.
+        MLA takes its own rule (``mla.mla_paged_read_path``: streamed, there
+        is no MLA kernel)."""
+        if self.cfg.mla is not None:
+            return mla_mod.mla_paged_read_path(self.cfg)
         return attn.paged_read_path(self.cfg)
+
+    @property
+    def _arena_rows(self) -> dict:
+        """The paged arenas' leaves, in the order the mixer takes them, each
+        with its row shape (one token's entry in a block)."""
+        cfg = self.cfg
+        if cfg.mla is not None:
+            return {"c_kv": (cfg.mla.kv_lora_rank,), "k_rope": (cfg.mla.qk_rope_head_dim,)}
+        return {"k": (cfg.n_kv_heads, cfg.head_dim), "v": (cfg.n_kv_heads, cfg.head_dim)}
 
     def init_paged_cache(self, num_blocks: int, block_size: int, device=None,
                          kv_dtype: str = "fp") -> dict:
-        """Block arenas "k", "v" (L, num_blocks + 1, block_size, KV, dh); the
-        extra block is the write sink of ``attention.paged_write_indices``.
-        ``kv_dtype="int8"`` stores the arenas in int8 and adds "k_scale" and
-        "v_scale" (L, num_blocks + 1) f32, zeroed: the per-block dequant
-        scales (the reference's ``<leaf>_scale`` leaves)."""
+        """Block arenas (L, num_blocks + 1, block_size, ...): "k", "v" with
+        (KV, dh) a row, or MLA's "c_kv" (kv_lora_rank) and "k_rope"
+        (qk_rope_head_dim); the extra block is the write sink of
+        ``attention.paged_write_indices``.  ``kv_dtype="int8"`` stores the
+        arenas in int8 and adds "<leaf>_scale" (L, num_blocks + 1) f32 a
+        leaf, zeroed: the per-block dequant scales (the reference's
+        ``<leaf>_scale`` leaves), block axis at 1 like the arenas."""
         if kv_dtype not in ("fp", "int8"):
             raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")
-        cfg = self.cfg
-        shape = (cfg.n_layers, num_blocks + 1, block_size, cfg.n_kv_heads, cfg.head_dim)
+        cfg, rows = self.cfg, self._arena_rows
+        lead = (cfg.n_layers, num_blocks + 1, block_size)
         dt = torch.int8 if kv_dtype == "int8" else getattr(torch, cfg.dtype)
         dev = resolve_device(device)
-        cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
-                 "v": torch.zeros(shape, dtype=dt, device=dev)}
+        cache = {k: torch.zeros(lead + row, dtype=dt, device=dev) for k, row in rows.items()}
         if kv_dtype == "int8":
-            for key in ("k_scale", "v_scale"):
-                cache[key] = torch.zeros(shape[:2], dtype=torch.float32, device=dev)
+            for key in rows:
+                cache[f"{key}_scale"] = torch.zeros(lead[:2], dtype=torch.float32, device=dev)
         return cache
 
     def fused_step_slots_paged(self, params, cache, tokens, positions, n_valid, tables,
@@ -242,13 +299,15 @@ class Model:
         final norm's σ residual (``_paged_head``)}, computed on the device."""
         cfg = self.cfg
         x, pending = self._embed(params, tokens), None
-        scales = (zip(cache["k_scale"], cache["v_scale"]) if "k_scale" in cache
-                  else [None] * cfg.n_layers)
+        a, b = self._arena_rows
+        chunk = mla_mod.mla_paged_chunk if cfg.mla is not None else attn.attn_paged_chunk
+        all_scales = (cache[f"{a}_scale"], cache[f"{b}_scale"]) if f"{a}_scale" in cache else None
+        scales = zip(*all_scales) if all_scales else [None] * cfg.n_layers
         probes = []
-        for lp, k_arena, v_arena, sc in zip(params["layers"], cache["k"], cache["v"], scales):
+        for lp, arena_a, arena_b, sc in zip(params["layers"], cache[a], cache[b], scales):
             x, h = self._ln1(lp, x, pending)
-            y = attn.attn_paged_chunk(cfg, lp["mixer"], k_arena, v_arena, h, positions, n_valid,
-                                      tables, sc, probe=sentinel)
+            y = chunk(cfg, lp["mixer"], arena_a, arena_b, h, positions, n_valid, tables, sc,
+                      probe=sentinel)
             if sentinel:
                 y, pr = y
                 probes.append(pr)
@@ -256,9 +315,8 @@ class Model:
         if not sentinel:
             return self._paged_head(params, x + pending, n_valid)
         logits, head = self._paged_head(params, x + pending, n_valid, probe=True)
-        words = attn.paged_probe_word(
-            probes, positions, n_valid, tables, cache["k"].shape[2],
-            (cache["k_scale"], cache["v_scale"]) if "k_scale" in cache else None)
+        words = attn.paged_probe_word(probes, positions, n_valid, tables, cache[a].shape[2],
+                                      all_scales)
         return logits, {"layers": words, "head": head}
 
     def _paged_head(self, params, x, n_valid, probe: bool = False):

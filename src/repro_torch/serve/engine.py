@@ -883,6 +883,9 @@ class ContinuousEngine:
             health = {"layers": words[:split].reshape(-1, n, 3), "head": words[split:]}
         self.pool.advance({s: takes.get(s, 1) for s in live})
         self.model_ticks += 1
+        # every decoding lane's token, as the reference counts them: a token
+        # the sentinel scan below discards is counted too
+        self.generated_tokens += len(decoders)
         self._active_steps += len(live)
         self._prefill_lane_steps += len(prefills)
         self.tick_log.append((len(prefills), len(decoders), time.perf_counter() - t0))
@@ -906,7 +909,6 @@ class ContinuousEngine:
                 continue
             tok = int(toks[s])
             st.generated.append(tok)
-            self.generated_tokens += 1
             if len(st.generated) == 1:
                 st.first_token_step, st.first_token_time = self.step_count, time.time()
             if st.req.stop_token is not None and tok == st.req.stop_token:

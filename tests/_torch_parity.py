@@ -5,6 +5,8 @@ fed to both engines, and a run's summary: greedy tokens, ``event_log``,
 ``request_prefix_hits``, completions, the ``metrics()`` keys both engines
 share, and the final block tables and refcounts.
 """
+import functools
+
 import jax
 import numpy as np
 
@@ -33,14 +35,26 @@ COMPLETION_KEYS = ("request_id", "finish_reason", "arrival_step", "admit_step",
                    "tpot_steps", "req_class", "preemptions")
 
 
-def dense():
-    """(JAX model, JAX params, the port's model, the port's master weights)."""
-    jcfg = jax_reduce_config(jax_get_config(ARCH), dtype="float32")
-    jmodel = jax_make_model(jcfg)
+# the architectures of the families the port serves: dense, MLA and MoE
+FAMILIES = {"dense": ARCH, "mla": "minicpm3-4b", "moe": "llama4-scout-17b-a16e"}
+
+
+@functools.cache
+def pair(arch: str = ARCH):
+    """(JAX model, JAX params, the port's model, the port's master weights)
+    of ``arch`` reduced at float32, built once a process (callers must not
+    write to the weights)."""
+    over = {"dtype": "float32"}
+    jmodel = jax_make_model(jax_reduce_config(jax_get_config(arch), **over))
     jparams = jmodel.init(jax.random.PRNGKey(0))
-    model = make_model(reduce_config(get_config(ARCH), dtype="float32"))
+    model = make_model(reduce_config(get_config(arch), **over))
     master = params_from_numpy(model, jax.tree.map(np.asarray, jparams), device="cpu")
     return jmodel, jparams, model, master
+
+
+def dense():
+    """``pair`` of reduced internlm2-1.8b."""
+    return pair(ARCH)
 
 
 def prompt(vocab, length, seed):

@@ -22,7 +22,11 @@ a nonfinite live score equal the plain version's (fp and int8 arenas).  The
 prefix cache and preemption on the card: a COW fork and a spill restore bit
 for bit (fp and int8, in place), the paged read over tables that share
 leading blocks and hold a forked tail against its plain version, and graphed
-ticks right after forks and restores bitwise the eager ones.
+ticks right after forks and restores bitwise the eager ones.  The MLA and
+MoE families: the paged read at llama4-scout's group of 5 in both designs
+(fp and int8), the norm at MLA's latent widths, the softmax on router
+rows, graphed MLA ticks bitwise the eager ones (fp and int8 latent arenas),
+and the MoE routing on the card equal to the CPU's.
 """
 import numpy as np
 import pytest
@@ -1045,3 +1049,121 @@ def test_graphed_ticks_after_forks_and_restores_equal_eager(cuda, kv_dtype):
         now = _engine_state(eager_eng)
         assert all(torch.equal(state[k], now[k]) for k in state)
         assert run("cpu")[1] == graphed
+
+
+# ------------------------------------------------ the MLA and MoE families --
+def _paged_group5(cuda, c, dtype, seed=5):
+    """llama4-scout's read: 40 q heads over 8 kv heads (a group of 5), head
+    dim 128, block 16; a parked lane and stale table entries."""
+    rng = np.random.default_rng(seed)
+    n, h, kv, d, bs, max_bt = 4, 40, 8, 128, 16, 10
+    lengths = rng.integers(1, max_bt * bs + 1, size=n)
+    lengths[2] = 0
+    n_valid = np.where(lengths > 0, np.minimum(rng.integers(1, c + 1, size=n), lengths), 0)
+    nb = n * max_bt
+    tables = rng.permutation(nb).reshape(n, max_bt)
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(n, c, h, d, generator=g, device=cuda).to(dtype)
+    k = torch.randn(nb, bs, kv, d, generator=g, device=cuda).to(dtype)
+    v = torch.randn(nb, bs, kv, d, generator=g, device=cuda).to(dtype)
+    ints = [torch.as_tensor(a, dtype=torch.int32, device=cuda)
+            for a in (tables, lengths - n_valid, n_valid)]
+    lane = torch.as_tensor(np.arange(c)[None] < n_valid[:, None], device=cuda)
+    return (q, k, v, *ints), lane
+
+
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("c,design", [(16, "cuda_core"), (1, "tensor_core")])
+def test_paged_read_at_group_5_matches_plain(cuda, c, design, int8):
+    """80 q rows a kv head at C = 16 take the CUDA-core design (past the
+    tensor cores' 64 rows), 5 at C = 1 the tensor cores; both against the
+    plain version at the paged read's tolerances (1% of rows past 2e-4 for
+    a Δ-grid flip, one bf16 rounding)."""
+    args, lane = _paged_group5(cuda, c, torch.bfloat16)
+    scales = None
+    if int8:
+        args, scales = _quantized(args, seed=c)
+    assert attn_ops.call_design(*args[:3]) == design
+    got = attn_ops.gn_paged_attention_chunk(*args, scales=scales)
+    want = attn_ref.gn_paged_attention_chunk_ref(*args, scales=scales)
+    err = (got[lane].float() - want[lane].float()).abs() - (2e-4 + BF16_REL
+                                                             * want[lane].float().abs())
+    rows = err.shape[0] * err.shape[1]
+    assert (err > 0).any(-1).sum().item() <= max(1, 0.01 * rows)
+    assert got[2].abs().max().item() == 0.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cols", [256, 768])
+@pytest.mark.parametrize("rows", [8, 128])
+def test_norm_kernel_at_the_mla_latent_widths(cuda, rows, cols, dtype):
+    x, gamma, _ = _norm_inputs(cuda, rows, cols, dtype, False)
+    _close(norm_ops.gn_rmsnorm(x, gamma),
+           norm_ref.gn_layernorm_ref(x, gamma, None, subtract_mean=False), 4e-6, dtype)
+
+
+@pytest.mark.parametrize("rows", [8, 128, 8192])
+def test_softmax_kernel_on_router_rows(cuda, rows):
+    """The MoE router's rows: 16 experts, f32 (a decode tick, a fused tick,
+    a 8 x 1024 prefill)."""
+    g = torch.Generator(device=cuda).manual_seed(rows)
+    x = torch.randn(rows, 16, generator=g, device=cuda) * 3
+    got = sm_ops.gn_softmax(x)
+    _close(got, sm_ref.gn_softmax_ref(x), 1e-6, torch.float32)
+    assert (got.double().sum(-1) - 1).abs().max().item() <= 2e-6
+
+
+def _family(arch, dtype="float32"):
+    cfg = reduce_config(get_config(arch), dtype=dtype)
+    model = make_model(cfg)
+    return model, model.init(0, "cpu")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_graphed_mla_ticks_equal_eager(cuda, kv_dtype, dtype):
+    """The MLA engine (latent arenas, streamed read, sentinels on): every
+    tick a replay, bitwise the eager tick (tokens, held logits, arenas and
+    scales); at f32 the tokens equal the CPU engine's."""
+    model, master = _family("minicpm3-4b", dtype)
+    reqs = seeded_requests(model.cfg.vocab, 5, 5, 22, 4, 1, 0)
+
+    def run(device, eager=False):
+        eng = ContinuousEngine(model, master, num_slots=2, max_seq=required_max_seq(reqs),
+                               chunk=4, block_size=4, kv_dtype=kv_dtype, device=device)
+        if eager:
+            eng._graphs = None
+        return eng, {c.request_id: c.tokens.tolist() for c in eng.run(reqs)}
+
+    eng, graphed = run(cuda)
+    m = eng.metrics()
+    assert m["read_path"] == "streamed" and m["transfer_guarded_ticks"] == m["model_ticks"]
+    assert m["sentinel_violations"] == 0
+    state = _engine_state(eng)
+    eager_eng, eager = run(cuda, eager=True)
+    assert eager == graphed
+    now = _engine_state(eager_eng)
+    assert all(torch.equal(state[k], now[k]) for k in state)
+    if dtype == "float32":
+        assert run("cpu")[1] == graphed
+
+
+def test_moe_routing_on_the_card_equals_the_cpu(cuda):
+    """A tick's hidden states (8 slots x chunk 16 = one group of 128) through
+    the reduced llama4-scout router at f32: the same experts, capacity slots
+    and kept choices on the card as on the CPU, the gates within 1e-6 (the
+    GN softmax kernel against its plain version)."""
+    from repro_torch.models import moe
+
+    model, master = _family("llama4-scout-17b-a16e")
+    p = model.prepare(master, "cpu")["layers"][0]["mlp"]
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(8, 16, model.cfg.d_model, generator=g)
+    want = moe.route(model.cfg, p, x)
+    got = moe.route(model.cfg, {k: v.to(cuda) for k, v in p.items()}, x.to(cuda))
+    assert got["cap"] == want["cap"]
+    for key in ("idx", "slot", "keep"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    _close(got["gates"].cpu(), want["gates"], 1e-6, torch.float32)
+    y_card = moe.apply_moe(model.cfg, {k: v.to(cuda) for k, v in p.items()}, x.to(cuda))[0]
+    _close(y_card.cpu(), moe.apply_moe(model.cfg, p, x)[0], 1e-5, torch.float32)

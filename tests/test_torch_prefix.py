@@ -11,6 +11,9 @@ held to the JAX engine or pool on the same converted weights and tokens.
     reset replay; the tokens equal the static oracle's; the port's kernel
     read (the reference's "pallas") and its streamed and gathered reads all
     serve the JAX engine's tokens;
+  * the MLA family (reduced minicpm3-4b, latent arenas): the engine's
+    shared-prefix runs at block sizes 4 and 8 equal the JAX engine's, and
+    the fork and spill cases below over its fp and int8 latent pools;
   * pool: a fork copies its source block bit for bit in every leaf and
     touches no other block (fp and int8, the scales with the arenas),
     ``ensure`` is host-only, the write barrier refuses a shared block;
@@ -31,11 +34,12 @@ from repro.serve.prefix_cache import PrefixCache as JaxPrefixCache
 from repro.serve.scheduler import Request as JaxRequest
 from repro.serve.workload import required_max_seq, shared_prefix_requests
 from repro_torch.models import attention as t_attn
+from repro_torch.serve.engine import ServeConfig, static_reference
 from repro_torch.serve.kv_cache import BlockPagedKVPool
 from repro_torch.serve.prefix_cache import PrefixCache
 
-from _torch_parity import (CHUNK, assert_same, dense, jax_engine, port_engine, prompt, run,
-                           to_port)
+from _torch_parity import (CHUNK, FAMILIES, assert_same, dense, jax_engine, pair, port_engine,
+                           prompt, run, to_port)
 
 
 @pytest.fixture(autouse=True)
@@ -105,6 +109,29 @@ def runs():
     return out
 
 
+@pytest.fixture(scope="module")
+def mla_runs():
+    """The MLA family's (reduced minicpm3-4b) JAX engine runs of the
+    shared-prefix workload at block sizes 4 and 8, and the port's static
+    oracle of it; the models for the pool tests."""
+    jmodel, jparams, model, master = pair(FAMILIES["mla"])
+    shared = _shared_reqs(jmodel.cfg)
+    out = {"model": model, "master": master, "jmodel": jmodel, "reqs": {"shared": shared}}
+    for bs in (4, 8):
+        eng = jax_engine(jmodel, jparams, num_slots=2, max_seq=MAX_SEQ, block_size=bs,
+                         num_blocks=_roomy(bs), prefix_cache=True)
+        out["shared", bs] = run(eng, shared)
+    oracle = static_reference(model, model.prepare(master, "cpu"), to_port(shared),
+                              ServeConfig())
+    out["oracle"] = {"shared": {i: t.tolist() for i, t in oracle.items()}}
+    return out
+
+
+def _family(request, runs, family):
+    """The dense runs, or the MLA family's."""
+    return runs if family == "dense" else request.getfixturevalue("mla_runs")
+
+
 def _port(runs, name, bs=4, **kw):
     kw = {"num_slots": 2, "max_seq": MAX_SEQ, "block_size": bs, "num_blocks": _roomy(bs),
           "prefix_cache": True, **kw}
@@ -120,7 +147,9 @@ def _oracle_identical(got, runs, name):
 
 # ----------------------------------------- greedy identity, cache on --------
 @pytest.mark.parametrize("bs", [CHUNK, 2 * CHUNK])
-def test_prefix_engine_equals_jax_engine(runs, bs):
+@pytest.mark.parametrize("family", ["dense", "mla"])
+def test_prefix_engine_equals_jax_engine(request, runs, family, bs):
+    runs = _family(request, runs, family)
     eng, got = _port(runs, "shared", bs)
     assert_same(got, runs["shared", bs])
     _oracle_identical(got, runs, "shared")
@@ -371,11 +400,13 @@ def _real_blocks(side):
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
-def test_fork_copies_block_bitwise_and_preserves_arena(runs, kv_dtype):
+@pytest.mark.parametrize("family", ["dense", "mla"])
+def test_fork_copies_block_bitwise_and_preserves_arena(request, runs, family, kv_dtype):
     """``ensure`` is host-only; an attach-time fork copies its source block
-    bit for bit in every leaf (the int8 pool's scales with its arenas) and
-    leaves every other block and every live table as it was, as the JAX
-    pool's fork does; the port's fork writes in place."""
+    bit for bit in every leaf (the int8 pool's scales with its arenas; MLA's
+    latent arenas) and leaves every other block and every live table as it
+    was, as the JAX pool's fork does; the port's fork writes in place."""
+    runs = _family(request, runs, family)
     sides = _sides(runs, num_slots=3, max_seq=32, block_size=4, num_blocks=12,
                    kv_dtype=kv_dtype)
     _fill_both(*sides, np.random.default_rng(3))
@@ -418,11 +449,13 @@ def test_fork_copies_block_bitwise_and_preserves_arena(runs, kv_dtype):
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
-def test_spill_restore_bitwise_into_another_chain(runs, kv_dtype):
+@pytest.mark.parametrize("family", ["dense", "mla"])
+def test_spill_restore_bitwise_into_another_chain(request, runs, family, kv_dtype):
     """``extract_blocks`` then ``restore_blocks`` into a different physical
-    chain is bit for bit in every leaf (int8 arenas and scales); the payload
-    (padded to a power of two with the last block repeated) equals the JAX
-    pool's, and the restore writes in place."""
+    chain is bit for bit in every leaf (int8 arenas and scales; MLA's latent
+    arenas); the payload (padded to a power of two with the last block
+    repeated) equals the JAX pool's, and the restore writes in place."""
+    runs = _family(request, runs, family)
     sides = _sides(runs, num_slots=3, max_seq=16, block_size=4, num_blocks=8,
                    kv_dtype=kv_dtype)
     _fill_both(*sides, np.random.default_rng(7))

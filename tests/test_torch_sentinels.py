@@ -25,7 +25,8 @@ of 5, 9, 7 tokens, 6 new tokens each, 2 slots, chunk 4, max_seq 64).
     (its default) flags them and recovered to the fault-free tokens, through
     the read's per-row flag of a nonfinite live score (a poisoned K tile
     leaves the output finite); ``bit_flip`` is the floor of every read;
-  * a clean run silent; the sentinels off miss a fault; the retry budget
+  * a clean run silent (dense, and reduced minicpm3-4b's MLA latent
+    arenas on its streamed read); the sentinels off miss a fault; the retry budget
     spent gives "failed"; the int8 fallback (forced, and by the clip
     watchdog) completes with the oracle's tokens; the ledger balanced and
     no quarantined block recycled through churn (the reference's property
@@ -60,6 +61,8 @@ from repro_torch.serve.engine import ContinuousEngine, ServeConfig
 from repro_torch.serve.faults import FaultInjector
 from repro_torch.serve.kv_cache import BlockPagedKVPool
 from repro_torch.serve.scheduler import FINISH_REASONS, Completion, Request
+
+from _torch_parity import FAMILIES, pair
 
 ARCH = "internlm2-1.8b"
 CHUNK = 4
@@ -367,18 +370,38 @@ def test_bit_flip_below_detection_floor(dense):
     assert len(eng.completions) == 3
 
 
-def test_clean_run_silent(dense):
-    eng = _engine(dense)
+@pytest.fixture(scope="module")
+def mla():
+    """The MLA family (reduced minicpm3-4b, f32, the JAX weights): the
+    port's model and weights, and the JAX static oracle's tokens of the
+    workload."""
+    jmodel, jparams, model, master = pair(FAMILIES["mla"])
+    refs = [JaxRequest(tokens=r.tokens, max_new_tokens=6, id=i)
+            for i, r in enumerate(_requests(JaxRequest, jmodel.cfg.vocab))]
+    rows = jax_static_reference(jmodel, jparams, refs, JaxServeConfig(max_new_tokens=6))
+    return {"model": model, "master": master,
+            "oracle": {r.id: rows[r.id][len(r.tokens):].tolist() for r in refs}}
+
+
+@pytest.mark.parametrize("family", ["dense", "mla"])
+def test_clean_run_silent(request, family):
+    fam = request.getfixturevalue(family)
+    eng = _engine(fam)
     assert eng.sentinels and eng.metrics()["sentinels"]
     eng.run(_requests(Request, eng.model.cfg.vocab))
     m = eng.metrics()
     assert m["sentinel_checks"] > 0
     assert all(m[k] == 0 for k in METRIC_KEYS if k != "sentinel_checks")
-    assert _tokens(eng) == dense["oracle"]
+    assert _tokens(eng) == fam["oracle"]
     assert [e[0] for e in eng.event_log].count("admit") == 3
-    # the kernel read's probe is finiteness (its residual 0); the σ residual
-    # of the GN norm sits far under its bound
-    assert m["sentinel_peak_sum_residual"] == 0.0
+    if family == "dense":
+        # the kernel read's probe is finiteness (its residual 0)
+        assert m["read_path"] == "kernel" and m["sentinel_peak_sum_residual"] == 0.0
+    else:
+        # MLA reads through the streamed read: the full Σp probe, far under
+        # its bound
+        assert m["read_path"] == "streamed" and 0.0 < m["sentinel_peak_sum_residual"] < 1e-4
+    # the σ residual of the GN norm sits far under its bound
     assert 0.0 < m["sentinel_peak_sigma_residual"] < t_engine.SENTINEL_SIGMA_BOUND / 10
 
 
