@@ -38,7 +38,16 @@ Phases, each fatal on failure (exit code 1):
                8 kv heads; C = 16 on the CUDA-core design, C = 1 on the
                tensor cores; fp and int8), the norm at widths 256, 768, 2560
                and 5120, and the softmax over 16-column router rows and over
-               an MLA tick's 40-head score rows;
+               an MLA tick's 40-head score rows; for phase 19 the flash
+               attention with a sliding window (``window-*``: mixtral's
+               prefill (1, 48, 8, 8192, 128) at window 4096 on the tensor
+               cores, its first kv head's group held against the plain
+               version, times beside the banded bound, the causal call and
+               SDPA under the band as a boolean mask; a ragged KV-prefix
+               bf16 case and an f32 case on the CUDA cores; exact scores,
+               V = 1, and a window past Sk bitwise the causal call) and the
+               softmax over the slab tick's rows (``slab-tick``: 8 slots x 48
+               heads x 16 lanes over the 4096-slot ring + 16);
   3. parity  - full-width internlm2-1.8b cut to 2 layers, kernels on the card
                against plain versions on the CPU, same weights, at float32
                and at bfloat16: one fused paged tick with mixed
@@ -92,7 +101,7 @@ Phases, each fatal on failure (exit code 1):
   9. reads   - phase 4's workload and weights through the reference's
                streamed read (fp and int8 pools) and gathered read (fp),
                forced by ``FORCE_PAGED_READ``, each graphed, with phase 4's
-               checks (a profiled window of 64 ticks); their tok/s, tick and
+               checks (a profiled window of LONG_WINDOW ticks); their tok/s, tick and
                busy share beside phases 4 and 6, and the greedy prefix shared
                with phase 4 (not gated);
  10. guard   - sampling and the GN sentinels on the continuous path: the
@@ -200,6 +209,34 @@ Phases, each fatal on failure (exit code 1):
                the flash-kernel ``perplexity`` (launches exact); at 2 layers
                f32 the card's engine tokens equal the CPU engine's on the
                streamed read (gated).
+ 19. slab    - the slab pool (``ContinuousEngine(paged=False)``, one slab or
+               ring a slot, a graph a step kind): (a) full-width
+               internlm2-1.8b over phase 4's workload (launches exact, every
+               tick a replay, a timed rerun, then a rerun in which each
+               captured graph's first tick runs graphed and eager from one
+               device state, bitwise, and ticks FAMILY_START.. are traced:
+               busy share, busy time by kind); its bytes beside phase 4's
+               pool; (b) mixtral-8x22b at full width cut to MIXTRAL_LAYERS
+               of 56 layers (its window 4096, 8 experts top-2), 12 prompts
+               of 3584..6144 tokens (rings wrapped), 32 new, with (a)'s
+               checks and the MoE's dropped share per tick kind, then its
+               static path past the window (the windowed flash kernel in
+               prefill; launches exact); (c) at 2 layers f32 (full widths)
+               the slab engine against the static oracle, the paged engine
+               and the CPU's slab engine (gated; mixtral with its window cut
+               to 64: card = CPU gated, the oracle reported, as the MoE's
+               chunked prefill routes in other groups);
+ 20. snapshot - ``engine.snapshot``/``restore``: (a) at 2 layers f32 a
+               writer snapshots after every tick and one restorer whose
+               graphs a run captured restores each snapshot and drains,
+               bitwise the writer (completions, finish steps, event log,
+               step count), over the paged fp, paged int8 and slab pools;
+               (b) full-width internlm2-1.8b over phase 4's workload,
+               snapshots at model ticks SNAP_TICKS restored into one fresh
+               engine and drained: tokens bitwise phase 4's, the drains'
+               launches exact, bytes, save and restore seconds; (c) a chaos
+               snapshot with a quarantined block restores it quarantined,
+               the ledger balanced through the drain.
 Phases 4-10 and 15-18 serve with the GN sentinels on, the engine's default:
 a tick launches one more norm, the head's σ probe.
 Each path's launch counters are set to 0 just before it runs and read just
@@ -211,6 +248,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -252,6 +290,7 @@ from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
+from repro_torch.models.layers import make_param  # noqa: E402
 from repro_torch.models.transformer import make_model  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, generate,  # noqa: E402
                                       perplexity, static_decoder, static_reference)
@@ -284,7 +323,11 @@ BATCHES, BATCH, PROMPT, NEW = 2, 8, 1024, 32
 LONG_BATCHES = ((4, 4096), (2, 8192))
 LONG_REQUESTS, LONG_MIN, LONG_MAX = 8, 2049, 8192
 LONG_BT = -(-(LONG_MAX + NEW) // BLOCK)
-LONG_WINDOW = 64  # ticks of the long continuous rerun (and phases 9, 10) that are profiled
+# ticks of the long continuous rerun (and phases 6, 9, 10, 15, 16) that are
+# profiled: 16 keeps the whole script, phases 19 and 20 included, well
+# inside its time limit (the profiler's host time grows with the window's
+# kernel records; 64 ticks took the script to ~1060 s on an H100)
+LONG_WINDOW = 16
 # phase 10: the sampled run's temperature; the chaos runs inject a fault every
 # CHAOS_EVERY model ticks, CHAOS_FAULTS in all, drawn in turn from each
 # pool's kinds (V tiles on the fp pool; K tiles, flagged by the paged
@@ -318,6 +361,20 @@ FAMILY_SMALL = (4, 32, 64, 8)
 # host time), FAMILY_FAULTS faults in each chaos run; the MoE tick's
 # profiled window, MOE_WINDOW ticks
 FAMILY_START, FAMILY_WINDOW, FAMILY_FAULTS, MOE_WINDOW = 40, 4, 3, 16
+# phase 19: mixtral-8x22b at full width cut to MIXTRAL_LAYERS layers (bf16
+# weights drawn leaf by leaf: ~5 GB a layer), its ring of MIXTRAL_WINDOW;
+# MIXTRAL_REQUESTS prompts of MIXTRAL_PROMPT_MIN..MAX tokens, NEW new tokens
+# each, over SLOTS slots at CHUNK; the static path's MIXTRAL_STATIC
+# (prompts, tokens) past the window; the 2-layer f32 token gate's window
+MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_WINDOW = "mixtral-8x22b", 8, 4096
+MIXTRAL_REQUESTS, MIXTRAL_PROMPT_MIN, MIXTRAL_PROMPT_MAX = 12, 3584, 6144
+MIXTRAL_STATIC, SMALL_WINDOW = (2, 6144), 64
+# phase 20: snapshots at ticks SNAP_TICKS (early, mid, late) of phase 4's
+# workload at full width; the every-tick sweep at 2 layers f32 over
+# SNAP_SMALL = (requests, shortest and longest prompt, new tokens)
+SNAP_TICKS, SNAP_SMALL = (8, 48, 120), (4, 24, 56, 6)
+# phase 19 (c): the 2-layer f32 mixtral's workload, prompts past its window
+MIXTRAL_SMALL = (4, 48, 120, 8)
 # the new widths of the norm: MLA's kv and q latents, the two d_models
 FAMILY_NORM_WIDTHS = (256, 768, 2560, 5120)
 # the training phases: TRAIN_BATCH sequences of TRAIN_SEQ tokens a step (one
@@ -462,7 +519,18 @@ def profiled(fn):
 def check_graphs(label: str, m: dict) -> None:
     """Every model tick a graph replay; one capture per (step kind, bucket)
     seen, within the bucket grid's bound (the reference's compile-count
-    contract, from the port's copy of its trace keys)."""
+    contract, from the port's copy of its trace keys); over the slab pool
+    one capture per step kind run, at most one each."""
+    if m["transfer_guarded_ticks"] != m["model_ticks"]:
+        fail(f"{label}: {m['model_ticks'] - m['transfer_guarded_ticks']} of "
+             f"{m['model_ticks']} ticks were not graph replays")
+    if not m["kv_paged"]:
+        if (m["fused_step_compilations"] != (m["fused_ticks"] > 0)
+                or m["decode_compilations"] != (m["model_ticks"] > m["fused_ticks"])
+                or m["prefill_compilations"]):
+            fail(f"{label}: slab captures fused {m['fused_step_compilations']}, decode "
+                 f"{m['decode_compilations']}: one a step kind run")
+        return
     grid = m["horizon_bucket_grid"]
     space, seen = tracekeys.trace_key_space(paged=True, grid=grid), tracekeys.seen_trace_keys(m)
     counts = {"fused": m["fused_step_compilations"], "decode": m["decode_compilations"]}
@@ -473,9 +541,6 @@ def check_graphs(label: str, m: dict) -> None:
             or counts["decode"] != len(m["decode_buckets"])
             or any(counts[k] > bound[k] for k in counts) or m["prefill_compilations"]):
         fail(f"{label}: captures off the trace-key contract\n{diff}")
-    if m["transfer_guarded_ticks"] != m["model_ticks"]:
-        fail(f"{label}: {m['model_ticks'] - m['transfer_guarded_ticks']} of "
-             f"{m['model_ticks']} ticks were not graph replays")
 
 
 def timed_run(engine, reqs, marks: list | None = None) -> tuple[dict, float]:
@@ -511,9 +576,7 @@ def eager_against_graphed(label: str, engine, reqs, graphed: dict, state: dict) 
         engine._graphs = graphs
     if any(not np.array_equal(toks[i], graphed[i]) for i in graphed):
         fail(f"{label}: the eager tick's tokens differ from the graphed tick's")
-    nb = engine.pool.num_blocks
-    now = {"last_logits": engine._last_logits,
-           **{k: v[:, :nb] for k, v in engine.pool.cache.items()}}
+    now = {"last_logits": engine._last_logits, **real_leaves(engine)}
     bad = [k for k, v in state.items() if not torch.equal(v, now[k])]
     if bad:
         fail(f"{label}: the eager tick's {bad} differ from the graphed tick's")
@@ -522,12 +585,18 @@ def eager_against_graphed(label: str, engine, reqs, graphed: dict, state: dict) 
             "eager_mean_tick_ms": float(np.mean([dt * 1e3 for _, _, dt in engine.tick_log]))}
 
 
+def real_leaves(engine) -> dict:
+    """The pool's device leaves a tick reads: the real blocks of the arenas
+    (and scales; the write sink is never read), or the slabs."""
+    nb = engine.pool.num_blocks if engine.paged else None
+    return {k: v[:, :nb] for k, v in engine.pool.cache.items()}
+
+
 def engine_state(engine) -> dict:
     """Clones of what a run leaves on the device: the held logits and the
-    real blocks of the arenas (and scales); the write sink is never read."""
-    nb = engine.pool.num_blocks
+    pool's real leaves."""
     return {"last_logits": engine._last_logits.clone(),
-            **{k: v[:, :nb].clone() for k, v in engine.pool.cache.items()}}
+            **{k: v.clone() for k, v in real_leaves(engine).items()}}
 
 
 def device_ms(fn, iters: int) -> float:
@@ -984,6 +1053,12 @@ def softmax_cases(gen) -> list[dict]:
     x, masked = softmax_rows(SLOTS * 40 * CHUNK, PROMPT + NEW, torch.float32, gen,
                              visible=lambda r: PROMPT - CHUNK + r % CHUNK)
     out.append(softmax_case("mla-tick", x, masked, iters=20))
+    # phase 19's slab tick at mixtral's fused shape: SLOTS * 8 kv * 6 q heads
+    # * CHUNK rows over the ring and the chunk's own keys (window + CHUNK)
+    x, masked = softmax_rows(SLOTS * 48 * CHUNK, MIXTRAL_WINDOW + CHUNK, torch.float32, gen,
+                             visible=lambda r: MIXTRAL_WINDOW + r % CHUNK)
+    out.append(softmax_case("slab-tick", x, masked, iters=20))
+    del x, masked
     for frac_bits, delta_scale in ((0, 1.0), (3, 1.0), (4, 0.5)):
         x, masked = softmax_rows(4096, 200, torch.float32, gen, visible=lambda r: r % 200,
                                  scale=8.0)
@@ -1079,6 +1154,75 @@ def fa_long_case(b: int, s: int, gen, iters: int = 5) -> dict:
             "library_ms": device_ms(lib, iters)}
 
 
+def band_pairs(sq: int, sk: int, window: int) -> int:
+    """Visible (row, column) pairs of a causal call with a sliding window:
+    row i sees min(window, i + Sk - Sq + 1) columns."""
+    return sum(min(window, i + sk - sq + 1) for i in range(sq))
+
+
+def fa_window_case(label: str, shape, window: int, dtype, gen, iters: int = 0,
+                   group: bool = False) -> dict:
+    """The flash kernel with a sliding ``window`` (causal) against its plain
+    version, with the exact-score and V = 1 checks, and at ``window`` past
+    Sk bitwise the causal call.  ``group``: the kernel runs the whole shape
+    and its first kv head's group of q heads is held against the plain
+    version on that group alone (fa_long_case); exact scores on that group.
+    With ``iters``: device times beside the banded bound and SDPA under the
+    band as a boolean mask."""
+    b, h, hkv, sq, sk, d = shape
+    g = h // hkv
+    rel = 0.0 if dtype == torch.float32 else BF16_REL
+
+    def part(q, k, v):
+        return [t[:, :n].contiguous() for t, n in ((q, g), (k, 1), (v, 1))] if group else [
+            q, k, v]
+
+    def run(q, k, v, **kw):
+        out = fa_ops.gn_attention(q, k, v, causal=True, **kw)
+        return out[:, :g] if group else out
+
+    q, k, v = fa_inputs(shape, dtype, gen)
+    check = compare(run(q, k, v, window=window),
+                    fa_ref.gn_attention_ref(*part(q, k, v), causal=True, window=window),
+                    ATTN_ATOL_F32, rel)
+    eq, ek, ev = fa_inputs(shape, dtype, gen, exact=True)
+    exact = compare(run(eq, ek, ev, window=window, sm_scale=1 / 8),
+                    fa_ref.gn_attention_ref(*part(eq, ek, ev), causal=True, window=window,
+                                            sm_scale=1 / 8), EXACT_ATOL, rel)
+    del eq, ek, ev
+    ones = fa_ops.gn_attention(q, k, torch.ones_like(v), causal=True, window=window)
+    ones_err = (ones.float() - 1.0).abs().max().item()
+    del ones
+    wide = torch.equal(fa_ops.gn_attention(q, k, v, causal=True, window=sk + 1),
+                       fa_ops.gn_attention(q, k, v, causal=True))
+    check["ok"] = (check["bad_rows"] <= FLIP_ROWS * check["rows"] and exact["bad_rows"] == 0
+                   and ones_err <= ONES_ATOL and wide)
+    res = {"name": "gn_attention", "case": label, "design": fa_ops.design(dtype, TPU_SOFTMAX_LUT),
+           "shape": {"B": b, "H": h, "Hkv": hkv, "Sq": sq, "Sk": sk, "D": d, "causal": True,
+                     "window": window},
+           "dtype": str(dtype).split(".")[-1], **check,
+           "exact_scores": {key: exact[key] for key in ("max_abs_err", "bad_rows")},
+           "ones_err": ones_err, "wide_window_bitwise_causal": wide}
+    if iters:
+        b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+                           4 * b * h * d * band_pairs(sq, sk, window), dtype)
+        band = attention_mod.causal_mask(sq, sk, DEV, window)[0, 0]
+        lib = functools.partial(F.scaled_dot_product_attention, q, k, v, attn_mask=band,
+                                enable_gqa=True)
+        res.update(bound_ms=b_ms, bound_by=b_by,
+                   ms=device_ms(lambda: fa_ops.gn_attention(q, k, v, causal=True, window=window),
+                                iters),
+                   call_ms=call_ms(lambda: fa_ops.gn_attention(q, k, v, causal=True,
+                                                               window=window), iters),
+                   causal_ms=device_ms(lambda: fa_ops.gn_attention(q, k, v, causal=True), iters),
+                   plain_ms=None if group else device_ms(
+                       lambda: fa_ref.gn_attention_ref(q, k, v, causal=True, window=window), 3),
+                   plain_group_ms=device_ms(lambda: fa_ref.gn_attention_ref(
+                       *part(q, k, v), causal=True, window=window), 3) if group else None,
+                   library_ms=device_ms(lib, iters))
+    return res
+
+
 def attention_cases(gen) -> list[dict]:
     """The forward's shape (B 8, H 16, Hkv 8, S = prompt + new, D 128,
     causal) in bf16 and f32, a non-causal case, a KV-prefix case (Sk > Sq,
@@ -1089,7 +1233,19 @@ def attention_cases(gen) -> list[dict]:
             fa_case("non-causal", (2, 16, 8, 256, 256, 128), torch.bfloat16, False, gen),
             fa_case("kv-prefix", (1, 8, 1, 64, 256, 32), torch.float32, True, gen),
             fa_case("ragged", (2, 16, 8, 333, 333, 128), torch.float32, True, gen)] + [
-                fa_long_case(b, s, gen) for b, s in LONG_BATCHES]
+                fa_long_case(b, s, gen) for b, s in LONG_BATCHES] + window_cases(gen)
+
+
+def window_cases(gen) -> list[dict]:
+    """Phase 19's windowed prefill: mixtral's shape (1, 48 q, 8 kv, S 8192,
+    D 128), window 4096, bf16 on the tensor cores (a group of 6 held against
+    the plain version); a ragged bf16 case with band-edge tiles in a KV
+    prefix, and an f32 case on the CUDA cores."""
+    return [fa_window_case("window-prefill-8192", (1, 48, 8, 8192, 8192, 128), MIXTRAL_WINDOW,
+                           torch.bfloat16, gen, iters=5, group=True),
+            fa_window_case("window-ragged", (2, 16, 8, 333, 397, 128), 100, torch.bfloat16, gen),
+            fa_window_case("window-f32", (2, 8, 2, 300, 300, 64), 64, torch.float32, gen,
+                           iters=5)]
 
 
 def st_softmax(x):
@@ -1510,7 +1666,7 @@ def continuous_replays(label: str, engine, reqs, first: dict, want: dict, eager:
           + json.dumps({k[:60]: v / 1e6 for k, v in top}))
     eager = eager_against_graphed(label, engine, reqs, first, state) if eager else {}
     return {"captures": {"fused": captures[0], "decode": captures[1]},
-            "fused_buckets": m["fused_buckets"], "decode_buckets": m["decode_buckets"],
+            "fused_buckets": m.get("fused_buckets"), "decode_buckets": m.get("decode_buckets"),
             "capture_seconds": m["capture_seconds"], "steady_seconds": steady_s,
             "steady_tokens_per_s": m["generated_tokens"] / steady_s,
             "steady_mean_tick_ms": float(np.mean(steady_tick_ms)),
@@ -1525,7 +1681,9 @@ def continuous_want(layers: int, ticks: int, int8: bool, read_path: str = "kerne
     int8 mode; with the streamed or gathered read a softmax instead), 2L + 1
     norms (with the sentinels one more: the head's σ probe) and 2L - 1 of
     them fused, a tick.  MLA reads through the streamed read and norms its
-    two latents (2L more norms); MoE adds a router softmax a layer."""
+    two latents (2L more norms); MoE adds a router softmax a layer.  The
+    slab tick (``read_path`` "slab") reads its score rows through a softmax
+    a layer, as the streamed read."""
     read = layers * ticks
     kernel = read_path == "kernel"
     return {"gn_rmsnorm": (2 * layers + 1 + sentinels + 2 * layers * mla) * ticks,
@@ -1540,7 +1698,7 @@ def want_for(engine, ticks: int, passes=()) -> dict:
     plus the static passes of its int8 -> fp fallbacks (``passes``, from
     ``fallback_passes``; ``static_want``)."""
     cfg = engine.model.cfg
-    want = continuous_want(cfg.n_layers, ticks, engine.pool.kv_dtype == "int8",
+    want = continuous_want(cfg.n_layers, ticks, engine.kv_dtype == "int8",
                            engine.read_path, engine.sentinels, mla=cfg.mla is not None,
                            moe=cfg.moe is not None)
     for n in passes:
@@ -1760,8 +1918,8 @@ def first_run(label: str, engine, reqs,
     if len(comps) != len(reqs) or any(len(c.new_tokens) != r.max_new_tokens for c, r in
                                        zip(sorted(comps, key=lambda c: c.request_id), reqs)):
         fail(f"{label}: not every request completed with its budget")
-    if engine.pool.blocks_in_use or engine.pool.num_free != engine.num_slots:
-        fail(f"{label}: blocks not returned: {engine.pool.blocks_in_use} in use")
+    if getattr(engine.pool, "blocks_in_use", 0) or engine.pool.num_free != engine.num_slots:
+        fail(f"{label}: slots or blocks not returned")
     if not bool(torch.isfinite(engine._last_logits).all()):
         fail(f"{label}: non-finite logits")
     check_silent(label, engine)
@@ -1811,7 +1969,7 @@ def phase_int8(served: dict) -> dict:
         fail(f"int8 pool has {engine.pool.num_blocks} blocks, the fp pool {served['num_blocks']}")
     stats = serve_stats(engine, seconds)
     m = engine.metrics()
-    replays = continuous_replays("int8", engine, reqs, first, launches)
+    replays = continuous_replays("int8", engine, reqs, first, launches, window=LONG_WINDOW)
     # greedy prefix shared with phase 4's fp tokens, per request (not gated)
     prefix = common_prefix(first, served["new_tokens"])
     res = {
@@ -2916,21 +3074,21 @@ class checked_graphs:
         self.keys, self.eager_ms, self.seconds = [], [], 0.0
 
     def state(self) -> dict:
-        engine, nb = self.engine, self.engine.pool.num_blocks
+        engine = self.engine
         return {"last_logits": engine._last_logits.clone(), "pos": engine._pos_dev.clone(),
-                **{k: v[:, :nb].clone() for k, v in engine.pool.cache.items()}}
+                **{k: v.clone() for k, v in real_leaves(engine).items()}}
 
     def restore(self, state: dict) -> None:
-        engine, nb = self.engine, self.engine.pool.num_blocks
+        engine = self.engine
         engine._last_logits.copy_(state["last_logits"])
         engine._pos_dev.copy_(state["pos"])
-        for k, v in engine.pool.cache.items():
-            v[:, :nb].copy_(state[k])
+        for k, v in real_leaves(engine).items():
+            v.copy_(state[k])
 
     def __enter__(self):
         engine, run = self.engine, self.engine._run_tick
 
-        def checked(kind: str, bucket: int):
+        def checked(kind: str, bucket):
             key = (kind, bucket)
             if key in self.keys or self.skip(engine.model_ticks):
                 return run(kind, bucket)
@@ -3039,8 +3197,12 @@ def family_replays(label: str, engine, reqs, first: dict, launches: dict) -> dic
 
     _, prof, _, records, traces = traced_rerun(label, rerun, want)
     checks = window["checks"]
-    captured = ({("fused", b) for b in m["fused_buckets"]}
-                | {("decode", b) for b in m["decode_buckets"]})
+    if m["kv_paged"]:
+        captured = ({("fused", b) for b in m["fused_buckets"]}
+                    | {("decode", b) for b in m["decode_buckets"]})
+    else:  # the slab pool: a graph a step kind run
+        captured = {(k, None) for k, n in (("fused", m["fused_step_compilations"]),
+                                           ("decode", m["decode_compilations"])) if n}
     bad = [k for k, v in state.items() if not torch.equal(v, engine_state(engine)[k])]
     if set(checks.keys) != captured or bad:
         fail(f"{label}: graphs checked against their eager tick {sorted(checks.keys)} != "
@@ -3189,9 +3351,9 @@ class routing_log:
     def __enter__(self):
         self.saved, self.calls = moe_mod.apply_moe, []
 
-        def logged(cfg, p, x):
-            out = self.saved(cfg, p, x)
-            r = moe_mod.route(cfg, p, x)
+        def logged(cfg, p, x, group_tokens=0):
+            out = self.saved(cfg, p, x, group_tokens)
+            r = moe_mod.route(cfg, p, x, group_tokens)
             self.calls.append((x.shape[1], r["keep"].float().mean(),
                                (r["onehot"] * r["keep"][..., None]).sum(dim=(0, 1, 2))))
             return out
@@ -3261,6 +3423,359 @@ def phase_moe(kern: dict) -> dict:
     return {**res, "launches": total}
 
 
+# ------------------------------------------------------------ phases 19-20 --
+def layerwise_master(model, seed: int) -> dict:
+    """Random weights for ``model`` drawn one layer slice at a time from a
+    generator seeded with ``seed`` (normal * 0.02, ones, zeros, as
+    ``Model.init`` draws them, in another order), the matmul leaves cast to
+    the activation dtype as each slice is drawn: at most one layer's f32
+    slice of a leaf is resident at once.  ``prepare`` then casts nothing."""
+    dt = getattr(torch, model.cfg.dtype)
+    gen = torch.Generator(device=DEV).manual_seed(seed)
+
+    def build(tree, key=None, stacked=False):
+        if isinstance(tree, dict):
+            return {k: build(v, k, stacked or k == "layers") for k, v in tree.items()}
+        want = dt if key in transformer_mod._MATMUL_LEAVES else torch.float32
+        if tree.init != "normal" or not stacked:
+            return make_param(tree, gen, DEV).to(want)
+        out = torch.empty(tree.shape, dtype=want, device=DEV)
+        for i in range(tree.shape[0]):
+            out[i] = torch.randn(tree.shape[1:], generator=gen, device=DEV) * tree.scale
+        return out
+
+    return build(model.param_specs())
+
+
+def release() -> None:
+    """Free what dead engines held: an engine whose methods a checker
+    patched and restored (a bound method stored on itself) or whose pool
+    and prefix cache point at each other dies only at a collection."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def slab_engine(model, master, reqs, **kw):
+    return ContinuousEngine(model, master, num_slots=SLOTS, max_seq=required_max_seq(reqs),
+                            chunk=CHUNK, paged=False, device=DEV, **kw)
+
+
+def slab_dense(served: dict) -> dict:
+    """Phase 19 (a): full-width internlm2-1.8b on the slab pool over phase
+    4's workload, with phase 17's lean checks (``family_replays``)."""
+    model = make_model(get_config(ARCH))
+    master = model.init(SEED, DEV)
+    reqs = seeded_requests(model.cfg.vocab, REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW, 1, SEED)
+    engine = slab_engine(model, master, reqs)
+    del master
+    if engine.read_path != "slab" or engine.paged or engine.sentinels:
+        fail(f"slab: the engine reads {engine.read_path!r} (paged {engine.paged})")
+    first, launches, seconds = first_run("slab", engine, reqs)
+    res = {**serve_stats(engine, seconds), "launches": launches,
+           **family_replays("slab", engine, reqs, first, launches),
+           "kv_hbm_bytes": engine.pool.hbm_bytes(),
+           "paged_kv_hbm_bytes": served["kv_hbm_bytes"],
+           "common_prefix_with_paged": float(np.mean(common_prefix(first,
+                                                                   served["new_tokens"])))}
+    print(f"[slab] {json.dumps(res)}")
+    return res
+
+
+def mixtral_static(model, params) -> dict:
+    """``generate`` over MIXTRAL_STATIC prompts past the window: the prefill
+    through the windowed flash kernel (L launches), then NEW decode steps
+    over the ring (a softmax a layer), and a router softmax a layer in
+    every pass; launches exact, finite logits."""
+    b, s = MIXTRAL_STATIC
+    data = DataConfig(vocab=model.cfg.vocab, seq_len=s, global_batch=b, seed=SEED)
+    prompts = torch.as_tensor(batch_at(data, 0)["tokens"]).to(DEV)
+    counters.reset()
+    out, ms = timed(lambda: generate(model, params, {"tokens": prompts},
+                                     ServeConfig(max_new_tokens=NEW)))
+    launches = counters.launch_counts()
+    pre, dec = static_want(model.cfg, 1, flash=True), static_want(model.cfg, NEW)
+    want = {k: pre[k] + dec[k] for k in pre}
+    if launches != want or any(counters.plain_cuda_calls().values()):
+        fail(f"mixtral-static: launches {launches} != {want}, or plain versions on the card")
+    _, steady_ms = timed(lambda: generate(model, params, {"tokens": prompts},
+                                          ServeConfig(max_new_tokens=NEW)))
+    res = {"batch": b, "prompt": s, "new_tokens": NEW, "generate_ms": ms,
+           "steady_generate_ms": steady_ms, "launches": launches,
+           "steady_tokens_per_s": b * NEW / (steady_ms / 1e3)}
+    print(f"[mixtral-static] {json.dumps(res)}")
+    return res
+
+
+def slab_mixtral() -> dict:
+    """Phase 19 (b): mixtral-8x22b at full width cut to MIXTRAL_LAYERS
+    layers on the slab pool (its ring of the window), and its static path
+    past the window."""
+    t0, stages = time.perf_counter(), {}
+    cfg = dataclasses.replace(get_config(MIXTRAL_ARCH), n_layers=MIXTRAL_LAYERS)
+    model = make_model(cfg)
+    master = layerwise_master(model, SEED)
+    reqs = seeded_requests(cfg.vocab, MIXTRAL_REQUESTS, MIXTRAL_PROMPT_MIN, MIXTRAL_PROMPT_MAX,
+                           NEW, 1, SEED)
+    engine = ContinuousEngine(model, master, num_slots=SLOTS, max_seq=required_max_seq(reqs),
+                              chunk=CHUNK, device=DEV)
+    del master
+    if engine.paged or engine.pool.cache["k"].shape[2] != MIXTRAL_WINDOW:
+        fail(f"mixtral: paged {engine.paged}, ring {tuple(engine.pool.cache['k'].shape)}")
+    stages["weights"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    first, launches, seconds = first_run("mixtral", engine, reqs)
+    stats = serve_stats(engine, seconds)
+    stages["first_run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with routing_log() as log:  # the checked rerun's eager ticks run the layers' Python
+        replays = family_replays("mixtral", engine, reqs, first, launches)
+    wraps = sum(r.prompt_len + NEW > MIXTRAL_WINDOW for r in reqs)
+    res = {**stats, "launches": launches,
+           **{k: replays[k] for k in ("steady_tokens_per_s", "steady_mean_tick_ms",
+                                      "device_busy_share", "eager_mean_tick_ms", "captures",
+                                      "busy_share_by_kind", "top_kernels_s")},
+           "layers": MIXTRAL_LAYERS, "ring_bytes": engine.pool.hbm_bytes(),
+           "requests_wrapping_the_ring": f"{wraps}/{len(reqs)}", "routing": log.summary()}
+    print(f"[mixtral] {json.dumps(res)}")
+    stages["replays"] = time.perf_counter() - t0
+    params = engine.params
+    del engine
+    release()
+    t0 = time.perf_counter()
+    static = mixtral_static(model, params)
+    del params
+    model.__dict__.pop("_static_decoders", None)
+    release()
+    stages["static"] = time.perf_counter() - t0
+    res.update(static={k: static[k] for k in ("steady_tokens_per_s", "steady_generate_ms")},
+               stage_seconds=stages)
+    print(f"[mixtral-stages] {json.dumps(stages)}")
+    return {**res, "launches": {k: launches[k] + static["launches"][k] for k in launches}}
+
+
+def slab_small(label: str, arch: str, spec: tuple, over: dict) -> dict:
+    """Phase 19 (c): the 2-layer f32 cut of ``arch`` (full widths, ``over``
+    applied) on ``spec``'s workload (requests, shortest and longest prompt,
+    new tokens): the card's slab engine against the static oracle on the
+    card, the paged engine on the card (a model whose KV pages) and the
+    CPU's slab engine on the same weights.  Gated: the slab engine equals
+    the CPU's, and for a dense model the oracle and the paged engine; a MoE
+    model's oracle routes a chunk's lanes in other groups (the reference's
+    documented exception), so its identity is reported."""
+    small = make_model(dataclasses.replace(get_config(arch), n_layers=2, dtype="float32", **over))
+    master = small.init(SEED, DEV)
+    n, lo, hi, new = spec
+    reqs = seeded_requests(small.cfg.vocab, n, lo, hi, new, 1, SEED)
+    card = slab_engine(small, master, reqs)
+    toks = {c.request_id: c.tokens for c in card.run(reqs)}
+    oracle = static_reference(small, card.params, reqs, ServeConfig())
+    del card
+    paged = None
+    if small.supports_paging:
+        eng = guard_engine(small, master, reqs)
+        paged = {c.request_id: c.tokens for c in eng.run(reqs)}
+        del eng
+    # into pinned host memory, as small_identity copies (pageable ran at ~2 GB/s)
+    cpu_master = tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                                pin_memory=DEV != "cpu").copy_(t), master)
+    del master
+    torch.cuda.empty_cache()
+    cpu = ContinuousEngine(small, cpu_master, num_slots=SLOTS, max_seq=required_max_seq(reqs),
+                           chunk=CHUNK, paged=False, device="cpu")
+    cpu_toks = {c.request_id: c.tokens for c in cpu.run(reqs)}
+
+    def same(other):
+        return None if other is None else sum(np.array_equal(t, other[i])
+                                              for i, t in toks.items())
+
+    res = {"oracle_identical": f"{same(oracle)}/{n}", "cpu_identical": f"{same(cpu_toks)}/{n}",
+           "paged_identical": None if paged is None else f"{same(paged)}/{n}",
+           "wrapping": sum(r.prompt_len + new > (small.cfg.sliding_window or 1 << 30)
+                           for r in reqs)}
+    print(f"[{label}-2l-f32] {json.dumps(res)}")
+    if same(cpu_toks) != n or (small.cfg.moe is None and (same(oracle) != n
+                                                          or same(paged) != n)):
+        fail(f"{label}: at 2 layers f32 the slab engine's tokens part: {res}")
+    return res
+
+
+def phase_slab(served: dict) -> dict:
+    """Phase 19 (module docstring)."""
+    t0, stages = time.perf_counter(), {}
+    dense = slab_dense(served)
+    release()
+    stages["dense"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mixtral = slab_mixtral()
+    release()
+    stages["mixtral"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    small = {"dense": slab_small("slab", ARCH, FAMILY_SMALL, {})}
+    release()
+    small["mixtral"] = slab_small("mixtral", MIXTRAL_ARCH, MIXTRAL_SMALL,
+                                  {"sliding_window": SMALL_WINDOW})
+    release()
+    stages["small_f32"] = time.perf_counter() - t0
+    print(f"[slab-stages] {json.dumps(stages)}")
+    return {"dense": dense, "mixtral": mixtral, "small_f32": small, "stage_seconds": stages,
+            "launches": {k: dense["launches"][k] + mixtral["launches"][k]
+                         for k in dense["launches"]}}
+
+
+def fingerprint(engine) -> tuple:
+    """What a drain must reproduce: completions (tokens, reason, finish
+    step, preemptions), the event log and the step count."""
+    return ([(c.request_id, c.new_tokens.tolist(), c.finish_reason, c.finish_step,
+              c.preemptions) for c in engine.completions], list(engine.event_log),
+            engine.step_count)
+
+
+def snapshot_sweep(label: str, model, master, reqs, root: Path, **kw) -> dict:
+    """Phase 20 (a): a writer snapshots after every tick; one restorer,
+    whose graphs a first run captured, restores each snapshot and drains;
+    every drain bitwise the writer's (``fingerprint``)."""
+    mk = functools.partial(ContinuousEngine, model, master, num_slots=SLOTS,
+                           max_seq=required_max_seq(reqs), chunk=CHUNK, device=DEV, **kw)
+    path = root / label
+    writer = mk()
+    for r in reqs:
+        writer.submit(r)
+    steps = []
+    while writer.step():
+        writer.snapshot(path)
+        steps.append(writer.step_count)
+    want = fingerprint(writer)
+    del writer
+    restorer = mk()
+    restorer.run(reqs)  # captures its graphs
+    captures = restorer.metrics()["fused_step_compilations"]
+    bad = []
+    for step in steps:
+        restorer.restore(path, step)
+        while restorer.step():
+            pass
+        if fingerprint(restorer) != want:
+            bad.append(step)
+    res = {"snapshots": len(steps), "diverged": bad, "captures_before_restores": captures,
+           "captures_after": restorer.metrics()["fused_step_compilations"]}
+    print(f"[snapshot-{label}] {json.dumps(res)}")
+    if bad or not steps or res["captures_after"] != captures:
+        fail(f"snapshot-{label}: drains from ticks {bad} differ from the writer's, or a "
+             f"restored engine captured again: {res}")
+    return res
+
+
+def snapshot_full(served: dict, root: Path) -> dict:
+    """Phase 20 (b): full-width internlm2-1.8b over phase 4's workload,
+    snapshots at SNAP_TICKS, each restored into one fresh engine and
+    drained: tokens bitwise the uninterrupted run's (phase 4's); bytes,
+    save and restore seconds; the drains' launches exact."""
+    model = make_model(get_config(ARCH))
+    master = model.init(SEED, DEV)
+    reqs = seeded_requests(model.cfg.vocab, REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW, 1, SEED)
+    writer = guard_engine(model, master, reqs)
+    for r in reqs:
+        writer.submit(r)
+    saves, path = {}, root / "full"
+    while writer.step():
+        if writer.model_ticks in SNAP_TICKS and writer.model_ticks not in saves:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            where = Path(writer.snapshot(path))
+            saves[writer.model_ticks] = {
+                "step": writer.step_count, "save_s": time.perf_counter() - t0,
+                "bytes": sum(f.stat().st_size for f in where.iterdir())}
+    whole = {c.request_id: c.new_tokens for c in writer.completions}
+    del writer
+    if any(not np.array_equal(whole[i], served["new_tokens"][i]) for i in whole):
+        fail("snapshot: the writer's tokens differ from phase 4's")
+    restorer = guard_engine(model, master, reqs)
+    del master
+    launches = dict.fromkeys(counters.WRAPPERS, 0)
+    for tick, rec in saves.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restorer.restore(path, rec["step"])
+        torch.cuda.synchronize()
+        rec["restore_s"] = time.perf_counter() - t0
+        counters.reset()
+        while restorer.step():
+            pass
+        got, want = counters.launch_counts(), want_for(restorer,
+                                                       restorer.model_ticks - tick)
+        launches = {k: launches[k] + got[k] for k in launches}
+        toks = {c.request_id: c.new_tokens for c in restorer.completions}
+        rec["identical"] = sum(np.array_equal(toks[i], whole[i]) for i in whole)
+        if rec["identical"] != len(whole) or got != want:
+            fail(f"snapshot: restored at tick {tick}: {rec['identical']}/{len(whole)} requests "
+                 f"identical, launches {got} != {want}")
+    res = {"ticks": {str(k): v for k, v in saves.items()},
+           "restorer_captures": restorer.metrics()["fused_step_compilations"]}
+    print(f"[snapshot-full] {json.dumps(res)}")
+    return {**res, "launches": launches}
+
+
+def snapshot_faults(model, master, reqs, root: Path) -> dict:
+    """Phase 20 (c): NaN tiles injected until a block is quarantined, a
+    snapshot, a restore into a fresh engine: the same quarantined set and
+    retry map, the ledger balanced after the restore and every tick of the
+    drain, the quarantined blocks never recycled, every request done."""
+    mk = functools.partial(guard_engine, model, master, reqs)
+    eng = mk()
+    inj = FaultInjector(eng, seed=1)
+    for r in reqs:
+        eng.submit(r)
+    injected = 0
+    while not eng.pool.quarantined:
+        if not eng.step():
+            fail("snapshot-faults: drained before any quarantine")
+        if injected < 3 and inj.inject("nan_tile"):
+            injected += 1
+    eng.snapshot(root / "faults")
+    quarantined, retries = set(eng.pool.quarantined), dict(eng._fault_retries)
+    del eng
+    fresh = mk()
+    fresh.restore(root / "faults")
+    ok = fresh.pool.quarantined == quarantined and fresh._fault_retries == retries
+    fresh.pool.check_ledger()
+    while fresh.step():
+        fresh.pool.check_ledger()
+        ok &= quarantined <= fresh.pool.quarantined
+    ok &= len(fresh.completions) == len(reqs)
+    res = {"quarantined": sorted(quarantined), "retries": retries, "ok": ok,
+           "completions": len(fresh.completions)}
+    print(f"[snapshot-faults] {json.dumps(res)}")
+    if not ok:
+        fail(f"snapshot-faults: {res}")
+    return res
+
+
+def phase_snapshot(served: dict) -> dict:
+    """Phase 20 (module docstring)."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_snap_"))
+    t0, stages = time.perf_counter(), {}
+    try:
+        small = make_model(dataclasses.replace(get_config(ARCH), n_layers=2, dtype="float32"))
+        master = small.init(SEED, DEV)
+        n, lo, hi, new = SNAP_SMALL
+        reqs = seeded_requests(small.cfg.vocab, n, lo, hi, new, 1, SEED)
+        sweep = {label: snapshot_sweep(label, small, master, reqs, root, **kw)
+                 for label, kw in (("paged-fp", {}), ("paged-int8", {"kv_dtype": "int8"}),
+                                   ("slab", {"paged": False}))}
+        faults = snapshot_faults(small, master, reqs, root)
+        del master
+        release()
+        stages["small"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        full = snapshot_full(served, root)
+        stages["full"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[snapshot-stages] {json.dumps(stages)}")
+    return {"sweep": sweep, "faults": faults, "full": full, "stage_seconds": stages,
+            "launches": full["launches"]}
+
+
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "gn_rmsnorm": ("src/repro_torch/csrc/gn_layernorm.cu",
                    "src/repro/kernels/gn_layernorm/kernel.py:81"),
@@ -3317,13 +3832,15 @@ def main() -> int:
     sla = phase("sla", phase_sla)
     mla = phase("mla", phase_mla, served)
     moe = phase("moe", phase_moe, kern)
+    slab = phase("slab", phase_slab, served)
+    snap = phase("snapshot", phase_snapshot, served)
     by_path = {"continuous": served["launches"], "static": static["launches"],
                "int8": int8["launches"], "long_static": long_static["launches"],
                "long_continuous": long_cont["launches"], "reads": reads["launches"],
                "sampled": guard["launches"], "train": train["launches"],
                "table1": table1["launches"], "tables": tables["launches"],
                "prefix": prefix["launches"], "sla": sla["launches"], "mla": mla["launches"],
-               "moe": moe["launches"]}
+               "moe": moe["launches"], "slab": slab["launches"], "snapshot": snap["launches"]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         # the main path's shape: bf16 tick (fp or int8 KV; the norms' 128

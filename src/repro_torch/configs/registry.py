@@ -1,5 +1,6 @@
 """Architecture registry of the port: the configs it can serve (dense, the
-MLA latent-attention one and the top-k MoE one).
+MLA latent-attention one, and the top-k MoE ones, mixtral's with a sliding
+window).
 
 Each entry is copied from ``repro/configs/registry.py``; ``reduce_config``
 is the reference's systematic shrink for CPU tests, copied as it is.
@@ -65,6 +66,14 @@ LLAMA4_SCOUT = register(ModelConfig(
     n_layers=48, d_model=5120, n_heads=40, n_kv_heads=8, d_ff=8192,
     vocab=202048, norm_impl="gn_rms", rope_theta=500000.0,
     moe=MoEConfig(num_experts=16, top_k=1),
+))
+
+MIXTRAL_8X22B = register(ModelConfig(
+    name="mixtral-8x22b", family="moe",
+    microbatches=16, opt_state_dtype="bfloat16",
+    n_layers=56, d_model=6144, n_heads=48, n_kv_heads=8, d_ff=16384,
+    vocab=32768, norm_impl="gn_rms", sliding_window=4096,
+    moe=MoEConfig(num_experts=8, top_k=2),
 ))
 
 GPT_NEO_1_3B = register(ModelConfig(

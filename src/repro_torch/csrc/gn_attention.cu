@@ -4,8 +4,10 @@
 // (_gn_attention_kernel, gn_attention_pallas) and its wrapper ops.py:23.
 // q (B, H, Sq, D), k and v (B, Hkv, Sk, D), q head h reads kv head h / G,
 // G = H / Hkv.  Query row i attends the columns c < Sk, and with `causal`
-// only c <= i + (Sk - Sq), the KV-prefix offset.  The online (m, l, acc)
-// update follows the Pallas kernel step by step (kernel.py:69-124): the
+// only c <= i + (Sk - Sq), the KV-prefix offset; a sliding `window` > 0
+// (with `causal`) also bounds them below, c > i + (Sk - Sq) - window, the
+// band of the reference's windowed_chunked (chunked_attention.py:193-245).
+// The online (m, l, acc) update follows the Pallas kernel step by step (kernel.py:69-124): the
 // running max snapped up to the Δ grid, a row that has seen nothing keeps
 // m = NEG_INF, the correction factorized_exp(clip(m_new - m_old, 0, step *
 // (max_delta_int + 1))) (0 with no history), masked numerators exactly 0,
@@ -17,10 +19,13 @@
 // K/V tile is loaded from device memory once, not G times.  The walk over
 // key tiles (the TPU's sequential grid axis) is a loop inside the block;
 // with `causal` it stops at the last tile the tile's rows can see, so tiles
-// wholly above the diagonal are never loaded, and the longest walks are
-// scheduled first.  The ragged Sq, Sk and D edges are masked here; nothing
-// is padded per call.  Bound: operations at the forward's shape (4 * B * H
-// * D * visible pairs against 989 TFLOP/s bf16 on the tensor cores).
+// wholly above the diagonal are never loaded, and with a window it starts at
+// the first tile the lowest band reaches, so tiles wholly below every row's
+// band are never loaded either; the longest walks are scheduled first.  A
+// window of Sk or more takes the causal kernel's path step for step.  The
+// ragged Sq, Sk and D edges are masked here; nothing is padded per call.
+// Bound: operations at the forward's shape (4 * B * H * D * visible pairs,
+// the band's with a window, against 989 TFLOP/s bf16 on the tensor cores).
 //
 // bf16 (the model's dtype) runs on the tensor cores (tc:: below).  Four
 // warps of 16 rows each; K/V tiles stay bf16 in shared memory, double
@@ -86,7 +91,7 @@ __global__ void __launch_bounds__(kThreads)
 gn_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                     const float* __restrict__ coarse_g, const float* __restrict__ residual_g,
                     T* __restrict__ out, int H, int Hkv, int Sq, int Sk, int D, int BQ,
-                    int causal, float sm_scale, gn::ExpLut lut) {
+                    int causal, int window, float sm_scale, gn::ExpLut lut) {
   const int G = H / Hkv, R = G * BQ, ld = D + 1, offset = Sk - Sq;
   const int tile = gridDim.x - 1 - blockIdx.x;  // the longest causal walks first
   const int kvh = blockIdx.y, b = blockIdx.z, i0 = tile * BQ;
@@ -110,9 +115,10 @@ gn_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     q_s[r * ld + d] = val;
   }
 
-  // this thread's rows: their position, whether they exist, and the last
-  // column each may see (causal: pos + offset; always < Sk)
-  int pos[4], lim[4];
+  // this thread's rows: their position, whether they exist, and the first
+  // and last column each may see (causal: pos + offset, always < Sk; a
+  // window: from pos + offset - window + 1)
+  int pos[4], lim[4], lo[4];
   bool rv[4];
   float m[4], l[4], acc[4][DC];
 #pragma unroll
@@ -121,18 +127,21 @@ gn_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
     pos[i] = i0 + r % BQ;
     rv[i] = r < R && pos[i] < Sq;
     lim[i] = causal ? min(Sk - 1, pos[i] + offset) : Sk - 1;
+    lo[i] = window > 0 ? pos[i] + offset - window + 1 : 0;
     m[i] = gn::NEG_INF;
     l[i] = 0.0f;
 #pragma unroll
     for (int dc = 0; dc < DC; ++dc) acc[i][dc] = 0.0f;
   }
-  // key tiles up to the last column any row of this tile may see
+  // key tiles from the first column the lowest row's band reaches up to the
+  // last column any row of this tile may see
   int last = Sk - 1;
   if (causal) last = min(last, min(i0 + BQ, Sq) - 1 + offset);
   const int n_tiles = last < 0 ? 0 : last / kKeys + 1;
+  const int first_tile = window > 0 ? max(0, i0 + offset - window + 1) / kKeys : 0;
   const float max_corr = lut.step * (float)(lut.max_delta_int + 1);
 
-  for (int jt = 0; jt < n_tiles; ++jt) {
+  for (int jt = first_tile; jt < n_tiles; ++jt) {
     const int c0 = jt * kKeys, keys = min(kKeys, Sk - c0);
     __syncthreads();  // the previous tile's products are done with k_s, v_s, y_s
     for (int idx = tid; idx < kKeys * D; idx += kThreads) {
@@ -173,13 +182,13 @@ gn_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = c0 + tx + 16 * j;
-        if (!(rv[i] && col <= lim[i])) s[i][j] = gn::NEG_INF;
+        if (!(rv[i] && col <= lim[i] && col >= lo[i])) s[i][j] = gn::NEG_INF;
         m_cur = fmaxf(m_cur, s[i][j]);
       }
       m_cur = half_warp_max(m_cur);
-      // both mask bounds are upper bounds on the column, so a row sees some
-      // column of this tile iff it sees the first one
-      const bool any_valid = rv[i] && c0 <= lim[i];
+      // a row sees some column of this tile iff the tile meets its band
+      // [lo, lim] (lo <= lim for a row that exists)
+      const bool any_valid = rv[i] && c0 <= lim[i] && c0 + kKeys - 1 >= lo[i];
       const bool started = m[i] > gn::NEG_INF / 2;
       float m_new = gn::snap_up_to_grid(fmaxf(m[i], m_cur), lut.step);
       if (!(any_valid || started)) m_new = m[i];
@@ -193,7 +202,7 @@ gn_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
       for (int j = 0; j < 4; ++j) {
         const int col = c0 + tx + 16 * j;
         float y = 0.0f;
-        if (live && rv[i] && col <= lim[i])
+        if (live && rv[i] && col <= lim[i] && col >= lo[i])
           y = gn::factorized_exp(fmaxf(m_new - s[i][j], 0.0f), coarse, residual, lut);
         y_s[r * kYLd + tx + 16 * j] = y;
         sum += y;
@@ -241,7 +250,8 @@ gn_attention_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* _
 template <typename T, int DC>
 int launch(const void* q, const void* k, const void* v, const float* coarse,
            const float* residual, void* out, int B, int H, int Hkv, int Sq, int Sk, int D,
-           int causal, float sm_scale, const gn::ExpLut& lut, cudaStream_t stream) {
+           int causal, int window, float sm_scale, const gn::ExpLut& lut,
+           cudaStream_t stream) {
   const int BQ = kRows / (H / Hkv);
   const size_t floats = (size_t)(kRows + kKeys) * (D + 1) + (size_t)kKeys * D +
                         (size_t)kRows * kYLd + lut.coarse_entries + lut.residual_entries;
@@ -254,29 +264,30 @@ int launch(const void* q, const void* k, const void* v, const float* coarse,
   const dim3 grid((Sq + BQ - 1) / BQ, Hkv, B);
   gn_attention_kernel<T, DC><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), coarse,
-      residual, static_cast<T*>(out), H, Hkv, Sq, Sk, D, BQ, causal, sm_scale, lut);
+      residual, static_cast<T*>(out), H, Hkv, Sq, Sk, D, BQ, causal, window, sm_scale, lut);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v, const float* coarse,
              const float* residual, void* out, int B, int H, int Hkv, int Sq, int Sk, int D,
-             int causal, float sm_scale, const gn::ExpLut& lut, cudaStream_t stream) {
+             int causal, int window, float sm_scale, const gn::ExpLut& lut,
+             cudaStream_t stream) {
   // DC: the smallest power of two with 16 * DC >= D
   if (D <= 16)
-    return launch<T, 1>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale,
-                        lut, stream);
+    return launch<T, 1>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, window,
+                        sm_scale, lut, stream);
   if (D <= 32)
-    return launch<T, 2>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale,
-                        lut, stream);
+    return launch<T, 2>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, window,
+                        sm_scale, lut, stream);
   if (D <= 64)
-    return launch<T, 4>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale,
-                        lut, stream);
+    return launch<T, 4>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, window,
+                        sm_scale, lut, stream);
   if (D <= 128)
-    return launch<T, 8>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale,
-                        lut, stream);
-  return launch<T, 16>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale,
-                       lut, stream);
+    return launch<T, 8>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, window,
+                        sm_scale, lut, stream);
+  return launch<T, 16>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, window,
+                       sm_scale, lut, stream);
 }
 
 // ------------------------------------------------------- tensor cores (bf16) --
@@ -314,8 +325,8 @@ __global__ void __launch_bounds__(kThreads, min_blocks(DP))
 gn_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                        const bf16* __restrict__ v, const float* __restrict__ coarse_g,
                        const float* __restrict__ residual_g, bf16* __restrict__ out, int H,
-                       int Hkv, int Sq, int Sk, int D, int BQ, int causal, int vec,
-                       float sm_scale, gn::ExpLut lut) {
+                       int Hkv, int Sq, int Sk, int D, int BQ, int causal, int window,
+                       int vec, float sm_scale, gn::ExpLut lut) {
   constexpr int KN = kKeys;
   constexpr int LD = DP + 8;  // row stride: ldmatrix's 8 row addresses hit 8 bank groups
   constexpr int CH = DP / 8;  // 16-byte chunks a row
@@ -354,8 +365,9 @@ gn_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   };
 
   // this lane's two rows (gid and gid + 8 of the warp's 16): whether they
-  // exist and the last column each may see (causal: pos + offset; < Sk)
-  int lim[2];
+  // exist and the first and last column each may see (causal: pos + offset,
+  // < Sk; a window: from pos + offset - window + 1)
+  int lim[2], lo[2];
   bool rv[2];
   float m[2], l[2];
 #pragma unroll
@@ -363,10 +375,12 @@ gn_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int r = warp * 16 + gid + 8 * i, pos = i0 + r % BQ;
     rv[i] = r < R && pos < Sq;
     lim[i] = causal ? min(Sk - 1, pos + offset) : Sk - 1;
+    lo[i] = window > 0 ? pos + offset - window + 1 : 0;
     m[i] = gn::NEG_INF;
     l[i] = 0.0f;
   }
   const int lim_min = min(rv[0] ? lim[0] : -1, rv[1] ? lim[1] : -1);
+  const int lo_max = max(lo[0], lo[1]);
   float acc[DP / 8][4];
 #pragma unroll
   for (int n = 0; n < DP / 8; ++n)
@@ -375,12 +389,13 @@ gn_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int last = Sk - 1;
   if (causal) last = min(last, min(i0 + BQ, Sq) - 1 + offset);
   const int n_tiles = last < 0 ? 0 : last / KN + 1;
+  const int first_tile = window > 0 ? max(0, i0 + offset - window + 1) / KN : 0;
   const float max_corr = lut.step * (float)(lut.max_delta_int + 1);
 
-  if (n_tiles > 0) load_kv(0, 0);
+  if (first_tile < n_tiles) load_kv(first_tile, 0);
   cp_async_commit();  // q and the first K/V tile
-  for (int jt = 0; jt < n_tiles; ++jt) {
-    const int st = jt & 1, c0 = jt * KN;
+  for (int jt = first_tile; jt < n_tiles; ++jt) {
+    const int st = (jt - first_tile) & 1, c0 = jt * KN;
     if (jt + 1 < n_tiles) {
       load_kv(jt + 1, st ^ 1);  // the other stage, free since the end of jt - 1
       cp_async_commit();
@@ -417,9 +432,9 @@ gn_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     // online update of the lane's two rows (kernel.py:77-111); element e of
     // n-tile n is row gid + 8 (e >> 1), column c0 + 8 n + 2 tig + (e & 1).
     // Masked scores become NEG_INF; a tile that every row of the warp sees
-    // whole (all but the diagonal and ragged ones) skips the mask.
+    // whole (all but the diagonal, band-edge and ragged ones) skips the mask.
     float mx[2] = {gn::NEG_INF, gn::NEG_INF};
-    if (__all_sync(0xffffffffu, c0 + KN - 1 <= lim_min)) {
+    if (__all_sync(0xffffffffu, c0 + KN - 1 <= lim_min && c0 >= lo_max)) {
 #pragma unroll
       for (int n = 0; n < NT; ++n)
 #pragma unroll
@@ -433,7 +448,7 @@ gn_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = e >> 1, col = c0 + 8 * n + 2 * tig + (e & 1);
-          s[n][e] = rv[i] && col <= lim[i] ? s[n][e] * sm_scale : gn::NEG_INF;
+          s[n][e] = rv[i] && col <= lim[i] && col >= lo[i] ? s[n][e] * sm_scale : gn::NEG_INF;
           mx[i] = fmaxf(mx[i], s[n][e]);
         }
     }
@@ -442,9 +457,8 @@ gn_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const float m_cur = quad_max(mx[i]);
-      // both mask bounds are upper bounds on the column, so a row sees some
-      // column of this tile iff it sees the first one
-      const bool any_valid = rv[i] && c0 <= lim[i];
+      // a row sees some column of this tile iff the tile meets its band
+      const bool any_valid = rv[i] && c0 <= lim[i] && c0 + KN - 1 >= lo[i];
       const bool started = m[i] > gn::NEG_INF / 2;
       float m_new = gn::snap_up_to_grid(fmaxf(m[i], m_cur), lut.step);
       if (!(any_valid || started)) m_new = m[i];
@@ -499,7 +513,7 @@ gn_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     }
     __syncthreads();  // every warp is done with this stage before it is refilled
   }
-  if (n_tiles == 0) {  // q's copies must land before its rows take the output
+  if (first_tile >= n_tiles) {  // q's copies must land before its rows take the output
     cp_async_wait<0>();
     __syncthreads();
   }
@@ -535,8 +549,8 @@ gn_attention_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 
 template <int DP>
 int launch(const void* q, const void* k, const void* v, const float* coarse, const float* residual,
-           void* out, int B, int H, int Hkv, int Sq, int Sk, int D, int causal, float sm_scale,
-           const gn::ExpLut& lut, cudaStream_t stream) {
+           void* out, int B, int H, int Hkv, int Sq, int Sk, int D, int causal, int window,
+           float sm_scale, const gn::ExpLut& lut, cudaStream_t stream) {
   const int BQ = 64 / (H / Hkv);
   const size_t smem = smem_bytes<DP>(lut.max_delta_int + 2);
   if (smem > 48 * 1024) {
@@ -549,22 +563,23 @@ int launch(const void* q, const void* k, const void* v, const float* coarse, con
   const dim3 grid((Sq + BQ - 1) / BQ, Hkv, B);
   gn_attention_tc_kernel<DP><<<grid, kThreads, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      coarse, residual, static_cast<bf16*>(out), H, Hkv, Sq, Sk, D, BQ, causal, vec, sm_scale,
-      lut);
+      coarse, residual, static_cast<bf16*>(out), H, Hkv, Sq, Sk, D, BQ, causal, window, vec,
+      sm_scale, lut);
   return static_cast<int>(cudaGetLastError());
 }
 
 int dispatch(const void* q, const void* k, const void* v, const float* coarse,
              const float* residual, void* out, int B, int H, int Hkv, int Sq, int Sk, int D,
-             int causal, float sm_scale, const gn::ExpLut& lut, cudaStream_t stream) {
+             int causal, int window, float sm_scale, const gn::ExpLut& lut,
+             cudaStream_t stream) {
   if (D <= 64)
-    return launch<64>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale,
-                      lut, stream);
+    return launch<64>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, window,
+                      sm_scale, lut, stream);
   if (D <= 128)
-    return launch<128>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale,
-                       lut, stream);
-  return launch<256>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale, lut,
-                     stream);
+    return launch<128>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, window,
+                       sm_scale, lut, stream);
+  return launch<256>(q, k, v, coarse, residual, out, B, H, Hkv, Sq, Sk, D, causal, window,
+                     sm_scale, lut, stream);
 }
 
 }  // namespace tc
@@ -573,8 +588,9 @@ int dispatch(const void* q, const void* k, const void* v, const float* coarse,
 
 // q, out: (B, H, Sq, D) contiguous; k, v: (B, Hkv, Sk, D) contiguous, all of
 // one dtype, f32 (dtype 0) or bf16 (dtype 1); 1 <= D <= 256; H a multiple of
-// Hkv with G = H / Hkv <= 64; coarse, residual: the f32 exp ROM tables.  The
-// caller names the design (ops.py `design`): tensor_core 1 runs the
+// Hkv with G = H / Hkv <= 64; coarse, residual: the f32 exp ROM tables;
+// window: 0 for none, else the band of a causal call (window > 0 needs
+// causal).  The caller names the design (ops.py `design`): tensor_core 1 runs the
 // tensor-core design, which takes bf16 with LUT values of at most 17 bits
 // (value_scale <= 2^17, the exact hi + lo split) and refuses anything else;
 // tensor_core 0 runs the CUDA-core design in either dtype.  Launches on
@@ -582,14 +598,14 @@ int dispatch(const void* q, const void* k, const void* v, const float* coarse,
 // opt-in).
 extern "C" int gn_attention_launch(const void* q, const void* k, const void* v,
                                    const void* coarse, const void* residual, void* out, int B,
-                                   int H, int Hkv, int Sq, int Sk, int D, int causal, int dtype,
-                                   int tensor_core, float sm_scale, float step, float inv_step,
-                                   int max_delta_int, int coarse_shift, int residual_mask,
+                                   int H, int Hkv, int Sq, int Sk, int D, int causal,
+                                   int window, int dtype, int tensor_core, float sm_scale,
+                                   float step, float inv_step, int max_delta_int, int coarse_shift, int residual_mask,
                                    int coarse_entries, int residual_entries, float value_scale,
                                    void* stream) {
   if (B == 0 || Sq == 0 || H == 0) return static_cast<int>(cudaGetLastError());
   if (B < 0 || Sq < 0 || Sk < 0 || D < 1 || D > 256 || Hkv < 1 || H % Hkv || H / Hkv > kRows ||
-      B > 65535 || Hkv > 65535)
+      B > 65535 || Hkv > 65535 || window < 0 || (window > 0 && !causal))
     return static_cast<int>(cudaErrorInvalidValue);
   const gn::ExpLut lut{step, inv_step, max_delta_int, coarse_shift, residual_mask,
                        coarse_entries, residual_entries, value_scale, 1.0f / value_scale};
@@ -599,12 +615,14 @@ extern "C" int gn_attention_launch(const void* q, const void* k, const void* v,
   if (tensor_core) {
     if (dtype != 1 || value_scale > 131072.0f)  // the hi + lo split is exact up to 2^-17
       return static_cast<int>(cudaErrorInvalidValue);
-    return tc::dispatch(q, k, v, co, re, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale, lut, s);
+    return tc::dispatch(q, k, v, co, re, out, B, H, Hkv, Sq, Sk, D, causal, window,
+                        sm_scale, lut, s);
   }
   if (dtype == 0)
-    return dispatch<float>(q, k, v, co, re, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale, lut, s);
+    return dispatch<float>(q, k, v, co, re, out, B, H, Hkv, Sq, Sk, D, causal, window,
+                           sm_scale, lut, s);
   if (dtype == 1)
-    return dispatch<__nv_bfloat16>(q, k, v, co, re, out, B, H, Hkv, Sq, Sk, D, causal, sm_scale,
-                                   lut, s);
+    return dispatch<__nv_bfloat16>(q, k, v, co, re, out, B, H, Hkv, Sq, Sk, D, causal, window,
+                                   sm_scale, lut, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,8 +1,11 @@
 """GN flash-attention wrapper (port of ``repro/kernels/gn_attention/ops.py``).
 
-``gn_attention(q, k, v, cfg, causal, sm_scale)`` keeps the reference's
-layout: q (B, H, Sq, D), k and v (B, Hkv, Sk, D), q head h reading kv head
-h // (H / Hkv); with ``causal`` row i sees the columns up to i + Sk - Sq.
+``gn_attention(q, k, v, cfg, causal, sm_scale, window)`` keeps the
+reference's layout: q (B, H, Sq, D), k and v (B, Hkv, Sk, D), q head h
+reading kv head h // (H / Hkv); with ``causal`` row i sees the columns up to
+i + Sk - Sq, and a sliding ``window`` > 0 (causal only) keeps the last
+``window`` of them, (i + Sk - Sq - window, i + Sk - Sq], the band the
+reference's ``windowed_chunked`` attends.  0 is no window.
 For CPU tensors the wrapper runs the plain version (``ref``); for CUDA
 tensors it launches ``csrc/gn_attention.cu`` on the current stream, or
 raises.  ``design`` picks the kernel's design: the tensor-core design for
@@ -41,7 +44,7 @@ from repro_torch.kernels.gn_softmax import ops as softmax_ops
 from repro_torch.kernels.gn_softmax.ops import exp_lut_args
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-_ARGTYPES = [_P] * 6 + [_I] * 9 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
+_ARGTYPES = [_P] * 6 + [_I] * 10 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
 MAX_HEAD_DIM = 256
 MAX_GROUP = 64  # q heads per kv head: one block holds 64 rows
 # every multiple of 2^-17 in [0, 1] is exactly bf16(y) + bf16(y - bf16(y))
@@ -89,7 +92,7 @@ def _check(q, k, v) -> None:
 
 
 def attention_backward(q, k, v, o, do, cfg: SoftmaxLUTConfig, causal: bool,
-                       sm_scale: float):
+                       sm_scale: float, window: int = 0):
     """(dq, dk, dv) in f32 for the output gradient do: the scores and
     their GN softmax recomputed (see the module docstring), kv heads
     summed over their group of q heads."""
@@ -101,8 +104,7 @@ def attention_backward(q, k, v, o, do, cfg: SoftmaxLUTConfig, causal: bool,
     v32 = v.float().repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q32, k32) * sm_scale
     if causal:
-        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(diagonal=sk - sq)
-        s = torch.where(mask, s, ref.NEG_INF)
+        s = torch.where(ref.band_mask(sq, sk, window, q.device), s, ref.NEG_INF)
     p = softmax_ops.gn_softmax(s, cfg)
     del s
     dv = torch.einsum("bhqk,bhqd->bhkd", p, do32)
@@ -117,17 +119,18 @@ def attention_backward(q, k, v, o, do, cfg: SoftmaxLUTConfig, causal: bool,
 
 class _GNAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, cfg, causal, sm_scale):
-        o = _forward(q, k, v, cfg, causal, sm_scale)
+    def forward(ctx, q, k, v, cfg, causal, sm_scale, window):
+        o = _forward(q, k, v, cfg, causal, sm_scale, window)
         ctx.save_for_backward(q, k, v, o)
-        ctx.cfg, ctx.causal, ctx.sm_scale = cfg, causal, sm_scale
+        ctx.cfg, ctx.causal, ctx.sm_scale, ctx.window = cfg, causal, sm_scale, window
         return o
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o = ctx.saved_tensors
-        dq, dk, dv = attention_backward(q, k, v, o, do, ctx.cfg, ctx.causal, ctx.sm_scale)
-        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None
+        dq, dk, dv = attention_backward(q, k, v, o, do, ctx.cfg, ctx.causal, ctx.sm_scale,
+                                        ctx.window)
+        return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), None, None, None, None
 
 
 def gn_attention(
@@ -137,21 +140,26 @@ def gn_attention(
     cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT,
     causal: bool = False,
     sm_scale: float | None = None,
+    window: int = 0,
 ) -> torch.Tensor:
     """GN attention; returns (B, H, Sq, D) in q's dtype (differentiable;
     see the module docstring)."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5  # the true head dim, as the reference
+    window = int(window or 0)
+    if window < 0 or (window and not causal):
+        raise ValueError(f"window {window}: a sliding window is >= 0 and bounds a causal call")
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        return _GNAttention.apply(q, k, v, cfg, causal, sm_scale)
-    return _forward(q, k, v, cfg, causal, sm_scale)
+        return _GNAttention.apply(q, k, v, cfg, causal, sm_scale, window)
+    return _forward(q, k, v, cfg, causal, sm_scale, window)
 
 
-def _forward(q, k, v, cfg: SoftmaxLUTConfig, causal: bool, sm_scale: float) -> torch.Tensor:
+def _forward(q, k, v, cfg: SoftmaxLUTConfig, causal: bool, sm_scale: float,
+             window: int = 0) -> torch.Tensor:
     """The plain version for CPU tensors, the kernel for CUDA ones."""
     global launches
     if q.device.type == "cpu":
-        return ref.gn_attention_ref(q, k, v, cfg, causal, sm_scale)
+        return ref.gn_attention_ref(q, k, v, cfg, causal, sm_scale, window)
     if q.device.type != "cuda":
         raise ValueError(f"gn_attention runs on cpu or cuda tensors, got {q.device}")
     _check(q, k, v)
@@ -163,7 +171,7 @@ def _forward(q, k, v, cfg: SoftmaxLUTConfig, causal: bool, sm_scale: float) -> t
     coarse, residual = exp_lut_tensors(cfg, str(q.device))
     rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), coarse.data_ptr(),
                   residual.data_ptr(), out.data_ptr(), b, h, hkv, sq, sk, d, int(causal),
-                  DTYPE_CODES[q.dtype], int(design(q.dtype, cfg) == TENSOR_CORE),
+                  window, DTYPE_CODES[q.dtype], int(design(q.dtype, cfg) == TENSOR_CORE),
                   float(sm_scale), *exp_lut_args(cfg),
                   torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "gn_attention")

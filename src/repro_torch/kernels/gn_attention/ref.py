@@ -2,7 +2,8 @@
 
 Mirrors ``repro/kernels/gn_attention/ref.py:gn_attention_ref``: kv heads
 repeated over their group of q heads, f32 scores scaled after the dot, the
-causal mask ``tril(k=Sk-Sq)`` at -1e30, the one-pass ``core.gn_softmax``,
+causal mask ``tril(k=Sk-Sq)`` at -1e30 (with a sliding ``window`` also
+the band's lower edge, as the reference's ``causal_mask(s, t, window)``), the one-pass ``core.gn_softmax``,
 and the f32 product with v, cast to q's dtype.  The kernel accumulates the
 same LUT'd numerators online, so the two agree up to float association and
 the Q1.15 rounding of the online corrections.  Its argument order is the
@@ -23,6 +24,16 @@ NEG_INF = -1e30
 cuda_calls = 0
 
 
+def band_mask(sq: int, sk: int, window: int = 0, device=None) -> torch.Tensor:
+    """(Sq, Sk) bool: row i sees column c iff c <= i + Sk - Sq and, with a
+    sliding ``window`` > 0, c > i + Sk - Sq - window."""
+    mask = torch.ones(sq, sk, dtype=torch.bool, device=device).tril(diagonal=sk - sq)
+    if window:
+        mask &= ~torch.ones(sq, sk, dtype=torch.bool, device=device).tril(
+            diagonal=sk - sq - window)
+    return mask
+
+
 def gn_attention_ref(
     q: torch.Tensor,  # (B, H, Sq, D)
     k: torch.Tensor,  # (B, Hkv, Sk, D)
@@ -30,6 +41,7 @@ def gn_attention_ref(
     cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT,
     causal: bool = False,
     sm_scale: float | None = None,
+    window: int = 0,
 ) -> torch.Tensor:
     global cuda_calls
     if q.is_cuda:
@@ -41,8 +53,6 @@ def gn_attention_ref(
     v = v.repeat_interleave(group, dim=1)
     s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * sm_scale
     if causal:
-        sq, sk = s.shape[-2], s.shape[-1]
-        mask = torch.ones(sq, sk, dtype=torch.bool, device=q.device).tril(diagonal=sk - sq)
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(band_mask(s.shape[-2], s.shape[-1], window, q.device), s, NEG_INF)
     p = gn_softmax(s, cfg)
     return torch.einsum("bhqk,bhkd->bhqd", p, v.float()).to(q.dtype)

@@ -13,7 +13,9 @@ keys), and serves.  Runs on CUDA unless
     its shape, seconds, tok/s and the teacher-forced perplexity of the whole
     sequence, then the overall tok/s;
   * ``--continuous``: a seeded numpy workload through ``ContinuousEngine``
-    (GN sentinels on unless ``--no-sentinels``), one line per request and
+    (block-paged, GN sentinels on unless ``--no-sentinels``; a sliding
+    window, mixtral's, serves on the slab pool, which has no sentinels),
+    one line per request and
     the per-tick phases and times, the sentinels' counters, then at
     temperature 0 the greedy outputs held against ``static_reference`` on
     the same requests (printed as k/n token-identical; a sampled run skips
@@ -28,6 +30,7 @@ Usage:
   python -m repro_torch.launch.serve --arch internlm2-1.8b --batches 1 --batch-size 4 \
       --prompt-len 4096
   python -m repro_torch.launch.serve --arch internlm2-1.8b --continuous [--temperature 0.7]
+  python -m repro_torch.launch.serve --arch mixtral-8x22b --continuous
   python -m repro_torch.launch.serve --smoke --device cpu [--continuous]
   python -m repro_torch.launch.serve --smoke --device cpu --ckpt runs/default/ckpt
 """
@@ -140,19 +143,21 @@ def _serve_continuous(model, master, args, device) -> dict:
                               max_seq=required_max_seq(reqs),
                               cfg=ServeConfig(temperature=args.temperature, seed=args.seed),
                               chunk=args.chunk, block_size=args.block_size,
-                              sentinels=not args.no_sentinels, device=device)
+                              sentinels=False if args.no_sentinels else None, device=device)
     before = counters.launch_counts()
     t0 = time.perf_counter()
     comps = engine.run(reqs)
     seconds = time.perf_counter() - t0
     launches = {k: v - before[k] for k, v in counters.launch_counts().items()}
     m = engine.metrics()
+    pool = (f"peak blocks {m['peak_blocks_in_use']}/{engine.pool.num_blocks}, horizon "
+            f"buckets fused {m['fused_buckets']} decode {m['decode_buckets']}" if m["kv_paged"]
+            else f"slab pool of {m['kv_hbm_bytes']} bytes")
     print(f"served {cfg.name} on {device}: {m['completed']} requests, "
           f"{m['generated_tokens']} tokens in {seconds:.3f}s "
           f"({m['generated_tokens'] / seconds:.1f} tok/s), {m['model_ticks']} model ticks "
-          f"({m['fused_ticks']} fused), peak blocks {m['peak_blocks_in_use']}"
-          f"/{engine.pool.num_blocks}, horizon buckets fused {m['fused_buckets']} decode "
-          f"{m['decode_buckets']}, {m['fused_step_compilations'] + m['decode_compilations']} "
+          f"({m['fused_ticks']} fused), {pool}, "
+          f"{m['fused_step_compilations'] + m['decode_compilations']} "
           f"graph captures ({m['capture_seconds']:.2f}s)")
     print(f"  sentinels {'on' if m['sentinels'] else 'off'}: {m['sentinel_checks']} checks, "
           f"{m['sentinel_violations']} violations, {m['quarantined_blocks']} quarantined, "

@@ -1,6 +1,8 @@
-"""Dense GN attention (port of the dense full-attention subset of
+"""Dense GN attention (port of the decoder subset of
 ``repro/models/attention.py``): the contiguous paths of training-style
-scoring, static prefill and slab decode, and the block-paged serving tick.
+scoring, static prefill and slab decode, the slab serving tick, and the
+block-paged serving tick; full attention or a sliding window
+(``cfg.sliding_window``, mixtral).
 
 The softmax is ``cfg.softmax_impl``, any name of ``core.get_softmax``:
 ``"gn"`` (the paper's Algorithm 1) runs through the port's GN kernels;
@@ -25,14 +27,28 @@ Contiguous paths:
     max snapped up to the Δ grid, LUT'd rescales, one division by the sum of
     the numerators), so the (S, S) scores are never materialized.  On the
     CPU the wrapper runs its plain one-pass version, as every kernel of the
-    port does there.  The reference's ``windowed_chunked`` serves sliding
-    windows, which the port does not serve yet.
+    port does there.  A sliding window goes to the kernel as its ``window``
+    band on every call, where the reference takes ``windowed_chunked`` past
+    the window (and ``causal_chunked``, the same function, below it).
   * Exact attention past ``CHUNKED_FROM`` tokens is refused: the reference
     runs ``chunked_self_attention`` there, which the port does not have.
     The one-pass-only names (``gn_hwsim`` and the baselines) stay one-pass
     at every length, as the reference's ``_use_chunked`` keeps them, so the
     (S, S) scores are materialized.
-  * The slab cache is written in place.
+  * The slab cache is written in place.  With a sliding window it is a ring
+    of ``min(max_seq, window)`` slots (``attn_cache_shape``): position p
+    lives in slot p % slots, a prefill past the window keeps its last
+    ``window`` keys rotated into place, and a decode step masks the ring by
+    age, as the reference's.
+
+Slab serving tick (``ContinuousEngine(paged=False)``, the pool for sliding
+windows): ``attn_slab_chunk`` is the reference's ``attn_decode_chunk`` and
+``attn_slab_decode`` its ``attn_decode_step``, each batched over the slots
+with a position and a lane count per slot (the reference vmaps them over
+the slots).  A lane that must not write (past ``n_valid``, a parked slot)
+writes back the value its ring slot already holds, so the pool needs no
+sink: a chunk's C <= slots lanes land in C distinct slots.  A windowed chunk
+attends the pre-write ring and its own keys side by side, as the reference's.
 
 Paged path: every sequence owns a block table into a shared KV arena.  The
 port's arenas carry one extra block past the last real one, a write sink:
@@ -71,7 +87,8 @@ distribution, so the output alone misses them, as the reference's Pallas
 read's reduced probe does; the reference's default engine reads through
 the streamed path, whose full probe sees the scores).
 
-No sliding window is ported.
+The paged tick serves no sliding window: a windowed model has no pageable
+KV (``Model.supports_paging``), as in the reference.
 """
 from __future__ import annotations
 
@@ -150,11 +167,15 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask):
     return torch.einsum("bkgst,btkd->bskgd", p, v).reshape(b, s, h, dh)
 
 
-def causal_mask(s: int, t: int, device=None):
-    """(1, 1, s, t) bool; t >= s (the query block is the suffix of the kv span)."""
+def causal_mask(s: int, t: int, device=None, window: int = 0):
+    """(1, 1, s, t) bool; t >= s (the query block is the suffix of the kv
+    span); a sliding ``window`` keeps each row's last ``window`` columns."""
     rows = torch.arange(s, device=device)[:, None] + (t - s)
     cols = torch.arange(t, device=device)[None, :]
-    return (cols <= rows)[None, None]
+    m = cols <= rows
+    if window:
+        m &= cols > rows - window
+    return m[None, None]
 
 
 def _qkv(cfg: ModelConfig, p: dict, x, positions):
@@ -169,17 +190,19 @@ def _qkv(cfg: ModelConfig, p: dict, x, positions):
 def self_attention(cfg: ModelConfig, p: dict, x, positions, causal: bool = True):
     """x: (B, S, D), positions: (B, S) -> (B, S, D): GN through the
     flash-attention kernel (q, k, v moved to its (B, heads, S, dh) layout;
-    differentiable, ``kernels/gn_attention/ops.py``), every other softmax
-    through the one-pass ``_sdpa`` in plain torch."""
+    differentiable, ``kernels/gn_attention/ops.py``, a sliding window its
+    band), every other softmax through the one-pass ``_sdpa`` in plain
+    torch."""
     b, s, _ = x.shape
     _softmax(cfg)
     _refuse_long_exact(cfg, s)
     q, k, v = _qkv(cfg, p, x, positions)
+    win = cfg.sliding_window if causal else 0
     if cfg.softmax_impl == "gn":
         q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        out = gn_attention(q, k, v, causal=causal).transpose(1, 2)
+        out = gn_attention(q, k, v, causal=causal, window=win).transpose(1, 2)
     else:
-        mask = causal_mask(s, s, x.device) if causal else torch.ones(
+        mask = causal_mask(s, s, x.device, win) if causal else torch.ones(
             1, 1, s, s, dtype=torch.bool, device=x.device)
         out = _sdpa(cfg, q, k, v, mask)
     return out.reshape(b, s, cfg.q_features) @ p["wo"]
@@ -188,23 +211,30 @@ def self_attention(cfg: ModelConfig, p: dict, x, positions, causal: bool = True)
 # ------------------------------------------------------------ slab cache --
 def attn_cache_shape(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
     """One layer's slab cache leaves, name -> (shape, dtype): a slot per
-    position (full attention, no window)."""
-    kv = (batch, max_seq, cfg.n_kv_heads, cfg.head_dim)
+    position, or with a sliding window a ring of min(max_seq, window)."""
+    win = cfg.sliding_window or 0
+    slots = min(max_seq, win) if win else max_seq
+    kv = (batch, slots, cfg.n_kv_heads, cfg.head_dim)
     dt = getattr(torch, cfg.dtype)
     return {"k": (kv, dt), "v": (kv, dt)}
 
 
 def attn_prefill(cfg: ModelConfig, p: dict, x, positions):
     """Self-attention over the prompt; returns (out (B,S,D), {"k", "v"}:
-    (B,S,KV,dh) for the cache)."""
+    (B,S,KV,dh) for the cache, or with a sliding window shorter than the
+    prompt its last ``window`` positions)."""
     b, s, _ = x.shape
+    win = cfg.sliding_window or 0
     q, k, v = _qkv(cfg, p, x, positions)
     _refuse_long_exact(cfg, s)
     if s > CHUNKED_FROM and cfg.softmax_impl == "gn":
-        out = gn_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)), causal=True)
+        out = gn_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)), causal=True,
+                           window=win)
         out = out.transpose(1, 2)
     else:
-        out = _sdpa(cfg, q, k, v, causal_mask(s, s, x.device))
+        out = _sdpa(cfg, q, k, v, causal_mask(s, s, x.device, win))
+    if win and s > win:
+        k, v = k[:, -win:], v[:, -win:]
     return out.reshape(b, s, cfg.q_features) @ p["wo"], {"k": k, "v": v}
 
 
@@ -212,21 +242,101 @@ def attn_decode_step(cfg: ModelConfig, p: dict, cache: dict, x, pos):
     """One-token decode.  x: (B,1,D); pos: the position written, a 0-d int32
     tensor on x's device (as the reference traces it, so one CUDA graph
     serves every step); cache: this layer's {"k", "v"} slabs (B,T,KV,dh),
-    whose slot ``pos`` is written in place.  Returns (out (B,1,D), cache)."""
-    softmax = _softmax(cfg)
+    whose slot ``pos`` (with a sliding window ``pos % T``, a ring) is
+    written in place: the slab tick's decode with every row at ``pos``.
+    Returns (out (B,1,D), cache)."""
     b = x.shape[0]
+    live = torch.ones(b, dtype=torch.bool, device=x.device)
+    return attn_slab_decode(cfg, p, cache, x, pos.reshape(1).expand(b), live), cache
+
+
+def _ring_valid(cfg: ModelConfig, slots: int, slot, pos):
+    """The decode step's visible slab slots after its write, ``pos`` and
+    ``slot`` (its write slot) broadcast against (slots,): [0, pos] of a full
+    cache; of a ring the entries younger than the window that exist (the
+    reference's age mask)."""
+    idx = torch.arange(slots, device=pos.device)
+    if not cfg.sliding_window:
+        return idx <= pos
+    age = (slot - idx) % slots  # 0 = the newest
+    return (age < cfg.sliding_window) & (age <= pos)
+
+
+def _attend_slab(cfg: ModelConfig, p: dict, q, k, v, valid):
+    """q (N, C, H, dh) against k/v (N, T, KV, dh), ``valid`` broadcastable
+    to (N, C, T): scores in the activation dtype, f32 after the scale,
+    masked at -1e30, the softmax of ``cfg.softmax_impl`` (the GN kernel),
+    probabilities cast to v's dtype; projected by wo: (N, C, D)."""
+    n, c_len = q.shape[:2]
     kv, dh = cfg.n_kv_heads, cfg.head_dim
-    q, k_new, v_new = _qkv(cfg, p, x, pos.reshape(1, 1).expand(b, 1))
-    slot = pos.reshape(1).long()
-    cache["k"].index_copy_(1, slot, k_new.to(cache["k"].dtype))
-    cache["v"].index_copy_(1, slot, v_new.to(cache["v"].dtype))
-    k, v = cache["k"], cache["v"]
-    valid = torch.arange(k.shape[1], device=x.device) <= pos
-    scores = _scaled_scores(q.reshape(b, 1, kv, cfg.n_heads // kv, dh), k, dh).float()
-    scores = torch.where(valid, scores, NEG_INF)
-    pmat = softmax(scores).to(v.dtype)
-    out = torch.einsum("bkgst,btkd->bskgd", pmat, v).reshape(b, 1, cfg.q_features)
-    return out @ p["wo"], cache
+    scores = _scaled_scores(q.reshape(n, c_len, kv, cfg.n_heads // kv, dh), k, dh).float()
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    pmat = _softmax(cfg)(scores).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", pmat, v).reshape(n, c_len, cfg.q_features)
+    return out @ p["wo"]
+
+
+# ------------------------------------------------------------ slab tick --
+def slab_write(slab, new, dest, lane_ok) -> None:
+    """Write ``new`` (N, C, ...) into ``slab`` (N, T, ...) at slots ``dest``
+    (N, C), distinct within a row, in place; a lane off ``lane_ok`` (N, C)
+    writes back the value its slot holds."""
+    n, t = slab.shape[:2]
+    flat = slab.view(n * t, *slab.shape[2:])
+    idx = (torch.arange(n, device=slab.device)[:, None] * t + dest).reshape(-1)
+    keep = lane_ok.reshape(-1, *([1] * (slab.dim() - 2)))
+    vals = new.reshape(-1, *slab.shape[2:]).to(slab.dtype)
+    flat.index_copy_(0, idx, torch.where(keep, vals, flat.index_select(0, idx)))
+
+
+def attn_slab_decode(cfg: ModelConfig, p: dict, cache: dict, x, positions, live):
+    """The slab decode tick: the reference's ``attn_decode_step`` at a
+    position per slot.  x: (N, 1, D); positions: (N,) int32; live: (N,)
+    bool (a parked slot writes nothing); cache: this layer's {"k", "v"}
+    (N, T, KV, dh), written in place.  Returns (N, 1, D)."""
+    q, k_new, v_new = _qkv(cfg, p, x, positions.long()[:, None])
+    slots = cache["k"].shape[1]
+    pos = positions.long()[:, None]
+    slot = pos % slots if cfg.sliding_window else pos
+    for name, new in (("k", k_new), ("v", v_new)):
+        slab_write(cache[name], new, slot, live[:, None])
+    return _attend_slab(cfg, p, q, cache["k"], cache["v"],
+                        _ring_valid(cfg, slots, slot, pos)[:, None])
+
+
+def attn_slab_chunk(cfg: ModelConfig, p: dict, cache: dict, x, positions, n_valid):
+    """The slab fused tick: the reference's ``attn_decode_chunk`` per slot.
+    x: (N, C, D); positions/n_valid: (N,) int32; lane i of slot s takes
+    position positions[s] + i and writes it if i < n_valid[s]; cache: this
+    layer's {"k", "v"} (N, T, KV, dh), written in place.  Full attention
+    reads the slab after the writes, [0, position]; a sliding window reads
+    the ring before them beside the chunk's own keys (a chunk's writes evict
+    entries its earliest lanes still see): the ring entry of age a holds
+    position (pos - 1) - a, visible to a row iff it exists and lies in the
+    row's window.  Returns (N, C, D)."""
+    n, c_len, _ = x.shape
+    offs = torch.arange(c_len, device=x.device)
+    pos = positions.long()[:, None]
+    rows = pos + offs[None, :]
+    q, k_new, v_new = _qkv(cfg, p, x, rows)
+    slots = cache["k"].shape[1]
+    win = cfg.sliding_window or 0
+    if win:
+        idx = torch.arange(slots, device=x.device)
+        age_old = ((pos - 1) % slots - idx[None, :]) % slots  # 0 = the newest
+        abs_old = ((pos - 1) - age_old)[:, None, :]  # (N, 1, slots)
+        valid_old = (abs_old >= rows[:, :, None] - (win - 1)) & (abs_old >= 0)
+        valid_new = (offs[None, :] <= offs[:, None]).expand(n, c_len, c_len)
+        valid = torch.cat([valid_old, valid_new], dim=2)
+        k_at = torch.cat([cache["k"], k_new.to(cache["k"].dtype)], dim=1)
+        v_at = torch.cat([cache["v"], v_new.to(cache["v"].dtype)], dim=1)
+    lane_ok = offs[None, :] < n_valid[:, None]
+    for name, new in (("k", k_new), ("v", v_new)):
+        slab_write(cache[name], new, rows % slots, lane_ok)
+    if not win:
+        valid = torch.arange(slots, device=x.device)[None, None, :] <= rows[:, :, None]
+        k_at, v_at = cache["k"], cache["v"]
+    return _attend_slab(cfg, p, q, k_at, v_at, valid)
 
 
 # ------------------------------------------------------------ paged tick --

@@ -17,7 +17,8 @@ run one pass over the (S, S) scores.  Past ``CHUNKED_FROM`` (2048) tokens
 the reference runs ``causal_chunked`` over q/k of head dim nope + rope and v
 of head dim v_head_dim; the port's flash kernel takes k and v of one head
 dim, so such a prompt is refused.  ``mla_decode_step`` writes the latent
-slabs in place and reads them whole.
+slabs in place and reads them whole; ``mla_slab_chunk`` is the slab tick's
+(the reference's ``mla_decode_chunk``, batched over the slots).
 
 Paged path: the latent arenas (nb + 1, bs, rank) and (nb + 1, bs, rope),
 the last block the write sink (``attention.paged_write_indices``), fp or
@@ -157,14 +158,30 @@ def mla_prefill(cfg: ModelConfig, p: dict, x, positions):
 
 def mla_decode_step(cfg: ModelConfig, p: dict, cache: dict, x, pos):
     """One-token decode over this layer's latent slabs (B, T, ...), slot
-    ``pos`` (a 0-d int32 tensor on x's device) written in place."""
+    ``pos`` (a 0-d int32 tensor on x's device) written in place: the slab
+    tick with every row at ``pos``."""
     b = x.shape[0]
-    q_nope, q_rope, c_new, kr_new = _project(cfg, p, x, pos.reshape(1, 1).expand(b, 1))
-    slot = pos.reshape(1).long()
-    cache["c_kv"].index_copy_(1, slot, c_new.to(cache["c_kv"].dtype))
-    cache["k_rope"].index_copy_(1, slot, kr_new.to(cache["k_rope"].dtype))
-    valid = (torch.arange(cache["c_kv"].shape[1], device=x.device) <= pos)[None, None, None]
-    return _attend(cfg, p, q_nope, q_rope, cache["c_kv"], cache["k_rope"], valid), cache
+    ones = torch.ones(b, dtype=torch.int32, device=x.device)
+    return mla_slab_chunk(cfg, p, cache, x, pos.reshape(1).expand(b), ones), cache
+
+
+def mla_slab_chunk(cfg: ModelConfig, p: dict, cache: dict, x, positions, n_valid):
+    """The slab tick over the latent slabs: the reference's
+    ``mla_decode_chunk`` per slot (its decode step at C = 1).  x: (N, C, D);
+    positions/n_valid: (N,) int32, lane i of slot s at position
+    positions[s] + i, written if i < n_valid[s]; cache: this layer's
+    {"c_kv", "k_rope"} (N, T, width), written in place, then read over
+    [0, position].  Returns (N, C, D)."""
+    c_len = x.shape[1]
+    offs = torch.arange(c_len, device=x.device)
+    rows = positions.long()[:, None] + offs[None, :]
+    q_nope, q_rope, c_new, kr_new = _project(cfg, p, x, rows)
+    t = cache["c_kv"].shape[1]
+    lane_ok = offs[None, :] < n_valid[:, None]
+    for name, new in (("c_kv", c_new), ("k_rope", kr_new)):
+        attn.slab_write(cache[name], new, rows % t, lane_ok)
+    valid = (torch.arange(t, device=x.device)[None, None, :] <= rows[:, :, None])[:, None]
+    return _attend(cfg, p, q_nope, q_rope, cache["c_kv"], cache["k_rope"], valid)
 
 
 # ------------------------------------------------------------ paged tick --

@@ -10,9 +10,11 @@ it runs through ``cfg.softmax_impl`` (for ``"gn"`` the GN softmax kernel's
 wrapper over the (groups, tokens, experts) f32 rows).
 
 Routing couples the rows of a group: every token of a group, live or not,
-competes for the same ``cap`` slots.  A serving tick is one group (N * C
-tokens), so its parked lanes and the lanes past a slot's ``n_valid`` take
-part in the routing exactly as in the reference.
+competes for the same ``cap`` slots.  A paged serving tick is one group
+(N * C tokens), so its parked lanes and the lanes past a slot's ``n_valid``
+take part in the routing exactly as in the reference.  The reference's slab
+tick vmaps its step over the slots, so each slot's C lanes route as a batch
+of their own: the slab tick passes ``group_tokens=C``.
 
 Both dispatches of the reference are ported: ``"einsum"`` (the GShard
 one-hot dispatch/combine products, the default) and ``"gather"`` (the
@@ -60,19 +62,21 @@ def _top_k(gates: torch.Tensor, k: int):
     return torch.stack(idxs, -1), torch.stack(vals, -1)
 
 
-def route(cfg: ModelConfig, p: dict, x: torch.Tensor) -> dict:
+def route(cfg: ModelConfig, p: dict, x: torch.Tensor, group_tokens: int = 0) -> dict:
     """The routing of x (B, S, D): the groups, ``cap``, the router logits
     and gates (G, T, E) f32, the top-k (idx, val) (G, T, k), the one-hot
     choices (G, T, k, E), each choice's capacity slot and whether it is
     kept.  ``n_groups * g_sz == tokens`` is required, as the reference
-    asserts it."""
+    asserts it.  ``group_tokens`` > 0 routes each run of that many tokens
+    as the reference routes a batch of them alone (its groups never span
+    two runs)."""
     m = cfg.moe
     b, s, d = x.shape
     e, k = m.num_experts, m.top_k
     tokens = b * s
-    g_sz = min(m.group_size, tokens)
+    g_sz = min(m.group_size, group_tokens or tokens)
     n_groups = tokens // g_sz
-    if n_groups * g_sz != tokens:
+    if n_groups * g_sz != tokens or (group_tokens and group_tokens % g_sz):
         raise ValueError(f"MoE: {tokens} tokens do not split into groups of {g_sz}")
     # Python float arithmetic on ints, as the reference computes it
     cap = max(int(g_sz * k * m.capacity_factor / e), 1)
@@ -96,13 +100,13 @@ def _experts(p: dict, expert_in: torch.Tensor) -> torch.Tensor:
     return torch.einsum("gecf,efd->gecd", F.silu(gate) * h, p["wo"])
 
 
-def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor):
+def apply_moe(cfg: ModelConfig, p: dict, x: torch.Tensor, group_tokens: int = 0):
     """x: (B, S, D) -> (y (B, S, D), aux): aux the reference's load-balance
     loss, router z-loss and dropped fraction (0-d f32).  p holds the
-    weights in x's dtype (``Model.prepare``)."""
+    weights in x's dtype (``Model.prepare``); ``group_tokens`` as ``route``."""
     dt = x.dtype
     b, s, d = x.shape
-    r = route(cfg, p, x)
+    r = route(cfg, p, x, group_tokens)
     xg, cap, idx, val, keep = r["xg"], r["cap"], r["idx"], r["val"], r["keep"]
     n_groups, g_sz = xg.shape[:2]
     e, k = cfg.moe.num_experts, cfg.moe.top_k

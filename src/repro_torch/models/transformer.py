@@ -1,10 +1,11 @@
 """Decoder-only model (port of the dense, MLA and MoE paths of
 ``repro/models/transformer.py``).
 
-``Model(cfg)`` serves the dense full-attention family, its MLA mixer
-(``cfg.mla``, minicpm3-4b: ``models/mla.py``) and its top-k MoE MLP
-(``cfg.moe``, llama4-scout: ``models/moe.py``); every other family and
-sliding windows are refused.  It exposes:
+``Model(cfg)`` serves the dense family, its MLA mixer (``cfg.mla``,
+minicpm3-4b: ``models/mla.py``) and its top-k MoE MLP (``cfg.moe``,
+llama4-scout and mixtral: ``models/moe.py``), with full attention or a
+sliding window (``cfg.sliding_window``, mixtral); every other family (SSM,
+hybrid, encoder-decoder, VLM) is refused.  It exposes:
   * ``param_specs()`` / ``init(seed, device)`` — the reference's parameter
     tree (stacked ``layers``), f32 masters, drawn from a ``torch.Generator``;
   * ``prepare(params, device)``                 — the tree the forward runs on:
@@ -21,9 +22,17 @@ sliding windows are refused.  It exposes:
   * ``cache_specs`` / ``init_cache`` / ``prefill`` / ``decode_step`` — the
     static path over a slab cache per layer leaf (k and v (L, B, max_seq,
     KV, dh), or MLA's latents c_kv and k_rope (L, B, max_seq, width)),
-    written in place, its score rows through the GN softmax kernel; the
+    written in place, its score rows through the GN softmax kernel (a
+    sliding window keeps a ring of min(max_seq, window) slots); the
     decode step takes its position as a device tensor too, so one CUDA
     graph serves every step;
+  * ``supports_paging`` / ``fresh_request_cache`` / ``insert_cache_slot`` /
+    ``extract_cache_slot`` / ``prefill_chunk`` / ``fused_step_slots`` /
+    ``decode_step_slots`` — the slab serving tick of the reference over a
+    slot cache of ``init_cache(num_slots, max_seq)``, every slot at its own
+    position, written in place by one layer loop (the reference vmaps its
+    single-sequence step over the slots; a slot's MoE lanes route as a
+    group of their own, as under that vmap);
   * ``init_paged_cache`` / ``fused_step_slots_paged`` / ``_paged_head`` —
     the block-paged serving tick over fp arenas, or int8 arenas with
     per-block f32 scales, its read named by ``paged_read_path``, and with
@@ -74,11 +83,13 @@ def _tree_map(fn, tree, key=None):
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if ((cfg.family, cfg.moe is None) not in (("dense", True), ("moe", False))
-                or cfg.sliding_window):
+        if (cfg.family, cfg.moe is None) not in (("dense", True), ("moe", False)):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense full-attention family, with MLA or a top-k MoE "
-                f"MLP, is ported (family {cfg.family!r}, sliding_window {cfg.sliding_window})")
+                f"{cfg.name}: only the dense family, with MLA or a top-k MoE MLP, is ported "
+                f"(family {cfg.family!r})")
+        if cfg.sliding_window and cfg.mla is not None:
+            raise NotImplementedError(f"{cfg.name}: MLA with a sliding window has no "
+                                      "counterpart in the reference")
         self.cfg = cfg
 
     def param_specs(self) -> dict:
@@ -126,14 +137,15 @@ class Model:
             return x, apply_norm(self.cfg, lp["ln1"], x)
         return apply_add_norm(self.cfg, lp["ln1"], x, pending)
 
-    def _mlp_residual(self, lp, x, y, aux=None):
+    def _mlp_residual(self, lp, x, y, aux=None, group_tokens: int = 0):
         """Adds the mixer output y to the residual stream x, then ln2 and the
         MLP or MoE: (residual stream, its output still to be added).  A
-        list ``aux`` collects each MoE layer's aux dict."""
+        list ``aux`` collects each MoE layer's aux dict; ``group_tokens`` is
+        the MoE's routing run (``moe.route``)."""
         x, h = apply_add_norm(self.cfg, lp["ln2"], x, y)
         if self.cfg.moe is None:
             return x, apply_mlp(self.cfg, lp["mlp"], h)
-        y, layer_aux = moe_mod.apply_moe(self.cfg, lp["mlp"], h)
+        y, layer_aux = moe_mod.apply_moe(self.cfg, lp["mlp"], h, group_tokens)
         if aux is not None:
             aux.append(layer_aux)
         return x, y
@@ -200,9 +212,11 @@ class Model:
     def prefill(self, params, batch: dict, max_seq: int | None = None, cache: dict | None = None):
         """Prompt pass over batch["tokens"] (B, S).  Returns the logits
         (B, S, V) of every position and a slab cache of ``max_seq`` (default
-        S) slots holding the prompt's K/V at [0, S) and zeros past it: a new
-        one, or ``cache`` (``init_cache(B, max_seq)``'s shapes) zeroed and
-        written in place, so a captured decode step can keep reading it."""
+        S) slots holding the prompt's K/V at [0, S) and zeros past it (a
+        sliding window's ring: the last ``window`` positions, position p in
+        slot p % window, as the reference rolls them): a new one, or
+        ``cache`` (``init_cache(B, max_seq)``'s shapes) zeroed and written in
+        place, so a captured decode step can keep reading it."""
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
@@ -218,12 +232,16 @@ class Model:
                 slab.zero_()
         positions = torch.arange(s, device=x.device).expand(b, s)
         prefill = mla_mod.mla_prefill if cfg.mla is not None else attn.attn_prefill
+        win = cfg.sliding_window or 0
         pending = None
         for i, lp in enumerate(params["layers"]):
             x, h = self._ln1(lp, x, pending)
             y, kv = prefill(cfg, lp["mixer"], h, positions)
             for name, new in kv.items():
-                cache[name][i, :, :s] = new
+                if win and s > win:  # the ring: position p in slot p % window
+                    cache[name][i].copy_(torch.roll(new, s % win, dims=1))
+                else:
+                    cache[name][i, :, :s] = new
             x, pending = self._mlp_residual(lp, x, y)
         return self._lm_head(params, x + pending), cache
 
@@ -242,6 +260,87 @@ class Model:
             y, _ = step(cfg, lp["mixer"], {name: slab[i] for name, slab in cache.items()}, h, pos)
             x, pending = self._mlp_residual(lp, x, y)
         return self._lm_head(params, x + pending), cache
+
+    # ----------------------------------------------------------- slab tick --
+    @property
+    def supports_paging(self) -> bool:
+        """Whether the KV pages into blocks (the reference's rule): the full
+        attention KV and MLA's latents do; a sliding window keeps its ring
+        in the slab pool."""
+        return self.cfg.sliding_window == 0
+
+    def fresh_request_cache(self, max_seq: int, device=None) -> dict:
+        """A batch-1 cache in its state before a prompt (zeros), which
+        admission pages into a slab slot."""
+        return self.init_cache(1, max_seq, device)
+
+    @staticmethod
+    def insert_cache_slot(pool_cache: dict, request_cache: dict, slot: int) -> dict:
+        """Copy a batch-1 cache into row ``slot`` of every leaf of a slot
+        cache (batch axis 1), in place; returns ``pool_cache``."""
+        for name, leaf in pool_cache.items():
+            leaf[:, slot].copy_(request_cache[name][:, 0])
+        return pool_cache
+
+    @staticmethod
+    def extract_cache_slot(pool_cache: dict, slot: int) -> dict:
+        """Row ``slot`` of a slot cache as a batch-1 copy."""
+        return {name: leaf[:, slot:slot + 1].clone() for name, leaf in pool_cache.items()}
+
+    def _slab_pass(self, params, cache, tokens, positions, n_valid, decode: bool,
+                   group_tokens: int):
+        """The layers over a slot cache: tokens (N, C) at positions[s] + i,
+        lanes i < n_valid[s] written; ``decode`` (C = 1) takes the
+        reference's decode step, else its chunk.  Returns the residual
+        stream (N, C, D) before the head."""
+        cfg = self.cfg
+        x, pending = self._embed(params, tokens), None
+        for i, lp in enumerate(params["layers"]):
+            x, h = self._ln1(lp, x, pending)
+            layer = {name: slab[i] for name, slab in cache.items()}
+            if cfg.mla is not None:
+                y = mla_mod.mla_slab_chunk(cfg, lp["mixer"], layer, h, positions, n_valid)
+            elif decode:
+                y = attn.attn_slab_decode(cfg, lp["mixer"], layer, h, positions, n_valid > 0)
+            else:
+                y = attn.attn_slab_chunk(cfg, lp["mixer"], layer, h, positions, n_valid)
+            x, pending = self._mlp_residual(lp, x, y, group_tokens=group_tokens)
+        return x + pending
+
+    def prefill_chunk(self, params, cache, tokens, pos, n_valid, last_only: bool = False):
+        """The reference's masked, position-offset multi-token step: tokens
+        (B, C) at positions [pos, pos + n_valid) of every row (``pos`` and
+        ``n_valid`` ints or 0-d tensors), appended to ``cache`` in place.
+        Returns the logits (B, C, V), or with ``last_only`` those of row
+        n_valid - 1 (B, 1, V)."""
+        b = tokens.shape[0]
+        dev = tokens.device
+        pos = torch.as_tensor(pos, dtype=torch.int32, device=dev).expand(b)
+        nv = torch.as_tensor(n_valid, dtype=torch.int32, device=dev).expand(b)
+        x = self._slab_pass(params, cache, tokens, pos, nv, decode=False, group_tokens=0)
+        if last_only:
+            return self._paged_head(params, x, nv), cache
+        return self._lm_head(params, x), cache
+
+    def fused_step_slots(self, params, cache, tokens, positions, n_valid):
+        """The slab fused tick: every slot takes its own C-token chunk at its
+        own position.  tokens: (N, C) int; positions/n_valid: (N,) int32
+        (n_valid = 0 parks a slot: it writes nothing).  Writes ``cache`` in
+        place; returns the logits (N, 1, V) of each slot's row n_valid - 1."""
+        x = self._slab_pass(params, cache, tokens, positions, n_valid, decode=False,
+                            group_tokens=tokens.shape[1])
+        return self._paged_head(params, x, n_valid)
+
+    def decode_step_slots(self, params, cache, tokens, positions, live=None):
+        """The slab decode tick: tokens (N, 1) at positions (N,) int32, the
+        reference's decode step per slot; ``live`` (N,) bool, default all,
+        parks the others (no writes).  Writes ``cache`` in place; returns the
+        logits (N, 1, V)."""
+        if live is None:
+            live = torch.ones_like(positions, dtype=torch.bool)
+        x = self._slab_pass(params, cache, tokens, positions, live.to(torch.int32),
+                            decode=True, group_tokens=1)
+        return self._lm_head(params, x)
 
     # ---------------------------------------------------------- paged tick --
     @property
@@ -274,6 +373,9 @@ class Model:
         arenas in int8 and adds "<leaf>_scale" (L, num_blocks + 1) f32 a
         leaf, zeroed: the per-block dequant scales (the reference's
         ``<leaf>_scale`` leaves), block axis at 1 like the arenas."""
+        if not self.supports_paging:
+            raise ValueError(f"{self.cfg.name} (sliding_window={self.cfg.sliding_window}) "
+                             "has no pageable KV")
         if kv_dtype not in ("fp", "int8"):
             raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")
         cfg, rows = self.cfg, self._arena_rows
@@ -320,8 +422,9 @@ class Model:
         return logits, {"layers": words, "head": head}
 
     def _paged_head(self, params, x, n_valid, probe: bool = False):
-        """Next-token logits per slot: gather row n_valid - 1 (clamped for
-        parked lanes), then project only that row.  With ``probe`` also the
+        """Next-token logits per slot (of the paged and the slab tick):
+        gather row n_valid - 1 (clamped for parked lanes), then project only
+        that row.  With ``probe`` also the
         (N,) σ residual |mean(x̂²) − 1| of the model's own norm with unit
         gamma on the gathered row in f32 (the reference's probe), +inf where
         the row or its logits are nonfinite, 0 for parked lanes."""

@@ -2,8 +2,9 @@
 (``generate``, ``perplexity``, ``static_reference``) and the
 continuous-batching engine with chunked prefill fused into the tick
 (``ContinuousEngine``: FCFS or priority admission, block-paged fp or int8
-KV, one device, GN runtime sentinels on by default, an optional radix
-prefix cache, preemption by spill or recompute, and shedding).
+KV or a slab a slot, one device, GN runtime sentinels on by default over
+the paged pool, an optional radix prefix cache, preemption by spill or
+recompute, shedding, and crash-consistent snapshots).
 
 The static path serves uniform-length prompt batches: one prefill over a
 dense slab cache, then one decode step per new token; greedy, it is the
@@ -85,13 +86,33 @@ when admission, completion or block growth made their host mirrors dirty (a
 bucket's table also when the tick first reads it after that); a fused tick
 also uploads its staged chunk.
 
-Not ported, and refused with an error rather than ignored: snapshots,
-multi-device pools (and so device-loss aggregation), and the continuous
-engine's slab pool.  ``kv_dtype="int8"`` serves over int8 arenas with
-per-block f32 scales frozen at each block's first write.
+The slab pool (``paged=False``, and the automatic choice for a model
+whose KV does not page: a sliding window): ``SlotKVPool`` holds one slab
+(or ring) a slot; admission copies a fresh batch-1 cache into the slot,
+spill copies the slot out (``extract``) and a spill resume copies it back
+(``insert``).  Its ticks are the model's ``fused_step_slots`` and
+``decode_step_slots``; on the card each step kind is one graph, keyed
+(kind,).  As in the reference, the slab pool is fp-only, has no sentinels
+(its default is off, ``sentinels=True`` is refused) and no prefix cache, and
+takes no block size or block count.
+
+Snapshots (``snapshot(path)``, ``restore(path)``): between ticks the engine
+writes everything the next tick reads, in the reference's format
+(``checkpoint/store.py``, leaves named as the reference's pytree names
+them), so a snapshot of either package restores in the other.  Restore
+writes in place into the arenas or slabs and into the graphs' static
+buffers, so an engine with captured graphs resumes by replay.  The
+sampler is keyed by counters, not by a PRNG key: the ``key`` leaf is
+written as the reference's initial key for ``cfg.seed`` and ignored on
+restore, so sampled resumes hold port to port only.
+
+Not ported, and refused with an error rather than ignored: multi-device
+pools (and so device-loss aggregation).  ``kv_dtype="int8"`` serves over
+int8 arenas with per-block f32 scales frozen at each block's first write.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 import time
 from typing import Optional, Sequence
@@ -101,10 +122,11 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.analysis import tracekeys
+from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.models.attention import SCALE_SANITY_MAX
 from repro_torch.models.transformer import Model
 from repro_torch.serve.graphs import StepGraphs
-from repro_torch.serve.kv_cache import BlockPagedKVPool
+from repro_torch.serve.kv_cache import BlockPagedKVPool, SlotKVPool
 from repro_torch.serve.prefix_cache import PrefixCache
 from repro_torch.serve.sampling import sample
 from repro_torch.serve.scheduler import (Completion, FCFSScheduler, PriorityScheduler, Request,
@@ -242,6 +264,24 @@ def static_reference(model: Model, params, requests: Sequence[Request],
 
 
 # ------------------------------------------------------------ continuous ---
+# a Completion's fields a snapshot keeps beside its token arrays
+_COMPLETION_FIELDS = ("request_id", "finish_reason", "arrival_step", "admit_step",
+                      "first_token_step", "finish_step", "admit_time", "first_token_time",
+                      "finish_time", "req_class", "preemptions")
+
+
+def _plain(x):
+    """``x`` with numpy scalars as Python numbers and tuples as lists (a
+    snapshot's JSON manifest)."""
+    if isinstance(x, dict):
+        return {k: _plain(v) for k, v in x.items()}
+    if isinstance(x, (list, tuple)):
+        return [_plain(v) for v in x]
+    return x.item() if isinstance(x, np.generic) else x
+
+
+def _detuple(e):
+    return tuple(_detuple(x) if isinstance(x, list) else x for x in e)
 
 
 @dataclasses.dataclass
@@ -304,38 +344,69 @@ class ContinuousEngine:
         self.aging_steps, self.shed_backlog = int(aging_steps), int(shed_backlog)
         if kv_dtype not in ("fp", "int8"):
             raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")
-        if paged is False:
-            raise NotImplementedError("the slab pool is not ported; the port pages KV")
         self.model, self.cfg = model, cfg
         self.num_slots, self.max_seq = int(num_slots), int(max_seq)
         self.chunk = int(chunk)
-        if not 1 <= self.chunk <= self.max_seq:
-            raise ValueError(f"chunk {chunk} must be in [1, {self.max_seq}]")
+        win = model.cfg.sliding_window or 0
+        limit = min(self.max_seq, win) if win else self.max_seq
+        if not 1 <= self.chunk <= limit:
+            raise ValueError(f"chunk {chunk} must be in [1, {limit}] "
+                             "(cache ring capacity bounds the per-tick chunk)")
         self.device = resolve_device(device)
-        # GN runtime sentinels, on unless asked off (the reference's default
-        # on a paged engine); the retry budget, the int8 clip watchdog, and
-        # the reference's device-loss floor (no device loss on one device)
-        self.sentinels = True if sentinels is None else bool(sentinels)
+        # the pool, as the reference picks it: block-paged wherever the KV
+        # pages, the slab pool for a sliding window's ring (or when asked)
+        self.paged = model.supports_paging if paged is None else bool(paged)
+        if self.paged and not model.supports_paging:
+            raise ValueError(f"family {model.cfg.family!r} (sliding_window="
+                             f"{model.cfg.sliding_window}) has no pageable KV")
+        if kv_dtype == "int8" and not self.paged:
+            raise ValueError("kv_dtype='int8' requires the block-paged pool (per-block scales "
+                             "live in the block tables); the slab pool is fp-only")
+        # GN runtime sentinels, on unless asked off over the paged pool (the
+        # reference's default); the slab pool has no probe path.  The retry
+        # budget, the int8 clip watchdog, and the reference's device-loss
+        # floor (no device loss on one device)
+        self.sentinels = self.paged if sentinels is None else bool(sentinels)
+        if self.sentinels and not self.paged:
+            raise ValueError("sentinels ride the paged tick bodies; the slab pool has no probe "
+                             "path (pass sentinels=False or paged=True)")
         self.fault_retry_budget = int(fault_retry_budget)
         self.clip_fallback_frac = float(clip_fallback_frac)
         self.clip_patience = int(clip_patience)
         self.device_loss_min_slots = int(device_loss_min_slots)
-        # the paged read every tick takes, fixed here: a graph captured under
-        # one read is never replayed under another (``step`` refuses a change)
-        self.read_path = model.paged_read_path
         self.params = model.prepare(params, self.device)
-        self.pool = BlockPagedKVPool(model, num_slots, max_seq, block_size or self.chunk,
-                                     num_blocks, self.device, kv_dtype)
-        # the radix prefix index (opt-in: a retaining cache keeps blocks
-        # resident after a drain)
-        self.prefix = PrefixCache(self.pool.block_size) if prefix_cache else None
-        if self.prefix is not None:
-            self.pool.attach_prefix_cache(self.prefix)
-        # the horizon-bucket grid, as the reference's: each tick reads the
-        # smallest power-of-two bucket of block-table columns that covers the
-        # live block horizon, so a tick has one shape per (step kind, bucket)
-        self.horizon_bucket_grid = tracekeys.horizon_bucket_grid(self.max_seq,
-                                                                 self.pool.block_size)
+        if self.paged:
+            # the paged read every tick takes, fixed here: a graph captured
+            # under one read is never replayed under another (``step``
+            # refuses a change)
+            self.read_path = model.paged_read_path
+            self.pool = BlockPagedKVPool(model, num_slots, max_seq, block_size or self.chunk,
+                                         num_blocks, self.device, kv_dtype)
+            # the radix prefix index (opt-in: a retaining cache keeps blocks
+            # resident after a drain)
+            self.prefix = PrefixCache(self.pool.block_size) if prefix_cache else None
+            if self.prefix is not None:
+                self.pool.attach_prefix_cache(self.prefix)
+            # the horizon-bucket grid, as the reference's: each tick reads the
+            # smallest power-of-two bucket of block-table columns that covers
+            # the live block horizon, so a tick has one shape per (kind, bucket)
+            self.horizon_bucket_grid = tracekeys.horizon_bucket_grid(self.max_seq,
+                                                                     self.pool.block_size)
+        else:
+            if prefix_cache:
+                raise ValueError(f"family {model.cfg.family!r} has no pageable KV; "
+                                 "prefix_cache shares paged blocks")
+            if block_size or num_blocks:
+                raise ValueError(
+                    f"family {model.cfg.family!r} has no pageable KV; block_size/num_blocks "
+                    "only apply to paged pools" if not model.supports_paging else
+                    "block_size/num_blocks only apply to paged pools (paged=False forces "
+                    "the slab pool)")
+            self.read_path, self.prefix, self.horizon_bucket_grid = "slab", None, []
+            self.pool = SlotKVPool(model, num_slots, max_seq, self.device)
+            # the batch-1 cache admission copies into a slot
+            self._fresh = model.fresh_request_cache(self.max_seq, self.device)
+        self.kv_dtype = kv_dtype
         # the tick's device state: allocated once and updated in place, so a
         # graph captured from one tick reads and writes the same tensors on
         # every replay.  Per step kind: chunk tokens, n_valid, is_prefill;
@@ -380,13 +451,17 @@ class ContinuousEngine:
         self._replayed_ticks = 0  # ... of which as a graph replay
         self.fused_ticks = 0      # ... of which carried a prefill lane
         self.generated_tokens = 0
+        self._device_admits = 0   # admissions and resumes (one device)
         # the reference's occupancy counters, summed over model ticks: live
         # slots, prefilling slots, and attended columns (bucket * block size)
         self._active_steps = 0
         self._prefill_lane_steps = 0
         self._attended_tokens = 0
-        # (prefill lanes, decode lanes, host seconds) per model tick
+        # (prefill lanes, decode lanes, host seconds) per model tick; the
+        # reference's (prefill, decode) lanes and, paged, (horizon, bucket)
         self.tick_log: list[tuple[int, int, float]] = []
+        self.phase_log: list[tuple[int, int]] = []
+        self.horizon_log: list[tuple[int, int]] = []
         # the horizon buckets each step kind ran at since the reset
         self._buckets_seen: dict[str, set] = {"fused": set(), "decode": set()}
         # the deterministic event trace (admit, resume, finish, and every
@@ -442,7 +517,7 @@ class ContinuousEngine:
             if footprint > self.max_seq:
                 raise ValueError(f"request {head.id}: prompt {head.prompt_len} + "
                                  f"{head.max_new_tokens} new tokens exceeds max_seq {self.max_seq}")
-            if self.pool.blocks_for(footprint) > self.pool.num_blocks:
+            if self.paged and self.pool.blocks_for(footprint) > self.pool.num_blocks:
                 raise ValueError(f"request {head.id}: footprint {footprint} tokens needs "
                                  f"{self.pool.blocks_for(footprint)} blocks, the arena has "
                                  f"{self.pool.num_blocks} — unservable at any occupancy")
@@ -458,7 +533,8 @@ class ContinuousEngine:
                 if hit is not None and not (self.pool.num_free and self.pool.can_reserve(
                         footprint, prefix=hit)):
                     hit = None
-            if hit is None and not (self.pool.num_free and self.pool.can_reserve(footprint)):
+            if hit is None and not (self.pool.num_free and (
+                    not self.paged or self.pool.can_reserve(footprint))):
                 # the head waits for a free slot AND its whole reservation,
                 # unless it may evict a batch victim it outranks
                 if self._try_preempt(head):
@@ -466,16 +542,22 @@ class ContinuousEngine:
                 break
             req = self.scheduler.pop_ready(self.step_count)
             sus = self._suspended.pop(req.id, None)
-            slot = self.pool.allocate(reserve_tokens=footprint, prefix=hit)
+            slot = (self.pool.allocate(reserve_tokens=footprint, prefix=hit) if self.paged
+                    else self.pool.allocate())
+            self._device_admits += 1
             if hit is not None:
                 self.pool.attach_prefix(slot, hit)
             if sus is not None and sus.spill is not None:
-                # spill resume: a fresh chain of the spilled length, filled
+                # spill resume: a fresh chain of the spilled length filled
                 # with the payload (other physical ids, same logical order),
-                # and the held-logits row written back in place
+                # or the slab copied back; the held-logits row written back
+                # in place
                 sp = sus.spill
-                self.pool.insert(slot, sp["position"])
-                self.pool.restore_blocks(slot, sp["kv"])
+                if self.paged:
+                    self.pool.insert(slot, sp["position"])
+                    self.pool.restore_blocks(slot, sp["kv"])
+                else:
+                    self.pool.insert(sp["kv"], slot, sp["position"])
                 self._last_logits[slot].copy_(sp["last_logits"])
                 padded, written = sp["padded"], sp["written"]
                 phase, prefill_len = sp["phase"], sp["prefill_len"]
@@ -486,11 +568,11 @@ class ContinuousEngine:
                 seq = np.concatenate([np.asarray(req.tokens, np.int32),
                                       np.asarray(sus.generated, np.int32)])
                 padded, prefill_len = pad_to_grid(seq, self.chunk), int(seq.shape[0])
-                self.pool.insert(slot, 0)
+                self._insert_fresh(slot, 0)
                 written, phase = 0, "prefilling"
             else:
                 shared = hit.shared_len if hit is not None else 0
-                self.pool.insert(slot, shared)
+                self._insert_fresh(slot, shared)
                 padded = req.padded_tokens
                 if shared:
                     # the prefill starts at the shared length, so its chunks
@@ -526,9 +608,20 @@ class ContinuousEngine:
                 self._resumes += 1
             self.event_log.append(("resume" if sus else "admit", self.step_count, req.id, slot, 0))
 
+    def _insert_fresh(self, slot: int, position: int) -> None:
+        """Start an admitted slot at ``position``: its chain ensured over
+        the paged pool, a fresh batch-1 cache copied into its slab."""
+        if self.paged:
+            self.pool.insert(slot, position)
+        else:
+            self.pool.insert(self._fresh, slot, position)
+
     def _shed_signal(self) -> tuple:
-        """(live reservation, a request's footprint), in blocks: the
-        scheduler's shedding watermark reads them."""
+        """(live reservation, a request's footprint) in the pool's admission
+        units, blocks or slots: the scheduler's shedding watermark reads
+        them."""
+        if not self.paged:
+            return self.pool.num_used, lambda r: 1
         return (self.pool.blocks_reserved,
                 lambda r: self.pool.blocks_for(r.prompt_len + r.max_new_tokens))
 
@@ -561,7 +654,9 @@ class ContinuousEngine:
         rid = st.req.id
         spill = None
         if self.preempt_mode == "spill":
-            spill = {"kv": self.pool.extract_blocks(slot),
+            kv = (self.pool.extract_blocks(slot) if self.paged
+                  else {k: v.cpu() for k, v in self.pool.extract(slot).items()})
+            spill = {"kv": kv,
                      "position": int(self.pool.positions[slot]), "padded": st.padded,
                      "written": st.written, "prefill_len": st.prefill_len, "phase": st.phase,
                      "last_logits": self._last_logits[slot].to("cpu", copy=True)}
@@ -777,14 +872,16 @@ class ContinuousEngine:
         self._finish(slot, reason)
 
     # ----------------------------------------------------------------- ticks --
-    def _tick(self, active, tokens, n_valid, is_prefill, tables):
+    def _tick(self, active, kind, tokens, n_valid, is_prefill, tables):
         """Sample each decoding slot's token from the held logits into lane 0,
         run the model once, and update the held logits and positions in
         place.  Returns the sampled tokens (N,) int32, followed with
         sentinels by the health word's f32 bits (L * N * 3 + N), still on
         the device: one copy takes both.  With ``active`` all false (the
-        warm-up before a capture) every lane is parked: the writes go to the
-        sink block, and the held logits and positions keep their values."""
+        warm-up before a capture) every lane is parked: nothing is written
+        (paged writes go to the sink block), and the held logits and
+        positions keep their values.  The slab pool (``tables`` None) runs
+        the model's slab tick of ``kind``."""
         nxt = sample(self._last_logits, self._temps_dev, self.cfg.seed, self._rids_dev,
                      self._pos_dev)
         dec = torch.where(active & ~is_prefill, nxt, 0).to(torch.int32)
@@ -793,8 +890,13 @@ class ContinuousEngine:
         tokens = torch.where(is_prefill[:, None], tokens, lane0)
         nv = torch.where(active, torch.where(is_prefill, n_valid, 1), 0).to(torch.int32)
         pos = torch.where(active, self._pos_dev, 0).to(torch.int32)
-        out = self.model.fused_step_slots_paged(self.params, self.pool.cache, tokens, pos, nv,
-                                                tables, sentinel=self.sentinels)
+        if tables is None and kind == "decode":
+            out = self.model.decode_step_slots(self.params, self.pool.cache, tokens, pos, active)
+        elif tables is None:
+            out = self.model.fused_step_slots(self.params, self.pool.cache, tokens, pos, nv)
+        else:
+            out = self.model.fused_step_slots_paged(self.params, self.pool.cache, tokens, pos,
+                                                    nv, tables, sentinel=self.sentinels)
         logits, health = out if self.sentinels else (out, None)
         self._last_logits.copy_(torch.where(active[:, None], logits[:, 0].float(),
                                             self._last_logits))
@@ -804,19 +906,22 @@ class ContinuousEngine:
         return torch.cat([dec, health["layers"].flatten().view(torch.int32),
                           health["head"].view(torch.int32)])
 
-    def _run_tick(self, kind: str, bucket: int):
-        """The tick of ``kind`` over the ``bucket``-wide tables: eagerly on
-        the CPU, a graph replay on the card."""
-        args = (*self._inputs[kind], self._tables_dev[bucket])
+    def _run_tick(self, kind: str, bucket: Optional[int]):
+        """The tick of ``kind`` over the ``bucket``-wide tables (None: the
+        slab pool): eagerly on the CPU, a graph replay on the card, keyed
+        (kind, bucket) or, slab, (kind,)."""
+        args = (kind, *self._inputs[kind],
+                None if bucket is None else self._tables_dev[bucket])
         if self._graphs is None:
             return self._tick(self._active_dev, *args)
         self._replayed_ticks += 1
-        return self._graphs.run((kind, bucket), lambda: self._tick(self._active_dev, *args),
+        key = (kind,) if bucket is None else (kind, bucket)
+        return self._graphs.run(key, lambda: self._tick(self._active_dev, *args),
                                 lambda: self._tick(self._parked, *args))
 
     def step(self) -> bool:
         """One engine tick.  Returns False once fully drained."""
-        if self.model.paged_read_path != self.read_path:
+        if self.paged and self.model.paged_read_path != self.read_path:
             raise RuntimeError(
                 f"this engine was built to read paged KV through {self.read_path!r}, and "
                 f"FORCE_PAGED_READ now asks for {self.model.paged_read_path!r}: its ticks and "
@@ -843,25 +948,8 @@ class ContinuousEngine:
             self._lanes_dirty = False
         takes = {s: min(self.chunk, self._slots[s].prefill_len - self._slots[s].written)
                  for s in prefills}
-        for s in live:
-            self.pool.ensure(s, int(self.pool.positions[s]) + takes.get(s, 1))
-            if self.prefix is not None:
-                # the block this tick's first write lands in is the slot's own
-                self.pool.write_barrier(s, int(self.pool.positions[s]))
-        # the tick reads the smallest bucket of table columns that covers the
-        # live block horizon: reads scale with live context, and a tick has
-        # one shape per (step kind, bucket)
-        horizon = self.pool.active_horizon_blocks()
-        bucket = next(b for b in self.horizon_bucket_grid if b >= horizon)
         kind = "fused" if prefills else "decode"
-        self._buckets_seen[kind].add(bucket)
-        self._attended_tokens += bucket * self.pool.block_size
-        if self.pool.tables_dirty:
-            self._tables_fresh.clear()
-            self.pool.tables_dirty = False
-        if bucket not in self._tables_fresh:
-            self._tables_dev[bucket].copy_(torch.from_numpy(self.pool.tables[:, :bucket]))
-            self._tables_fresh.add(bucket)
+        bucket = self._paged_tables(live, takes, kind) if self.paged else None
         if prefills:  # stage the chunk; the decode step's inputs stay zero
             chunk_toks = np.zeros((self.num_slots, self.chunk), np.int32)
             n_valid = np.ones(self.num_slots, np.int32)
@@ -883,6 +971,7 @@ class ContinuousEngine:
             health = {"layers": words[:split].reshape(-1, n, 3), "head": words[split:]}
         self.pool.advance({s: takes.get(s, 1) for s in live})
         self.model_ticks += 1
+        self.phase_log.append((len(prefills), len(decoders)))
         # every decoding lane's token, as the reference counts them: a token
         # the sentinel scan below discards is counted too
         self.generated_tokens += len(decoders)
@@ -918,6 +1007,29 @@ class ContinuousEngine:
         self.step_count += 1
         return True
 
+    def _paged_tables(self, live: list[int], takes: dict, kind: str) -> int:
+        """Grow the live chains over this tick's writes and upload the
+        tables the tick reads: the smallest bucket of table columns that
+        covers the live block horizon (reads scale with live context, and a
+        tick has one shape per (step kind, bucket)).  Returns the bucket."""
+        for s in live:
+            self.pool.ensure(s, int(self.pool.positions[s]) + takes.get(s, 1))
+            if self.prefix is not None:
+                # the block this tick's first write lands in is the slot's own
+                self.pool.write_barrier(s, int(self.pool.positions[s]))
+        horizon = self.pool.active_horizon_blocks()
+        bucket = next(b for b in self.horizon_bucket_grid if b >= horizon)
+        self._buckets_seen[kind].add(bucket)
+        self.horizon_log.append((horizon, bucket))
+        self._attended_tokens += bucket * self.pool.block_size
+        if self.pool.tables_dirty:
+            self._tables_fresh.clear()
+            self.pool.tables_dirty = False
+        if bucket not in self._tables_fresh:
+            self._tables_dev[bucket].copy_(torch.from_numpy(self.pool.tables[:, :bucket]))
+            self._tables_fresh.add(bucket)
+        return bucket
+
     def run(self, requests: Sequence[Request]) -> list[Completion]:
         """Serve a workload to completion; returns completions in finish order."""
         for req in requests:
@@ -931,6 +1043,284 @@ class ContinuousEngine:
                 raise RuntimeError("ContinuousEngine failed to drain workload")
         return self.completions
 
+    # ------------------------------------------------------------ snapshots --
+    # The reference's format (``repro/serve/engine.py`` snapshot/restore over
+    # ``checkpoint/store.py``): a snapshot of either package restores in the
+    # other.  Only between ticks: step() boundaries are the consistent points.
+
+    def _topology(self) -> dict:
+        t = {"family": self.model.cfg.family, "norm_impl": self.model.cfg.norm_impl,
+             "num_slots": self.num_slots, "max_seq": self.max_seq, "chunk": self.chunk,
+             "paged": self.paged, "kv_dtype": self.kv_dtype, "num_devices": 1,
+             "sched": self.sched_policy, "preempt": self.preempt_mode, "seed": self.cfg.seed,
+             "sentinels": self.sentinels}
+        if self.paged:
+            t["block_size"] = self.pool.block_size
+            t["num_blocks"] = self.pool.num_blocks
+        return t
+
+    @staticmethod
+    def _req_arrays(req: Request, tree: dict, prefix: str) -> dict:
+        tree[f"{prefix}/tokens"] = np.asarray(req.tokens, np.int32)
+        if req.padded_tokens is not None:
+            tree[f"{prefix}/padded"] = np.asarray(req.padded_tokens, np.int32)
+        return {"max_new_tokens": req.max_new_tokens, "temperature": req.temperature,
+                "stop_token": req.stop_token, "arrival_step": req.arrival_step,
+                "prefix_hint": req.prefix_hint, "req_class": req.req_class,
+                "has_padded": req.padded_tokens is not None, "extras_keys": []}
+
+    def _cache_tree(self) -> dict:
+        """The pool's device leaves under the reference's names (``layers``
+        of its cache tree), the write-sink block left out."""
+        nb = self.pool.num_blocks if self.paged else None
+        return {"layers": {k: v[:, :nb] if self.paged else v
+                           for k, v in self.pool.cache.items()}}
+
+    def snapshot(self, path) -> str:
+        """Write a crash-consistent snapshot under ``path`` (atomic: a kill
+        mid-save never tears an existing one) and return its directory:
+        everything the next tick reads.  Refused with an attached prefix
+        cache (the radix index is not serialized)."""
+        if self.prefix is not None:
+            raise ValueError("snapshot with an attached prefix cache is not supported")
+        seed = int(self.cfg.seed)
+        tree: dict = {
+            "cache": self._cache_tree(), "last_logits": self._last_logits,
+            # the reference's initial PRNG key for the seed (the port's
+            # sampler is keyed by counters and reads no key)
+            "key": np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32),
+            "temps": np.asarray(self._temps), "positions": np.asarray(self.pool.positions),
+            "clip_streak": np.asarray(self._clip_streak),
+            "device_admits": np.array([self._device_admits], np.int64)}
+        requests: dict[int, Request] = {}
+        slots_meta = {}
+        for s, st in enumerate(self._slots):
+            if st is None:
+                continue
+            requests[st.req.id] = st.req
+            if st.padded is not None:
+                tree[f"slot/{s}/padded"] = np.asarray(st.padded, np.int32)
+            slots_meta[str(s)] = {
+                "rid": st.req.id, "admit_step": st.admit_step, "admit_time": st.admit_time,
+                "generated": [int(t) for t in st.generated], "phase": st.phase,
+                "written": st.written, "prefill_len": st.prefill_len,
+                "first_token_step": st.first_token_step,
+                "first_token_time": st.first_token_time, "preemptions": st.preemptions,
+                "has_padded": st.padded is not None}
+        sch = self.scheduler
+        if self.sched_policy == "priority":
+            sched_meta = {"queues": {c: [r.id for r in q] for c, q in sch._queues.items()},
+                          "resumed": sorted(sch._resumed), "shed_count": sch.shed_count}
+            queued = [r for q in sch._queues.values() for r in q]
+        else:
+            sched_meta = {"queue": [r.id for r in sch._queue]}
+            queued = list(sch._queue)
+        for r in queued:
+            requests[r.id] = r
+        sched_meta.update(next_id=sch._next_id, pad_tokens=sch._pad_tokens)
+        req_meta = {str(rid): self._req_arrays(r, tree, f"req/{rid}")
+                    for rid, r in requests.items()}
+        sus_meta = {}
+        for rid, sus in self._suspended.items():
+            spill_meta = None
+            if sus.spill is not None:
+                sp = sus.spill
+                spill_meta = {"position": sp["position"], "written": sp["written"],
+                              "prefill_len": sp["prefill_len"], "phase": sp["phase"],
+                              "has_padded": sp["padded"] is not None}
+                tree[f"sus/{rid}/last_logits"] = sp["last_logits"]
+                if sp["padded"] is not None:
+                    tree[f"sus/{rid}/padded"] = np.asarray(sp["padded"], np.int32)
+                if self.paged:
+                    spill_meta["len"] = sp["kv"]["len"]
+                    if sp["kv"]["layers"] is not None:
+                        tree[f"sus/{rid}/kv"] = sp["kv"]["layers"]
+                else:
+                    tree[f"sus/{rid}/kv"] = {"layers": sp["kv"]}
+            sus_meta[str(rid)] = {
+                "generated": [int(t) for t in sus.generated], "admit_step": sus.admit_step,
+                "admit_time": sus.admit_time, "first_token_step": sus.first_token_step,
+                "first_token_time": sus.first_token_time, "preemptions": sus.preemptions,
+                "spill": spill_meta}
+        comp_meta = []
+        for i, c in enumerate(self.completions):
+            tree[f"comp/{i}/prompt"] = np.asarray(c.prompt_tokens, np.int32)
+            tree[f"comp/{i}/new"] = np.asarray(c.new_tokens, np.int32)
+            comp_meta.append({k: getattr(c, k) for k in _COMPLETION_FIELDS})
+        pool = self.pool
+        if self.paged:
+            pool_meta = {
+                "free_slots": list(pool._free_slots), "used": sorted(pool._slot_blocks),
+                "slot_blocks": {str(s): list(ch) for s, ch in pool._slot_blocks.items()},
+                "free_blocks": [list(pool._free_blocks)],
+                "quarantined": sorted(pool.quarantined), "doomed": sorted(pool._doomed),
+                "lost_devices": [], "peak_blocks_in_use": pool.peak_blocks_in_use,
+                "peak_blocks_reserved": pool.peak_blocks_reserved,
+                "peak_reserved_per_device": [pool.peak_blocks_reserved],
+                "peak_used_per_device": [pool.peak_blocks_in_use]}
+            tree.update(tables=pool.tables, refcounts=pool.refcounts, reserved=pool._reserved,
+                        shared=pool._shared, owned=pool._owned)
+        else:
+            pool_meta = {"free": list(pool._free), "used": sorted(pool._used)}
+        extra = {
+            "topology": self._topology(), "step_count": self.step_count,
+            "counters": {
+                "active_steps": self._active_steps, "decode_steps": self.model_ticks,
+                "fused_ticks": self.fused_ticks, "prefill_lane_steps": self._prefill_lane_steps,
+                "generated": self.generated_tokens, "guarded_ticks": self._replayed_ticks,
+                "attended_tokens": self._attended_tokens, "preemptions": self._preemptions,
+                "resumes": self._resumes, "rejections": self._rejections,
+                "sentinel_checks": self._sentinel_checks,
+                "sentinel_violations": self._sentinel_violations, "retries": self._retries,
+                "fallbacks": self._fallbacks, "table_repairs": self._table_repairs},
+            "phase_log": [list(x) for x in self.phase_log],
+            "horizon_log": [list(x) for x in self.horizon_log],
+            "buckets_seen": {k: sorted(v) for k, v in self._buckets_seen.items()},
+            "event_log": [list(e) for e in self.event_log],
+            "fault_retries": {str(k): v for k, v in self._fault_retries.items()},
+            "slots": slots_meta, "requests": req_meta, "scheduler": sched_meta,
+            "suspended": sus_meta, "completions": comp_meta, "pool": pool_meta,
+            # the port's own (the reference reads only its keys): tick times
+            # and the sentinels' peak residuals
+            "tick_log": [list(x) for x in self.tick_log], "sentinel_peaks": self._peak}
+        return str(ckpt_store.save(path, self.step_count, tree, extra=_plain(extra)))
+
+    @staticmethod
+    def _nest(flat: dict, prefix: str) -> dict:
+        """The nested dict of the flat ``prefix...`` keys (digit components
+        become int keys, as the reference's)."""
+        out: dict = {}
+        for name, arr in flat.items():
+            if not name.startswith(prefix):
+                continue
+            parts = [int(p) if p.isdigit() else p for p in name[len(prefix):].split("/")]
+            d = out
+            for p in parts[:-1]:
+                d = d.setdefault(p, {})
+            d[parts[-1]] = arr
+        return out
+
+    @staticmethod
+    def _restore_request(flat: dict, rid: int, meta: dict) -> Request:
+        if meta["extras_keys"]:
+            raise ValueError(f"request {rid} carries extras {meta['extras_keys']}: the port "
+                             "serves no encoder-decoder or VLM family")
+        return Request(
+            tokens=flat[f"req/{rid}/tokens"].numpy(),
+            max_new_tokens=meta["max_new_tokens"], temperature=meta["temperature"],
+            stop_token=meta["stop_token"], arrival_step=meta["arrival_step"], id=rid,
+            padded_tokens=(flat[f"req/{rid}/padded"].numpy()
+                           if meta["has_padded"] else None),
+            prefix_hint=meta["prefix_hint"], req_class=meta["req_class"])
+
+    def restore(self, path, step: Optional[int] = None) -> None:
+        """Restore a ``snapshot`` (of either package; the latest under
+        ``path`` by default) into this engine, built with the same model,
+        weights and topology; it then continues as the run that wrote it.
+        Every device leaf is copied in place: captured graphs replay on."""
+        if step is None:
+            step = ckpt_store.latest_step(path)
+            if step is None:
+                raise FileNotFoundError(f"no snapshot under {path}")
+        flat, manifest = ckpt_store.restore_flat(path, step)  # CPU tensors
+        extra = manifest["extra"]
+        have = self._topology()
+        diff = {k: (v, have.get(k)) for k, v in extra["topology"].items() if have.get(k) != v}
+        if diff:
+            raise ValueError(f"snapshot topology mismatch: {diff}")
+        self.reset()
+        # --- device state, in place ----------------------------------------
+        for name, leaf in self._cache_tree()["layers"].items():
+            leaf.copy_(flat[f"cache/layers/{name}"])
+        self._last_logits.copy_(flat["last_logits"])
+        self._temps = np.array(flat["temps"].numpy(), np.float32)
+        self.pool.positions[:] = flat["positions"].numpy()
+        self._clip_streak = np.array(flat["clip_streak"].numpy(), np.int32)
+        self._device_admits = int(flat["device_admits"].sum())
+        self._lanes_dirty = True  # step() refreshes the device mirrors
+        # --- pool ledger ----------------------------------------------------
+        p, pool = extra["pool"], self.pool
+        if self.paged:
+            pool.tables[:] = flat["tables"].numpy()
+            pool.tables_dirty = True
+            pool.refcounts = np.array(flat["refcounts"].numpy(), np.int32)
+            pool._reserved = np.array(flat["reserved"].numpy(), np.int32)
+            pool._shared = np.array(flat["shared"].numpy(), np.int32)
+            pool._owned = np.array(flat["owned"].numpy(), np.int32)
+            pool._free_slots = collections.deque(p["free_slots"])
+            pool._slot_blocks = {int(s): list(ch) for s, ch in p["slot_blocks"].items()}
+            pool._free_blocks = collections.deque(b for q in p["free_blocks"] for b in q)
+            pool.quarantined, pool._doomed = set(p["quarantined"]), set(p["doomed"])
+            pool.peak_blocks_in_use = p["peak_blocks_in_use"]
+            pool.peak_blocks_reserved = p["peak_blocks_reserved"]
+            pool.check_ledger()
+        else:
+            pool._free, pool._used = collections.deque(p["free"]), set(p["used"])
+        # --- requests, scheduler, slots, suspended --------------------------
+        reqs = {int(rid): self._restore_request(flat, int(rid), m)
+                for rid, m in extra["requests"].items()}
+        sm, sch = extra["scheduler"], self.scheduler
+        sch._next_id, sch._pad_tokens = sm["next_id"], sm["pad_tokens"]
+        if self.sched_policy == "priority":
+            for c, ids in sm["queues"].items():
+                sch._queues[c] = collections.deque(reqs[rid] for rid in ids)
+            sch._resumed, sch.shed_count = set(sm["resumed"]), sm["shed_count"]
+        else:
+            sch._queue = collections.deque(reqs[rid] for rid in sm["queue"])
+        for s_str, m in extra["slots"].items():
+            s = int(s_str)
+            self._slots[s] = _SlotState(
+                req=reqs[m["rid"]], admit_step=m["admit_step"], admit_time=m["admit_time"],
+                generated=list(m["generated"]), phase=m["phase"],
+                padded=(flat[f"slot/{s}/padded"].numpy() if m["has_padded"]
+                        else None),
+                written=m["written"], prefill_len=m["prefill_len"],
+                first_token_step=m["first_token_step"],
+                first_token_time=m["first_token_time"], preemptions=m["preemptions"])
+            self._rids[s] = m["rid"]  # the sampler's stream of the slot
+        for rid_str, m in extra["suspended"].items():
+            rid, spill = int(rid_str), None
+            if m["spill"] is not None:
+                sp = m["spill"]
+                kv = self._nest(flat, f"sus/{rid}/kv/")
+                kv = {"len": sp["len"], "layers": kv or None} if self.paged else kv["layers"]
+                spill = {"kv": kv, "position": sp["position"],
+                         "padded": (flat[f"sus/{rid}/padded"].numpy()
+                                    if sp["has_padded"] else None),
+                         "written": sp["written"], "prefill_len": sp["prefill_len"],
+                         "phase": sp["phase"],
+                         "last_logits": flat[f"sus/{rid}/last_logits"]}
+            self._suspended[rid] = _Suspended(
+                generated=list(m["generated"]), admit_step=m["admit_step"],
+                admit_time=m["admit_time"], first_token_step=m["first_token_step"],
+                first_token_time=m["first_token_time"], preemptions=m["preemptions"],
+                spill=spill)
+        # --- completions, logs, counters ------------------------------------
+        for i, m in enumerate(extra["completions"]):
+            self.completions.append(Completion(
+                prompt_tokens=flat[f"comp/{i}/prompt"].numpy(),
+                new_tokens=flat[f"comp/{i}/new"].numpy(),
+                **{k: m[k] for k in _COMPLETION_FIELDS}))
+        self.event_log = [_detuple(e) for e in extra["event_log"]]
+        self.phase_log = [tuple(x) for x in extra["phase_log"]]
+        self.horizon_log = [tuple(x) for x in extra["horizon_log"]]
+        self.tick_log = [tuple(x) for x in extra.get(
+            "tick_log", [(pf, dc, 0.0) for pf, dc in self.phase_log])]
+        self._peak = dict(extra.get("sentinel_peaks", self._peak))
+        self._buckets_seen = {k: set(v) for k, v in extra["buckets_seen"].items()}
+        self._fault_retries = {int(k): v for k, v in extra["fault_retries"].items()}
+        c = extra["counters"]
+        self.step_count = extra["step_count"]
+        (self._active_steps, self.model_ticks, self.fused_ticks, self._prefill_lane_steps,
+         self.generated_tokens, self._replayed_ticks, self._attended_tokens,
+         self._preemptions, self._resumes, self._rejections, self._sentinel_checks,
+         self._sentinel_violations, self._retries, self._fallbacks, self._table_repairs) = (
+            c[k] for k in ("active_steps", "decode_steps", "fused_ticks",
+                           "prefill_lane_steps", "generated", "guarded_ticks",
+                           "attended_tokens", "preemptions", "resumes", "rejections",
+                           "sentinel_checks", "sentinel_violations", "retries", "fallbacks",
+                           "table_repairs"))
+
     def metrics(self) -> dict:
         """The reference's telemetry keys with its meanings (computed on the
         host, outside the captured tick), and the port's own: ``ticks``,
@@ -938,7 +1328,7 @@ class ContinuousEngine:
         residuals and ``capture_seconds``.  ``kv_hbm_bytes`` counts the
         port's resident pool, its write-sink block included."""
         graphs = self._graphs
-        return {
+        out = {
             "ticks": self.step_count,
             "model_ticks": self.model_ticks,
             "fused_ticks": self.fused_ticks,
@@ -951,14 +1341,8 @@ class ContinuousEngine:
             "chunk": self.chunk,
             "intake_padding": self.scheduler.intake_padding,
             "kv_hbm_bytes": self.pool.hbm_bytes(),
-            "peak_blocks_in_use": self.pool.peak_blocks_in_use,
-            "peak_blocks_reserved": self.pool.peak_blocks_reserved,
-            "mean_attended_tokens_per_tick": self._attended_tokens / max(1, self.model_ticks),
-            "kv_dtype": self.pool.kv_dtype,
-            "num_blocks": self.pool.num_blocks,
-            "block_size": self.pool.block_size,
-            "block_utilization": self.pool.peak_blocks_in_use / max(1, self.pool.num_blocks),
-            "kv_paged": True,
+            "kv_dtype": self.kv_dtype,
+            "kv_paged": self.paged,
             "read_path": self.read_path,
             # GN sentinels (the reference's counters): checks count (slot,
             # tick) health evaluations; violations count flagged slots and
@@ -966,7 +1350,7 @@ class ContinuousEngine:
             "sentinels": self.sentinels,
             "sentinel_checks": self._sentinel_checks,
             "sentinel_violations": self._sentinel_violations,
-            "quarantined_blocks": len(self.pool.quarantined),
+            "quarantined_blocks": len(self.pool.quarantined) if self.paged else 0,
             "retries": self._retries,
             "fallbacks": self._fallbacks,
             "table_repairs": self._table_repairs,
@@ -982,34 +1366,48 @@ class ContinuousEngine:
             # Σp residual is 0 on the kernel read, whose probe is finiteness
             "sentinel_peak_sum_residual": self._peak["sum"],
             "sentinel_peak_sigma_residual": self._peak["sigma"],
-            "horizon_bucket_grid": list(self.horizon_bucket_grid),
-            "horizon_buckets": sorted(self._buckets_seen["fused"] | self._buckets_seen["decode"]),
-            "fused_buckets": sorted(self._buckets_seen["fused"]),
-            "decode_buckets": sorted(self._buckets_seen["decode"]),
             # graph captures, the counterpart of the reference's compilation
-            # counters: one per (step kind, bucket) run on the card, kept
-            # across reset; 0 on the CPU, where no graph exists.  No tick
-            # depends on the prompt length, so no prefill is ever captured.
+            # counters: one per (step kind, bucket) run on the card (slab:
+            # per step kind), kept across reset; 0 on the CPU, where no graph
+            # exists.  No tick depends on the prompt length, so no prefill is
+            # ever captured.
             "fused_step_compilations": graphs.captures.get("fused", 0) if graphs else 0,
             "decode_compilations": graphs.captures.get("decode", 0) if graphs else 0,
             "prefill_compilations": 0,
             "capture_seconds": graphs.capture_seconds if graphs else 0.0,
-            "prefix_cache": self.prefix is not None,
             # the reference counts ticks dispatched under a guard that refuses
             # implicit host->device transfers; a graph replay moves no host
             # data into the tick (its inputs are staged before), so the port
             # counts its replayed ticks, against decode_steps = model ticks
             "decode_steps": self.model_ticks,
             "transfer_guarded_ticks": self._replayed_ticks,
-            **self._prefix_metrics(),
+            # one device: the reference's mesh keys at their one-device values
+            "num_devices": 1,
+            "per_device_slots": self.num_slots,
+            "shard_balance": 1.0,
+            "device_admits": [self._device_admits],
         }
+        if self.paged:
+            out.update(self._paged_metrics())
+        return out
 
-    def _prefix_metrics(self) -> dict:
-        """The reference's ``prefix_*`` keys, with a prefix cache: the hit
-        rate is token-weighted (cached prompt tokens over admitted ones)."""
+    def _paged_metrics(self) -> dict:
+        """The reference's keys of a paged engine: the arena's occupancy, the
+        horizon buckets, and with a prefix cache its ``prefix_*`` keys (the
+        hit rate token-weighted: cached prompt tokens over admitted ones)."""
+        pool, seen = self.pool, self._buckets_seen
+        out = {"peak_blocks_in_use": pool.peak_blocks_in_use,
+               "peak_blocks_reserved": pool.peak_blocks_reserved,
+               "mean_attended_tokens_per_tick": self._attended_tokens / max(1, self.model_ticks),
+               "num_blocks": pool.num_blocks, "block_size": pool.block_size,
+               "block_utilization": pool.peak_blocks_in_use / max(1, pool.num_blocks),
+               "horizon_bucket_grid": list(self.horizon_bucket_grid),
+               "horizon_buckets": sorted(seen["fused"] | seen["decode"]),
+               "fused_buckets": sorted(seen["fused"]), "decode_buckets": sorted(seen["decode"]),
+               "prefix_cache": self.prefix is not None}
         if self.prefix is None:
-            return {}
-        return {"prefix_hit_rate": self._prefix_hit_tokens / max(1, self._prefix_prompt_tokens),
+            return out
+        return {**out, "prefix_hit_rate": self._prefix_hit_tokens / max(1, self._prefix_prompt_tokens),
                 "prefix_hit_tokens": self._prefix_hit_tokens,
                 "prefix_prompt_tokens": self._prefix_prompt_tokens,
                 "prefix_hit_requests": self._prefix_hit_requests,

@@ -1,5 +1,18 @@
-"""Block-granular KV pool, one device (port of ``BlockPagedKVPool`` in
-``repro/serve/kv_cache.py``), fp or int8 (``kv_dtype``).
+"""KV pools of the continuous engine, one device (port of
+``repro/serve/kv_cache.py``): ``SlotKVPool``, one slab a slot, and
+``BlockPagedKVPool``, block-granular, fp or int8 (``kv_dtype``).
+
+``SlotKVPool`` holds ``model.init_cache(num_slots, max_seq)``: every leaf's
+batch axis (axis 1, after the layers) is the slot axis, each slot a slab of
+``max_seq`` positions or a sliding window's ring.  It is allocated once and
+written in place (admission pages a fresh batch-1 cache into a slot with
+``copy_``), so a captured tick keeps its addresses.  Host state: per-slot
+positions and a FIFO free list of slots, restored to slot order by
+``reset``.  Stale slab contents are never read: admission overwrites the
+whole slot first.  It is the pool of the families whose KV does not page
+(sliding windows) and the slab baseline of ``hbm_bytes``.
+
+The block-paged pool:
 
 Device state: the shared block arenas of ``model.init_paged_cache``, and for
 int8 arenas their per-block f32 scales; every leaf has the block axis as
@@ -51,6 +64,74 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
+
+
+class SlotKVPool:
+    def __init__(self, model, num_slots: int, max_seq: int, device=None):
+        self.model = model
+        self.num_slots = int(num_slots)
+        self.max_seq = int(max_seq)
+        self.device = resolve_device(device)
+        self.cache = model.init_cache(self.num_slots, self.max_seq, self.device)
+        self.positions = np.zeros(self.num_slots, np.int32)
+        self.reset()
+
+    def reset(self) -> None:
+        """Free every slot and restore the slot order, so a reset engine
+        assigns slots as a fresh one (stale slab contents stay: admission
+        overwrites a slot whole before any read)."""
+        self.positions[:] = 0
+        self._free: deque[int] = deque(range(self.num_slots))
+        self._used: set[int] = set()
+
+    def hbm_bytes(self) -> int:
+        """Resident device bytes of the slab cache."""
+        return sum(t.numel() * t.element_size() for t in self.cache.values())
+
+    @property
+    def num_free(self) -> int:
+        return len(self._free)
+
+    @property
+    def num_used(self) -> int:
+        return len(self._used)
+
+    def allocate(self) -> int:
+        if not self._free:
+            raise RuntimeError("SlotKVPool exhausted: no free slot")
+        slot = self._free.popleft()
+        self._used.add(slot)
+        return slot
+
+    def free(self, slot: int) -> None:
+        if slot not in self._used:
+            raise ValueError(f"slot {slot} is not allocated")
+        self._used.remove(slot)
+        self.positions[slot] = 0
+        self._free.append(slot)
+
+    def insert(self, request_cache: dict, slot: int, position: int) -> None:
+        """Copy a batch-1 cache (``model.fresh_request_cache`` or a spilled
+        ``extract``, on any device) into ``slot``'s row in place;
+        ``position`` is its next write position."""
+        if slot not in self._used:
+            raise ValueError(f"slot {slot} is not allocated")
+        if position > self.max_seq:
+            raise ValueError(f"position {position} exceeds max_seq {self.max_seq}")
+        self.model.insert_cache_slot(self.cache, request_cache, slot)
+        self.positions[slot] = position
+
+    def extract(self, slot: int) -> dict:
+        """``slot``'s row as a batch-1 copy (preemption's spill)."""
+        return self.model.extract_cache_slot(self.cache, slot)
+
+    def advance(self, slots: dict) -> None:
+        """Advance positions by {slot: tokens committed this tick}."""
+        for slot, n in slots.items():
+            new = int(self.positions[slot]) + int(n)
+            if new > self.max_seq:
+                raise ValueError(f"slot {slot}: position {new} exceeds max_seq {self.max_seq}")
+            self.positions[slot] = new
 
 
 class BlockPagedKVPool:

@@ -99,8 +99,9 @@ def summary(eng, comps) -> dict:
         "completions": {c.request_id: {k: getattr(c, k) for k in COMPLETION_KEYS}
                         for c in comps},
         "metrics": m,
-        "tables": np.array(eng.pool.tables),
-        "refcounts": np.array(eng.pool.refcounts),
+        # the block ledger of a paged pool (None over the slab pool)
+        "tables": np.array(getattr(eng.pool, "tables", None)),
+        "refcounts": np.array(getattr(eng.pool, "refcounts", None)),
         "positions": np.array(eng.pool.positions),
     }
 

@@ -26,7 +26,12 @@ ticks right after forks and restores bitwise the eager ones.  The MLA and
 MoE families: the paged read at llama4-scout's group of 5 in both designs
 (fp and int8), the norm at MLA's latent widths, the softmax on router
 rows, graphed MLA ticks bitwise the eager ones (fp and int8 latent arenas),
-and the MoE routing on the card equal to the CPU's.
+and the MoE routing on the card equal to the CPU's.  The slab pool and
+sliding windows: the flash kernel's window band in both designs against the
+plain version (a window past Sk bitwise the causal kernel), graphed slab
+ticks bitwise the eager ones (dense, MLA, mixtral with its ring wrapped) and
+equal to the CPU's at f32, and snapshots restored into an engine with
+captured graphs draining bitwise by replay (paged and slab).
 """
 import numpy as np
 import pytest
@@ -1167,3 +1172,93 @@ def test_moe_routing_on_the_card_equals_the_cpu(cuda):
     _close(got["gates"].cpu(), want["gates"], 1e-6, torch.float32)
     y_card = moe.apply_moe(model.cfg, {k: v.to(cuda) for k, v in p.items()}, x.to(cuda))[0]
     _close(y_card.cpu(), moe.apply_moe(model.cfg, p, x)[0], 1e-5, torch.float32)
+
+
+# ------------------------------------------------ sliding windows and slabs --
+WINDOW_SHAPES = [  # (B, H, Hkv, Sq, Sk, D), window
+    ((1, 12, 2, 300, 300, 128), 64), ((2, 16, 8, 333, 397, 128), 100),
+    ((1, 4, 4, 200, 200, 64), 33), ((1, 6, 1, 1056, 1056, 128), 512)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,window", WINDOW_SHAPES, ids=str)
+def test_attention_kernel_window_matches_plain(cuda, shape, window, dtype):
+    """The flash kernel's sliding-window band in both designs against the
+    plain version (the tolerances of the causal kernel), exact scores and
+    V = 1 included; a window past Sk is bitwise the causal kernel."""
+    q, k, v = _attn_inputs(cuda, shape, dtype, seed=sum(shape) + window)
+    got = fa_ops.gn_attention(q, k, v, causal=True, window=window)
+    want = fa_ref.gn_attention_ref(q, k, v, causal=True, window=window)
+    rel = BF16_REL if dtype == torch.bfloat16 else 0.0
+    err = (got.float() - want.float()).abs() - (2e-4 + rel * want.float().abs())
+    assert (err > 0).any(-1).sum().item() <= 0.01 * got.numel() // got.shape[-1]
+    assert torch.equal(fa_ops.gn_attention(q, k, v, causal=True, window=shape[4] + 3),
+                       fa_ops.gn_attention(q, k, v, causal=True))
+    q, k, v = _attn_inputs(cuda, shape, dtype, seed=1, exact=True)
+    _close(fa_ops.gn_attention(q, k, v, causal=True, window=window, sm_scale=1 / 8),
+           fa_ref.gn_attention_ref(q, k, v, causal=True, window=window, sm_scale=1 / 8), 2e-5,
+           dtype)
+    q, k, v = _attn_inputs(cuda, shape, dtype, seed=2, v_ones=True)
+    ones = fa_ops.gn_attention(q, k, v, causal=True, window=window)
+    assert (ones.float() - 1).abs().max().item() <= 1e-5
+
+
+def _slab_run(model, master, reqs, device, eager=False, **kw):
+    eng = ContinuousEngine(model, master, num_slots=2, max_seq=required_max_seq(reqs), chunk=4,
+                           paged=False, device=device, **kw)
+    if eager:
+        eng._graphs = None
+    return eng, {c.request_id: c.tokens.tolist() for c in eng.run(reqs)}
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "mixtral-8x22b", "minicpm3-4b"])
+def test_graphed_slab_ticks_equal_eager(cuda, arch):
+    """The slab engine on the card (mixtral: its ring wraps): a graph a step
+    kind, every tick a replay, bitwise the eager tick (tokens, held logits,
+    slabs); the tokens equal the CPU slab engine's at f32."""
+    model, master = _family(arch)
+    reqs = seeded_requests(model.cfg.vocab, 5, 6, 20, 6, 1, 0)
+    eng, graphed = _slab_run(model, master, reqs, cuda)
+    m = eng.metrics()
+    assert m["read_path"] == "slab" and m["transfer_guarded_ticks"] == m["model_ticks"]
+    assert (m["fused_step_compilations"], m["decode_compilations"]) == (1, 1)
+    state = {"last_logits": eng._last_logits.clone(),
+             **{k: v.clone() for k, v in eng.pool.cache.items()}}
+    eager_eng, eager = _slab_run(model, master, reqs, cuda, eager=True)
+    assert eager == graphed
+    assert torch.equal(state["last_logits"], eager_eng._last_logits)
+    assert all(torch.equal(state[k], v) for k, v in eager_eng.pool.cache.items())
+    assert _slab_run(model, master, reqs, "cpu")[1] == graphed
+
+
+@pytest.mark.parametrize("paged", [True, False])
+def test_snapshot_restores_into_captured_graphs_and_drains_bitwise(cuda, paged, tmp_path):
+    """A writer snapshots after every tick; one restorer whose graphs a run
+    already captured restores every snapshot in place and drains by replay,
+    each drain bitwise the writer's (completions, finish steps, events)."""
+    model, master = _family("internlm2-1.8b")
+    reqs = seeded_requests(model.cfg.vocab, 4, 6, 20, 5, 1, 0)
+    kw = {"num_slots": 2, "max_seq": required_max_seq(reqs), "chunk": 4, "device": cuda,
+          **({"block_size": 4} if paged else {"paged": False})}
+    writer = ContinuousEngine(model, master, **kw)
+    for r in reqs:
+        writer.submit(r)
+    steps = []
+    while writer.step():
+        writer.snapshot(tmp_path)
+        steps.append(writer.step_count)
+
+    def fingerprint(eng):
+        return ([(c.request_id, c.new_tokens.tolist(), c.finish_reason, c.finish_step)
+                 for c in eng.completions], eng.event_log, eng.step_count)
+
+    want = fingerprint(writer)
+    restorer = ContinuousEngine(model, master, **kw)
+    restorer.run(reqs)
+    captured = dict(restorer._graphs.captures)
+    for step in steps:
+        restorer.restore(tmp_path, step)
+        while restorer.step():
+            pass
+        assert fingerprint(restorer) == want, step
+    assert restorer._graphs.captures == captured  # resumed by replay alone

@@ -232,6 +232,15 @@ def test_make_model_takes_the_mla_and_moe_configs(arch):
                                   {"sliding_window": 4096}, {"family": "moe", "moe": None}])
 def test_other_families_stay_refused(over):
     cfg = dataclasses.replace(get_config(FAMILIES["moe"]), **over)
+    if "sliding_window" in over:
+        # ported: a sliding window builds, keeps a ring in the slab cache
+        # and pages nothing (tests/test_torch_window.py, test_torch_slab.py)
+        model = Model(cfg)
+        assert not model.supports_paging
+        assert model.cache_specs(2, 8192)["k"][0][2] == 4096
+        with pytest.raises(ValueError, match="no pageable KV"):
+            model.init_paged_cache(4, 16, "cpu")
+        return
     with pytest.raises(NotImplementedError, match="only the dense"):
         Model(cfg)
 

@@ -220,10 +220,19 @@ def test_admission_waits_for_blocks_and_unservable_raises(reference):
 
 @pytest.mark.parametrize("kw", [{"devices": 2}, {"paged": False}, {"devices": 4}])
 def test_unported_options_are_refused(reference, kw):
-    # sampling, the GN sentinels, the prefix cache and the SLA control plane
-    # are ported (tests/test_torch_sampling.py, test_torch_sentinels.py,
-    # test_torch_prefix.py, test_torch_sla.py); more devices and the slab
-    # pool are still refused
+    # sampling, the GN sentinels, the prefix cache, the SLA control plane and
+    # the slab pool are ported (tests/test_torch_sampling.py,
+    # test_torch_sentinels.py, test_torch_prefix.py, test_torch_sla.py,
+    # test_torch_slab.py); more devices are still refused
+    if kw.get("paged") is False:
+        # the slab pool: a block size is refused as the reference refuses it,
+        # and without one the slab engine serves the paged engine's f32 tokens
+        with pytest.raises(ValueError, match="block_size"):
+            _engine(reference, "float32", 4, **kw)
+        eng, reqs = _engine(reference, "float32", 0, sentinels=False, **kw)
+        assert _tokens(eng.run(reqs)) == reference["float32", 4]
+        assert eng.metrics()["read_path"] == "slab"
+        return
     with pytest.raises(NotImplementedError):
         _engine(reference, "float32", 4, **kw)
 
