@@ -47,7 +47,14 @@ Phases, each fatal on failure (exit code 1):
                bf16 case and an f32 case on the CUDA cores; exact scores,
                V = 1, and a window past Sk bitwise the causal call) and the
                softmax over the slab tick's rows (``slab-tick``: 8 slots x 48
-               heads x 16 lanes over the 4096-slot ring + 16);
+               heads x 16 lanes over the 4096-slot ring + 16); for phases 21
+               and 22 the flash attention non-causal at whisper's encoder
+               (``whisper-encoder``: (8, 20, 1500, 64), ragged) and at
+               MLA's padded head dim past 2048 (``mla-4096``: (1, 40, 4096,
+               96), v of 64 zero-padded, the padded columns exactly 0), the
+               softmax over cross-attention rows (``xattn-whisper``: 1500
+               columns, ``xattn-vlm``: 1601), and the norm at whisper's
+               1280 (LayerNorm) and the VLM's 4096 (RMS);
   3. parity  - full-width internlm2-1.8b cut to 2 layers, kernels on the card
                against plain versions on the CPU, same weights, at float32
                and at bfloat16: one fused paged tick with mixed
@@ -236,7 +243,36 @@ Phases, each fatal on failure (exit code 1):
                engine and drained: tokens bitwise phase 4's, the drains'
                launches exact, bytes, save and restore seconds; (c) a chaos
                snapshot with a quarantined block restores it quarantined,
-               the ledger balanced through the drain.
+               the ledger balanced through the drain; (d) whisper at 2
+               layers f32 (encoder too) with each request's frames:
+               snapshots at model ticks SNAP_EXTRAS_TICKS (the frames and
+               the pool's cross k/v in them) drained bitwise.
+ 21. long-chunked - past 2048 tokens: (a) internlm2-1.8b uncut with the
+               exact softmax, static prefill and forward at LONG_EXACT
+               through the chunked stream (launches exact: the norms only;
+               ms, peak memory), and its forward at 1 x 4096 against the
+               one-pass forward (f32 gated, bf16 reported); (b) minicpm3-4b
+               uncut, ``generate`` over MLA_LONG with NEW new tokens (the
+               prefill's flash launches at the padded head dim) and
+               ``perplexity`` (launches exact); (c) training at TRAIN_LONG
+               (full depth; the straight-through backward, no softmax
+               launch past 2048; step ms, tokens/s, peak memory) and
+               ``launch.train --smoke --seq 4096`` as a subprocess; (d) at 2
+               layers f32 card = CPU: prefill logits (GN and exact) and the
+               flash kernel's straight-through gradients.
+ 22. cross   - whisper-large-v3 and llama-3.2-vision-11b at full width and
+               depth (random weights, VLM gates XATTN_GATE), phase 4's
+               workload, each request with seeded frames or patches: the
+               paged fp pool with phase 17's lean checks (launches exact,
+               the encoder's an admission counted in; every captured
+               graph's first tick bitwise its eager tick; a traced window),
+               the int8 and slab pools (launches exact, timed reruns), the
+               static path (8 x 1024 + 32, launches exact) and the
+               encoder's ms an admission, ``hbm_bytes()`` with the cross
+               k/v or patches; at 2 layers f32 (whisper's encoder at 2, the
+               VLM at one block over XATTN_SMALL_PATCHES patches) engine =
+               static oracle = CPU over the paged and the slab pool
+               (gated).
 Phases 4-10 and 15-18 serve with the GN sentinels on, the engine's default:
 a tick launches one more norm, the head's σ probe.
 Each path's launch counters are set to 0 just before it runs and read just
@@ -373,10 +409,30 @@ MIXTRAL_STATIC, SMALL_WINDOW = (2, 6144), 64
 # workload at full width; the every-tick sweep at 2 layers f32 over
 # SNAP_SMALL = (requests, shortest and longest prompt, new tokens)
 SNAP_TICKS, SNAP_SMALL = (8, 48, 120), (4, 24, 56, 6)
+# phase 20: whisper's snapshots with extras at these model ticks
+SNAP_EXTRAS_TICKS = (2, 5, 9)
 # phase 19 (c): the 2-layer f32 mixtral's workload, prompts past its window
 MIXTRAL_SMALL = (4, 48, 120, 8)
 # the new widths of the norm: MLA's kv and q latents, the two d_models
 FAMILY_NORM_WIDTHS = (256, 768, 2560, 5120)
+# phase 21: internlm2-1.8b with the exact softmax through the chunked stream
+# at LONG_EXACT (batch, tokens); minicpm3-4b's MLA_LONG (batch, tokens)
+# through the flash kernel at MLA_FLASH (B, H, S, qk head dim, v head dim);
+# a training step at TRAIN_LONG (batch, tokens, microbatches, steps); the
+# 2-layer f32 gates at LONG_SMALL tokens
+LONG_EXACT = ((2, 4096), (1, 8192))
+MLA_LONG, MLA_FLASH = (2, 4096), (1, 40, 4096, 96, 64)
+TRAIN_LONG = (2, 4096, 2, 3)
+LONG_SMALL = 4096
+# phase 22: whisper-large-v3 and llama-3.2-vision-11b at full width and
+# depth, phase 4's workload (each request with seeded frames or patches);
+# whisper's encoder shape in phase 2 (B, H, Hkv, S, S, D), non-causal; the
+# 2-layer f32 gates' workload XATTN_SMALL (requests, shortest and longest
+# prompt, new tokens), the VLM cut to one block over XATTN_SMALL_PATCHES
+# patches (its CPU engine projects every slot's patches a tick)
+XATTN_ARCHS = ("whisper-large-v3", "llama-3.2-vision-11b")
+WHISPER_ENCODER = (8, 20, 20, 1500, 1500, 64)
+XATTN_SMALL, XATTN_SMALL_PATCHES, XATTN_GATE = (4, 24, 56, 6), 64, 0.5
 # the training phases: TRAIN_BATCH sequences of TRAIN_SEQ tokens a step (one
 # batch of batch_at, repeated), TRAIN_MB microbatches, TRAIN_STEPS steps;
 # the Table I analogue trains TABLE1_STEPS steps
@@ -736,6 +792,10 @@ def norm_cases(gen) -> tuple[list[dict], list[dict]]:
     # phases 17-18: MLA's kv and q latents (256, 768) and minicpm3-4b's and
     # llama4-scout's d_model (2560, 5120) at a tick's rows
     norms += [norm_case(rows[0], torch.bfloat16, gen, cols=w) for w in FAMILY_NORM_WIDTHS]
+    # phase 22: whisper's LayerNorm at its d_model (1280), the VLM's RMSNorm
+    # at its (4096), a tick's rows
+    norms += [norm_case(rows[0], torch.bfloat16, gen, cols=1280, subtract_mean=True),
+              norm_case(rows[0], torch.bfloat16, gen, cols=4096)]
     return norms, fused
 
 
@@ -1059,6 +1119,13 @@ def softmax_cases(gen) -> list[dict]:
                              visible=lambda r: MIXTRAL_WINDOW + r % CHUNK)
     out.append(softmax_case("slab-tick", x, masked, iters=20))
     del x, masked
+    # phase 22's cross-attention rows, a fused tick's (SLOTS * heads * CHUNK)
+    # over the memory, every column visible: whisper's 1500 encoder frames
+    # (20 heads), the VLM's 1601 patches (32 heads)
+    for label, heads, cols in (("xattn-whisper", 20, 1500), ("xattn-vlm", 32, 1601)):
+        x, _ = softmax_rows(SLOTS * heads * CHUNK, cols, torch.float32, gen)
+        out.append(softmax_case(label, x, None, iters=20))
+    del x
     for frac_bits, delta_scale in ((0, 1.0), (3, 1.0), (4, 0.5)):
         x, masked = softmax_rows(4096, 200, torch.float32, gen, visible=lambda r: r % 200,
                                  scale=8.0)
@@ -1154,6 +1221,49 @@ def fa_long_case(b: int, s: int, gen, iters: int = 5) -> dict:
             "library_ms": device_ms(lib, iters)}
 
 
+def fa_mla_case(gen, iters: int = 5) -> dict:
+    """Phase 21's MLA prefill past 2048 tokens through the flash kernel
+    (``mla._attend_chunked``): minicpm3-4b's (1, 40 heads, S 4096), q and k
+    of head dim 96 (nope 64 + rope 32), v of 64 zero-padded to 96, causal,
+    bf16, scale 96^-0.5.  The first 64 output columns against the plain
+    version, the padded ones exactly 0; V = 1 over the real columns.  The
+    bound counts the function's own work: q, k (96) and v, o (64) once, and
+    the products at 96 (scores) and 64 (P·V) columns; SDPA takes v of 64."""
+    b, h, s, dqk, dv = MLA_FLASH
+    q, k, v = fa_inputs((b, h, h, s, s, dqk), torch.bfloat16, gen)
+    v = F.pad(v[..., :dv], (0, dqk - dv)).contiguous()
+    got = fa_ops.gn_attention(q, k, v, causal=True)
+    check = compare(got[..., :dv], fa_ref.gn_attention_ref(q, k, v, causal=True)[..., :dv],
+                    ATTN_ATOL_F32, BF16_REL)
+    pad_zero = bool((got[..., dv:] == 0).all())
+    ones = fa_ops.gn_attention(q, k, F.pad(torch.ones_like(v[..., :dv]), (0, dqk - dv)),
+                               causal=True)
+    ones_err = (ones[..., :dv].float() - 1.0).abs().max().item()
+    del got, ones
+    check["ok"] = (check["bad_rows"] <= FLIP_ROWS * check["rows"] and pad_zero
+                   and ones_err <= ONES_ATOL)
+    seen = s * (s + 1) // 2
+    item = q.element_size()
+    b_ms, b_by = bound((2 * q.numel() + k.numel() + 2 * b * h * s * dv) * item,
+                       2 * b * h * seen * (dqk + dv), torch.bfloat16)
+    v64 = v[..., :dv].contiguous()
+    try:
+        F.scaled_dot_product_attention(q, k, v64, is_causal=True)
+        lib = functools.partial(F.scaled_dot_product_attention, q, k, v64, is_causal=True)
+    except RuntimeError:  # no SDPA backend for two head dims
+        lib = None
+    return {"name": "gn_attention", "case": f"mla-{s}",
+            "design": fa_ops.design(torch.bfloat16, TPU_SOFTMAX_LUT),
+            "shape": {"B": b, "H": h, "Hkv": h, "Sq": s, "Sk": s, "D": dqk, "Dv": dv,
+                      "causal": True},
+            "dtype": "bfloat16", **check, "padded_columns_zero": pad_zero, "ones_err": ones_err,
+            "bound_ms": b_ms, "bound_by": b_by,
+            "ms": device_ms(lambda: fa_ops.gn_attention(q, k, v, causal=True), iters),
+            "call_ms": call_ms(lambda: fa_ops.gn_attention(q, k, v, causal=True), iters),
+            "plain_ms": device_ms(lambda: fa_ref.gn_attention_ref(q, k, v, causal=True), 3),
+            "library_ms": None if lib is None else device_ms(lib, iters)}
+
+
 def band_pairs(sq: int, sk: int, window: int) -> int:
     """Visible (row, column) pairs of a causal call with a sliding window:
     row i sees min(window, i + Sk - Sq + 1) columns."""
@@ -1226,14 +1336,18 @@ def fa_window_case(label: str, shape, window: int, dtype, gen, iters: int = 0,
 def attention_cases(gen) -> list[dict]:
     """The forward's shape (B 8, H 16, Hkv 8, S = prompt + new, D 128,
     causal) in bf16 and f32, a non-causal case, a KV-prefix case (Sk > Sq,
-    the causal offset), a ragged S, and the long prefills' shapes."""
+    the causal offset), a ragged S, the long prefills' shapes, and phases
+    21-22's: whisper's encoder (non-causal, ragged 1500 frames) and MLA's
+    padded head dim past 2048 tokens."""
     fwd = (BATCH, 16, 8, PROMPT + NEW, PROMPT + NEW, 128)
     return [fa_case("forward", fwd, torch.bfloat16, True, gen, iters=10),
             fa_case("forward", fwd, torch.float32, True, gen, iters=5),
             fa_case("non-causal", (2, 16, 8, 256, 256, 128), torch.bfloat16, False, gen),
             fa_case("kv-prefix", (1, 8, 1, 64, 256, 32), torch.float32, True, gen),
             fa_case("ragged", (2, 16, 8, 333, 333, 128), torch.float32, True, gen)] + [
-                fa_long_case(b, s, gen) for b, s in LONG_BATCHES] + window_cases(gen)
+                fa_long_case(b, s, gen) for b, s in LONG_BATCHES] + window_cases(gen) + [
+                fa_case("whisper-encoder", WHISPER_ENCODER, torch.bfloat16, False, gen, iters=5),
+                fa_mla_case(gen)]
 
 
 def window_cases(gen) -> list[dict]:
@@ -1676,34 +1790,73 @@ def continuous_replays(label: str, engine, reqs, first: dict, want: dict, eager:
 
 
 def continuous_want(layers: int, ticks: int, int8: bool, read_path: str = "kernel",
-                    sentinels: bool = True, mla: bool = False, moe: bool = False) -> dict:
+                    sentinels: bool = True, mla: bool = False, moe: bool = False,
+                    cross: int = 0) -> dict:
     """The launches of ``ticks`` paged ticks: a paged read a layer (fp or
     int8 mode; with the streamed or gathered read a softmax instead), 2L + 1
     norms (with the sentinels one more: the head's σ probe) and 2L - 1 of
     them fused, a tick.  MLA reads through the streamed read and norms its
-    two latents (2L more norms); MoE adds a router softmax a layer.  The
-    slab tick (``read_path`` "slab") reads its score rows through a softmax
-    a layer, as the streamed read."""
+    two latents (2L more norms); MoE adds a router softmax a layer; each of
+    ``cross`` cross-attention blocks a pass (``cross_blocks``) a fused norm
+    and a softmax.  The slab tick (``read_path`` "slab") reads its score
+    rows through a softmax a layer, as the streamed read."""
     read = layers * ticks
     kernel = read_path == "kernel"
-    return {"gn_rmsnorm": (2 * layers + 1 + sentinels + 2 * layers * mla) * ticks,
-            "gn_rmsnorm_fused": (2 * layers - 1) * ticks,
+    return {"gn_rmsnorm": (2 * layers + 1 + sentinels + 2 * layers * mla + cross) * ticks,
+            "gn_rmsnorm_fused": (2 * layers - 1 + cross) * ticks,
             "gn_paged_attention": read if kernel and not int8 else 0,
             "gn_paged_attention_int8": read if kernel and int8 else 0,
-            "gn_softmax": (0 if kernel else read) + read * moe, "gn_attention": 0}
+            "gn_softmax": (0 if kernel else read) + read * moe + cross * ticks,
+            "gn_attention": 0}
 
 
-def want_for(engine, ticks: int, passes=()) -> dict:
+def cross_blocks(cfg) -> int:
+    """Cross-attention blocks a decoder pass runs, each a norm that follows
+    a residual add (fused) and a GN softmax over its memory: encdec's ln_x
+    + xattn a layer, the VLM's gated block before every cross_attn_every
+    layers (its first norm is plain, but then layer 0's ln1 is fused)."""
+    if cfg.family == "encdec":
+        return cfg.n_layers
+    if cfg.family == "vlm":
+        return cfg.n_layers // cfg.cross_attn_every
+    return 0
+
+
+def encoder_want(cfg, passes: int) -> dict:
+    """The launches of ``passes`` runs of whisper's encoder (an admission's,
+    or a static prefill's or forward's over its batch): 2E + 1 norms (2E
+    fused: every ln1 but the first, every ln2, the final norm) and a
+    non-causal flash attention a layer."""
+    e = cfg.encoder_layers if cfg.family == "encdec" else 0
+    return {"gn_rmsnorm": (2 * e + 1) * passes * (e > 0), "gn_rmsnorm_fused": 2 * e * passes,
+            "gn_paged_attention": 0, "gn_paged_attention_int8": 0, "gn_softmax": 0,
+            "gn_attention": e * passes}
+
+
+def admissions(engine) -> int:
+    """Admissions and resumes in ``engine``'s event log: each runs the
+    encoder once (encdec)."""
+    return sum(e[0] in ("admit", "resume") for e in engine.event_log)
+
+
+def add_launches(*counts: dict) -> dict:
+    return {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
+def want_for(engine, ticks: int, passes=(), admitted: int | None = None) -> dict:
     """``continuous_want`` for ``engine``'s model, pool, read and sentinels,
     plus the static passes of its int8 -> fp fallbacks (``passes``, from
-    ``fallback_passes``; ``static_want``)."""
+    ``fallback_passes``; ``static_want``, each a prefill that encodes), plus
+    the encoder of each of ``admitted`` admissions (default: every one in
+    the event log)."""
     cfg = engine.model.cfg
     want = continuous_want(cfg.n_layers, ticks, engine.kv_dtype == "int8",
                            engine.read_path, engine.sentinels, mla=cfg.mla is not None,
-                           moe=cfg.moe is not None)
+                           moe=cfg.moe is not None, cross=cross_blocks(cfg))
     for n in passes:
-        want = {k: v + static_want(cfg, n)[k] for k, v in want.items()}
-    return want
+        want = add_launches(want, static_want(cfg, n), encoder_want(cfg, int(n > 0)))
+    return add_launches(want, encoder_want(cfg, admissions(engine) if admitted is None
+                                           else admitted))
 
 
 class fallback_passes:
@@ -2958,14 +3111,16 @@ def static_want(cfg, passes: int, flash: bool = False) -> dict:
     """The launches of ``passes`` static passes (a prefill or a decode step
     each; a forward with ``flash``): 2L + 1 norms (MLA: 2L more, its
     latents), 2L - 1 of them fused; a softmax a layer for the one-pass
-    attention (the flash kernel instead with ``flash``), and one more a
-    layer for the MoE router."""
+    attention (the flash kernel instead with ``flash``; neither for the
+    exact softmax), one more a layer for the MoE router, and a fused norm
+    and a softmax a cross-attention block (``cross_blocks``)."""
     L, mla, moe = cfg.n_layers, cfg.mla is not None, cfg.moe is not None
-    return {"gn_rmsnorm": (2 * L + 1 + 2 * L * mla) * passes,
-            "gn_rmsnorm_fused": (2 * L - 1) * passes, "gn_paged_attention": 0,
+    gn, cross = cfg.softmax_impl == "gn", cross_blocks(cfg)
+    return {"gn_rmsnorm": (2 * L + 1 + 2 * L * mla + cross) * passes,
+            "gn_rmsnorm_fused": (2 * L - 1 + cross) * passes, "gn_paged_attention": 0,
             "gn_paged_attention_int8": 0,
-            "gn_softmax": (L * (not flash) + L * moe) * passes,
-            "gn_attention": L * passes if flash else 0}
+            "gn_softmax": (L * (not flash) * gn + L * moe + cross) * passes,
+            "gn_attention": L * passes if flash and gn else 0}
 
 
 def family_static(label: str, model, params) -> dict:
@@ -3172,10 +3327,12 @@ def family_replays(label: str, engine, reqs, first: dict, launches: dict) -> dic
 
             def traced():
                 counters.reset()
+                admitted = admissions(engine)
                 with fallback_passes(engine) as passes:
                     while engine.model_ticks < stop and engine.step():
                         pass
-                window.update(launches=counters.launch_counts(), passes=passes)
+                window.update(launches=counters.launch_counts(), passes=passes,
+                              admitted=admissions(engine) - admitted)
 
             _, prof, seconds = profiled(traced)
             while engine.step():
@@ -3187,7 +3344,7 @@ def family_replays(label: str, engine, reqs, first: dict, launches: dict) -> dic
         return toks, prof, seconds
 
     def want() -> dict:
-        expect = want_for(engine, FAMILY_WINDOW, window["passes"])
+        expect = want_for(engine, FAMILY_WINDOW, window["passes"], window["admitted"])
         if window["launches"] != expect:
             fail(f"{label}: the window's launches {window['launches']} != {expect}")
         return {name: sum(expect[k] for k in keys) for name, keys in (
@@ -3630,10 +3787,12 @@ def fingerprint(engine) -> tuple:
             engine.step_count)
 
 
-def snapshot_sweep(label: str, model, master, reqs, root: Path, **kw) -> dict:
-    """Phase 20 (a): a writer snapshots after every tick; one restorer,
-    whose graphs a first run captured, restores each snapshot and drains;
-    every drain bitwise the writer's (``fingerprint``)."""
+def snapshot_sweep(label: str, model, master, reqs, root: Path, at: tuple | None = None,
+                   **kw) -> dict:
+    """Phase 20 (a): a writer snapshots after every tick (or after model
+    ticks ``at``); one restorer, whose graphs a first run captured,
+    restores each snapshot and drains; every drain bitwise the writer's
+    (``fingerprint``)."""
     mk = functools.partial(ContinuousEngine, model, master, num_slots=SLOTS,
                            max_seq=required_max_seq(reqs), chunk=CHUNK, device=DEV, **kw)
     path = root / label
@@ -3642,8 +3801,9 @@ def snapshot_sweep(label: str, model, master, reqs, root: Path, **kw) -> dict:
         writer.submit(r)
     steps = []
     while writer.step():
-        writer.snapshot(path)
-        steps.append(writer.step_count)
+        if at is None or (writer.model_ticks in at and writer.step_count not in steps):
+            writer.snapshot(path)
+            steps.append(writer.step_count)
     want = fingerprint(writer)
     del writer
     restorer = mk()
@@ -3765,6 +3925,17 @@ def phase_snapshot(served: dict) -> dict:
         faults = snapshot_faults(small, master, reqs, root)
         del master
         release()
+        # whisper at 2 layers f32 (encoder too), its requests' frames and the
+        # pool's cross k/v in the snapshots, at three ticks (~0.25 GB each)
+        whisper = make_model(dataclasses.replace(get_config(XATTN_ARCHS[0]), n_layers=2,
+                                                 encoder_layers=2, dtype="float32"))
+        wmaster = whisper.init(SEED, DEV)
+        wreqs = with_extras(whisper.cfg, seeded_requests(whisper.cfg.vocab, n, lo, hi, new, 1,
+                                                         SEED), SEED)
+        sweep["whisper-extras"] = snapshot_sweep("whisper-extras", whisper, wmaster, wreqs, root,
+                                                 at=SNAP_EXTRAS_TICKS)
+        del wmaster
+        release()
         stages["small"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         full = snapshot_full(served, root)
@@ -3774,6 +3945,402 @@ def phase_snapshot(served: dict) -> dict:
     print(f"[snapshot-stages] {json.dumps(stages)}")
     return {"sweep": sweep, "faults": faults, "full": full, "stage_seconds": stages,
             "launches": full["launches"]}
+
+
+# ----------------------------------------------------------------- phase 21 --
+def peak_gb() -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def exact_long() -> dict:
+    """Phase 21 (a): full-width internlm2-1.8b with the exact softmax: the
+    static prefill and the forward at LONG_EXACT through the chunked stream
+    (plain torch; the GN kernels launch only the norms, exactly), ms and
+    peak memory; the forward at 1 x 4096 against the one-pass ``_sdpa``
+    (``attention._long_exact`` off) at f32, the same function up to f32
+    sums, within LOGITS_ATOL_F32 (gated), and at bf16 (reported: the
+    one-pass path rounds its scores to bf16 before the softmax, the stream
+    takes f32 products, as the reference's two paths do)."""
+    cfg = dataclasses.replace(get_config(ARCH), softmax_impl="exact")
+    model = make_model(cfg)
+    master = model.init(SEED, DEV)
+    params = model.prepare(master, DEV)
+    out = {}
+    for b, s in LONG_EXACT:
+        data = DataConfig(vocab=cfg.vocab, seq_len=s, global_batch=b, seed=SEED)
+        toks = torch.as_tensor(batch_at(data, 0)["tokens"]).to(DEV)
+        row = {}
+        for name, fn in (("prefill", lambda: model.prefill(params, {"tokens": toks})[0]),
+                         ("forward", lambda: model.forward(params, {"tokens": toks}))):
+            release()
+            torch.cuda.reset_peak_memory_stats()
+            counters.reset()
+            logits, ms = timed(fn)
+            launches = counters.launch_counts()
+            finite = bool(torch.isfinite(logits).all())
+            del logits
+            if launches != static_want(cfg, 1) or any(counters.plain_cuda_calls().values()):
+                fail(f"long-exact {b}x{s} {name}: launches {launches} != {static_want(cfg, 1)}")
+            if not finite:
+                fail(f"long-exact {b}x{s} {name}: nonfinite logits")
+            row[name] = {"ms": ms, "tokens_per_s": b * s / (ms / 1e3), "peak_gb": peak_gb()}
+        out[f"{b}x{s}"] = row
+    release()
+    toks = torch.as_tensor(batch_at(DataConfig(vocab=cfg.vocab, seq_len=4096, global_batch=1,
+                                               seed=SEED + 1), 0)["tokens"]).to(DEV)
+    gate = {}
+    for dtype in ("bfloat16", "float32"):
+        m = make_model(dataclasses.replace(cfg, dtype=dtype))
+        p = params if dtype == cfg.dtype else m.prepare(master, DEV)
+        chunked = m.forward(p, {"tokens": toks}).float()
+        release()
+        torch.cuda.reset_peak_memory_stats()
+        with swapped("_long_exact", lambda cfg, s: False):
+            one_pass, one_ms = timed(lambda: m.forward(p, {"tokens": toks}).float())
+        gate[dtype] = {
+            "max_abs_err": (chunked - one_pass).abs().max().item(),
+            "argmax_agreement": (chunked.argmax(-1) == one_pass.argmax(-1)).float().mean().item(),
+            "one_pass_ms": one_ms, "one_pass_peak_gb": peak_gb()}
+        del chunked, one_pass, p
+        release()
+    del params, master
+    release()
+    res = {"runs": out, "against_one_pass_1x4096": gate, "atol_f32": LOGITS_ATOL_F32}
+    print(f"[long-exact] {json.dumps(res)}")
+    if gate["float32"]["max_abs_err"] > LOGITS_ATOL_F32:
+        fail(f"long-exact: at f32 the chunked forward parts from the one-pass forward: {gate}")
+    return res
+
+
+def mla_long() -> dict:
+    """Phase 21 (b): minicpm3-4b at full width and depth: ``generate`` over
+    MLA_LONG prompts (the prefill past 2048 through the flash kernel at the
+    padded head dim, a launch a layer; NEW decode steps through the softmax
+    kernel), then ``perplexity`` over the outputs' last MLA_LONG tokens (the
+    forward's flash launches); launches exact, finite."""
+    model = make_model(get_config(MLA_ARCH))
+    params = model.prepare(layerwise_master(model, SEED), DEV)
+    b, s = MLA_LONG
+    data = DataConfig(vocab=model.cfg.vocab, seq_len=s, global_batch=b, seed=SEED)
+    prompts = torch.as_tensor(batch_at(data, 0)["tokens"]).to(DEV)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    out, gen_ms = timed(lambda: generate(model, params, {"tokens": prompts},
+                                         ServeConfig(max_new_tokens=NEW)))
+    launches = counters.launch_counts()
+    want = add_launches(static_want(model.cfg, 1, flash=True), static_want(model.cfg, NEW))
+    gen_peak = peak_gb()
+    again, steady_ms = timed(lambda: generate(model, params, {"tokens": prompts},
+                                              ServeConfig(max_new_tokens=NEW)))
+    model.__dict__.pop("_static_decoders", None)
+    release()
+    scored = {"tokens": out[:, -s:].contiguous()}
+    counters.reset()
+    ppl, ppl_ms = timed(lambda: perplexity(model, params, scored))
+    ppl_launches = counters.launch_counts()
+    ppl_want = static_want(model.cfg, 1, flash=True)
+    res = {"batch": b, "prompt": s, "new_tokens": NEW, "generate_ms": gen_ms,
+           "steady_generate_ms": steady_ms, "generate_peak_gb": gen_peak,
+           "flash_launches": launches["gn_attention"], "perplexity": ppl,
+           "perplexity_ms": ppl_ms, "launches": launches, "perplexity_launches": ppl_launches}
+    print(f"[long-mla] {json.dumps(res)}")
+    if (launches != want or ppl_launches != ppl_want
+            or any(counters.plain_cuda_calls().values())):
+        fail(f"long-mla: launches {launches} != {want}, or perplexity's {ppl_launches} != "
+             f"{ppl_want}, or plain versions on the card")
+    if not torch.equal(again, out) or not math.isfinite(ppl):
+        fail(f"long-mla: generate's rerun differs, or perplexity {ppl}")
+    del params
+    release()
+    return {**res, "launches": add_launches(launches, ppl_launches)}
+
+
+def train_long(root: Path) -> dict:
+    """Phase 21 (c): full-width, full-depth internlm2-1.8b trained at
+    TRAIN_LONG: bf16 compute over f32 masters, the flash kernel's
+    straight-through backward past 2048; launches exact (no softmax in the
+    backward there: it is plain), losses and grad norms finite; ms a step,
+    tokens/s, peak memory; then ``launch.train --smoke --seq 4096`` as a
+    subprocess on the card."""
+    b, s, mb, steps = TRAIN_LONG
+    model = make_model(get_config(ARCH))
+    params = model.init(SEED, DEV)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=steps)
+    state, step = init_opt_state(opt, params), make_train_step(model, opt, mb)
+    batch = batch_at(DataConfig(vocab=model.cfg.vocab, seq_len=s, global_batch=b, seed=SEED), 0)
+    torch.cuda.reset_peak_memory_stats()
+    counters.reset()
+    ms, losses = [], []
+    for _ in range(steps):
+        (params, state, m), t = timed(lambda: step(params, state, batch))
+        ms.append(t)
+        losses.append(float(m["loss"]))
+        if not (math.isfinite(losses[-1]) and math.isfinite(float(m["grad_norm"]))):
+            fail(f"train-long: nonfinite loss or grad norm {m}")
+    launches = counters.launch_counts()
+    want = train_want(model.cfg.n_layers, steps * mb)
+    want["gn_softmax"] = 0  # past 2048 the backward's softmax is the plain closed form
+    res = {"batch": b, "seq": s, "microbatches": mb, "steps": steps, "layers": model.cfg.n_layers,
+           "step_ms": ms, "steady_step_ms": float(np.median(ms[1:])),
+           "tokens_per_s": b * s / (float(np.median(ms[1:])) / 1e3), "losses": losses,
+           "peak_gb": peak_gb(), "launches": launches}
+    del params, state
+    release()
+    if launches != want or any(counters.plain_cuda_calls().values()):
+        fail(f"train-long: launches {launches} != {want}, or plain versions on the card")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",
+                           "--seq", str(s), "--batch", "1", "--steps", "2", "--outdir",
+                           str(root / "train-long")],
+                          capture_output=True, text=True, timeout=300,
+                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    res["launcher"] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
+                       "last_line": proc.stdout.strip().splitlines()[-1:]}
+    print(f"[train-long] {json.dumps(res)}")
+    if proc.returncode:
+        fail(f"train-long: launch.train --seq {s} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    return res
+
+
+def long_small() -> dict:
+    """Phase 21 (d): internlm2-1.8b cut to 2 layers at f32 (full widths),
+    the prefill over 1 x LONG_SMALL tokens on the card against the CPU's:
+    exact (the chunked stream on both sides) and GN (the flash kernel on
+    the card, its plain one-pass version on the CPU).  Gated as phase 2
+    gates the kernel against its plain version: the positions whose logits
+    part by more than LOGITS_ATOL_F32 at most FLIP_ROWS of all (a Δ-grid
+    flip on a score row moves that position's logits), none past
+    LOGITS_ATOL_BF16, and the next token equal unless the CPU's top two
+    logits lie within twice the measured gap (a near tie, reported); the GN
+    flash kernel's straight-through gradients at (1, 16, 8, LONG_SMALL,
+    128) on the card against the CPU's (plain forward, the same backward)
+    within GRAD_REL["attention_float32"] relative L2 (gated)."""
+    res, ok = {}, True
+    for impl in ("gn", "exact"):
+        small = make_model(dataclasses.replace(get_config(ARCH), n_layers=2, dtype="float32",
+                                               softmax_impl=impl))
+        master = small.init(SEED, DEV)
+        data = DataConfig(vocab=small.cfg.vocab, seq_len=LONG_SMALL, global_batch=1, seed=SEED)
+        toks = torch.as_tensor(batch_at(data, 0)["tokens"])
+        card = small.prefill(small.prepare(master, DEV), {"tokens": toks.to(DEV)})[0][0].cpu()
+        cpu_master = tree_map(lambda t: t.cpu(), master)
+        del master
+        release()
+        cpu = small.prefill(small.prepare(cpu_master, "cpu"), {"tokens": toks})[0][0]
+        row_err = (card - cpu).abs().amax(dim=-1)
+        err = row_err.max().item()
+        past = (row_err > LOGITS_ATOL_F32).float().mean().item()
+        top2 = cpu[-1].topk(2).values
+        margin = (top2[0] - top2[1]).item()
+        same = int(card[-1].argmax()) == int(cpu[-1].argmax())
+        res[impl] = {"max_abs_err": err, "rows_past_atol": past, "last_row_err": row_err[-1].item(),
+                     "next_token_equal": same, "cpu_top2_margin": margin}
+        ok &= (past <= FLIP_ROWS and err <= LOGITS_ATOL_BF16
+               and (same or margin <= 2 * row_err[-1].item()))
+        del card, cpu
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    q, k, v = fa_inputs((1, 16, 8, LONG_SMALL, LONG_SMALL, 128), torch.float32, gen)
+    w = torch.randn(q.shape, generator=gen, device=DEV)
+
+    def grads(dev):
+        ts = [t.detach().to(dev).requires_grad_(True) for t in (q, k, v)]
+        (fa_ops.gn_attention(*ts, causal=True) * w.to(dev)).sum().backward()
+        return [t.grad.cpu() for t in ts]
+
+    errs = [rel_l2(a, b) for a, b in zip(grads(DEV), grads("cpu"))]
+    res["ste_grad_rel_l2"] = errs
+    print(f"[long-2l-f32] {json.dumps(res)}")
+    if not ok or max(errs) > GRAD_REL["attention_float32"]:
+        fail(f"long-2l-f32: the card parts from the CPU past 2048 tokens: {res}")
+    return res
+
+
+def phase_long_chunked() -> dict:
+    """Phase 21 (module docstring)."""
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_long_"))
+    t0, stages = time.perf_counter(), {}
+    try:
+        exact = exact_long()
+        stages["exact"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        mla = mla_long()
+        stages["mla"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        train = train_long(root)
+        stages["train"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        small = long_small()
+        stages["small_f32"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[long-chunked-stages] {json.dumps(stages)}")
+    return {"exact": exact, "mla": mla, "train": train, "small_f32": small,
+            "stage_seconds": stages,
+            "launches": add_launches(mla["launches"], train["launches"])}
+
+
+# ----------------------------------------------------------------- phase 22 --
+def with_extras(cfg, reqs: list, seed: int) -> list:
+    """``reqs`` each given seeded frames (encdec, encoder_seq x D) or
+    patches (VLM, num_patches x D), f32 N(0, 1)."""
+    rng = np.random.default_rng(seed)
+    key, shape = (("frames", (cfg.encoder_seq, cfg.d_model)) if cfg.family == "encdec"
+                  else ("patches", (cfg.num_patches, cfg.d_model)))
+    for r in reqs:
+        r.extras = {key: rng.standard_normal(shape, dtype=np.float32)}
+    return reqs
+
+
+def encoder_ms(model, params, req, iters: int = 3) -> float:
+    """Host ms of one admission's side inputs (``model.request_extras``:
+    whisper's encoder and every layer's cross projection, or the VLM's
+    patch cast), synchronized."""
+    model.request_extras(params, req.extras)
+    return float(np.mean([timed(lambda: model.request_extras(params, req.extras))[1]
+                          for _ in range(iters)]))
+
+
+def xattn_static(label: str, model, params, reqs) -> dict:
+    """``generate`` over BATCH x PROMPT tokens with the first BATCH requests'
+    frames or patches (the prefill encodes once), NEW new tokens, its rerun
+    equal; then ``perplexity`` of the outputs (a flash forward); launches
+    exact, finite."""
+    cfg = model.cfg
+    data = DataConfig(vocab=cfg.vocab, seq_len=PROMPT, global_batch=BATCH, seed=SEED)
+    key = next(iter(reqs[0].extras))
+    side = {key: torch.from_numpy(np.stack([r.extras[key] for r in reqs[:BATCH]])).to(DEV)}
+    batch = {"tokens": torch.as_tensor(batch_at(data, 0)["tokens"]).to(DEV), **side}
+    counters.reset()
+    out, gen_ms = timed(lambda: generate(model, params, batch, ServeConfig(max_new_tokens=NEW)))
+    launches = counters.launch_counts()
+    want = add_launches(static_want(cfg, NEW + 1), encoder_want(cfg, 1))
+    again, steady_ms = timed(lambda: generate(model, params, batch,
+                                              ServeConfig(max_new_tokens=NEW)))
+    model.__dict__.pop("_static_decoders", None)
+    release()
+    counters.reset()
+    ppl, ppl_ms = timed(lambda: perplexity(model, params, {**side, "tokens": out}))
+    ppl_launches = counters.launch_counts()
+    ppl_want = add_launches(static_want(cfg, 1, flash=True), encoder_want(cfg, 1))
+    res = {"batch": BATCH, "prompt": PROMPT, "new_tokens": NEW, "generate_ms": gen_ms,
+           "steady_generate_ms": steady_ms,
+           "steady_tokens_per_s": BATCH * NEW / (steady_ms / 1e3), "perplexity": ppl,
+           "perplexity_ms": ppl_ms, "launches": launches}
+    print(f"[{label}-static] {json.dumps(res)}")
+    if (launches != want or ppl_launches != ppl_want
+            or any(counters.plain_cuda_calls().values())):
+        fail(f"{label}-static: launches {launches} != {want}, or perplexity's {ppl_launches} "
+             f"!= {ppl_want}, or plain versions on the card")
+    if not torch.equal(again, out) or not math.isfinite(ppl):
+        fail(f"{label}-static: generate's rerun differs, or perplexity {ppl}")
+    return {**res, "launches": add_launches(launches, ppl_launches)}
+
+
+def xattn_small(label: str, arch: str) -> dict:
+    """The 2-layer f32 cut of ``arch`` (full widths; whisper's encoder cut
+    to 2 layers, the VLM to one block over XATTN_SMALL_PATCHES patches, its
+    gate XATTN_GATE) on XATTN_SMALL's workload with seeded extras: over the
+    paged and the slab pool, the card's engine tokens equal the static
+    oracle's on the card and the CPU engine's on the same weights (gated)."""
+    over = {"n_layers": 2, "dtype": "float32"}
+    if arch == XATTN_ARCHS[0]:
+        over["encoder_layers"] = 2
+    else:
+        over.update(cross_attn_every=2, num_patches=XATTN_SMALL_PATCHES)
+    small = make_model(dataclasses.replace(get_config(arch), **over))
+    master = small.init(SEED, DEV)
+    if "xattn_layers" in master:
+        master["xattn_layers"]["gate"].fill_(XATTN_GATE)
+    n, lo, hi, new = XATTN_SMALL
+    reqs = with_extras(small.cfg, seeded_requests(small.cfg.vocab, n, lo, hi, new, 1, SEED), SEED)
+    cpu_master = tree_map(lambda t: t.cpu(), master)
+    res, ok = {}, True
+    for pool, kw in (("paged", {}), ("slab", {"paged": False})):
+        card = guard_engine(small, master, reqs) if not kw else slab_engine(small, master, reqs)
+        toks = {c.request_id: c.tokens for c in card.run(reqs)}
+        oracle = static_reference(small, card.params, reqs, ServeConfig())
+        del card
+        cpu = ContinuousEngine(small, cpu_master, num_slots=SLOTS,
+                               max_seq=required_max_seq(reqs), chunk=CHUNK, device="cpu",
+                               **({"block_size": BLOCK} if not kw else kw))
+        cpu_toks = {c.request_id: c.tokens for c in cpu.run(reqs)}
+        same_oracle = sum(np.array_equal(t, oracle[i]) for i, t in toks.items())
+        same_cpu = sum(np.array_equal(t, cpu_toks[i]) for i, t in toks.items())
+        res[pool] = {"oracle_identical": f"{same_oracle}/{n}", "cpu_identical": f"{same_cpu}/{n}"}
+        ok &= same_oracle == n == same_cpu
+    del master
+    release()
+    print(f"[{label}-2l-f32] {json.dumps(res)}")
+    if not ok:
+        fail(f"{label}: at 2 layers f32 the engines part from the oracle or the CPU: {res}")
+    return res
+
+
+def xattn_family(label: str, arch: str) -> dict:
+    """Phase 22 for one family at full width and depth (module docstring)."""
+    t0, stages = time.perf_counter(), {}
+    model = make_model(get_config(arch))
+    master = layerwise_master(model, SEED)
+    if "xattn_layers" in master:
+        master["xattn_layers"]["gate"].fill_(XATTN_GATE)
+    reqs = with_extras(model.cfg, seeded_requests(model.cfg.vocab, REQUESTS, MIN_PROMPT,
+                                                  MAX_PROMPT, NEW, 1, SEED), SEED)
+    stages["weights"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    engine = guard_engine(model, master, reqs)
+    if engine.read_path != "kernel":
+        fail(f"{label}: the tick reads through {engine.read_path!r}, not the kernel")
+    first, launches, seconds = first_run(label, engine, reqs)
+    res = {"paged_fp": {**serve_stats(engine, seconds),
+                        **family_replays(label, engine, reqs, first, launches),
+                        "hbm_bytes": engine.pool.hbm_bytes(),
+                        "extras_bytes": sum(t.numel() * t.element_size()
+                                            for t in engine.pool.extras.values()),
+                        "encoder_ms_per_admission": encoder_ms(model, engine.params, reqs[0])}}
+    total = launches
+    params = engine.params
+    del engine
+    release()
+    stages["paged_fp"] = time.perf_counter() - t0
+    for pool, kw in (("paged_int8", {"kv_dtype": "int8"}), ("slab", {"paged": False})):
+        t0 = time.perf_counter()
+        engine = (guard_engine(model, master, reqs, **kw) if pool != "slab"
+                  else slab_engine(model, master, reqs))
+        toks, launches, seconds = first_run(f"{label}-{pool}", engine, reqs, fallbacks_ok=True)
+        captures, steady_s, m = timed_replay(f"{label}-{pool}", engine, reqs, toks, launches)
+        res[pool] = {**serve_stats(engine, seconds), "captures": captures,
+                     "steady_tokens_per_s": m["generated_tokens"] / steady_s,
+                     "steady_mean_tick_ms": float(np.mean([dt * 1e3
+                                                           for _, _, dt in engine.tick_log])),
+                     "hbm_bytes": engine.pool.hbm_bytes(),
+                     "common_prefix_with_paged_fp": float(np.mean(common_prefix(toks, first)))}
+        total = add_launches(total, launches)
+        del engine
+        release()
+        stages[pool] = time.perf_counter() - t0
+    del master
+    t0 = time.perf_counter()
+    static = xattn_static(label, model, params, reqs)
+    res["static"] = {k: static[k] for k in ("steady_tokens_per_s", "steady_generate_ms",
+                                            "perplexity", "perplexity_ms")}
+    del params
+    release()
+    stages["static"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["small_f32"] = xattn_small(label, arch)
+    stages["small_f32"] = time.perf_counter() - t0
+    res["stage_seconds"] = stages
+    print(f"[{label}] {json.dumps(res)}")
+    return {**res, "launches": add_launches(total, static["launches"])}
+
+
+def phase_cross() -> dict:
+    """Phase 22 (module docstring)."""
+    out = {}
+    for label, arch in zip(("whisper", "vlm"), XATTN_ARCHS):
+        out[label] = xattn_family(label, arch)
+        release()
+    return {**out, "launches": add_launches(*(v["launches"] for v in out.values()))}
 
 
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
@@ -3834,13 +4401,16 @@ def main() -> int:
     moe = phase("moe", phase_moe, kern)
     slab = phase("slab", phase_slab, served)
     snap = phase("snapshot", phase_snapshot, served)
+    long_chunked = phase("long-chunked", phase_long_chunked)
+    cross = phase("cross", phase_cross)
     by_path = {"continuous": served["launches"], "static": static["launches"],
                "int8": int8["launches"], "long_static": long_static["launches"],
                "long_continuous": long_cont["launches"], "reads": reads["launches"],
                "sampled": guard["launches"], "train": train["launches"],
                "table1": table1["launches"], "tables": tables["launches"],
                "prefix": prefix["launches"], "sla": sla["launches"], "mla": mla["launches"],
-               "moe": moe["launches"], "slab": slab["launches"], "snapshot": snap["launches"]}
+               "moe": moe["launches"], "slab": slab["launches"], "snapshot": snap["launches"],
+               "long_chunked": long_chunked["launches"], "cross": cross["launches"]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         # the main path's shape: bf16 tick (fp or int8 KV; the norms' 128

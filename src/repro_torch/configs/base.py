@@ -1,8 +1,8 @@
 """Config dataclasses, copied field for field from ``repro/configs/base.py``.
 
-The port runs the dense family, with MLA or a top-k MoE MLP; the other
-family-extension dataclasses are kept so a config and its reduced form
-carry exactly the reference's fields.
+The port runs the dense family (with MLA or a top-k MoE MLP), the
+encoder-decoder and the VLM families; the SSM dataclass is kept so a config
+and its reduced form carry exactly the reference's fields.
 """
 from __future__ import annotations
 

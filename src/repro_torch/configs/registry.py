@@ -1,6 +1,6 @@
 """Architecture registry of the port: the configs it can serve (dense, the
-MLA latent-attention one, and the top-k MoE ones, mixtral's with a sliding
-window).
+MLA latent-attention one, the top-k MoE ones, mixtral's with a sliding
+window, the encoder-decoder whisper and the cross-attending VLM).
 
 Each entry is copied from ``repro/configs/registry.py``; ``reduce_config``
 is the reference's systematic shrink for CPU tests, copied as it is.
@@ -28,6 +28,14 @@ def get_config(name: str) -> ModelConfig:
 def list_archs() -> list[str]:
     return sorted(_REGISTRY)
 
+
+WHISPER_LARGE_V3 = register(ModelConfig(
+    name="whisper-large-v3", family="encdec",
+    microbatches=4,
+    n_layers=32, d_model=1280, n_heads=20, n_kv_heads=20, d_ff=5120,
+    vocab=51866, mlp_act="gelu", norm_impl="gn_ln",
+    encoder_layers=32, encoder_seq=1500,
+))
 
 DEEPSEEK_CODER_33B = register(ModelConfig(
     name="deepseek-coder-33b", family="dense",
@@ -76,10 +84,24 @@ MIXTRAL_8X22B = register(ModelConfig(
     moe=MoEConfig(num_experts=8, top_k=2),
 ))
 
+LLAMA32_VISION_11B = register(ModelConfig(
+    name="llama-3.2-vision-11b", family="vlm",
+    microbatches=16,
+    n_layers=40, d_model=4096, n_heads=32, n_kv_heads=8, d_ff=14336,
+    vocab=128256, norm_impl="gn_rms", rope_theta=500000.0,
+    cross_attn_every=5, num_patches=1601,
+))
+
 GPT_NEO_1_3B = register(ModelConfig(
     name="gpt-neo-1.3b", family="dense",
     n_layers=24, d_model=2048, n_heads=16, n_kv_heads=16, d_ff=8192,
     vocab=50257, norm_impl="gn_ln", mlp_act="gelu",
+))
+
+BERT_BASE = register(ModelConfig(
+    name="bert-base", family="dense",
+    n_layers=12, d_model=768, n_heads=12, n_kv_heads=12, d_ff=3072,
+    vocab=30522, norm_impl="gn_ln", mlp_act="gelu",
 ))
 
 

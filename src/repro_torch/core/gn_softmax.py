@@ -4,8 +4,9 @@ Counterpart of ``repro/core/gn_softmax.py``: ``exact_softmax`` (the FP32
 oracle), ``gn_softmax`` (two-LUT factorized exponential on a fixed-point
 Δ grid, renormalized by the sum of the approximated numerators, so
 ``Σp = 1`` up to the reciprocal's rounding however coarse the exponential),
-``gn_softmax_hwsim`` (the bit-accurate integer datapath of Fig. 3) and
-``gn_log_softmax``.
+``gn_softmax_hwsim`` (the bit-accurate integer datapath of Fig. 3),
+``gn_log_softmax``, and ``factorized_exp_ste``, the exponential the
+streaming attention (``models/chunked_attention.py``) differentiates.
 
 The exponential indexes the ROM tables directly (coarse[Δ >> (3+f)] ·
 residual[Δ & (R·2^f − 1)], rounded to Q1.15); the reference computes the
@@ -70,6 +71,21 @@ def factorized_exp(delta: torch.Tensor, cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT)
     rem = d & (cfg.residual_entries - 1)
     scale = float(1 << cfg.lut_value_bits)
     return torch.round(coarse[frac] * residual[rem] * scale) / scale
+
+
+def factorized_exp_ste(delta: torch.Tensor,
+                       cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT) -> torch.Tensor:
+    """``factorized_exp`` with a straight-through backward: the value is the
+    fixed-point LUT product, the gradient the exact d/dΔ e^{-Δ} at the
+    continuous point (the reference's ``factorized_exp_ste``; inside the
+    streaming scan no softmax JVP applies, and the integer quantization
+    would otherwise kill the gradient).  The reference forms the value as
+    e^{-Δ} + (LUT - e^{-Δ}); here it is the LUT value itself."""
+    lut = factorized_exp(delta.detach(), cfg)
+    if not delta.requires_grad:
+        return lut
+    cont = torch.exp(-delta)
+    return lut + (cont - cont.detach())
 
 
 def gn_softmax(x: torch.Tensor, cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT) -> torch.Tensor:

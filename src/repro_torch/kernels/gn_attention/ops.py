@@ -28,6 +28,16 @@ no Pallas backward).  The kernel's online p and the recomputed one-pass p
 may part by a Δ-grid flip on a score; the gradient is straight-through
 either way.  The backward holds one layer's (B, H, Sq, Sk) f32 scores at a
 time.
+
+Past ``CHUNKED_FROM`` query rows the reference trains through its chunked
+attention, differentiating ``factorized_exp_ste`` inside the stream instead
+of the softmax JVP.  Every running max there is snapped to the Δ grid and
+every rescale is an on-grid LUT value, so its gradient is, up to their
+fixed-point rounding, dS_j = e^{-(m - s_j)} / Z · (dP_j − dO·O): m the
+row's snapped max, e^{-(m - s_j)} the continuous exponential, Z the sum of
+the LUT numerators; dV keeps P.  The backward takes that form there, in
+plain torch, over blocks of ``BACKWARD_ROWS`` query rows (one block's
+(B, H, rows, Sk) f32 scores at a time).
 """
 from __future__ import annotations
 
@@ -35,7 +45,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.gn_softmax import exp_lut_tensors
+from repro_torch.core.gn_softmax import exp_lut_tensors, factorized_exp
 from repro_torch.core.luts import SoftmaxLUTConfig, TPU_SOFTMAX_LUT
 from repro_torch.kernels import _build
 from repro_torch.kernels.gn_attention import ref
@@ -50,6 +60,10 @@ MAX_GROUP = 64  # q heads per kv head: one block holds 64 rows
 # every multiple of 2^-17 in [0, 1] is exactly bf16(y) + bf16(y - bf16(y))
 MAX_BF16_LUT_BITS = 17
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+# past this many query rows the reference streams its GN attention
+# (``chunked_attention``) and differentiates the straight-through exponential
+CHUNKED_FROM = 2048
+BACKWARD_ROWS = 1024  # query rows a block of the straight-through backward
 
 launches = 0
 
@@ -99,6 +113,8 @@ def attention_backward(q, k, v, o, do, cfg: SoftmaxLUTConfig, causal: bool,
     b, h, sq, d = q.shape
     hkv, sk = k.shape[1], k.shape[2]
     group = h // hkv
+    if sq > CHUNKED_FROM:
+        return _ste_backward(q, k, v, o, do, cfg, causal, sm_scale, window)
     q32, do32, o32 = q.float(), do.float(), o.float()
     k32 = k.float().repeat_interleave(group, dim=1)
     v32 = v.float().repeat_interleave(group, dim=1)
@@ -113,6 +129,47 @@ def attention_backward(q, k, v, o, do, cfg: SoftmaxLUTConfig, causal: bool,
     del p
     dq = torch.einsum("bhqk,bhkd->bhqd", ds, k32) * sm_scale
     dk = torch.einsum("bhqk,bhqd->bhkd", ds, q32) * sm_scale
+    return (dq, dk.reshape(b, hkv, group, sk, d).sum(dim=2),
+            dv.reshape(b, hkv, group, sk, d).sum(dim=2))
+
+
+def _ste_backward(q, k, v, o, do, cfg: SoftmaxLUTConfig, causal: bool, sm_scale: float,
+                  window: int):
+    """The straight-through gradient past ``CHUNKED_FROM`` (module
+    docstring), a block of query rows at a time."""
+    b, h, sq, d = q.shape
+    hkv, sk = k.shape[1], k.shape[2]
+    group = h // hkv
+    k32 = k.float().repeat_interleave(group, dim=1)
+    v32 = v.float().repeat_interleave(group, dim=1)
+    dq = torch.empty(b, h, sq, d, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(b, h, sk, d, dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    mask = ref.band_mask(sq, sk, window, q.device) if causal else None
+    for r0 in range(0, sq, BACKWARD_ROWS):
+        r1 = min(r0 + BACKWARD_ROWS, sq)
+        q32, do32 = q[:, :, r0:r1].float(), do[:, :, r0:r1].float()
+        s = torch.matmul(q32, k32.transpose(-1, -2)) * sm_scale
+        live = None if mask is None else mask[r0:r1]
+        if live is not None:
+            s = torch.where(live, s, ref.NEG_INF)
+        m = torch.ceil(s.amax(dim=-1, keepdim=True) / cfg.step) * cfg.step
+        delta = (m - s).clamp_min(0.0)
+        del s
+        y = factorized_exp(delta, cfg)
+        e = torch.exp(-delta)
+        del delta
+        if live is not None:
+            y, e = torch.where(live, y, 0.0), torch.where(live, e, 0.0)
+        inv_z = 1.0 / y.sum(dim=-1, keepdim=True)
+        dv += torch.matmul((y * inv_z).transpose(-1, -2), do32)
+        del y
+        g = torch.matmul(do32, v32.transpose(-1, -2)) - (
+            do32 * o[:, :, r0:r1].float()).sum(dim=-1, keepdim=True)
+        ds = e * inv_z * g
+        del e, g
+        dq[:, :, r0:r1] = torch.matmul(ds, k32) * sm_scale
+        dk += torch.matmul(ds.transpose(-1, -2), q32) * sm_scale
     return (dq, dk.reshape(b, hkv, group, sk, d).sum(dim=2),
             dv.reshape(b, hkv, group, sk, d).sum(dim=2))
 

@@ -20,7 +20,9 @@ keys), and serves.  Runs on CUDA unless
     temperature 0 the greedy outputs held against ``static_reference`` on
     the same requests (printed as k/n token-identical; a sampled run skips
     the oracle, as the reference launcher does).  The two agree token for
-    token on the CPU at float32.  At bfloat16 the paged read keeps its
+    token on the CPU at float32 (an encoder-decoder or VLM config gets zero
+    ``frames`` or ``patches`` with each batch or request, as the reference
+    launcher gives them).  At bfloat16 the paged read keeps its
     scores in f32 where the static path rounds them to bf16, as the
     reference's does; on a GPU the online paged read and the one-pass
     static softmax may also break a near-tied argmax differently.
@@ -31,6 +33,7 @@ Usage:
       --prompt-len 4096
   python -m repro_torch.launch.serve --arch internlm2-1.8b --continuous [--temperature 0.7]
   python -m repro_torch.launch.serve --arch mixtral-8x22b --continuous
+  python -m repro_torch.launch.serve --arch whisper-large-v3 --continuous
   python -m repro_torch.launch.serve --smoke --device cpu [--continuous]
   python -m repro_torch.launch.serve --smoke --device cpu --ckpt runs/default/ckpt
 """
@@ -56,7 +59,7 @@ from repro_torch.serve.engine import (
     perplexity,
     static_reference,
 )
-from repro_torch.serve.workload import required_max_seq, seeded_requests
+from repro_torch.serve.workload import extras_for, required_max_seq, seeded_requests
 
 
 def set_matmul_precision() -> None:
@@ -99,6 +102,13 @@ def _sync(device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _side_inputs(cfg, batch: int, device) -> dict:
+    """The reference launcher's modality stubs of a static batch: zero
+    frames (encdec) or zero patches (VLM), ``extras_for``'s batched."""
+    return {k: torch.as_tensor(v).to(device).expand(batch, *v.shape)
+            for k, v in extras_for(cfg).items()}
+
+
 def _serve_static(model, params, args, device) -> dict:
     cfg = model.cfg
     data = DataConfig(vocab=cfg.vocab, seq_len=args.prompt_len, global_batch=args.batch_size,
@@ -111,14 +121,15 @@ def _serve_static(model, params, args, device) -> dict:
     t_all = time.perf_counter()
     for i in range(args.batches):
         tokens = torch.as_tensor(batch_at(data, i)["tokens"]).to(device)
+        side = _side_inputs(cfg, args.batch_size, device)
         _sync(device)
         t0 = time.perf_counter()
-        out = generate(model, params, {"tokens": tokens}, scfg)
+        out = generate(model, params, {"tokens": tokens, **side}, scfg)
         _sync(device)
         dt = time.perf_counter() - t0
         new_tok = args.batch_size * args.new_tokens
         total_tok += new_tok
-        ppl = perplexity(model, params, {"tokens": out})
+        ppl = perplexity(model, params, {**side, "tokens": out})
         print(f"batch {i}: {tuple(out.shape)} in {dt:.2f}s ({new_tok / dt:.1f} tok/s)  "
               f"seq ppl {ppl:.3f}")
         prompts.append(tokens)
@@ -138,6 +149,8 @@ def _serve_continuous(model, master, args, device) -> dict:
     cfg = model.cfg
     reqs = seeded_requests(cfg.vocab, args.requests, args.min_prompt, args.max_prompt,
                            args.new_tokens, args.stagger, args.seed)
+    for r in reqs:
+        r.extras = extras_for(cfg)
     # the engine keeps only its prepared copy of the weights
     engine = ContinuousEngine(model, master, num_slots=args.num_slots,
                               max_seq=required_max_seq(reqs),

@@ -16,10 +16,10 @@ GN (or exact) model (port of ``repro/launch/train.py``).
     compression of the gradients before the update.
 
 Runs on CUDA unless ``--device cpu`` is given.  ``--mesh`` is refused (the
-port serves and trains on one device; multi-GPU waits, ROADMAP Queue A 8),
-and so is a ``--seq`` past 2048 tokens (the reference's chunked path
-differentiates through ``factorized_exp_ste``, which the port does not
-have).
+port serves and trains on one device; multi-GPU waits, ROADMAP Queue A 8).
+A ``--seq`` past 2048 tokens trains as the reference's chunked path does:
+the GN flash kernel's backward takes the straight-through exponential
+there (``kernels/gn_attention/ops.py``), the exact softmax streams.
 
 Usage:
   python -m repro_torch.launch.train --arch internlm2-1.8b --smoke --steps 20 --device cpu
@@ -38,7 +38,6 @@ from repro_torch.checkpoint import store
 from repro_torch.configs.registry import get_config, list_archs, reduce_config
 from repro_torch.data.synthetic import DataConfig, batch_at
 from repro_torch.launch.serve import set_matmul_precision
-from repro_torch.models.attention import CHUNKED_FROM
 from repro_torch.models.transformer import make_model
 from repro_torch.train.loop import make_train_step
 from repro_torch.train.optimizer import OptimizerConfig, init_opt_state
@@ -68,10 +67,6 @@ def main(argv=None) -> float:
     if args.mesh:
         raise NotImplementedError("--mesh: the port trains on one device; multi-GPU is not "
                                   "ported yet (ROADMAP Queue A 8)")
-    if args.seq > CHUNKED_FROM:
-        raise NotImplementedError(
-            f"--seq {args.seq} > {CHUNKED_FROM}: the reference trains past it through its "
-            "chunked attention's straight-through exponential, which the port does not have")
     device = resolve_device(args.device)
     set_matmul_precision()
     cfg = get_config(args.arch)

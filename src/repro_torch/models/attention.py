@@ -30,11 +30,11 @@ Contiguous paths:
     port does there.  A sliding window goes to the kernel as its ``window``
     band on every call, where the reference takes ``windowed_chunked`` past
     the window (and ``causal_chunked``, the same function, below it).
-  * Exact attention past ``CHUNKED_FROM`` tokens is refused: the reference
-    runs ``chunked_self_attention`` there, which the port does not have.
-    The one-pass-only names (``gn_hwsim`` and the baselines) stay one-pass
-    at every length, as the reference's ``_use_chunked`` keeps them, so the
-    (S, S) scores are materialized.
+  * Exact attention past ``CHUNKED_FROM`` tokens takes
+    ``chunked_attention.chunked_self_attention`` in plain torch, as the
+    reference does.  The one-pass-only names (``gn_hwsim`` and the
+    baselines) stay one-pass at every length, as the reference's
+    ``_use_chunked`` keeps them, so the (S, S) scores are materialized.
   * The slab cache is written in place.  With a sliding window it is a ring
     of ``min(max_seq, window)`` slots (``attn_cache_shape``): position p
     lives in slot p % slots, a prefill past the window keeps its last
@@ -87,6 +87,15 @@ distribution, so the output alone misses them, as the reference's Pallas
 read's reduced probe does; the reference's default engine reads through
 the streamed path, whose full probe sees the scores).
 
+Cross-attention (the encoder-decoder and VLM families): ``cross_attention``
+projects the memory (the encoder's output, or the VLM's projected patches)
+to k and v and attends it from every query row, no rope and no mask;
+``project_cross_kv`` and ``cross_attend_cached`` split it for the serving
+paths, which project each request's memory once at admission and attend the
+cached k and v on every tick.  Scores in the activation dtype times the
+scale, cast to f32, then the softmax of ``cfg.softmax_impl`` (the GN
+kernel), as ``_sdpa``.
+
 The paged tick serves no sliding window: a windowed model has no pageable
 KV (``Model.supports_paging``), as in the reference.
 """
@@ -96,14 +105,16 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import get_softmax
-from repro_torch.kernels.gn_attention.ops import gn_attention
+from repro_torch.kernels.gn_attention.ops import CHUNKED_FROM, gn_attention
 from repro_torch.kernels.gn_paged_attention.ops import gn_paged_attention_chunk
 from repro_torch.kernels.gn_softmax.ops import gn_softmax
+from repro_torch.models.chunked_attention import chunked_self_attention
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.rope import apply_rope
 
 NEG_INF = -1e30
-CHUNKED_FROM = 2048  # longer prompts take the flash kernel (the reference: chunked)
+# CHUNKED_FROM (2048, ``kernels/gn_attention/ops.py``): longer prompts take the
+# flash kernel (GN) or ``chunked_self_attention`` (exact), as the reference
 
 # The paged read's path: None (the kernel) or "streamed" / "gathered", the
 # reference's jnp reads, as its own FORCE_PAGED_READ forces them.  An engine
@@ -134,12 +145,10 @@ def _softmax(cfg: ModelConfig):
     return get_softmax(cfg.softmax_impl)
 
 
-def _refuse_long_exact(cfg: ModelConfig, s: int) -> None:
-    if s > CHUNKED_FROM and cfg.softmax_impl == "exact":
-        raise NotImplementedError(
-            f"softmax_impl={cfg.softmax_impl!r} past {CHUNKED_FROM} tokens ({s}): the reference "
-            "runs chunked_self_attention there, which the port does not have; the port's "
-            "long path is the GN flash kernel")
+def _long_exact(cfg: ModelConfig, s: int) -> bool:
+    """Whether the exact softmax streams over kv chunks at length ``s``
+    (the reference's ``_use_chunked`` for the non-GN name it covers)."""
+    return s > CHUNKED_FROM and cfg.softmax_impl == "exact"
 
 
 def _split_heads(x, n_heads, head_dim):
@@ -191,21 +200,53 @@ def self_attention(cfg: ModelConfig, p: dict, x, positions, causal: bool = True)
     """x: (B, S, D), positions: (B, S) -> (B, S, D): GN through the
     flash-attention kernel (q, k, v moved to its (B, heads, S, dh) layout;
     differentiable, ``kernels/gn_attention/ops.py``, a sliding window its
-    band), every other softmax through the one-pass ``_sdpa`` in plain
-    torch."""
+    band), the exact softmax past ``CHUNKED_FROM`` through the chunked
+    stream, every other softmax through the one-pass ``_sdpa`` in plain
+    torch.  ``causal=False`` (the encoder) attends every position."""
     b, s, _ = x.shape
     _softmax(cfg)
-    _refuse_long_exact(cfg, s)
     q, k, v = _qkv(cfg, p, x, positions)
     win = cfg.sliding_window if causal else 0
     if cfg.softmax_impl == "gn":
         q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         out = gn_attention(q, k, v, causal=causal, window=win).transpose(1, 2)
+    elif _long_exact(cfg, s):
+        out = chunked_self_attention(cfg, q, k, v, causal)
     else:
         mask = causal_mask(s, s, x.device, win) if causal else torch.ones(
             1, 1, s, s, dtype=torch.bool, device=x.device)
         out = _sdpa(cfg, q, k, v, mask)
     return out.reshape(b, s, cfg.q_features) @ p["wo"]
+
+
+# ------------------------------------------------------------ cross-attn --
+def cross_attn_specs(cfg: ModelConfig) -> dict:
+    return attn_specs(cfg)
+
+
+def project_cross_kv(cfg: ModelConfig, p: dict, memory):
+    """memory (B, M, D) in the activation dtype -> k, v (B, M, KV, dh)."""
+    return (_split_heads(memory @ p["wk"], cfg.n_kv_heads, cfg.head_dim),
+            _split_heads(memory @ p["wv"], cfg.n_kv_heads, cfg.head_dim))
+
+
+def cross_attend_cached(cfg: ModelConfig, p: dict, x, k, v):
+    """x (B, S, D) attends the memory's projected k, v (B, M, KV, dh), every
+    row every column: (B, S, D)."""
+    b, s, _ = x.shape
+    q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
+    kv, dh = cfg.n_kv_heads, cfg.head_dim
+    scores = _scaled_scores(q.reshape(b, s, kv, cfg.n_heads // kv, dh), k, dh).float()
+    pmat = _softmax(cfg)(scores).to(v.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", pmat, v).reshape(b, s, cfg.q_features)
+    return out @ p["wo"]
+
+
+def cross_attention(cfg: ModelConfig, p: dict, x, memory):
+    """x (B, S, D) queries, memory (B, M, D) encoder or vision states (no
+    rope) -> (B, S, D)."""
+    k, v = project_cross_kv(cfg, p, memory.to(x.dtype))
+    return cross_attend_cached(cfg, p, x, k, v)
 
 
 # ------------------------------------------------------------ slab cache --
@@ -226,11 +267,12 @@ def attn_prefill(cfg: ModelConfig, p: dict, x, positions):
     b, s, _ = x.shape
     win = cfg.sliding_window or 0
     q, k, v = _qkv(cfg, p, x, positions)
-    _refuse_long_exact(cfg, s)
     if s > CHUNKED_FROM and cfg.softmax_impl == "gn":
         out = gn_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)), causal=True,
                            window=win)
         out = out.transpose(1, 2)
+    elif _long_exact(cfg, s):
+        out = chunked_self_attention(cfg, q, k, v, True)
     else:
         out = _sdpa(cfg, q, k, v, causal_mask(s, s, x.device, win))
     if win and s > win:

@@ -13,10 +13,15 @@ q_nope·k_nope + q_rope·k_rope, in the activation dtype, scaled by
 (nope + rope)^-0.5 rounded to that dtype, then cast to f32 and masked.
 
 Contiguous paths: ``mla_self_attention`` (the forward) and ``mla_prefill``
-run one pass over the (S, S) scores.  Past ``CHUNKED_FROM`` (2048) tokens
-the reference runs ``causal_chunked`` over q/k of head dim nope + rope and v
-of head dim v_head_dim; the port's flash kernel takes k and v of one head
-dim, so such a prompt is refused.  ``mla_decode_step`` writes the latent
+run one pass over the (S, S) scores up to ``CHUNKED_FROM`` (2048) tokens.
+Past it the reference streams ``causal_chunked`` over q' = [q_nope | q_rope]
+and k' = [k_nope | k_rope broadcast to every head] (the score decomposition
+folds into one head dim of nope + rope) and v of head dim v_head_dim, scaled
+by (nope + rope)^-0.5 as a float (``_attend_chunked``).  The port does the
+same: GN through the flash kernel, whose k and v share one head dim, so v
+is zero-padded to nope + rope and the output sliced back (the zero columns
+add nothing to P·V), and the exact softmax through the port's plain
+``causal_chunked``.  ``mla_decode_step`` writes the latent
 slabs in place and reads them whole; ``mla_slab_chunk`` is the slab tick's
 (the reference's ``mla_decode_chunk``, batched over the slots).
 
@@ -38,9 +43,11 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels.gn_attention.ops import gn_attention
 from repro_torch.kernels.gn_layernorm import ops as norm_ops
 from repro_torch.models import attention as attn
-from repro_torch.models.attention import NEG_INF, causal_mask
+from repro_torch.models.attention import CHUNKED_FROM, NEG_INF, causal_mask
+from repro_torch.models.chunked_attention import causal_chunked
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.rope import apply_rope
 
@@ -120,21 +127,37 @@ def _attend(cfg: ModelConfig, p: dict, q_nope, q_rope, c_kv, k_rope, mask, probe
     return out if probe is None else (out, probe)
 
 
-def _refuse_long(cfg: ModelConfig, s: int) -> None:
-    """The reference runs ``causal_chunked`` past 2048 tokens for the GN and
-    the exact softmax, over q/k and v of different head dims; the port's
-    flash kernel takes one."""
-    if s > attn.CHUNKED_FROM and cfg.softmax_impl in ("gn", "exact"):
-        raise NotImplementedError(
-            f"MLA past {attn.CHUNKED_FROM} tokens ({s}): the reference runs causal_chunked "
-            "over q/k and v of different head dims there, which the port's flash kernel "
-            "does not take")
+def _use_chunked(cfg: ModelConfig, s: int) -> bool:
+    return s > CHUNKED_FROM and cfg.softmax_impl in ("gn", "exact")
+
+
+def _attend_chunked(cfg: ModelConfig, p: dict, q_nope, q_rope, c_kv, k_rope):
+    """Causal attention past ``CHUNKED_FROM`` over the expanded latent (the
+    reference's ``_attend_chunked``; see the module docstring), projected
+    by wo: (B, S, D)."""
+    m, h = cfg.mla, cfg.n_heads
+    b, s = q_nope.shape[:2]
+    k_nope, v = _expand(cfg, p, c_kv)
+    scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
+    qq = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
+    kk = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, k_rope.shape[-1])],
+                   dim=-1).transpose(1, 2)
+    vt = v.transpose(1, 2)
+    if cfg.softmax_impl == "gn":
+        pad = qq.shape[-1] - m.v_head_dim
+        vp = torch.nn.functional.pad(vt, (0, pad))
+        out = gn_attention(qq.contiguous(), kk.contiguous(), vp.contiguous(), causal=True,
+                           sm_scale=scale)[..., :m.v_head_dim]
+    else:
+        out = causal_chunked(qq, kk, vt, impl=cfg.softmax_impl, scale=scale).to(q_nope.dtype)
+    return out.transpose(1, 2).reshape(b, s, h * m.v_head_dim) @ p["wo"]
 
 
 def mla_self_attention(cfg: ModelConfig, p: dict, x, positions, causal: bool = True):
     s = x.shape[1]
-    _refuse_long(cfg, s)
     q_nope, q_rope, c_kv, k_rope = _project(cfg, p, x, positions)
+    if causal and _use_chunked(cfg, s):
+        return _attend_chunked(cfg, p, q_nope, q_rope, c_kv, k_rope)
     mask = (causal_mask(s, s, x.device) if causal
             else torch.ones(1, 1, s, s, dtype=torch.bool, device=x.device))
     return _attend(cfg, p, q_nope, q_rope, c_kv, k_rope, mask)
@@ -150,9 +173,11 @@ def mla_cache_shape(cfg: ModelConfig, batch: int, max_seq: int) -> dict:
 def mla_prefill(cfg: ModelConfig, p: dict, x, positions):
     """(out (B, S, D), {"c_kv" (B, S, rank), "k_rope" (B, S, rope)})."""
     s = x.shape[1]
-    _refuse_long(cfg, s)
     q_nope, q_rope, c_kv, k_rope = _project(cfg, p, x, positions)
-    out = _attend(cfg, p, q_nope, q_rope, c_kv, k_rope, causal_mask(s, s, x.device))
+    if _use_chunked(cfg, s):
+        out = _attend_chunked(cfg, p, q_nope, q_rope, c_kv, k_rope)
+    else:
+        out = _attend(cfg, p, q_nope, q_rope, c_kv, k_rope, causal_mask(s, s, x.device))
     return out, {"c_kv": c_kv, "k_rope": k_rope}
 
 

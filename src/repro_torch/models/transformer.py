@@ -1,11 +1,16 @@
-"""Decoder-only model (port of the dense, MLA and MoE paths of
+"""The model (port of the dense, MLA, MoE, encoder-decoder and VLM paths of
 ``repro/models/transformer.py``).
 
 ``Model(cfg)`` serves the dense family, its MLA mixer (``cfg.mla``,
 minicpm3-4b: ``models/mla.py``) and its top-k MoE MLP (``cfg.moe``,
 llama4-scout and mixtral: ``models/moe.py``), with full attention or a
-sliding window (``cfg.sliding_window``, mixtral); every other family (SSM,
-hybrid, encoder-decoder, VLM) is refused.  It exposes:
+sliding window (``cfg.sliding_window``, mixtral); the encoder-decoder family
+(``encdec``, whisper: a non-causal encoder over frame embeddings plus
+``pos``, and a decoder whose layers cross-attend its output after their
+self-attention, ``ln_x`` / ``xattn``); and the VLM family (``vlm``,
+llama-3.2-vision: before every ``cross_attn_every`` decoder layers a
+tanh-gated cross-attention block over ``patches @ vis_proj``, recomputed at
+every use as the reference does).  SSM and hybrid are refused.  It exposes:
   * ``param_specs()`` / ``init(seed, device)`` — the reference's parameter
     tree (stacked ``layers``), f32 masters, drawn from a ``torch.Generator``;
   * ``prepare(params, device)``                 — the tree the forward runs on:
@@ -38,8 +43,18 @@ hybrid, encoder-decoder, VLM) is refused.  It exposes:
     per-block f32 scales, its read named by ``paged_read_path``, and with
     ``sentinel`` the GN sentinels' per-layer and head probes.
 
-Each layer runs norm -> mixer -> norm -> MLP (or MoE); the head runs one
-more norm and the LM projection.  Every norm that follows a residual add
+A request's side inputs live beside the KV as the cache's *extra* leaves
+(``extra_leaves``, each with its slot axis): encdec's cross k and v
+(``cross_k``/``cross_v``, (L, B, M, KV, dh), projected from the encoder's
+output once) and the VLM's ``patches`` (B, P, D).  The static and slab
+caches carry them in the same dict; the paged arenas do not (they have no
+slot axis), so the paged tick takes them as ``extras`` (the pool's
+slot-batched leaves, written at admission by ``insert_cache_slot_extras``).
+The reference names them ``cross/{k,v}`` and ``patches`` in its cache tree.
+
+Each layer runs norm -> mixer -> norm -> MLP (or MoE), with encdec's
+norm -> cross-attention between; the head runs one more norm and the LM
+projection.  Every norm that follows a residual add
 (ln2, and ln1 of every layer but the first) takes the add with it in one
 fused launch (``apply_add_norm``): a layer's MLP output is carried into the
 next layer's ln1, and the last one is added before the head.  Projections
@@ -56,6 +71,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.layers import (
+    ParamSpec,
     apply_add_norm,
     apply_mlp,
     apply_norm,
@@ -72,7 +88,7 @@ from repro_torch.models.layers import (
 # experts); norms, MLA's latent gammas and the embedding table stay f32
 # (rows are gathered first, then cast)
 _MATMUL_LEAVES = {"wq", "wk", "wv", "wo", "wi", "wg", "w",
-                  "wq_a", "wq_b", "wkv_a", "wkv_b", "router"}
+                  "wq_a", "wq_b", "wkv_a", "wkv_b", "router", "vis_proj"}
 
 
 def _tree_map(fn, tree, key=None):
@@ -81,28 +97,74 @@ def _tree_map(fn, tree, key=None):
     return fn(key, tree)
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+def _split_layers(stacked: dict) -> list:
+    """A stacked subtree (leading layer axis) as a list of per-layer trees
+    of views: one unbind a leaf, so its backward stacks the layers'
+    gradients once."""
+    unbound = _tree_map(lambda _, t: t.unbind(0), stacked)
+    n = len(next(_leaves(unbound)))
+    return [_tree_map(lambda _, t, i=i: t[i], unbound) for i in range(n)]
+
+
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if (cfg.family, cfg.moe is None) not in (("dense", True), ("moe", False)):
+        if (cfg.family not in ("dense", "moe", "encdec", "vlm")
+                or (cfg.family == "moe") != (cfg.moe is not None)):
             raise NotImplementedError(
-                f"{cfg.name}: only the dense family, with MLA or a top-k MoE MLP, is ported "
-                f"(family {cfg.family!r})")
+                f"{cfg.name}: only the dense family (with MLA or a top-k MoE MLP), the "
+                f"encoder-decoder and the VLM families are ported (family {cfg.family!r})")
         if cfg.sliding_window and cfg.mla is not None:
             raise NotImplementedError(f"{cfg.name}: MLA with a sliding window has no "
                                       "counterpart in the reference")
+        if cfg.family == "vlm" and (cfg.cross_attn_every < 1
+                                    or cfg.n_layers % cfg.cross_attn_every):
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not group by "
+                             f"cross_attn_every={cfg.cross_attn_every}")
         self.cfg = cfg
+
+    @property
+    def extra_leaves(self) -> dict:
+        """The cache's per-request side inputs, name -> slot axis."""
+        if self.cfg.family == "encdec":
+            return {"cross_k": 1, "cross_v": 1}
+        if self.cfg.family == "vlm":
+            return {"patches": 0}
+        return {}
+
+    def _attn_block_specs(self) -> dict:
+        cfg = self.cfg
+        return {"ln1": norm_specs(cfg), "attn": attn.attn_specs(cfg), "ln2": norm_specs(cfg),
+                "mlp": mlp_specs(cfg)}
 
     def param_specs(self) -> dict:
         cfg = self.cfg
         mixer = mla_mod.mla_specs(cfg) if cfg.mla is not None else attn.attn_specs(cfg)
         block = {"ln1": norm_specs(cfg), "mixer": mixer, "ln2": norm_specs(cfg),
                  "mlp": moe_mod.moe_specs(cfg) if cfg.moe is not None else mlp_specs(cfg)}
-        return {
-            "embed": embed_specs(cfg),
-            "layers": stack_specs(block, cfg.n_layers),
-            "final_norm": norm_specs(cfg),
-            "lm_head": lm_head_specs(cfg),
-        }
+        specs = {"embed": embed_specs(cfg)}
+        if cfg.family == "encdec":
+            block.update(ln_x=norm_specs(cfg), xattn=attn.cross_attn_specs(cfg))
+            specs["encoder"] = {
+                "layers": stack_specs(self._attn_block_specs(), cfg.encoder_layers),
+                "pos": ParamSpec((cfg.encoder_seq, cfg.d_model)),
+                "final_norm": norm_specs(cfg),
+            }
+        specs.update(layers=stack_specs(block, cfg.n_layers), final_norm=norm_specs(cfg),
+                     lm_head=lm_head_specs(cfg))
+        if cfg.family == "vlm":
+            xblock = {"ln": norm_specs(cfg), "xattn": attn.cross_attn_specs(cfg),
+                      "gate": ParamSpec((1,), init="zeros"),
+                      "vis_proj": ParamSpec((cfg.d_model, cfg.d_model))}
+            specs["xattn_layers"] = stack_specs(xblock, cfg.n_layers // cfg.cross_attn_every)
+        return specs
 
     def init(self, seed: int = 0, device=None) -> dict:
         """Random f32 parameters (normal * 0.02, ones, zeros) from ``seed``."""
@@ -118,11 +180,11 @@ class Model:
             lambda k, t: t.to(dev, dt if k in _MATMUL_LEAVES else torch.float32),
             params,
         )
-        # one unbind a leaf: its backward stacks the layers' gradients once
-        unbound = _tree_map(lambda _, t: t.unbind(0), tree["layers"])
-        tree["layers"] = [
-            _tree_map(lambda _, t, i=i: t[i], unbound) for i in range(self.cfg.n_layers)
-        ]
+        tree["layers"] = _split_layers(tree["layers"])
+        if "encoder" in tree:
+            tree["encoder"]["layers"] = _split_layers(tree["encoder"]["layers"])
+        if "xattn_layers" in tree:
+            tree["xattn_layers"] = _split_layers(tree["xattn_layers"])
         return tree
 
     def _embed(self, params, tokens):
@@ -150,25 +212,90 @@ class Model:
             aux.append(layer_aux)
         return x, y
 
+    def _xattn_block(self, xp, x, pending, patches):
+        """The VLM's gated cross-attention block before a group of layers:
+        (residual stream, tanh(gate) * cross-attention of ln(x) over
+        ``patches @ vis_proj``, still to be added); the previous layer's
+        ``pending`` MLP output added in by the fused norm."""
+        cfg = self.cfg
+        dt = x.dtype
+        mem = patches.to(dt) @ xp["vis_proj"]
+        if pending is None:
+            h = apply_norm(cfg, xp["ln"], x)
+        else:
+            x, h = apply_add_norm(cfg, xp["ln"], x, pending)
+        y = attn.cross_attention(cfg, xp["xattn"], h, mem)
+        return x, torch.tanh(xp["gate"].to(dt)) * y
+
+    def _decoder(self, params, x, mixer, cross=None, patches=None, aux=None,
+                 group_tokens: int = 0):
+        """The decoder stack over the embedded x; returns the residual stream
+        before the head.  ``mixer(i, lp, h)`` is layer i's self-attention
+        output; encdec's ``cross(i, lp, hx)`` its cross-attention of
+        ln_x(x); the VLM's ``patches`` the memory of the blocks before every
+        ``cross_attn_every`` layers.  ``aux`` and ``group_tokens`` as in
+        ``_mlp_residual``."""
+        cfg = self.cfg
+        pending = None
+        for i, lp in enumerate(params["layers"]):
+            if cfg.family == "vlm" and i % cfg.cross_attn_every == 0:
+                x, pending = self._xattn_block(
+                    params["xattn_layers"][i // cfg.cross_attn_every], x, pending, patches)
+            x, h = self._ln1(lp, x, pending)
+            y = mixer(i, lp, h)
+            if cross is not None:
+                x, hx = apply_add_norm(cfg, lp["ln_x"], x, y)
+                y = cross(i, lp, hx)
+            x, pending = self._mlp_residual(lp, x, y, aux, group_tokens)
+        return x + pending
+
+    def _encode(self, params, frames):
+        """The whisper encoder over frame embeddings (B, M, D): ``pos``
+        added, non-causal self-attention blocks (the GN flash kernel), the
+        encoder's final norm.  Returns (B, M, D) in the activation dtype."""
+        cfg = self.cfg
+        enc = params["encoder"]
+        dt = getattr(torch, cfg.dtype)
+        frames = torch.as_tensor(frames).to(enc["pos"].device)
+        x = frames.to(dt) + enc["pos"][None].to(dt)
+        positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+        pending = None
+        for lp in enc["layers"]:
+            x, h = self._ln1(lp, x, pending)
+            y = attn.self_attention(cfg, lp["attn"], h, positions, causal=False)
+            x, pending = self._mlp_residual(lp, x, y)
+        return apply_add_norm(cfg, enc["final_norm"], x, pending)[1]
+
+    def _memory(self, params, batch: dict):
+        """The decoder's memory of a batch: the encoder's output of
+        batch["frames"] (encdec), batch["patches"] (VLM), else None."""
+        if self.cfg.family == "encdec":
+            return self._encode(params, batch["frames"])
+        if self.cfg.family == "vlm":
+            return torch.as_tensor(batch["patches"]).to(params["embed"]["tok"].device)
+        return None
+
     # --------------------------------------------------------- static path --
     def forward(self, params, batch: dict, aux: bool = False):
-        """Teacher-forced logits (B, S, V) of batch["tokens"] (B, S); with
-        ``aux`` the pair (logits, {"load_balance", "router_z"}), the MoE aux
-        losses summed over the layers (0-d f32, zero without MoE), as the
-        reference's ``forward`` returns them."""
+        """Teacher-forced logits (B, S, V) of batch["tokens"] (B, S), with
+        batch["frames"] (B, M, D) for encdec and batch["patches"] (B, P, D)
+        for the VLM; with ``aux`` the pair (logits, {"load_balance",
+        "router_z"}), the MoE aux losses summed over the layers (0-d f32,
+        zero without MoE), as the reference's ``forward`` returns them."""
         cfg = self.cfg
         tokens = batch["tokens"]
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=x.device).expand(tokens.shape)
-        pending, auxs = None, []
-        for lp in params["layers"]:
-            x, h = self._ln1(lp, x, pending)
-            if cfg.mla is not None:
-                y = mla_mod.mla_self_attention(cfg, lp["mixer"], h, positions)
-            else:
-                y = attn.self_attention(cfg, lp["mixer"], h, positions)
-            x, pending = self._mlp_residual(lp, x, y, auxs)
-        logits = self._lm_head(params, x + pending)
+        memory = self._memory(params, batch)
+        mixer_fn = mla_mod.mla_self_attention if cfg.mla is not None else attn.self_attention
+        cross = None
+        if cfg.family == "encdec":
+            def cross(i, lp, hx):
+                return attn.cross_attention(cfg, lp["xattn"], hx, memory)
+        auxs = []
+        x = self._decoder(params, x, lambda i, lp, h: mixer_fn(cfg, lp["mixer"], h, positions),
+                          cross, memory if cfg.family == "vlm" else None, auxs)
+        logits = self._lm_head(params, x)
         if not aux:
             return logits
         zero = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -197,24 +324,81 @@ class Model:
     def cache_specs(self, batch: int, max_seq: int) -> dict:
         """The static path's slab cache, name -> (shape, dtype):
         (L, B, max_seq, KV, dh) per k and v, or for MLA (L, B, max_seq,
-        width) per latent c_kv and k_rope."""
+        width) per latent c_kv and k_rope; then the extra leaves
+        (``extra_specs``)."""
         if self.cfg.mla is not None:
             per_layer = mla_mod.mla_cache_shape(self.cfg, batch, max_seq)
         else:
             per_layer = attn.attn_cache_shape(self.cfg, batch, max_seq)
-        return {k: ((self.cfg.n_layers, *shape), dt) for k, (shape, dt) in per_layer.items()}
+        specs = {k: ((self.cfg.n_layers, *shape), dt) for k, (shape, dt) in per_layer.items()}
+        return {**specs, **self.extra_specs(batch)}
+
+    def extra_specs(self, batch: int) -> dict:
+        """The extra leaves (``extra_leaves``), name -> (shape, dtype):
+        encdec's cross k and v (L, B, encoder_seq, KV, dh), the VLM's
+        patches (B, num_patches, D), in the activation dtype."""
+        cfg = self.cfg
+        dt = getattr(torch, cfg.dtype)
+        if cfg.family == "encdec":
+            kv = (cfg.n_layers, batch, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+            return {"cross_k": (kv, dt), "cross_v": (kv, dt)}
+        if cfg.family == "vlm":
+            return {"patches": ((batch, cfg.num_patches, cfg.d_model), dt)}
+        return {}
 
     def init_cache(self, batch: int, max_seq: int, device=None) -> dict:
         dev = resolve_device(device)
         return {k: torch.zeros(shape, dtype=dt, device=dev)
                 for k, (shape, dt) in self.cache_specs(batch, max_seq).items()}
 
+    def _per_layer(self, cache: dict, i: int) -> dict:
+        """Layer i's view of a slab cache's KV leaves (extras left out)."""
+        return {name: leaf[i] for name, leaf in cache.items() if name not in self.extra_leaves}
+
+    def _cross_fn(self, cache: dict):
+        """encdec's cross-attention over the cached cross k and v of
+        ``cache`` (a slab cache, or the paged pool's extras), else None."""
+        if self.cfg.family != "encdec":
+            return None
+        cfg = self.cfg
+
+        def cross(i, lp, hx):
+            return attn.cross_attend_cached(cfg, lp["xattn"], hx, cache["cross_k"][i],
+                                            cache["cross_v"][i])
+        return cross
+
+    def request_extras(self, params, extras: dict) -> dict:
+        """A request's extra leaves, batch 1, from its ``extras`` (numpy or
+        tensors without a batch axis): encdec's frames through the encoder
+        and every layer's cross projection (``encode_cross_kv``), the
+        VLM's patches cast to the activation dtype.  Empty for the other
+        families."""
+        dev = params["embed"]["tok"].device
+        if self.cfg.family == "encdec":
+            kv = self.encode_cross_kv(params, torch.as_tensor(extras["frames"])[None].to(dev))
+            return {"cross_k": kv["k"], "cross_v": kv["v"]}
+        if self.cfg.family == "vlm":
+            dt = getattr(torch, self.cfg.dtype)
+            return {"patches": torch.as_tensor(extras["patches"])[None].to(dev, dt)}
+        return {}
+
+    def encode_cross_kv(self, params, frames) -> dict:
+        """encdec admission: the encoder over ``frames`` (B, M, D) once, then
+        every layer's cross k and v, {"k", "v"}: (L, B, M, KV, dh), the
+        layout of the cache's ``cross_k``/``cross_v`` (the reference's
+        ``encode_cross_kv``)."""
+        memory = self._encode(params, frames)
+        ks, vs = zip(*(attn.project_cross_kv(self.cfg, lp["xattn"], memory)
+                       for lp in params["layers"]))
+        return {"k": torch.stack(ks), "v": torch.stack(vs)}
+
     def prefill(self, params, batch: dict, max_seq: int | None = None, cache: dict | None = None):
-        """Prompt pass over batch["tokens"] (B, S).  Returns the logits
-        (B, S, V) of every position and a slab cache of ``max_seq`` (default
-        S) slots holding the prompt's K/V at [0, S) and zeros past it (a
-        sliding window's ring: the last ``window`` positions, position p in
-        slot p % window, as the reference rolls them): a new one, or
+        """Prompt pass over batch["tokens"] (B, S) (and its frames or
+        patches).  Returns the logits (B, S, V) of every position and a slab
+        cache of ``max_seq`` (default S) slots holding the prompt's K/V at
+        [0, S) and zeros past it (a sliding window's ring: the last
+        ``window`` positions, position p in slot p % window, as the
+        reference rolls them), and the batch's extra leaves: a new one, or
         ``cache`` (``init_cache(B, max_seq)``'s shapes) zeroed and written in
         place, so a captured decode step can keep reading it."""
         cfg = self.cfg
@@ -231,35 +415,45 @@ class Model:
             for slab in cache.values():
                 slab.zero_()
         positions = torch.arange(s, device=x.device).expand(b, s)
+        memory = self._memory(params, batch)
+        if cfg.family == "encdec":
+            for i, lp in enumerate(params["layers"]):
+                k, v = attn.project_cross_kv(cfg, lp["xattn"], memory)
+                cache["cross_k"][i].copy_(k)
+                cache["cross_v"][i].copy_(v)
+        elif cfg.family == "vlm":
+            cache["patches"].copy_(memory)
         prefill = mla_mod.mla_prefill if cfg.mla is not None else attn.attn_prefill
         win = cfg.sliding_window or 0
-        pending = None
-        for i, lp in enumerate(params["layers"]):
-            x, h = self._ln1(lp, x, pending)
+
+        def mixer(i, lp, h):
             y, kv = prefill(cfg, lp["mixer"], h, positions)
             for name, new in kv.items():
                 if win and s > win:  # the ring: position p in slot p % window
                     cache[name][i].copy_(torch.roll(new, s % win, dims=1))
                 else:
                     cache[name][i, :, :s] = new
-            x, pending = self._mlp_residual(lp, x, y)
-        return self._lm_head(params, x + pending), cache
+            return y
+
+        x = self._decoder(params, x, mixer, self._cross_fn(cache), cache.get("patches"))
+        return self._lm_head(params, x), cache
 
     def decode_step(self, params, cache, token, pos):
         """token: (B, 1) at position ``pos``: a Python int, or a 0-d int32
         tensor on the cache's device (one CUDA graph then serves every
-        position).  Writes slot ``pos`` of every layer's slabs in place;
-        returns (logits (B, 1, V), cache)."""
+        position).  Writes slot ``pos`` of every layer's slabs in place
+        (reading the extra leaves ``prefill`` wrote); returns (logits
+        (B, 1, V), cache)."""
         cfg = self.cfg
-        x, pending = self._embed(params, token), None
+        x = self._embed(params, token)
         if not isinstance(pos, torch.Tensor):
             pos = torch.full((), pos, dtype=torch.int32, device=x.device)
         step = mla_mod.mla_decode_step if cfg.mla is not None else attn.attn_decode_step
-        for i, lp in enumerate(params["layers"]):
-            x, h = self._ln1(lp, x, pending)
-            y, _ = step(cfg, lp["mixer"], {name: slab[i] for name, slab in cache.items()}, h, pos)
-            x, pending = self._mlp_residual(lp, x, y)
-        return self._lm_head(params, x + pending), cache
+        x = self._decoder(
+            params, x, lambda i, lp, h: step(cfg, lp["mixer"], self._per_layer(cache, i), h,
+                                             pos)[0],
+            self._cross_fn(cache), cache.get("patches"))
+        return self._lm_head(params, x), cache
 
     # ----------------------------------------------------------- slab tick --
     @property
@@ -271,21 +465,23 @@ class Model:
 
     def fresh_request_cache(self, max_seq: int, device=None) -> dict:
         """A batch-1 cache in its state before a prompt (zeros), which
-        admission pages into a slab slot."""
+        admission pages into a slab slot (with the request's extra leaves
+        put over the zero ones)."""
         return self.init_cache(1, max_seq, device)
 
-    @staticmethod
-    def insert_cache_slot(pool_cache: dict, request_cache: dict, slot: int) -> dict:
+    def insert_cache_slot(self, pool_cache: dict, request_cache: dict, slot: int) -> dict:
         """Copy a batch-1 cache into row ``slot`` of every leaf of a slot
-        cache (batch axis 1), in place; returns ``pool_cache``."""
+        cache (batch axis 1, the VLM's patches 0), in place; returns
+        ``pool_cache``."""
         for name, leaf in pool_cache.items():
-            leaf[:, slot].copy_(request_cache[name][:, 0])
+            ax = self.extra_leaves.get(name, 1)
+            leaf.select(ax, slot).copy_(request_cache[name].select(ax, 0))
         return pool_cache
 
-    @staticmethod
-    def extract_cache_slot(pool_cache: dict, slot: int) -> dict:
+    def extract_cache_slot(self, pool_cache: dict, slot: int) -> dict:
         """Row ``slot`` of a slot cache as a batch-1 copy."""
-        return {name: leaf[:, slot:slot + 1].clone() for name, leaf in pool_cache.items()}
+        return {name: leaf.narrow(self.extra_leaves.get(name, 1), slot, 1).clone()
+                for name, leaf in pool_cache.items()}
 
     def _slab_pass(self, params, cache, tokens, positions, n_valid, decode: bool,
                    group_tokens: int):
@@ -294,18 +490,17 @@ class Model:
         reference's decode step, else its chunk.  Returns the residual
         stream (N, C, D) before the head."""
         cfg = self.cfg
-        x, pending = self._embed(params, tokens), None
-        for i, lp in enumerate(params["layers"]):
-            x, h = self._ln1(lp, x, pending)
-            layer = {name: slab[i] for name, slab in cache.items()}
+
+        def mixer(i, lp, h):
+            layer = self._per_layer(cache, i)
             if cfg.mla is not None:
-                y = mla_mod.mla_slab_chunk(cfg, lp["mixer"], layer, h, positions, n_valid)
-            elif decode:
-                y = attn.attn_slab_decode(cfg, lp["mixer"], layer, h, positions, n_valid > 0)
-            else:
-                y = attn.attn_slab_chunk(cfg, lp["mixer"], layer, h, positions, n_valid)
-            x, pending = self._mlp_residual(lp, x, y, group_tokens=group_tokens)
-        return x + pending
+                return mla_mod.mla_slab_chunk(cfg, lp["mixer"], layer, h, positions, n_valid)
+            if decode:
+                return attn.attn_slab_decode(cfg, lp["mixer"], layer, h, positions, n_valid > 0)
+            return attn.attn_slab_chunk(cfg, lp["mixer"], layer, h, positions, n_valid)
+
+        return self._decoder(params, self._embed(params, tokens), mixer, self._cross_fn(cache),
+                             cache.get("patches"), group_tokens=group_tokens)
 
     def prefill_chunk(self, params, cache, tokens, pos, n_valid, last_only: bool = False):
         """The reference's masked, position-offset multi-token step: tokens
@@ -388,35 +583,55 @@ class Model:
                 cache[f"{key}_scale"] = torch.zeros(lead[:2], dtype=torch.float32, device=dev)
         return cache
 
+    def init_paged_extras(self, num_slots: int, device=None) -> dict:
+        """The paged pool's slot-batched extra leaves (``extra_specs``),
+        zeroed: the paged tick's ``extras``, written at admission."""
+        dev = resolve_device(device)
+        return {k: torch.zeros(shape, dtype=dt, device=dev)
+                for k, (shape, dt) in self.extra_specs(num_slots).items()}
+
+    def insert_cache_slot_extras(self, pool_extras: dict, request_extras: dict,
+                                 slot: int) -> dict:
+        """Admission over the paged pool: copy a request's batch-1 extra
+        leaves into row ``slot`` of the pool's, in place (the block arenas
+        have no slot axis: the prompt streams into them through the block
+        table)."""
+        return self.insert_cache_slot(pool_extras, request_extras, slot)
+
     def fused_step_slots_paged(self, params, cache, tokens, positions, n_valid, tables,
-                               sentinel: bool = False):
+                               sentinel: bool = False, extras: dict | None = None):
         """One paged serving tick: every slot processes its own C-token chunk
         at its own write offset.  params: ``prepare``d; tokens: (N, C) int;
         positions/n_valid: (N,) int32 (n_valid = 0 parks a lane: no writes);
-        tables: (N, max_bt) int32.  Writes the arenas of ``cache`` (and its
-        scales, for int8 arenas) in place and returns the logits (N, 1, V) of
-        each slot's row n_valid - 1.  With ``sentinel`` it also returns the
-        GN sentinels' health, as the reference's: {"layers": (L, N, 3) f32,
-        one ``attention.paged_probe_word`` a layer, "head": (N,) f32, the
-        final norm's σ residual (``_paged_head``)}, computed on the device."""
+        tables: (N, max_bt) int32; ``extras``: the pool's slot-batched extra
+        leaves (``init_paged_extras``; encdec and VLM).  Writes the arenas of
+        ``cache`` (and its scales, for int8 arenas) in place and returns the
+        logits (N, 1, V) of each slot's row n_valid - 1.  With ``sentinel``
+        it also returns the GN sentinels' health, as the reference's:
+        {"layers": (L, N, 3) f32, one ``attention.paged_probe_word`` a layer
+        (of its self-attention read), "head": (N,) f32, the final norm's σ
+        residual (``_paged_head``)}, computed on the device."""
         cfg = self.cfg
-        x, pending = self._embed(params, tokens), None
+        extras = extras or {}
         a, b = self._arena_rows
         chunk = mla_mod.mla_paged_chunk if cfg.mla is not None else attn.attn_paged_chunk
         all_scales = (cache[f"{a}_scale"], cache[f"{b}_scale"]) if f"{a}_scale" in cache else None
-        scales = zip(*all_scales) if all_scales else [None] * cfg.n_layers
         probes = []
-        for lp, arena_a, arena_b, sc in zip(params["layers"], cache[a], cache[b], scales):
-            x, h = self._ln1(lp, x, pending)
-            y = chunk(cfg, lp["mixer"], arena_a, arena_b, h, positions, n_valid, tables, sc,
-                      probe=sentinel)
+
+        def mixer(i, lp, h):
+            sc = None if all_scales is None else (all_scales[0][i], all_scales[1][i])
+            y = chunk(cfg, lp["mixer"], cache[a][i], cache[b][i], h, positions, n_valid, tables,
+                      sc, probe=sentinel)
             if sentinel:
                 y, pr = y
                 probes.append(pr)
-            x, pending = self._mlp_residual(lp, x, y)
+            return y
+
+        x = self._decoder(params, self._embed(params, tokens), mixer, self._cross_fn(extras),
+                          extras.get("patches"))
         if not sentinel:
-            return self._paged_head(params, x + pending, n_valid)
-        logits, head = self._paged_head(params, x + pending, n_valid, probe=True)
+            return self._paged_head(params, x, n_valid)
+        logits, head = self._paged_head(params, x, n_valid, probe=True)
         words = attn.paged_probe_word(probes, positions, n_valid, tables, cache[a].shape[2],
                                       all_scales)
         return logits, {"layers": words, "head": head}

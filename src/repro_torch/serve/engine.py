@@ -106,6 +106,19 @@ sampler is keyed by counters, not by a PRNG key: the ``key`` leaf is
 written as the reference's initial key for ``cfg.seed`` and ignored on
 restore, so sampled resumes hold port to port only.
 
+Encoder-decoder and VLM requests carry ``extras`` (``frames`` or
+``patches``, numpy without a batch axis).  Admission turns them into the
+slot's extra cache leaves (``model.request_extras``: the encoder runs once,
+eagerly, outside any captured tick, and every layer's cross k and v are
+projected; the VLM's patches are cast): into the slab slot with the fresh
+cache, or into the paged pool's slot-batched ``extras``, which every tick
+reads.  A recompute or spill resume writes them again.  The static path
+stacks them into its batch, and snapshots carry them as the reference's
+(``req/<id>/extras/<key>``, the cache's ``cross``/``patches`` leaves).  The
+prefix cache keys on tokens alone, as the reference's: two requests with
+one prompt and other frames would share decoder blocks that depend on the
+frames.
+
 Not ported, and refused with an error rather than ignored: multi-device
 pools (and so device-loss aggregation).  ``kv_dtype="int8"`` serves over
 int8 arenas with per-block f32 scales frozen at each block's first write.
@@ -151,6 +164,34 @@ class ServeConfig:
 # ---------------------------------------------------------------- static ---
 def _tokens_on(params, tokens) -> torch.Tensor:
     return torch.as_tensor(tokens).to(params["embed"]["tok"].device)
+
+
+def _side_inputs(batch: dict) -> dict:
+    """A batch's modality inputs (``frames``, ``patches``): every key but
+    the tokens."""
+    return {k: v for k, v in batch.items() if k != "tokens"}
+
+
+# the cache's extra leaves under the reference's cache-tree names
+_EXTRA_PATHS = {"cross_k": "cross/k", "cross_v": "cross/v", "patches": "patches"}
+
+
+def _cache_tree_of(leaves: dict) -> dict:
+    """Flat cache leaves (KV, then extras) as the reference's cache tree:
+    {"layers": {...}, "cross": {"k", "v"}} or {"layers", "patches"}."""
+    tree: dict = {}
+    for name, leaf in leaves.items():
+        *outer, last = _leaf_path(name).split("/")
+        node = tree
+        for key in outer:
+            node = node.setdefault(key, {})
+        node[last] = leaf
+    return tree
+
+
+def _leaf_path(name: str) -> str:
+    """A flat cache leaf's path in the reference's cache tree."""
+    return _EXTRA_PATHS.get(name, f"layers/{name}")
 
 
 class _StaticDecode:
@@ -208,7 +249,8 @@ def generate(model: Model, params, batch: dict, cfg: ServeConfig) -> torch.Tenso
     dev = tokens.device
     max_seq = s + cfg.max_new_tokens
     decode = static_decoder(model, params, b, max_seq, dev)
-    logits, _ = model.prefill(params, {"tokens": tokens}, max_seq, cache=decode.cache)
+    logits, _ = model.prefill(params, {"tokens": tokens, **_side_inputs(batch)}, max_seq,
+                              cache=decode.cache)
     last = logits[:, -1].clone()
     del logits
     out = torch.zeros(b, max_seq, dtype=torch.int32, device=dev)
@@ -229,9 +271,9 @@ def generate(model: Model, params, batch: dict, cfg: ServeConfig) -> torch.Tenso
 def perplexity(model: Model, params, batch: dict) -> float:
     """Teacher-forced perplexity over a token batch (the score-oriented
     metric): the exact f32 log-softmax of the logits, as the reference's
-    ``jax.nn.log_softmax``."""
+    ``jax.nn.log_softmax``; ``frames`` or ``patches`` ride in ``batch``."""
     tokens = _tokens_on(params, batch["tokens"])
-    logits = model.forward(params, {"tokens": tokens})[:, :-1].float()
+    logits = model.forward(params, {**batch, "tokens": tokens})[:, :-1].float()
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, tokens[:, 1:, None].long())[..., 0]
     return float(torch.exp(nll.mean()))
@@ -252,6 +294,8 @@ def static_reference(model: Model, params, requests: Sequence[Request],
     out: dict[int, np.ndarray] = {}
     for (plen, max_new), reqs in groups.items():
         batch = {"tokens": np.stack([np.asarray(r.tokens, np.int32) for r in reqs])}
+        for k in reqs[0].extras:
+            batch[k] = np.stack([np.asarray(r.extras[k]) for r in reqs])
         gcfg = dataclasses.replace(cfg, max_new_tokens=max_new)
         toks = generate(model, params, batch, gcfg).cpu().numpy()
         for r, row in zip(reqs, toks):
@@ -555,6 +599,8 @@ class ContinuousEngine:
                 sp = sus.spill
                 if self.paged:
                     self.pool.insert(slot, sp["position"])
+                    self.pool.insert_extras(slot, self.model.request_extras(self.params,
+                                                                            req.extras))
                     self.pool.restore_blocks(slot, sp["kv"])
                 else:
                     self.pool.insert(sp["kv"], slot, sp["position"])
@@ -568,11 +614,11 @@ class ContinuousEngine:
                 seq = np.concatenate([np.asarray(req.tokens, np.int32),
                                       np.asarray(sus.generated, np.int32)])
                 padded, prefill_len = pad_to_grid(seq, self.chunk), int(seq.shape[0])
-                self._insert_fresh(slot, 0)
+                self._insert_fresh(slot, 0, req)
                 written, phase = 0, "prefilling"
             else:
                 shared = hit.shared_len if hit is not None else 0
-                self._insert_fresh(slot, shared)
+                self._insert_fresh(slot, shared, req)
                 padded = req.padded_tokens
                 if shared:
                     # the prefill starts at the shared length, so its chunks
@@ -608,13 +654,16 @@ class ContinuousEngine:
                 self._resumes += 1
             self.event_log.append(("resume" if sus else "admit", self.step_count, req.id, slot, 0))
 
-    def _insert_fresh(self, slot: int, position: int) -> None:
+    def _insert_fresh(self, slot: int, position: int, req: Request) -> None:
         """Start an admitted slot at ``position``: its chain ensured over
-        the paged pool, a fresh batch-1 cache copied into its slab."""
+        the paged pool, a fresh batch-1 cache copied into its slab; and the
+        request's extra leaves (``model.request_extras``) written in."""
+        extras = self.model.request_extras(self.params, req.extras)
         if self.paged:
             self.pool.insert(slot, position)
+            self.pool.insert_extras(slot, extras)
         else:
-            self.pool.insert(self._fresh, slot, position)
+            self.pool.insert({**self._fresh, **extras}, slot, position)
 
     def _shed_signal(self) -> tuple:
         """(live reservation, a request's footprint) in the pool's admission
@@ -861,7 +910,9 @@ class ContinuousEngine:
         reason = "length"
         if remaining > 0:
             gcfg = dataclasses.replace(self.cfg, max_new_tokens=remaining, temperature=0.0)
-            row = generate(self.model, self.params, {"tokens": seq[None]}, gcfg)[0].cpu().numpy()
+            batch = {"tokens": seq[None],
+                     **{k: np.asarray(v)[None] for k, v in req.extras.items()}}
+            row = generate(self.model, self.params, batch, gcfg)[0].cpu().numpy()
             gen = list(st.generated)
             for tok in row[seq.shape[0]:]:
                 gen.append(int(tok))
@@ -896,7 +947,8 @@ class ContinuousEngine:
             out = self.model.fused_step_slots(self.params, self.pool.cache, tokens, pos, nv)
         else:
             out = self.model.fused_step_slots_paged(self.params, self.pool.cache, tokens, pos,
-                                                    nv, tables, sentinel=self.sentinels)
+                                                    nv, tables, sentinel=self.sentinels,
+                                                    extras=self.pool.extras)
         logits, health = out if self.sentinels else (out, None)
         self._last_logits.copy_(torch.where(active[:, None], logits[:, 0].float(),
                                             self._last_logits))
@@ -1064,17 +1116,26 @@ class ContinuousEngine:
         tree[f"{prefix}/tokens"] = np.asarray(req.tokens, np.int32)
         if req.padded_tokens is not None:
             tree[f"{prefix}/padded"] = np.asarray(req.padded_tokens, np.int32)
+        for k, v in req.extras.items():
+            tree[f"{prefix}/extras/{k}"] = np.asarray(v)
         return {"max_new_tokens": req.max_new_tokens, "temperature": req.temperature,
                 "stop_token": req.stop_token, "arrival_step": req.arrival_step,
                 "prefix_hint": req.prefix_hint, "req_class": req.req_class,
-                "has_padded": req.padded_tokens is not None, "extras_keys": []}
+                "has_padded": req.padded_tokens is not None,
+                "extras_keys": sorted(req.extras)}
+
+    def _cache_leaves(self) -> dict:
+        """The pool's device leaves, flat (KV, then the extras), the paged
+        arenas' write-sink block left out."""
+        if not self.paged:
+            return dict(self.pool.cache)
+        nb = self.pool.num_blocks
+        return {**{k: v[:, :nb] for k, v in self.pool.cache.items()}, **self.pool.extras}
 
     def _cache_tree(self) -> dict:
-        """The pool's device leaves under the reference's names (``layers``
-        of its cache tree), the write-sink block left out."""
-        nb = self.pool.num_blocks if self.paged else None
-        return {"layers": {k: v[:, :nb] if self.paged else v
-                           for k, v in self.pool.cache.items()}}
+        """The pool's device leaves under the reference's names (its cache
+        tree: ``layers``, and ``cross`` or ``patches``)."""
+        return _cache_tree_of(self._cache_leaves())
 
     def snapshot(self, path) -> str:
         """Write a crash-consistent snapshot under ``path`` (atomic: a kill
@@ -1136,7 +1197,7 @@ class ContinuousEngine:
                     if sp["kv"]["layers"] is not None:
                         tree[f"sus/{rid}/kv"] = sp["kv"]["layers"]
                 else:
-                    tree[f"sus/{rid}/kv"] = {"layers": sp["kv"]}
+                    tree[f"sus/{rid}/kv"] = _cache_tree_of(sp["kv"])
             sus_meta[str(rid)] = {
                 "generated": [int(t) for t in sus.generated], "admit_step": sus.admit_step,
                 "admit_time": sus.admit_time, "first_token_step": sus.first_token_step,
@@ -1202,13 +1263,11 @@ class ContinuousEngine:
 
     @staticmethod
     def _restore_request(flat: dict, rid: int, meta: dict) -> Request:
-        if meta["extras_keys"]:
-            raise ValueError(f"request {rid} carries extras {meta['extras_keys']}: the port "
-                             "serves no encoder-decoder or VLM family")
         return Request(
             tokens=flat[f"req/{rid}/tokens"].numpy(),
             max_new_tokens=meta["max_new_tokens"], temperature=meta["temperature"],
             stop_token=meta["stop_token"], arrival_step=meta["arrival_step"], id=rid,
+            extras={k: flat[f"req/{rid}/extras/{k}"].numpy() for k in meta["extras_keys"]},
             padded_tokens=(flat[f"req/{rid}/padded"].numpy()
                            if meta["has_padded"] else None),
             prefix_hint=meta["prefix_hint"], req_class=meta["req_class"])
@@ -1230,8 +1289,8 @@ class ContinuousEngine:
             raise ValueError(f"snapshot topology mismatch: {diff}")
         self.reset()
         # --- device state, in place ----------------------------------------
-        for name, leaf in self._cache_tree()["layers"].items():
-            leaf.copy_(flat[f"cache/layers/{name}"])
+        for name, leaf in self._cache_leaves().items():
+            leaf.copy_(flat[f"cache/{_leaf_path(name)}"])
         self._last_logits.copy_(flat["last_logits"])
         self._temps = np.array(flat["temps"].numpy(), np.float32)
         self.pool.positions[:] = flat["positions"].numpy()
@@ -1282,8 +1341,11 @@ class ContinuousEngine:
             rid, spill = int(rid_str), None
             if m["spill"] is not None:
                 sp = m["spill"]
-                kv = self._nest(flat, f"sus/{rid}/kv/")
-                kv = {"len": sp["len"], "layers": kv or None} if self.paged else kv["layers"]
+                if self.paged:
+                    kv = {"len": sp["len"], "layers": self._nest(flat, f"sus/{rid}/kv/") or None}
+                else:
+                    kv = {name: flat[f"sus/{rid}/kv/{_leaf_path(name)}"]
+                          for name in self.pool.cache}
                 spill = {"kv": kv, "position": sp["position"],
                          "padded": (flat[f"sus/{rid}/padded"].numpy()
                                     if sp["has_padded"] else None),

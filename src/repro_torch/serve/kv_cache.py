@@ -42,6 +42,12 @@ a private block) when the slot attaches, before its first write
 (``write_barrier`` asserts no live slot writes a shared block).  Under block
 pressure ``_pop_block`` reclaims the cache's LRU cache-only blocks.
 
+Extras (encdec, VLM): ``extras`` holds the model's slot-batched extra
+leaves (``model.init_paged_extras``: cross k and v, or patches), written at
+admission by ``insert_extras``; they have no block axis, so forks, spills
+and scrubs leave them to the slot.  The slab pool's cache holds them among
+its leaves.
+
 Every device write here is in place (``copy_``, ``index_copy_``,
 ``index_fill_``): the fork, the preemption restore and the scrub keep the
 arenas' addresses, so the engine's captured tick graphs keep reading them.
@@ -150,6 +156,7 @@ class BlockPagedKVPool:
         self.device = resolve_device(device)
         self.cache = model.init_paged_cache(self.num_blocks, self.block_size, self.device,
                                             kv_dtype)
+        self.extras = model.init_paged_extras(self.num_slots, self.device)
         self.positions = np.zeros(self.num_slots, np.int32)
         # physical ids; entries past a slot's allocated prefix are stale but
         # never read (the kernel stops at the context length)
@@ -187,8 +194,15 @@ class BlockPagedKVPool:
 
     def hbm_bytes(self) -> int:
         """Resident device bytes: the arenas (sink block included), the int8
-        pool's scales, and the block tables."""
-        return sum(t.numel() * t.element_size() for t in self.cache.values()) + self.tables.nbytes
+        pool's scales, the slot-batched extras (cross KV, patches) and the
+        block tables."""
+        leaves = [*self.cache.values(), *self.extras.values()]
+        return sum(t.numel() * t.element_size() for t in leaves) + self.tables.nbytes
+
+    def insert_extras(self, slot: int, request_extras: dict) -> None:
+        """Write a request's batch-1 extra leaves into ``slot``'s row, in
+        place (nothing for a model without extras)."""
+        self.model.insert_cache_slot_extras(self.extras, request_extras, slot)
 
     @property
     def num_free(self) -> int:

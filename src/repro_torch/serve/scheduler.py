@@ -47,6 +47,10 @@ def pad_to_grid(tokens, grid: int) -> np.ndarray:
 class Request:
     """One generation request.  ``tokens`` is the prompt, shape (prompt_len,);
     ``arrival_step`` stamps when it becomes visible on the engine clock.
+    ``extras`` carries the request's modality inputs without a batch axis,
+    numpy arrays: ``frames`` (encoder_seq, D) for encdec, ``patches``
+    (num_patches, D) for the VLM; admission turns them into the slot's extra
+    cache leaves.
     ``prefix_hint`` is the indexed prefix length at submit (telemetry only:
     admission looks the prefix up again); ``req_class`` is one of
     REQUEST_CLASSES (FCFS ignores it)."""
@@ -56,6 +60,7 @@ class Request:
     temperature: Optional[float] = None  # None -> engine default
     stop_token: Optional[int] = None
     arrival_step: int = 0
+    extras: dict = dataclasses.field(default_factory=dict)
     id: int = -1  # assigned by the scheduler on submit
     padded_tokens: Optional[np.ndarray] = dataclasses.field(default=None, repr=False)
     prefix_hint: int = 0

@@ -16,6 +16,16 @@ from repro_torch.data.synthetic import DataConfig, batch_at
 from repro_torch.serve.scheduler import Request
 
 
+def extras_for(cfg) -> dict:
+    """The reference's modality stubs of a request: zero frames (encdec) or
+    zero patches (VLM), f32 without a batch axis."""
+    if cfg.family == "encdec":
+        return {"frames": np.zeros((cfg.encoder_seq, cfg.d_model), np.float32)}
+    if cfg.family == "vlm":
+        return {"patches": np.zeros((cfg.num_patches, cfg.d_model), np.float32)}
+    return {}
+
+
 def _draw(vocab: int, length: int, seed: int) -> np.ndarray:
     data = DataConfig(vocab=vocab, seq_len=length, global_batch=1, seed=seed)
     return np.asarray(batch_at(data, 0)["tokens"][0], np.int32)
@@ -43,7 +53,7 @@ def staggered_requests(cfg, n_requests: int = 12, base_len: int = 16, max_new_to
     return [
         Request(id=i, tokens=_draw(cfg.vocab, lens[i % len(lens)], seed + i),
                 max_new_tokens=max_new_tokens if i % 2 == 0 else max(2, max_new_tokens // 2),
-                arrival_step=i * stagger)
+                arrival_step=i * stagger, extras=extras_for(cfg))
         for i in range(n_requests)
     ]
 
@@ -60,7 +70,8 @@ def shared_prefix_requests(cfg, n_users: int = 12, n_personas: int = 3, system_l
     return [
         Request(id=i, tokens=np.concatenate([system, personas[i % n_personas],
                                              _draw(cfg.vocab, user_len, seed + 100 + i)]),
-                max_new_tokens=max_new_tokens, arrival_step=i * stagger)
+                max_new_tokens=max_new_tokens, arrival_step=i * stagger,
+                extras=extras_for(cfg))
         for i in range(n_users)
     ]
 
@@ -90,7 +101,8 @@ def sla_requests(cfg, n_requests: int = 32, base_len: int = 16, rate: float = 0.
             lens, new, klass = long_lens, max_new_batch, "batch"
         plen = lens[int(rng.integers(len(lens)))]
         reqs.append(Request(id=i, tokens=_draw(cfg.vocab, plen, seed + 1000 + i),
-                            max_new_tokens=new, arrival_step=int(clock), req_class=klass))
+                            max_new_tokens=new, arrival_step=int(clock), req_class=klass,
+                            extras=extras_for(cfg)))
     return reqs
 
 

@@ -1,9 +1,15 @@
 """Helpers of the port's serving parity tests (``test_torch_prefix.py``,
-``test_torch_sla.py``): reduced internlm2-1.8b at float32 for both packages
-(the port's weights converted from the JAX ones), requests built once and
-fed to both engines, and a run's summary: greedy tokens, ``event_log``,
-``request_prefix_hits``, completions, the ``metrics()`` keys both engines
-share, and the final block tables and refcounts.
+``test_torch_sla.py``, ...): reduced internlm2-1.8b (or another arch) at
+float32 for both packages (the port's weights converted from the JAX ones),
+requests built once and fed to both engines, and a run's summary: greedy
+tokens, ``event_log``, ``request_prefix_hits``, completions, the
+``metrics()`` keys both engines share, and the final block tables and
+refcounts.
+
+A VLM's cross-attention gates are initialised to zero, so an untrained VLM
+ignores its patches and a parity test on its init weights would pass with
+cross-attention broken: ``pair`` sets every ``xattn_layers/gate`` to
+``VLM_GATE`` in the shared tree before either package sees it.
 """
 import functools
 
@@ -37,6 +43,9 @@ COMPLETION_KEYS = ("request_id", "finish_reason", "arrival_step", "admit_step",
 
 # the architectures of the families the port serves: dense, MLA and MoE
 FAMILIES = {"dense": ARCH, "mla": "minicpm3-4b", "moe": "llama4-scout-17b-a16e"}
+# the cross-attending families (tests/test_torch_xattn.py)
+XFAMILIES = {"encdec": "whisper-large-v3", "vlm": "llama-3.2-vision-11b"}
+VLM_GATE = 0.5
 
 
 @functools.cache
@@ -46,9 +55,12 @@ def pair(arch: str = ARCH):
     write to the weights)."""
     over = {"dtype": "float32"}
     jmodel = jax_make_model(jax_reduce_config(jax_get_config(arch), **over))
-    jparams = jmodel.init(jax.random.PRNGKey(0))
+    tree = jax.tree.map(np.asarray, jmodel.init(jax.random.PRNGKey(0)))
+    if "xattn_layers" in tree:
+        tree["xattn_layers"]["gate"] = np.full_like(tree["xattn_layers"]["gate"], VLM_GATE)
+    jparams = jax.tree.map(jax.numpy.asarray, tree)
     model = make_model(reduce_config(get_config(arch), **over))
-    master = params_from_numpy(model, jax.tree.map(np.asarray, jparams), device="cpu")
+    master = params_from_numpy(model, tree, device="cpu")
     return jmodel, jparams, model, master
 
 
@@ -67,7 +79,7 @@ def to_port(reqs):
     """The port's requests with the reference requests' tokens and fields."""
     return [Request(tokens=np.asarray(r.tokens, np.int32), max_new_tokens=r.max_new_tokens,
                     stop_token=r.stop_token, arrival_step=r.arrival_step, id=r.id,
-                    req_class=r.req_class) for r in reqs]
+                    req_class=r.req_class, extras=dict(r.extras)) for r in reqs]
 
 
 def jax_engine(jmodel, jparams, **kw):

@@ -180,8 +180,9 @@ def test_continuous_engine_matches_own_static_reference(pair, bs):
 def test_refuses_long_prefill_and_other_softmax():
     """A prefill past 2048 tokens takes the GN flash attention (its plain
     version on the CPU) and is served; the exact softmax serves the forward
-    (tests/test_torch_train.py holds it against the JAX package) but its
-    long prefill, which the reference runs chunked, is refused; a
+    (tests/test_torch_train.py holds it against the JAX package) and its
+    long prefill through the chunked stream, as the reference
+    (tests/test_torch_chunked.py holds it against the JAX package); a
     one-pass-only softmax (a baseline, as ``pseudo``) serves the long
     prefill one-pass, as the reference's ``_use_chunked`` keeps it; a name
     neither package has raises ``KeyError`` (tests/test_torch_long.py holds
@@ -193,8 +194,8 @@ def test_refuses_long_prefill_and_other_softmax():
     logits, _ = model.prefill(params, long)
     assert logits.shape == (1, 2049, cfg.vocab) and bool(torch.isfinite(logits).all())
     exact = make_model(dataclasses.replace(cfg, softmax_impl="exact"))
-    with pytest.raises(NotImplementedError, match="softmax_impl"):
-        exact.prefill(params, long)
+    logits, _ = exact.prefill(params, long)
+    assert logits.shape == (1, 2049, cfg.vocab) and bool(torch.isfinite(logits).all())
     short = {"tokens": torch.zeros(1, 4, dtype=torch.int32)}
     assert bool(torch.isfinite(exact.forward(params, short)).all())
     other = make_model(dataclasses.replace(cfg, softmax_impl="pseudo"))

@@ -323,10 +323,9 @@ def test_refusals_past_2048_and_of_other_impls():
     model = make_model(cfg)
     params = model.prepare(model.init(0, "cpu"), "cpu")
     long = {"tokens": torch.zeros(1, 2049, dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="2048"):
-        model.prefill(params, long)
-    with pytest.raises(NotImplementedError, match="2048"):
-        model.forward(params, long)
+    # served past 2048 now, through the chunked stream (test_torch_chunked.py)
+    assert bool(torch.isfinite(model.prefill(params, long)[0]).all())
+    assert bool(torch.isfinite(model.forward(params, long)).all())
     t_attn.FORCE_PAGED_READ = "kernel"
     try:
         with pytest.raises(NotImplementedError, match="GN-only"):
@@ -343,8 +342,8 @@ def test_refusals_past_2048_and_of_other_impls():
     assert softermax.paged_read_path == "gathered"
     with pytest.raises(NotImplementedError, match="Queue A 8"):
         train_launch.main(["--smoke", "--device", "cpu", "--mesh", "2x2"])
-    with pytest.raises(NotImplementedError, match="2048"):
-        train_launch.main(["--smoke", "--device", "cpu", "--seq", "4096"])
+    # --seq past 2048 is no longer refused: it trains (test_torch_chunked.py
+    # runs the launcher past 2048 and holds a step to jax.grad)
 
 
 # ------------------------------------------------------------- launchers --
