@@ -54,7 +54,15 @@ Phases, each fatal on failure (exit code 1):
                96), v of 64 zero-padded, the padded columns exactly 0), the
                softmax over cross-attention rows (``xattn-whisper``: 1500
                columns, ``xattn-vlm``: 1601), and the norm at whisper's
-               1280 (LayerNorm) and the VLM's 4096 (RMS);
+               1280 (LayerNorm) and the VLM's 4096 (RMS); for phase 23 the
+               flash attention at zamba2's forward (``zamba2-forward``:
+               (8, 32, 1024, 112) causal, the head dim inside the 128
+               instantiation, its ragged D edge masked; exact scores, V = 1),
+               the softmax over zamba2's slab-tick rows (``zamba2-slab-tick``:
+               8 slots x 32 heads x 16 lanes over 1056 slab slots) and its
+               decode rows (``zamba2-decode``), and the norm at xlstm's 1024
+               (LayerNorm) and its mixer's 2048 (RMS, no gamma), zamba2's
+               3584 and its mixer's 7168 (RMS);
   3. parity  - full-width internlm2-1.8b cut to 2 layers, kernels on the card
                against plain versions on the CPU, same weights, at float32
                and at bfloat16: one fused paged tick with mixed
@@ -191,7 +199,9 @@ Phases, each fatal on failure (exit code 1):
  17. mla     - minicpm3-4b (MLA: latent arenas c_kv 256 and k_rope 32 a
                token, read through the streamed read and the GN softmax
                kernel, both latents normed by the GN norm kernel) at full
-               width and depth, random weights, phase 4's workload: the
+               width cut to MLA_LAYERS of its 62 layers (since phase 23 joined
+               the script: the time limit), random weights, phase 4's
+               workload: the
                continuous path over the fp and the int8 latent pool (each
                with launches exact, captures within the grid, a timed
                rerun, and a rerun in which every captured graph's first
@@ -260,8 +270,11 @@ Phases, each fatal on failure (exit code 1):
                ``launch.train --smoke --seq 4096`` as a subprocess; (d) at 2
                layers f32 card = CPU: prefill logits (GN and exact) and the
                flash kernel's straight-through gradients.
- 22. cross   - whisper-large-v3 and llama-3.2-vision-11b at full width and
-               depth (random weights, VLM gates XATTN_GATE), phase 4's
+ 22. cross   - whisper-large-v3 and llama-3.2-vision-11b at full width cut
+               to half depth (XATTN_DEPTH: whisper 16 + 16 of 32 + 32 layers,
+               the VLM 20 of 40 in 4 blocks; since phase 23 joined the
+               script: the time limit; random weights, VLM gates
+               XATTN_GATE), phase 4's
                workload, each request with seeded frames or patches: the
                paged fp pool with phase 17's lean checks (launches exact,
                the encoder's an admission counted in; every captured
@@ -273,6 +286,31 @@ Phases, each fatal on failure (exit code 1):
                VLM at one block over XATTN_SMALL_PATCHES patches) engine =
                static oracle = CPU over the paged and the slab pool
                (gated).
+ 23. ssm     - xlstm-350m (24 mLSTM layers, d_model 1024, 4 heads of 512:
+               C (8, 4, 512, 512) f32 a layer) and zamba2-7b (81 Mamba2
+               layers in 9 groups, each behind one weight-shared attention +
+               MLP block; d_model 3584, 32 heads of 112) at full width and
+               depth, bf16, random weights from a seed (``layerwise_master``),
+               phase 4's workload over the slab pool (they do not page):
+               phase 17's lean checks (launches exact, a tick's as
+               ``recurrent_want``; every tick a replay; a timed rerun; a
+               rerun in which each captured graph's first tick runs graphed
+               and eager, bitwise, and ticks FAMILY_START.. are traced: busy
+               share, busy time by kind), ``hbm_bytes()`` (the carries, and
+               zamba2's shared K/V a group); the static path (``generate``
+               8 x 1024 + 32 and ``perplexity``, launches exact: the one-pass
+               softmax in prefill and decode, the flash kernel in the
+               forward), and the engine over the static path's prompts, each
+               request's common prefix with ``generate``'s (reported: the
+               static prefill of 1024 takes the chunked forms); at f32 on 2
+               layers (zamba2 at full width in 2 groups of 2) engine = static
+               oracle = CPU (gated) and snapshots at model ticks
+               SNAP_EXTRAS_TICKS drained bitwise; training at 4 x 1024 in 2
+               microbatches (xlstm full depth, zamba2 cut to one group of 9
+               layers: AdamW's f32 state of 6.75e9 parameters does not fit;
+               launches exact, losses finite, the trained forward causal),
+               and ``launch.train --arch xlstm-350m --smoke`` as a
+               subprocess.
 Phases 4-10 and 15-18 serve with the GN sentinels on, the engine's default:
 a tick launches one more norm, the head's σ probe.
 Each path's launch counters are set to 0 just before it runs and read just
@@ -332,6 +370,7 @@ from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, generate,  
                                       perplexity, static_decoder, static_reference)
 from repro_torch.serve.faults import FaultInjector  # noqa: E402
 from repro_torch.serve.sampling import counter_bits, sample  # noqa: E402
+from repro_torch.serve.scheduler import Request  # noqa: E402
 from repro_torch.serve.workload import (required_max_seq, seeded_requests,  # noqa: E402
                                         shared_prefix_requests, sla_requests)
 from repro_torch.train.loop import make_train_step  # noqa: E402
@@ -383,12 +422,13 @@ PREFIX_TIGHT = 5
 # watermark, in blocks (two arenas of backlog)
 SLA = {"n_requests": 48, "base_len": 256, "max_new_interactive": 16, "max_new_batch": 128}
 SLA_BLOCKS, SLA_SHED = 160, 320
-# phases 17-18: the MLA family at full depth and the MoE family cut to
-# MOE_LAYERS layers (memory: ~2.08e9 parameters a layer, f32 masters and
-# their bf16 copy resident at once); the 2-layer f32 identity runs on the
-# card and the CPU serve FAMILY_SMALL = (requests, shortest and longest
-# prompt, new tokens)
+# phases 17-18: the MLA family cut to MLA_LAYERS of 62 layers (the script's
+# time limit, since phase 23) and the MoE family cut to MOE_LAYERS layers
+# (memory: ~2.08e9 parameters a layer, f32 masters and their bf16 copy
+# resident at once); the 2-layer f32 identity runs on the card and the CPU
+# serve FAMILY_SMALL = (requests, shortest and longest prompt, new tokens)
 MLA_ARCH, MOE_ARCH, MOE_LAYERS = "minicpm3-4b", "llama4-scout-17b-a16e", 4
+MLA_LAYERS = 31
 FAMILY_SMALL = (4, 32, 64, 8)
 # the deep MLA tick's lean checks: a window of FAMILY_WINDOW ticks from
 # FAMILY_START on (timed, traced; the sentinels' cost), past the last
@@ -424,8 +464,9 @@ LONG_EXACT = ((2, 4096), (1, 8192))
 MLA_LONG, MLA_FLASH = (2, 4096), (1, 40, 4096, 96, 64)
 TRAIN_LONG = (2, 4096, 2, 3)
 LONG_SMALL = 4096
-# phase 22: whisper-large-v3 and llama-3.2-vision-11b at full width and
-# depth, phase 4's workload (each request with seeded frames or patches);
+# phase 22: whisper-large-v3 and llama-3.2-vision-11b at full width cut to
+# half depth (XATTN_DEPTH; the script's time limit, since phase 23), phase
+# 4's workload (each request with seeded frames or patches);
 # whisper's encoder shape in phase 2 (B, H, Hkv, S, S, D), non-causal; the
 # 2-layer f32 gates' workload XATTN_SMALL (requests, shortest and longest
 # prompt, new tokens), the VLM cut to one block over XATTN_SMALL_PATCHES
@@ -433,6 +474,25 @@ LONG_SMALL = 4096
 XATTN_ARCHS = ("whisper-large-v3", "llama-3.2-vision-11b")
 WHISPER_ENCODER = (8, 20, 20, 1500, 1500, 64)
 XATTN_SMALL, XATTN_SMALL_PATCHES, XATTN_GATE = (4, 24, 56, 6), 64, 0.5
+XATTN_DEPTH = {"whisper-large-v3": {"n_layers": 16, "encoder_layers": 16},
+               "llama-3.2-vision-11b": {"n_layers": 20}}
+# phase 23: xlstm-350m and zamba2-7b at full width and depth, phase 4's
+# workload over the slab pool; zamba2's shared attention heads, and its
+# forward's flash shape (B, H, Hkv, S, S, D) in phase 2; the 2-layer f32
+# gates' cuts (zamba2 at full width in 2 groups
+# at cadence 2, as reduce_config groups it), their snapshots at model ticks
+# SNAP_EXTRAS_TICKS; training: TRAIN_BATCH x TRAIN_SEQ tokens in TRAIN_MB
+# microbatches, SSM_TRAIN_STEPS steps, zamba2 cut to SSM_TRAIN_GROUPS group
+# (AdamW's f32 state of all 6.75e9 parameters does not fit on one card)
+SSM_ARCHS = ("xlstm-350m", "zamba2-7b")
+ZAMBA2_HEADS = 32
+ZAMBA2_FLASH = (BATCH, ZAMBA2_HEADS, ZAMBA2_HEADS, PROMPT, PROMPT, 112)
+SSM_TRAIN_STEPS, SSM_TRAIN_GROUPS = 3, 1
+# the trained model's causality check: a token changed at CAUSAL_AT of
+# CAUSAL_LEN (2 x 256: the chunked forms) may move no earlier logit past
+# CAUSAL_ATOL (a leak moves them by O(1))
+CAUSAL_LEN, CAUSAL_AT, CAUSAL_ATOL = 512, 300, 1e-3
+SSM_SMALL = {"xlstm-350m": {}, "zamba2-7b": {"n_layers": 4, "attn_every": 2}}
 # the training phases: TRAIN_BATCH sequences of TRAIN_SEQ tokens a step (one
 # batch of batch_at, repeated), TRAIN_MB microbatches, TRAIN_STEPS steps;
 # the Table I analogue trains TABLE1_STEPS steps
@@ -717,12 +777,14 @@ def norm_tol(dtype) -> tuple[float, float]:
     return (NORM_ATOL_F32, 0.0) if dtype == torch.float32 else (1e-6, BF16_REL)
 
 
-def norm_case(rows: int, dtype, gen, cols: int = 2048, subtract_mean: bool = False) -> dict:
+def norm_case(rows: int, dtype, gen, cols: int = 2048, subtract_mean: bool = False,
+              with_gamma: bool = True) -> dict:
     """The norm in RMS mode, or in LayerNorm mode with a beta, against its
     plain version; library: ``F.rms_norm`` or ``F.layer_norm`` (exact, not
-    GN) with gamma and beta in x's dtype."""
+    GN) with gamma and beta in x's dtype.  ``with_gamma=False``: no gamma
+    (the mLSTM's normalizer)."""
     x = torch.randn(rows, cols, generator=gen, device=DEV).to(dtype)
-    gamma = 1.0 + 0.1 * torch.randn(cols, generator=gen, device=DEV)
+    gamma = 1.0 + 0.1 * torch.randn(cols, generator=gen, device=DEV) if with_gamma else None
     beta = 0.1 * torch.randn(cols, generator=gen, device=DEV) if subtract_mean else None
     kw = {"subtract_mean": subtract_mean}
     check = compare(norm_ops.gn_layernorm(x, gamma, beta, **kw),
@@ -730,15 +792,16 @@ def norm_case(rows: int, dtype, gen, cols: int = 2048, subtract_mean: bool = Fal
     check["ok"] = check["bad_rows"] == 0
     # x read and y written once, gamma (and beta) read once; f32 arithmetic
     # on the CUDA cores: 5 operations an element (RMS), 8 with the mean
-    nbytes = 2 * x.numel() * x.element_size() + cols * 4 * (1 + subtract_mean)
+    nbytes = 2 * x.numel() * x.element_size() + cols * 4 * (with_gamma + subtract_mean)
     b_ms, b_by = bound(nbytes, (8 if subtract_mean else 5) * x.numel(), torch.float32)
-    lib_w, lib_b = gamma.to(dtype), None if beta is None else beta.to(dtype)
+    lib_w = None if gamma is None else gamma.to(dtype)
+    lib_b = None if beta is None else beta.to(dtype)
     library = (functools.partial(F.layer_norm, x, (cols,), lib_w, lib_b) if subtract_mean
                else functools.partial(F.rms_norm, x, (cols,), lib_w))
     return {
         "name": "gn_rmsnorm", "mode": "layernorm" if subtract_mean else "rms",
         "layout": norm_ops.layout(x), "shape": [rows, cols], "dtype": str(dtype).split(".")[-1],
-        **check, "bound_ms": b_ms, "bound_by": b_by,
+        "gamma": with_gamma, **check, "bound_ms": b_ms, "bound_by": b_by,
         "library": "F.layer_norm" if subtract_mean else "F.rms_norm",
         **timings(lambda: norm_ops.gn_layernorm(x, gamma, beta, **kw),
                   lambda: norm_ref.gn_layernorm_ref(x, gamma, beta, **kw), library, 100),
@@ -796,6 +859,13 @@ def norm_cases(gen) -> tuple[list[dict], list[dict]]:
     # at its (4096), a tick's rows
     norms += [norm_case(rows[0], torch.bfloat16, gen, cols=1280, subtract_mean=True),
               norm_case(rows[0], torch.bfloat16, gen, cols=4096)]
+    # phase 23, a tick's rows: xlstm-350m's LayerNorm at its d_model (1024)
+    # and its mixer's RMS normalizer without gamma (2048); zamba2-7b's RMS
+    # at its d_model (3584) and its mixer's gated RMS norm (7168, gamma)
+    norms += [norm_case(rows[0], torch.bfloat16, gen, cols=1024, subtract_mean=True),
+              norm_case(rows[0], torch.bfloat16, gen, cols=2048, with_gamma=False),
+              norm_case(rows[0], torch.bfloat16, gen, cols=3584),
+              norm_case(rows[0], torch.bfloat16, gen, cols=7168)]
     return norms, fused
 
 
@@ -1126,6 +1196,17 @@ def softmax_cases(gen) -> list[dict]:
         x, _ = softmax_rows(SLOTS * heads * CHUNK, cols, torch.float32, gen)
         out.append(softmax_case(label, x, None, iters=20))
     del x
+    # phase 23: zamba2-7b's shared attention on the slab tick (SLOTS * 32
+    # heads * CHUNK rows over its slab of PROMPT + NEW slots, lane i of a
+    # slot at position p seeing [0, p + i]) and in a static decode step
+    # (BATCH * 32 rows over PROMPT + NEW columns, the tail past pos masked)
+    x, masked = softmax_rows(SLOTS * ZAMBA2_HEADS * CHUNK, PROMPT + NEW, torch.float32, gen,
+                             visible=lambda r: PROMPT - CHUNK + r % CHUNK)
+    out.append(softmax_case("zamba2-slab-tick", x, masked, iters=20))
+    x, masked = softmax_rows(BATCH * ZAMBA2_HEADS, PROMPT + NEW, torch.float32, gen,
+                             visible=lambda r: torch.full_like(r, PROMPT + NEW // 2))
+    out.append(softmax_case("zamba2-decode", x, masked, iters=50))
+    del x, masked
     for frac_bits, delta_scale in ((0, 1.0), (3, 1.0), (4, 0.5)):
         x, masked = softmax_rows(4096, 200, torch.float32, gen, visible=lambda r: r % 200,
                                  scale=8.0)
@@ -1338,7 +1419,9 @@ def attention_cases(gen) -> list[dict]:
     causal) in bf16 and f32, a non-causal case, a KV-prefix case (Sk > Sq,
     the causal offset), a ragged S, the long prefills' shapes, and phases
     21-22's: whisper's encoder (non-causal, ragged 1500 frames) and MLA's
-    padded head dim past 2048 tokens."""
+    padded head dim past 2048 tokens; phase 23's: zamba2-7b's shared
+    attention in its forward (head dim 112, inside the kernel's 128
+    instantiation: the ragged D edge masked)."""
     fwd = (BATCH, 16, 8, PROMPT + NEW, PROMPT + NEW, 128)
     return [fa_case("forward", fwd, torch.bfloat16, True, gen, iters=10),
             fa_case("forward", fwd, torch.float32, True, gen, iters=5),
@@ -1347,7 +1430,8 @@ def attention_cases(gen) -> list[dict]:
             fa_case("ragged", (2, 16, 8, 333, 333, 128), torch.float32, True, gen)] + [
                 fa_long_case(b, s, gen) for b, s in LONG_BATCHES] + window_cases(gen) + [
                 fa_case("whisper-encoder", WHISPER_ENCODER, torch.bfloat16, False, gen, iters=5),
-                fa_mla_case(gen)]
+                fa_mla_case(gen),
+                fa_case("zamba2-forward", ZAMBA2_FLASH, torch.bfloat16, True, gen, iters=5)]
 
 
 def window_cases(gen) -> list[dict]:
@@ -1848,8 +1932,10 @@ def want_for(engine, ticks: int, passes=(), admitted: int | None = None) -> dict
     plus the static passes of its int8 -> fp fallbacks (``passes``, from
     ``fallback_passes``; ``static_want``, each a prefill that encodes), plus
     the encoder of each of ``admitted`` admissions (default: every one in
-    the event log)."""
+    the event log).  An SSM or hybrid model's slab ticks: ``recurrent_want``."""
     cfg = engine.model.cfg
+    if cfg.family in ("ssm", "hybrid"):
+        return recurrent_want(cfg, ticks)
     want = continuous_want(cfg.n_layers, ticks, engine.kv_dtype == "int8",
                            engine.read_path, engine.sentinels, mla=cfg.mla is not None,
                            moe=cfg.moe is not None, cross=cross_blocks(cfg))
@@ -3107,13 +3193,32 @@ def phase_sla() -> dict:
 
 
 # ------------------------------------------------------------ phases 17-18 --
+def recurrent_want(cfg, passes: int, flash: bool = False) -> dict:
+    """The launches of ``passes`` passes of an SSM or hybrid model (a slab
+    tick, a static prefill or decode step, or a forward with ``flash``):
+    ln1 and the mixer's own norm a layer, the hybrid's shared block's two
+    norms a group, the head's (2L + 2G + 1, L + 2G - 1 fused: every ln1,
+    every shared block's norm but the first one's ln1), and the shared
+    attention a group through the softmax (the flash kernel with
+    ``flash``); G = 0 for the SSM family."""
+    L = cfg.n_layers
+    G = L // cfg.attn_every if cfg.family == "hybrid" else 0
+    return {"gn_rmsnorm": (2 * L + 2 * G + 1) * passes,
+            "gn_rmsnorm_fused": (L + 2 * G - 1) * passes, "gn_paged_attention": 0,
+            "gn_paged_attention_int8": 0, "gn_softmax": G * passes * (not flash),
+            "gn_attention": G * passes * flash}
+
+
 def static_want(cfg, passes: int, flash: bool = False) -> dict:
     """The launches of ``passes`` static passes (a prefill or a decode step
     each; a forward with ``flash``): 2L + 1 norms (MLA: 2L more, its
     latents), 2L - 1 of them fused; a softmax a layer for the one-pass
     attention (the flash kernel instead with ``flash``; neither for the
     exact softmax), one more a layer for the MoE router, and a fused norm
-    and a softmax a cross-attention block (``cross_blocks``)."""
+    and a softmax a cross-attention block (``cross_blocks``); an SSM or
+    hybrid model's as ``recurrent_want``."""
+    if cfg.family in ("ssm", "hybrid"):
+        return recurrent_want(cfg, passes, flash)
     L, mla, moe = cfg.n_layers, cfg.mla is not None, cfg.moe is not None
     gn, cross = cfg.softmax_impl == "gn", cross_blocks(cfg)
     return {"gn_rmsnorm": (2 * L + 1 + 2 * L * mla + cross) * passes,
@@ -3156,7 +3261,8 @@ def family_static(label: str, model, params) -> dict:
            "steady_tokens_per_s": BATCH * NEW / (steady_ms / 1e3), "perplexity": ppl,
            "perplexity_ms": ppl_ms, "launches": launches, "perplexity_launches": ppl_launches}
     print(f"[{label}-static] {json.dumps(res)}")
-    return {**res, "launches": {k: launches[k] + ppl_launches[k] for k in launches}}
+    return {**res, "launches": {k: launches[k] + ppl_launches[k] for k in launches},
+            "outputs": out}
 
 
 def small_identity(label: str, arch: str) -> dict:
@@ -3386,8 +3492,9 @@ def family_replays(label: str, engine, reqs, first: dict, launches: dict) -> dic
 
 
 def phase_mla(served: dict) -> dict:
-    """minicpm3-4b at full width and depth (module docstring, phase 17)."""
-    model = make_model(get_config(MLA_ARCH))
+    """minicpm3-4b at full width cut to MLA_LAYERS layers (module
+    docstring, phase 17)."""
+    model = make_model(dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS))
     master = model.init(SEED, DEV)
     reqs = seeded_requests(model.cfg.vocab, REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW, 1, SEED)
     res, total = {}, dict.fromkeys(counters.WRAPPERS, 0)
@@ -3719,7 +3826,8 @@ def slab_small(label: str, arch: str, spec: tuple, over: dict) -> dict:
     the CPU's, and for a dense model the oracle and the paged engine; a MoE
     model's oracle routes a chunk's lanes in other groups (the reference's
     documented exception), so its identity is reported."""
-    small = make_model(dataclasses.replace(get_config(arch), n_layers=2, dtype="float32", **over))
+    small = make_model(dataclasses.replace(get_config(arch),
+                                           **{"n_layers": 2, "dtype": "float32", **over}))
     master = small.init(SEED, DEV)
     n, lo, hi, new = spec
     reqs = seeded_requests(small.cfg.vocab, n, lo, hi, new, 1, SEED)
@@ -3750,8 +3858,8 @@ def slab_small(label: str, arch: str, spec: tuple, over: dict) -> dict:
            "wrapping": sum(r.prompt_len + new > (small.cfg.sliding_window or 1 << 30)
                            for r in reqs)}
     print(f"[{label}-2l-f32] {json.dumps(res)}")
-    if same(cpu_toks) != n or (small.cfg.moe is None and (same(oracle) != n
-                                                          or same(paged) != n)):
+    if same(cpu_toks) != n or (small.cfg.moe is None and (
+            same(oracle) != n or (paged is not None and same(paged) != n))):
         fail(f"{label}: at 2 layers f32 the slab engine's tokens part: {res}")
     return res
 
@@ -4277,9 +4385,10 @@ def xattn_small(label: str, arch: str) -> dict:
 
 
 def xattn_family(label: str, arch: str) -> dict:
-    """Phase 22 for one family at full width and depth (module docstring)."""
+    """Phase 22 for one family at full width cut to XATTN_DEPTH (module
+    docstring)."""
     t0, stages = time.perf_counter(), {}
-    model = make_model(get_config(arch))
+    model = make_model(dataclasses.replace(get_config(arch), **XATTN_DEPTH[arch]))
     master = layerwise_master(model, SEED)
     if "xattn_layers" in master:
         master["xattn_layers"]["gate"].fill_(XATTN_GATE)
@@ -4343,6 +4452,177 @@ def phase_cross() -> dict:
     return {**out, "launches": add_launches(*(v["launches"] for v in out.values()))}
 
 
+# ----------------------------------------------------------------- phase 23 --
+def ssm_oracle(engine, static_out) -> dict:
+    """The continuous engine (reset, its graphs kept) over the static path's
+    BATCH prompts of PROMPT tokens, NEW new tokens each: each request's
+    share of new tokens in common with ``generate``'s (reported, not gated:
+    the static prefill of 1024 = 4 x 256 tokens takes the chunked forms and
+    the grouped conv, the tick the per-token recurrence and the shift-add
+    conv)."""
+    prompts = static_out[:, :PROMPT].cpu().numpy()
+    reqs = [Request(tokens=prompts[i], max_new_tokens=NEW, id=i) for i in range(len(prompts))]
+    engine.reset()
+    comps, ms = timed(lambda: engine.run(reqs))
+    ref = {i: row for i, row in enumerate(static_out[:, PROMPT:].cpu().numpy())}
+    share = common_prefix({c.request_id: c.new_tokens for c in comps}, ref)
+    return {"requests": len(reqs), "prompt": PROMPT, "common_prefix": share,
+            "mean_common_prefix": float(np.mean(share)), "seconds": ms / 1e3}
+
+
+def ssm_train(label: str, arch: str) -> dict:
+    """AdamW steps of TRAIN_BATCH x TRAIN_SEQ tokens (1024 = 4 x 256: the
+    chunked forms and the grouped conv) in TRAIN_MB microbatches, bf16 over
+    f32 masters; zamba2 cut to SSM_TRAIN_GROUPS group of attn_every layers
+    (its optimizer state at full depth would not fit).  Gated: launches
+    exact (``recurrent_want`` a forward with the flash kernel, and the flash
+    backward's softmax a group), no plain version on the card, every loss
+    and grad_norm finite.  Reported: losses, ms a step, tokens/s, peak
+    memory."""
+    cfg = get_config(arch)
+    if cfg.family == "hybrid":
+        cfg = dataclasses.replace(cfg, n_layers=cfg.attn_every * SSM_TRAIN_GROUPS)
+    model = make_model(cfg)
+    opt = OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=SSM_TRAIN_STEPS + 2)
+    torch.cuda.reset_peak_memory_stats()
+    params = model.init(SEED, DEV)
+    state = init_opt_state(opt, params)
+    batch = train_batch(cfg.vocab)
+    step = make_train_step(model, opt, TRAIN_MB)
+    losses, norms, step_ms = [], [], []
+    torch.cuda.synchronize()
+    counters.reset()
+    for _ in range(SSM_TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        norms.append(float(m["grad_norm"]))
+    launches, plain = counters.launch_counts(), counters.plain_cuda_calls()
+    passes = TRAIN_MB * SSM_TRAIN_STEPS
+    want = recurrent_want(cfg, passes, flash=True)
+    want["gn_softmax"] += want["gn_attention"]  # the flash backward's recompute
+    if launches != want or any(plain.values()):
+        fail(f"{label}-train: launches {launches} != {want}, plain {plain}")
+    if not all(math.isfinite(x) for x in losses + norms):
+        fail(f"{label}-train: nonfinite loss or grad_norm: {losses}, {norms}")
+    # causality of the trained model's forward over CAUSAL_LEN tokens (the
+    # chunked forms, the grouped conv, the flash kernel): a token changed at
+    # CAUSAL_AT leaves every earlier position's logits as they were
+    with torch.no_grad():
+        fwd = model.prepare(params, DEV)
+        toks = torch.as_tensor(batch["tokens"][:1, :CAUSAL_LEN]).to(DEV)
+        a = model.forward(fwd, {"tokens": toks}).float()
+        toks[:, CAUSAL_AT] = (toks[:, CAUSAL_AT] + 1) % cfg.vocab
+        b = model.forward(fwd, {"tokens": toks}).float()
+        causal = {"before": (a[:, :CAUSAL_AT] - b[:, :CAUSAL_AT]).abs().max().item(),
+                  "at": (a[:, CAUSAL_AT] - b[:, CAUSAL_AT]).abs().max().item()}
+        del fwd, a, b
+    if not causal["before"] <= CAUSAL_ATOL:
+        fail(f"{label}-train: a token at {CAUSAL_AT} moved earlier logits: {causal}")
+    steady = step_ms[1:]
+    res = {"layers": cfg.n_layers, "params": sum(t.numel() for t in tree_leaves(params)),
+           "batch": [TRAIN_BATCH, TRAIN_SEQ], "microbatches": TRAIN_MB, "losses": losses,
+           "grad_norms": norms, "first_step_ms": step_ms[0], "step_ms": steady,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / (float(np.mean(steady)) / 1e3),
+           "peak_memory_bytes": torch.cuda.max_memory_allocated(), "causal_logit_diff": causal,
+           "launches": launches}
+    print(f"[{label}-train] {json.dumps(res)}")
+    del params, state
+    return res
+
+
+def ssm_snapshot(label: str, arch: str, root: Path) -> dict:
+    """Phase 20 (a) for the family: at 2 layers f32 (zamba2 in 2 groups at
+    cadence 2), snapshots of the carries (and the shared K/V) at model
+    ticks SNAP_EXTRAS_TICKS, each restored into one engine whose graphs a
+    run captured and drained bitwise the writer."""
+    small = make_model(dataclasses.replace(
+        get_config(arch), **{"n_layers": 2, "dtype": "float32", **SSM_SMALL[arch]}))
+    n, lo, hi, new = SNAP_SMALL
+    reqs = seeded_requests(small.cfg.vocab, n, lo, hi, new, 1, SEED)
+    return snapshot_sweep(label, small, small.init(SEED, DEV), reqs, root, at=SNAP_EXTRAS_TICKS)
+
+
+def ssm_family(label: str, arch: str, root: Path) -> dict:
+    """Phase 23 for one family at full width and depth (module docstring)."""
+    t0, stages = time.perf_counter(), {}
+    model = make_model(get_config(arch))
+    master = layerwise_master(model, SEED)
+    reqs = seeded_requests(model.cfg.vocab, REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW, 1, SEED)
+    # max_seq also covers the static path's prompts, which ssm_oracle serves
+    engine = ContinuousEngine(model, master, num_slots=SLOTS, chunk=CHUNK, device=DEV,
+                              max_seq=max(required_max_seq(reqs), PROMPT + NEW))
+    del master
+    if engine.paged or engine.read_path != "slab" or engine.sentinels:
+        fail(f"{label}: the engine reads {engine.read_path!r} (paged {engine.paged})")
+    stages["weights"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    first, launches, seconds = first_run(label, engine, reqs)
+    stats = serve_stats(engine, seconds)
+    stages["first_run"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    replays = family_replays(label, engine, reqs, first, launches)
+    carries = set(model.carry_leaves)
+    res = {**stats, **replays, "launches": launches, "hbm_bytes": engine.pool.hbm_bytes(),
+           "carry_bytes": sum(t.numel() * t.element_size()
+                              for k, t in engine.pool.cache.items() if k in carries)}
+    stages["replays"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    static = family_static(label, model, engine.params)
+    res["static"] = {k: static[k] for k in ("steady_tokens_per_s", "steady_generate_ms",
+                                            "generate_ms", "perplexity", "perplexity_ms")}
+    model.__dict__.pop("_static_decoders", None)
+    stages["static"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["oracle"] = ssm_oracle(engine, static.pop("outputs"))
+    del engine
+    release()
+    stages["oracle"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res["small_f32"] = slab_small(label, arch, FAMILY_SMALL, SSM_SMALL[arch])
+    release()
+    res["snapshot"] = ssm_snapshot(label, arch, root)
+    release()
+    stages["small_f32"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = ssm_train(label, arch)
+    res["train"] = {k: v for k, v in train.items() if k != "launches"}
+    release()
+    stages["train"] = time.perf_counter() - t0
+    res["stage_seconds"] = stages
+    print(f"[{label}] {json.dumps(res)}")
+    return {**res, "launches": add_launches(launches, static["launches"], train["launches"])}
+
+
+def phase_ssm() -> dict:
+    """Phase 23 (module docstring)."""
+    out = {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_ssm_"))
+    try:
+        for label, arch in zip(("xlstm", "zamba2"), SSM_ARCHS):
+            out[label] = ssm_family(label, arch, root)
+            release()
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        env.pop("REPRO_FAIL_AT_STEP", None)
+        t0 = time.perf_counter()
+        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
+                              SSM_ARCHS[0], "--smoke", "--steps", "3", "--outdir",
+                              str(root / "train")], env=env, cwd=ROOT, timeout=300,
+                             capture_output=True, text=True)
+        out["train_launcher"] = {"rc": run.returncode, "seconds": time.perf_counter() - t0,
+                                 "last_line": (run.stdout.strip().splitlines() or [""])[-1]}
+        print(f"[ssm-train-launcher] {json.dumps(out['train_launcher'])}")
+        if run.returncode:
+            fail(f"ssm: launch.train --arch {SSM_ARCHS[0]} exited {run.returncode}:\n"
+                 f"{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {**out, "launches": {"ssm": out["xlstm"]["launches"],
+                                "hybrid": out["zamba2"]["launches"]}}
+
+
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "gn_rmsnorm": ("src/repro_torch/csrc/gn_layernorm.cu",
                    "src/repro/kernels/gn_layernorm/kernel.py:81"),
@@ -4403,6 +4683,7 @@ def main() -> int:
     snap = phase("snapshot", phase_snapshot, served)
     long_chunked = phase("long-chunked", phase_long_chunked)
     cross = phase("cross", phase_cross)
+    ssm = phase("ssm", phase_ssm)
     by_path = {"continuous": served["launches"], "static": static["launches"],
                "int8": int8["launches"], "long_static": long_static["launches"],
                "long_continuous": long_cont["launches"], "reads": reads["launches"],
@@ -4410,7 +4691,8 @@ def main() -> int:
                "table1": table1["launches"], "tables": tables["launches"],
                "prefix": prefix["launches"], "sla": sla["launches"], "mla": mla["launches"],
                "moe": moe["launches"], "slab": slab["launches"], "snapshot": snap["launches"],
-               "long_chunked": long_chunked["launches"], "cross": cross["launches"]}
+               "long_chunked": long_chunked["launches"], "cross": cross["launches"],
+               **ssm["launches"]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         # the main path's shape: bf16 tick (fp or int8 KV; the norms' 128

@@ -1,8 +1,8 @@
 """Config dataclasses, copied field for field from ``repro/configs/base.py``.
 
-The port runs the dense family (with MLA or a top-k MoE MLP), the
-encoder-decoder and the VLM families; the SSM dataclass is kept so a config
-and its reduced form carry exactly the reference's fields.
+The port runs every family the reference runs: dense (with MLA or a top-k
+MoE MLP), the SSM (mLSTM) and hybrid (Mamba2 + a shared attention block)
+families, the encoder-decoder and the VLM families.
 """
 from __future__ import annotations
 
@@ -34,6 +34,8 @@ class SSMConfig:
     head_dim: int = 64
     expand: int = 2
     conv_dim: int = 4
+    # the chunked forms' block length (training and static prefills whose
+    # length it divides); 0: the per-token recurrence everywhere
     chunk: int = 256
 
 

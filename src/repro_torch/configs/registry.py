@@ -1,6 +1,8 @@
 """Architecture registry of the port: the configs it can serve (dense, the
 MLA latent-attention one, the top-k MoE ones, mixtral's with a sliding
-window, the encoder-decoder whisper and the cross-attending VLM).
+window, the mLSTM one, the Mamba2 hybrid with its shared attention block,
+the encoder-decoder whisper and the cross-attending VLM): all twelve of the
+reference's.
 
 Each entry is copied from ``repro/configs/registry.py``; ``reduce_config``
 is the reference's systematic shrink for CPU tests, copied as it is.
@@ -82,6 +84,24 @@ MIXTRAL_8X22B = register(ModelConfig(
     n_layers=56, d_model=6144, n_heads=48, n_kv_heads=8, d_ff=16384,
     vocab=32768, norm_impl="gn_rms", sliding_window=4096,
     moe=MoEConfig(num_experts=8, top_k=2),
+))
+
+XLSTM_350M = register(ModelConfig(
+    name="xlstm-350m", family="ssm",
+    microbatches=8,
+    n_layers=24, d_model=1024, n_heads=4, n_kv_heads=4, d_ff=0,
+    vocab=50304, norm_impl="gn_ln",
+    ssm=SSMConfig(kind="mlstm", expand=2, conv_dim=4),
+    head_dim=256,
+))
+
+ZAMBA2_7B = register(ModelConfig(
+    name="zamba2-7b", family="hybrid",
+    microbatches=16,
+    n_layers=81, d_model=3584, n_heads=32, n_kv_heads=32, d_ff=14336,
+    vocab=32000, norm_impl="gn_rms",
+    ssm=SSMConfig(kind="mamba2", state_dim=64, head_dim=64, expand=2, conv_dim=4),
+    attn_every=9,  # 81 = 9 groups x 9 layers; a shared attention block a group
 ))
 
 LLAMA32_VISION_11B = register(ModelConfig(

@@ -5,7 +5,11 @@ its leaves as numpy arrays (``jax.tree.map(np.asarray, params)`` on the JAX
 side; this module imports no JAX) and returns the port's parameter tree:
 the same nested keys (``embed/tok``, stacked ``layers/{ln1,ln2}/gamma``,
 ``layers/mixer/{wq,wk,wv,wo}``, ``layers/mlp/{wi,wg,wo}``,
-``final_norm/gamma``, ``lm_head/w``) as f32 tensors.  Random init cannot
+``final_norm/gamma``, ``lm_head/w``; the mLSTM mixer's
+``layers/mixer/{w_up,conv_w,wq,wk,wv,w_gate,b_gate,w_down}``, the Mamba2
+mixer's ``layers/mixer/{in_proj,conv_w,a_log,d_skip,dt_bias,norm,out_proj}``
+and the hybrid's unstacked ``shared_attn/{ln1,attn,ln2,mlp}``) as f32
+tensors.  Random init cannot
 match across ``jax.random`` and ``torch``, so this is how the two packages
 share weights.
 """

@@ -14,7 +14,8 @@ keys), and serves.  Runs on CUDA unless
     sequence, then the overall tok/s;
   * ``--continuous``: a seeded numpy workload through ``ContinuousEngine``
     (block-paged, GN sentinels on unless ``--no-sentinels``; a sliding
-    window, mixtral's, serves on the slab pool, which has no sentinels),
+    window, mixtral's, and the SSM and hybrid families, xlstm-350m's and
+    zamba2-7b's carries, serve on the slab pool, which has no sentinels),
     one line per request and
     the per-tick phases and times, the sentinels' counters, then at
     temperature 0 the greedy outputs held against ``static_reference`` on
@@ -34,6 +35,8 @@ Usage:
   python -m repro_torch.launch.serve --arch internlm2-1.8b --continuous [--temperature 0.7]
   python -m repro_torch.launch.serve --arch mixtral-8x22b --continuous
   python -m repro_torch.launch.serve --arch whisper-large-v3 --continuous
+  python -m repro_torch.launch.serve --arch xlstm-350m --continuous
+  python -m repro_torch.launch.serve --arch zamba2-7b --batches 1 --batch-size 8
   python -m repro_torch.launch.serve --smoke --device cpu [--continuous]
   python -m repro_torch.launch.serve --smoke --device cpu --ckpt runs/default/ckpt
 """

@@ -1,5 +1,6 @@
-"""Training entry point of the port: fault-tolerant AdamW training of a dense
-GN (or exact) model (port of ``repro/launch/train.py``).
+"""Training entry point of the port: fault-tolerant AdamW training of any
+registered GN (or exact) model, the SSM and hybrid families among them (port
+of ``repro/launch/train.py``).
 
   * checkpoints every ``--checkpoint-every`` steps and at the end
     (``checkpoint/store.py``, atomic, the reference's format), and resumes
@@ -23,6 +24,8 @@ there (``kernels/gn_attention/ops.py``), the exact softmax streams.
 
 Usage:
   python -m repro_torch.launch.train --arch internlm2-1.8b --smoke --steps 20 --device cpu
+  python -m repro_torch.launch.train --arch xlstm-350m --smoke --steps 20
+  python -m repro_torch.launch.train --arch zamba2-7b --smoke --steps 20 --device cpu
 """
 from __future__ import annotations
 

@@ -5,7 +5,8 @@ with the reference's tree and shapes, so ``convert.py`` can load a JAX
 ``model.init(...)`` pytree as it is.  The GN norms go through the
 ``kernels.gn_layernorm`` wrappers: the CUDA kernel for CUDA tensors, the
 plain ``core`` function on the CPU; a norm that follows a residual add
-takes the wrappers' fused add + norm (``apply_add_norm``).
+takes the wrappers' fused add + norm (``apply_add_norm``), and the SSM
+mixers' own gated RMS norms take ``gn_rmsnorm``.
 """
 from __future__ import annotations
 
@@ -79,6 +80,13 @@ def apply_add_norm(cfg: ModelConfig, p: dict, x: torch.Tensor,
         return fused(x, r, p["gamma"], p.get("beta"))
     s = x + r
     return s, get_norm(cfg.norm_impl)(s, p["gamma"], p.get("beta"))
+
+
+def gn_rmsnorm(x: torch.Tensor, gamma: torch.Tensor | None = None) -> torch.Tensor:
+    """The reference's ``core.gn_rmsnorm`` inside a mixer (the mLSTM's
+    normalizer without gamma, Mamba2's gated norm with its f32 ``norm``):
+    the GN norm kernel on a CUDA tensor, its plain version on the CPU."""
+    return norm_ops.gn_rmsnorm(x, gamma)
 
 
 # -------------------------------------------------------------------- MLP ---

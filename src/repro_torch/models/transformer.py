@@ -1,5 +1,5 @@
-"""The model (port of the dense, MLA, MoE, encoder-decoder and VLM paths of
-``repro/models/transformer.py``).
+"""The model (port of ``repro/models/transformer.py``): every family the
+reference builds.
 
 ``Model(cfg)`` serves the dense family, its MLA mixer (``cfg.mla``,
 minicpm3-4b: ``models/mla.py``) and its top-k MoE MLP (``cfg.moe``,
@@ -7,10 +7,15 @@ llama4-scout and mixtral: ``models/moe.py``), with full attention or a
 sliding window (``cfg.sliding_window``, mixtral); the encoder-decoder family
 (``encdec``, whisper: a non-causal encoder over frame embeddings plus
 ``pos``, and a decoder whose layers cross-attend its output after their
-self-attention, ``ln_x`` / ``xattn``); and the VLM family (``vlm``,
+self-attention, ``ln_x`` / ``xattn``); the VLM family (``vlm``,
 llama-3.2-vision: before every ``cross_attn_every`` decoder layers a
 tanh-gated cross-attention block over ``patches @ vis_proj``, recomputed at
-every use as the reference does).  SSM and hybrid are refused.  It exposes:
+every use as the reference does); the SSM family (``ssm``, xlstm: mLSTM
+blocks, ``models/ssm.py``, ``ln1`` and the mixer with no MLP); and the
+hybrid family (``hybrid``, zamba2: Mamba2 blocks, with ONE weight-shared
+attention + MLP block, ``shared_attn``, before each group of ``attn_every``
+layers, its KV cache a group).  An SSM or hybrid config without an
+``SSMConfig``, or with a MoE MLP or MLA, is refused.  It exposes:
   * ``param_specs()`` / ``init(seed, device)`` — the reference's parameter
     tree (stacked ``layers``), f32 masters, drawn from a ``torch.Generator``;
   * ``prepare(params, device)``                 — the tree the forward runs on:
@@ -26,22 +31,25 @@ every use as the reference does).  SSM and hybrid are refused.  It exposes:
     the reference's MoE terms;
   * ``cache_specs`` / ``init_cache`` / ``prefill`` / ``decode_step`` — the
     static path over a slab cache per layer leaf (k and v (L, B, max_seq,
-    KV, dh), or MLA's latents c_kv and k_rope (L, B, max_seq, width)),
-    written in place, its score rows through the GN softmax kernel (a
-    sliding window keeps a ring of min(max_seq, window) slots); the
-    decode step takes its position as a device tensor too, so one CUDA
-    graph serves every step;
+    KV, dh), or MLA's latents c_kv and k_rope (L, B, max_seq, width), or
+    the SSM carries (L, B, ...), the hybrid's shared k and v (G, B, max_seq,
+    KV, dh) a group), written in place, its score rows through the GN
+    softmax kernel (a sliding window keeps a ring of min(max_seq, window)
+    slots); the decode step takes its position as a device tensor too, so
+    one CUDA graph serves every step;
   * ``supports_paging`` / ``fresh_request_cache`` / ``insert_cache_slot`` /
     ``extract_cache_slot`` / ``prefill_chunk`` / ``fused_step_slots`` /
     ``decode_step_slots`` — the slab serving tick of the reference over a
     slot cache of ``init_cache(num_slots, max_seq)``, every slot at its own
     position, written in place by one layer loop (the reference vmaps its
     single-sequence step over the slots; a slot's MoE lanes route as a
-    group of their own, as under that vmap);
+    group of their own, as under that vmap; a slot's SSM carries freeze
+    past its n_valid, and n_valid = 0 parks it);
   * ``init_paged_cache`` / ``fused_step_slots_paged`` / ``_paged_head`` —
     the block-paged serving tick over fp arenas, or int8 arenas with
     per-block f32 scales, its read named by ``paged_read_path``, and with
-    ``sentinel`` the GN sentinels' per-layer and head probes.
+    ``sentinel`` the GN sentinels' per-layer and head probes.  The SSM and
+    hybrid families do not page (their carries are O(1) a slot).
 
 A request's side inputs live beside the KV as the cache's *extra* leaves
 (``extra_leaves``, each with its slot axis): encdec's cross k and v
@@ -50,16 +58,19 @@ output once) and the VLM's ``patches`` (B, P, D).  The static and slab
 caches carry them in the same dict; the paged arenas do not (they have no
 slot axis), so the paged tick takes them as ``extras`` (the pool's
 slot-batched leaves, written at admission by ``insert_cache_slot_extras``).
-The reference names them ``cross/{k,v}`` and ``patches`` in its cache tree.
+The reference names them ``cross/{k,v}`` and ``patches`` in its cache tree;
+it names the SSM carries ``layers/0..3`` (mLSTM: conv, C, n, m) or
+``layers/0..1`` (Mamba2: conv, h) and the hybrid's ``shared/{k,v}``.
 
 Each layer runs norm -> mixer -> norm -> MLP (or MoE), with encdec's
-norm -> cross-attention between; the head runs one more norm and the LM
-projection.  Every norm that follows a residual add
-(ln2, and ln1 of every layer but the first) takes the add with it in one
-fused launch (``apply_add_norm``): a layer's MLP output is carried into the
-next layer's ln1, and the last one is added before the head.  Projections
-stay ``torch.matmul``, as the reference leaves them to XLA outside any
-Pallas kernel.
+norm -> cross-attention between; an SSM or hybrid layer runs norm -> mixer
+only, the hybrid's shared block norm -> attention -> norm -> MLP; the head
+runs one more norm and the LM projection.  Every norm that follows a
+residual add (ln2, and ln1 of every layer but the first) takes the add with
+it in one fused launch (``apply_add_norm``): a layer's MLP (or SSM mixer)
+output is carried into the next norm, and the last one is added before the
+head.  Projections stay ``torch.matmul``, as the reference leaves them to
+XLA outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -70,6 +81,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     ParamSpec,
     apply_add_norm,
@@ -85,10 +97,15 @@ from repro_torch.models.layers import (
 
 # leaves the forward multiplies in the activation dtype (the reference casts
 # each at its use: attention, MLA's latent projections, the MoE router and
-# experts); norms, MLA's latent gammas and the embedding table stay f32
-# (rows are gathered first, then cast)
+# experts, the SSM mixers' projections, conv taps and gate bias; the mLSTM's
+# wq/wk/wv are its block-diagonal (H, dh, dh) maps, cast alike); norms,
+# MLA's latent gammas, Mamba2's a_log, dt_bias, d_skip and norm, and the
+# embedding table stay f32 (rows are gathered first, then cast)
 _MATMUL_LEAVES = {"wq", "wk", "wv", "wo", "wi", "wg", "w",
-                  "wq_a", "wq_b", "wkv_a", "wkv_b", "router", "vis_proj"}
+                  "wq_a", "wq_b", "wkv_a", "wkv_b", "router", "vis_proj",
+                  "w_up", "w_down", "w_gate", "b_gate", "conv_w", "in_proj", "out_proj"}
+# the hybrid's shared-attention KV leaves (G, B, max_seq, KV, dh), a group each
+_SHARED_KV = {"shared_k": "k", "shared_v": "v"}
 
 
 def _tree_map(fn, tree, key=None):
@@ -116,11 +133,18 @@ def _split_layers(stacked: dict) -> list:
 
 class Model:
     def __init__(self, cfg: ModelConfig):
-        if (cfg.family not in ("dense", "moe", "encdec", "vlm")
+        if (cfg.family not in ("dense", "moe", "encdec", "vlm", "ssm", "hybrid")
                 or (cfg.family == "moe") != (cfg.moe is not None)):
             raise NotImplementedError(
                 f"{cfg.name}: only the dense family (with MLA or a top-k MoE MLP), the "
-                f"encoder-decoder and the VLM families are ported (family {cfg.family!r})")
+                f"encoder-decoder, VLM, SSM and hybrid families are ported (family "
+                f"{cfg.family!r}, moe {cfg.moe is not None})")
+        if cfg.family in ("ssm", "hybrid") and (cfg.ssm is None or cfg.mla is not None):
+            raise NotImplementedError(f"{cfg.name}: the {cfg.family} family needs an SSMConfig "
+                                      "and takes no MLA (no such config in the reference)")
+        if cfg.family == "hybrid" and (cfg.attn_every < 1 or cfg.n_layers % cfg.attn_every):
+            raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not group by "
+                             f"attn_every={cfg.attn_every}")
         if cfg.sliding_window and cfg.mla is not None:
             raise NotImplementedError(f"{cfg.name}: MLA with a sliding window has no "
                                       "counterpart in the reference")
@@ -129,6 +153,32 @@ class Model:
             raise ValueError(f"{cfg.name}: {cfg.n_layers} layers do not group by "
                              f"cross_attn_every={cfg.cross_attn_every}")
         self.cfg = cfg
+
+    @property
+    def _recurrent(self) -> bool:
+        return self.cfg.family in ("ssm", "hybrid")
+
+    @property
+    def _ssm_block(self):
+        """The mixer of an SSM or hybrid layer: the mLSTM for an ssm config
+        of kind "mlstm", else Mamba2 (the hybrid's always)."""
+        if self.cfg.family == "ssm" and self.cfg.ssm.kind == "mlstm":
+            return ssm_mod.mlstm_block
+        return ssm_mod.mamba2_block
+
+    def _carry_specs(self, batch: int) -> dict:
+        """One layer's carries, name -> (shape, dtype), in the reference's
+        cache-tuple order."""
+        if self._ssm_block is ssm_mod.mlstm_block:
+            return ssm_mod.mlstm_cache_shape(self.cfg, batch)
+        return ssm_mod.mamba2_cache_shape(self.cfg, batch)
+
+    @property
+    def carry_leaves(self) -> tuple:
+        """The cache leaves a step updates from their own values (the SSM
+        carries), which a warm-up before a graph capture must leave as it
+        found them; empty for the KV families, whose steps write slots."""
+        return tuple(self._carry_specs(1)) if self._recurrent else ()
 
     @property
     def extra_leaves(self) -> dict:
@@ -146,9 +196,14 @@ class Model:
 
     def param_specs(self) -> dict:
         cfg = self.cfg
-        mixer = mla_mod.mla_specs(cfg) if cfg.mla is not None else attn.attn_specs(cfg)
-        block = {"ln1": norm_specs(cfg), "mixer": mixer, "ln2": norm_specs(cfg),
-                 "mlp": moe_mod.moe_specs(cfg) if cfg.moe is not None else mlp_specs(cfg)}
+        if self._recurrent:  # no separate MLP (d_ff folded in), as the reference
+            mixer = (ssm_mod.mlstm_specs(cfg) if self._ssm_block is ssm_mod.mlstm_block
+                     else ssm_mod.mamba2_specs(cfg))
+            block = {"ln1": norm_specs(cfg), "mixer": mixer}
+        else:
+            mixer = mla_mod.mla_specs(cfg) if cfg.mla is not None else attn.attn_specs(cfg)
+            block = {"ln1": norm_specs(cfg), "mixer": mixer, "ln2": norm_specs(cfg),
+                     "mlp": moe_mod.moe_specs(cfg) if cfg.moe is not None else mlp_specs(cfg)}
         specs = {"embed": embed_specs(cfg)}
         if cfg.family == "encdec":
             block.update(ln_x=norm_specs(cfg), xattn=attn.cross_attn_specs(cfg))
@@ -159,6 +214,8 @@ class Model:
             }
         specs.update(layers=stack_specs(block, cfg.n_layers), final_norm=norm_specs(cfg),
                      lm_head=lm_head_specs(cfg))
+        if cfg.family == "hybrid":
+            specs["shared_attn"] = self._attn_block_specs()  # ONE shared block
         if cfg.family == "vlm":
             xblock = {"ln": norm_specs(cfg), "xattn": attn.cross_attn_specs(cfg),
                       "gate": ParamSpec((1,), init="zeros"),
@@ -228,12 +285,15 @@ class Model:
         return x, torch.tanh(xp["gate"].to(dt)) * y
 
     def _decoder(self, params, x, mixer, cross=None, patches=None, aux=None,
-                 group_tokens: int = 0):
+                 group_tokens: int = 0, shared=None):
         """The decoder stack over the embedded x; returns the residual stream
         before the head.  ``mixer(i, lp, h)`` is layer i's self-attention
-        output; encdec's ``cross(i, lp, hx)`` its cross-attention of
-        ln_x(x); the VLM's ``patches`` the memory of the blocks before every
-        ``cross_attn_every`` layers.  ``aux`` and ``group_tokens`` as in
+        (or SSM mixer) output; encdec's ``cross(i, lp, hx)`` its
+        cross-attention of ln_x(x); the VLM's ``patches`` the memory of the
+        blocks before every ``cross_attn_every`` layers; the hybrid's
+        ``shared(g, p, h)`` (read by the hybrid only) the shared block's
+        attention output before group g.  A layer without an MLP (SSM, hybrid) carries its mixer output
+        into the next norm.  ``aux`` and ``group_tokens`` as in
         ``_mlp_residual``."""
         cfg = self.cfg
         pending = None
@@ -241,13 +301,31 @@ class Model:
             if cfg.family == "vlm" and i % cfg.cross_attn_every == 0:
                 x, pending = self._xattn_block(
                     params["xattn_layers"][i // cfg.cross_attn_every], x, pending, patches)
+            if cfg.family == "hybrid" and i % cfg.attn_every == 0:
+                sp = params["shared_attn"]
+                x, h = self._ln1(sp, x, pending)
+                x, pending = self._mlp_residual(sp, x, shared(i // cfg.attn_every,
+                                                              sp["attn"], h))
             x, h = self._ln1(lp, x, pending)
             y = mixer(i, lp, h)
             if cross is not None:
                 x, hx = apply_add_norm(cfg, lp["ln_x"], x, y)
                 y = cross(i, lp, hx)
-            x, pending = self._mlp_residual(lp, x, y, aux, group_tokens)
+            if "mlp" in lp:
+                x, pending = self._mlp_residual(lp, x, y, aux, group_tokens)
+            else:
+                pending = y
         return x + pending
+
+    def _carried(self, p: dict, layer: dict, h, n_valid=None):
+        """The SSM mixer ``p`` of a layer over its carries ``layer`` (views
+        into a slab cache), the new carries written back in place (one
+        graph keeps reading the same buffers): the mixer's output."""
+        names = self.carry_leaves
+        y, carry = self._ssm_block(self.cfg, p, h, tuple(layer[n] for n in names), n_valid)
+        for name, new in zip(names, carry):
+            layer[name].copy_(new)
+        return y
 
     def _encode(self, params, frames):
         """The whisper encoder over frame embeddings (B, M, D): ``pos``
@@ -287,14 +365,21 @@ class Model:
         x = self._embed(params, tokens)
         positions = torch.arange(tokens.shape[1], device=x.device).expand(tokens.shape)
         memory = self._memory(params, batch)
-        mixer_fn = mla_mod.mla_self_attention if cfg.mla is not None else attn.self_attention
+        if self._recurrent:
+            def mixer(i, lp, h):
+                return self._ssm_block(cfg, lp["mixer"], h)[0]
+        else:
+            attend = mla_mod.mla_self_attention if cfg.mla is not None else attn.self_attention
+
+            def mixer(i, lp, h):
+                return attend(cfg, lp["mixer"], h, positions)
         cross = None
         if cfg.family == "encdec":
             def cross(i, lp, hx):
                 return attn.cross_attention(cfg, lp["xattn"], hx, memory)
         auxs = []
-        x = self._decoder(params, x, lambda i, lp, h: mixer_fn(cfg, lp["mixer"], h, positions),
-                          cross, memory if cfg.family == "vlm" else None, auxs)
+        x = self._decoder(params, x, mixer, cross, memory if cfg.family == "vlm" else None,
+                          auxs, shared=lambda g, p, h: attn.self_attention(cfg, p, h, positions))
         logits = self._lm_head(params, x)
         if not aux:
             return logits
@@ -324,13 +409,22 @@ class Model:
     def cache_specs(self, batch: int, max_seq: int) -> dict:
         """The static path's slab cache, name -> (shape, dtype):
         (L, B, max_seq, KV, dh) per k and v, or for MLA (L, B, max_seq,
-        width) per latent c_kv and k_rope; then the extra leaves
+        width) per latent c_kv and k_rope, or the SSM carries (L, B, ...)
+        (mLSTM conv, C, n, m; Mamba2 conv, h) and the hybrid's shared
+        k and v (G, B, max_seq, KV, dh), a group each; then the extra leaves
         (``extra_specs``)."""
-        if self.cfg.mla is not None:
-            per_layer = mla_mod.mla_cache_shape(self.cfg, batch, max_seq)
+        cfg = self.cfg
+        if self._recurrent:
+            per_layer = self._carry_specs(batch)
+        elif cfg.mla is not None:
+            per_layer = mla_mod.mla_cache_shape(cfg, batch, max_seq)
         else:
-            per_layer = attn.attn_cache_shape(self.cfg, batch, max_seq)
-        specs = {k: ((self.cfg.n_layers, *shape), dt) for k, (shape, dt) in per_layer.items()}
+            per_layer = attn.attn_cache_shape(cfg, batch, max_seq)
+        specs = {k: ((cfg.n_layers, *shape), dt) for k, (shape, dt) in per_layer.items()}
+        if cfg.family == "hybrid":
+            groups = cfg.n_layers // cfg.attn_every
+            kv = attn.attn_cache_shape(cfg, batch, max_seq)
+            specs.update({name: ((groups, *kv[k][0]), kv[k][1]) for name, k in _SHARED_KV.items()})
         return {**specs, **self.extra_specs(batch)}
 
     def extra_specs(self, batch: int) -> dict:
@@ -352,8 +446,15 @@ class Model:
                 for k, (shape, dt) in self.cache_specs(batch, max_seq).items()}
 
     def _per_layer(self, cache: dict, i: int) -> dict:
-        """Layer i's view of a slab cache's KV leaves (extras left out)."""
-        return {name: leaf[i] for name, leaf in cache.items() if name not in self.extra_leaves}
+        """Layer i's view of a slab cache's KV leaves or carries (extras and
+        the hybrid's shared KV, which is indexed by group, left out)."""
+        return {name: leaf[i] for name, leaf in cache.items()
+                if name not in self.extra_leaves and name not in _SHARED_KV}
+
+    @staticmethod
+    def _shared_kv(cache: dict, g: int) -> dict:
+        """Group g's view of the hybrid's shared k and v slabs."""
+        return {k: cache[name][g] for name, k in _SHARED_KV.items()}
 
     def _cross_fn(self, cache: dict):
         """encdec's cross-attention over the cached cross k and v of
@@ -426,16 +527,30 @@ class Model:
         prefill = mla_mod.mla_prefill if cfg.mla is not None else attn.attn_prefill
         win = cfg.sliding_window or 0
 
-        def mixer(i, lp, h):
-            y, kv = prefill(cfg, lp["mixer"], h, positions)
+        def write_kv(layer: dict, kv: dict) -> None:
             for name, new in kv.items():
                 if win and s > win:  # the ring: position p in slot p % window
-                    cache[name][i].copy_(torch.roll(new, s % win, dims=1))
+                    layer[name].copy_(torch.roll(new, s % win, dims=1))
                 else:
-                    cache[name][i, :, :s] = new
+                    layer[name][:, :s] = new
+
+        def mixer(i, lp, h):
+            if self._recurrent:  # the monolithic serving call: exact
+                y, carry = self._ssm_block(cfg, lp["mixer"], h, exact=True)
+                for name, new in zip(self.carry_leaves, carry):
+                    cache[name][i].copy_(new)
+                return y
+            y, kv = prefill(cfg, lp["mixer"], h, positions)
+            write_kv(self._per_layer(cache, i), kv)
             return y
 
-        x = self._decoder(params, x, mixer, self._cross_fn(cache), cache.get("patches"))
+        def shared(g, p, h):
+            y, kv = attn.attn_prefill(cfg, p, h, positions)
+            write_kv(self._shared_kv(cache, g), kv)
+            return y
+
+        x = self._decoder(params, x, mixer, self._cross_fn(cache), cache.get("patches"),
+                          shared=shared)
         return self._lm_head(params, x), cache
 
     def decode_step(self, params, cache, token, pos):
@@ -449,10 +564,16 @@ class Model:
         if not isinstance(pos, torch.Tensor):
             pos = torch.full((), pos, dtype=torch.int32, device=x.device)
         step = mla_mod.mla_decode_step if cfg.mla is not None else attn.attn_decode_step
+
+        def mixer(i, lp, h):
+            if self._recurrent:
+                return self._carried(lp["mixer"], self._per_layer(cache, i), h)
+            return step(cfg, lp["mixer"], self._per_layer(cache, i), h, pos)[0]
+
         x = self._decoder(
-            params, x, lambda i, lp, h: step(cfg, lp["mixer"], self._per_layer(cache, i), h,
-                                             pos)[0],
-            self._cross_fn(cache), cache.get("patches"))
+            params, x, mixer, self._cross_fn(cache), cache.get("patches"),
+            shared=lambda g, p, h: attn.attn_decode_step(cfg, p, self._shared_kv(cache, g), h,
+                                                         pos)[0])
         return self._lm_head(params, x), cache
 
     # ----------------------------------------------------------- slab tick --
@@ -460,14 +581,20 @@ class Model:
     def supports_paging(self) -> bool:
         """Whether the KV pages into blocks (the reference's rule): the full
         attention KV and MLA's latents do; a sliding window keeps its ring
-        in the slab pool."""
-        return self.cfg.sliding_window == 0
+        in the slab pool, and the SSM and hybrid carries are O(1) state a
+        slot (the hybrid's shared KV rides beside them in the slab)."""
+        return self.cfg.sliding_window == 0 and not self._recurrent
 
     def fresh_request_cache(self, max_seq: int, device=None) -> dict:
-        """A batch-1 cache in its state before a prompt (zeros), which
-        admission pages into a slab slot (with the request's extra leaves
-        put over the zero ones)."""
-        return self.init_cache(1, max_seq, device)
+        """A batch-1 cache in its state before a prompt, which admission
+        pages into a slab slot (with the request's extra leaves put over the
+        zero ones): zeros, but for the mLSTM stabilizer m at -1e30 (the
+        reference's carry=None start; a zero m would corrupt the first
+        chunk's gating)."""
+        cache = self.init_cache(1, max_seq, device)
+        if "m" in self.carry_leaves:
+            cache["m"].fill_(-1e30)
+        return cache
 
     def insert_cache_slot(self, pool_cache: dict, request_cache: dict, slot: int) -> dict:
         """Copy a batch-1 cache into row ``slot`` of every leaf of a slot
@@ -491,16 +618,22 @@ class Model:
         stream (N, C, D) before the head."""
         cfg = self.cfg
 
+        def attend(p, layer, h):
+            if decode:
+                return attn.attn_slab_decode(cfg, p, layer, h, positions, n_valid > 0)
+            return attn.attn_slab_chunk(cfg, p, layer, h, positions, n_valid)
+
         def mixer(i, lp, h):
             layer = self._per_layer(cache, i)
+            if self._recurrent:  # a decode lane is n_valid 1 (live) or 0 (parked)
+                return self._carried(lp["mixer"], layer, h, n_valid)
             if cfg.mla is not None:
                 return mla_mod.mla_slab_chunk(cfg, lp["mixer"], layer, h, positions, n_valid)
-            if decode:
-                return attn.attn_slab_decode(cfg, lp["mixer"], layer, h, positions, n_valid > 0)
-            return attn.attn_slab_chunk(cfg, lp["mixer"], layer, h, positions, n_valid)
+            return attend(lp["mixer"], layer, h)
 
         return self._decoder(params, self._embed(params, tokens), mixer, self._cross_fn(cache),
-                             cache.get("patches"), group_tokens=group_tokens)
+                             cache.get("patches"), group_tokens=group_tokens,
+                             shared=lambda g, p, h: attend(p, self._shared_kv(cache, g), h))
 
     def prefill_chunk(self, params, cache, tokens, pos, n_valid, last_only: bool = False):
         """The reference's masked, position-offset multi-token step: tokens
@@ -569,8 +702,8 @@ class Model:
         leaf, zeroed: the per-block dequant scales (the reference's
         ``<leaf>_scale`` leaves), block axis at 1 like the arenas."""
         if not self.supports_paging:
-            raise ValueError(f"{self.cfg.name} (sliding_window={self.cfg.sliding_window}) "
-                             "has no pageable KV")
+            raise ValueError(f"{self.cfg.name} (family {self.cfg.family!r}, sliding_window="
+                             f"{self.cfg.sliding_window}) has no pageable KV")
         if kv_dtype not in ("fp", "int8"):
             raise ValueError(f"kv_dtype must be 'fp' or 'int8', got {kv_dtype!r}")
         cfg, rows = self.cfg, self._arena_rows

@@ -87,10 +87,15 @@ bucket's table also when the tick first reads it after that); a fused tick
 also uploads its staged chunk.
 
 The slab pool (``paged=False``, and the automatic choice for a model
-whose KV does not page: a sliding window): ``SlotKVPool`` holds one slab
-(or ring) a slot; admission copies a fresh batch-1 cache into the slot,
-spill copies the slot out (``extract``) and a spill resume copies it back
-(``insert``).  Its ticks are the model's ``fused_step_slots`` and
+whose KV does not page: a sliding window, and the SSM and hybrid families):
+``SlotKVPool`` holds one slab (or ring, or a layer's carries) a slot;
+admission copies a fresh batch-1 cache into the slot (the mLSTM's
+stabilizer at -1e30: ``model.fresh_request_cache``), spill copies the slot
+out (``extract``) and a spill resume copies it back (``insert``); a
+recompute resume re-prefills from a fresh cache.  A parked slot's carries
+stay as they are (the reference ticks a free slot with token 0 at position
+0, so its free slots' carries drift; admission overwrites a slot whole, so
+neither is ever read).  Its ticks are the model's ``fused_step_slots`` and
 ``decode_step_slots``; on the card each step kind is one graph, keyed
 (kind,).  As in the reference, the slab pool is fp-only, has no sentinels
 (its default is off, ``sentinels=True`` is refused) and no prefix cache, and
@@ -114,7 +119,9 @@ projected; the VLM's patches are cast): into the slab slot with the fresh
 cache, or into the paged pool's slot-batched ``extras``, which every tick
 reads.  A recompute or spill resume writes them again.  The static path
 stacks them into its batch, and snapshots carry them as the reference's
-(``req/<id>/extras/<key>``, the cache's ``cross``/``patches`` leaves).  The
+(``req/<id>/extras/<key>``, the cache's ``cross``/``patches`` leaves; the
+SSM carries as ``layers/0..3`` or ``layers/0..1``, the hybrid's shared K/V
+as ``shared/{k,v}``, as the reference's cache tuples).  The
 prefix cache keys on tokens alone, as the reference's: two requests with
 one prompt and other frames would share decoder blocks that depend on the
 frames.
@@ -172,13 +179,18 @@ def _side_inputs(batch: dict) -> dict:
     return {k: v for k, v in batch.items() if k != "tokens"}
 
 
-# the cache's extra leaves under the reference's cache-tree names
-_EXTRA_PATHS = {"cross_k": "cross/k", "cross_v": "cross/v", "patches": "patches"}
+# the cache's leaves that the reference's cache tree names otherwise than
+# layers/<name>: the extra leaves, the SSM carries (its cache tuples, indexed:
+# mLSTM conv, C, n, m; Mamba2 conv, h) and the hybrid's shared KV
+_TREE_PATHS = {"cross_k": "cross/k", "cross_v": "cross/v", "patches": "patches",
+               "conv": "layers/0", "C": "layers/1", "n": "layers/2", "m": "layers/3",
+               "h": "layers/1", "shared_k": "shared/k", "shared_v": "shared/v"}
 
 
 def _cache_tree_of(leaves: dict) -> dict:
-    """Flat cache leaves (KV, then extras) as the reference's cache tree:
-    {"layers": {...}, "cross": {"k", "v"}} or {"layers", "patches"}."""
+    """Flat cache leaves (KV or carries, then extras) as the reference's
+    cache tree: {"layers": {...}, "cross": {"k", "v"}}, {"layers",
+    "patches"} or the hybrid's {"layers": {"0", "1"}, "shared": {"k", "v"}}."""
     tree: dict = {}
     for name, leaf in leaves.items():
         *outer, last = _leaf_path(name).split("/")
@@ -191,7 +203,7 @@ def _cache_tree_of(leaves: dict) -> dict:
 
 def _leaf_path(name: str) -> str:
     """A flat cache leaf's path in the reference's cache tree."""
-    return _EXTRA_PATHS.get(name, f"layers/{name}")
+    return _TREE_PATHS.get(name, f"layers/{name}")
 
 
 class _StaticDecode:
@@ -218,8 +230,15 @@ class _StaticDecode:
         if self.graphs is None:
             return self._step()
         # the warm-up is the step itself: it writes slot pos with the values
-        # the replay then writes again
-        return self.graphs.run(("decode",), self._step, self._step)
+        # the replay then writes again, and puts the carries an SSM step
+        # advances back as it found them
+        return self.graphs.run(("decode",), self._step, self._warmup)
+
+    def _warmup(self) -> None:
+        kept = {k: self.cache[k].clone() for k in self.model.carry_leaves}
+        self._step()
+        for k, v in kept.items():
+            self.cache[k].copy_(v)
 
 
 def static_decoder(model: Model, params, batch: int, max_seq: int,

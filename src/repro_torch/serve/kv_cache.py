@@ -10,7 +10,10 @@ written in place (admission pages a fresh batch-1 cache into a slot with
 positions and a FIFO free list of slots, restored to slot order by
 ``reset``.  Stale slab contents are never read: admission overwrites the
 whole slot first.  It is the pool of the families whose KV does not page
-(sliding windows) and the slab baseline of ``hbm_bytes``.
+(sliding windows; the SSM and hybrid families, whose leaves are the
+per-layer carries, inserted, extracted on a spill and counted by
+``hbm_bytes`` like any leaf, and the hybrid's shared K/V a group) and the
+slab baseline of ``hbm_bytes``.
 
 The block-paged pool:
 
@@ -91,7 +94,8 @@ class SlotKVPool:
         self._used: set[int] = set()
 
     def hbm_bytes(self) -> int:
-        """Resident device bytes of the slab cache."""
+        """Resident device bytes of the slab cache (KV slabs or carries, and
+        the extra leaves)."""
         return sum(t.numel() * t.element_size() for t in self.cache.values())
 
     @property

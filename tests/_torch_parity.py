@@ -45,6 +45,8 @@ COMPLETION_KEYS = ("request_id", "finish_reason", "arrival_step", "admit_step",
 FAMILIES = {"dense": ARCH, "mla": "minicpm3-4b", "moe": "llama4-scout-17b-a16e"}
 # the cross-attending families (tests/test_torch_xattn.py)
 XFAMILIES = {"encdec": "whisper-large-v3", "vlm": "llama-3.2-vision-11b"}
+# the sequence-state families, slab only (tests/test_torch_ssm_serve.py)
+SFAMILIES = {"ssm": "xlstm-350m", "hybrid": "zamba2-7b"}
 VLM_GATE = 0.5
 
 

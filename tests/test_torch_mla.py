@@ -17,10 +17,11 @@ v 16), the JAX weights through ``convert.py``, the same numpy inputs.
     ``static_reference`` tokens identical, ``perplexity`` within 1e-6
     relative;
   * ``make_model`` accepts minicpm3-4b and llama4-scout-17b-a16e (full and
-    reduced); SSM and hybrid stay refused (encdec and VLM build without a
-    MoE MLP, sliding windows build, and an MLA prompt past 2048 tokens is
-    served); ``prepare`` casts MLA's projections and keeps its latent
-    gammas f32.
+    reduced); a MoE MLP under the SSM, hybrid, encdec and VLM families stays
+    refused (the registry's xlstm-350m and zamba2-7b build, as do encdec and
+    VLM without a MoE MLP; sliding windows build, and an MLA prompt past
+    2048 tokens is served); ``prepare`` casts MLA's projections and keeps
+    its latent gammas f32.
 """
 import dataclasses
 import functools
@@ -251,6 +252,18 @@ def test_other_families_stay_refused(over):
         with pytest.raises(NotImplementedError, match="only the dense"):
             Model(cfg)
         Model(dataclasses.replace(cfg, moe=None, cross_attn_every=8))
+        return
+    if over.get("family") in ("ssm", "hybrid"):
+        # ported: the SSM and hybrid families (tests/test_torch_ssm*.py); a
+        # MoE config relabelled ssm/hybrid (a MoE MLP, no SSMConfig) has no
+        # counterpart in the registry
+        with pytest.raises(NotImplementedError, match="only the dense"):
+            Model(cfg)
+        with pytest.raises(NotImplementedError, match="needs an SSMConfig"):
+            Model(dataclasses.replace(cfg, moe=None))
+        arch = "xlstm-350m" if over["family"] == "ssm" else "zamba2-7b"
+        model = Model(get_config(arch))
+        assert model.cfg.family == over["family"] and not model.supports_paging
         return
     with pytest.raises(NotImplementedError, match="only the dense"):
         Model(cfg)
