@@ -62,7 +62,15 @@ Phases, each fatal on failure (exit code 1):
                8 slots x 32 heads x 16 lanes over 1056 slab slots) and its
                decode rows (``zamba2-decode``), and the norm at xlstm's 1024
                (LayerNorm) and its mixer's 2048 (RMS, no gamma), zamba2's
-               3584 and its mixer's 7168 (RMS);
+               3584 and its mixer's 7168 (RMS); the softmax's fused score
+               entry (``fused-*``, first: the static prefill's is the main
+               path's call) at each call site's shape, bf16 as served and the
+               slab tick at f32, bit for bit the chain it replaces (scale,
+               cast, mask, the softmax kernel, cast), its time beside the
+               chain's five launches and its 4-bytes-an-element bound, and
+               (``site-trace``) the static prefill's ``_sdpa`` traced: one
+               softmax launch with nothing before it but the score
+               product's own kernels;
   3. parity  - full-width internlm2-1.8b cut to 2 layers, kernels on the card
                against plain versions on the CPU, same weights, at float32
                and at bfloat16: one fused paged tick with mixed
@@ -271,9 +279,8 @@ Phases, each fatal on failure (exit code 1):
                layers f32 card = CPU: prefill logits (GN and exact) and the
                flash kernel's straight-through gradients.
  22. cross   - whisper-large-v3 and llama-3.2-vision-11b at full width cut
-               to half depth (XATTN_DEPTH: whisper 16 + 16 of 32 + 32 layers,
-               the VLM 20 of 40 in 4 blocks; since phase 23 joined the
-               script: the time limit; random weights, VLM gates
+               to a quarter depth (XATTN_DEPTH: whisper 8 + 8 of 32 + 32
+               layers, the VLM 10 of 40 in 2 blocks; the time limit; random weights, VLM gates
                XATTN_GATE), phase 4's
                workload, each request with seeded frames or patches: the
                paged fp pool with phase 17's lean checks (launches exact,
@@ -289,8 +296,9 @@ Phases, each fatal on failure (exit code 1):
  23. ssm     - xlstm-350m (24 mLSTM layers, d_model 1024, 4 heads of 512:
                C (8, 4, 512, 512) f32 a layer) and zamba2-7b (81 Mamba2
                layers in 9 groups, each behind one weight-shared attention +
-               MLP block; d_model 3584, 32 heads of 112) at full width and
-               depth, bf16, random weights from a seed (``layerwise_master``),
+               MLP block; d_model 3584, 32 heads of 112) at full width, cut
+               to SSM_DEPTH layers (12 and 45: 5 groups; the time limit),
+               bf16, random weights from a seed (``layerwise_master``),
                phase 4's workload over the slab pool (they do not page):
                phase 17's lean checks (launches exact, a tick's as
                ``recurrent_want``; every tick a replay; a timed rerun; a
@@ -326,6 +334,7 @@ import gc
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -428,7 +437,7 @@ SLA_BLOCKS, SLA_SHED = 160, 320
 # resident at once); the 2-layer f32 identity runs on the card and the CPU
 # serve FAMILY_SMALL = (requests, shortest and longest prompt, new tokens)
 MLA_ARCH, MOE_ARCH, MOE_LAYERS = "minicpm3-4b", "llama4-scout-17b-a16e", 4
-MLA_LAYERS = 31
+MLA_LAYERS = 16
 FAMILY_SMALL = (4, 32, 64, 8)
 # the deep MLA tick's lean checks: a window of FAMILY_WINDOW ticks from
 # FAMILY_START on (timed, traced; the sentinels' cost), past the last
@@ -442,7 +451,7 @@ FAMILY_START, FAMILY_WINDOW, FAMILY_FAULTS, MOE_WINDOW = 40, 4, 3, 16
 # MIXTRAL_REQUESTS prompts of MIXTRAL_PROMPT_MIN..MAX tokens, NEW new tokens
 # each, over SLOTS slots at CHUNK; the static path's MIXTRAL_STATIC
 # (prompts, tokens) past the window; the 2-layer f32 token gate's window
-MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_WINDOW = "mixtral-8x22b", 8, 4096
+MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_WINDOW = "mixtral-8x22b", 4, 4096
 MIXTRAL_REQUESTS, MIXTRAL_PROMPT_MIN, MIXTRAL_PROMPT_MAX = 12, 3584, 6144
 MIXTRAL_STATIC, SMALL_WINDOW = (2, 6144), 64
 # phase 20: snapshots at ticks SNAP_TICKS (early, mid, late) of phase 4's
@@ -465,7 +474,7 @@ MLA_LONG, MLA_FLASH = (2, 4096), (1, 40, 4096, 96, 64)
 TRAIN_LONG = (2, 4096, 2, 3)
 LONG_SMALL = 4096
 # phase 22: whisper-large-v3 and llama-3.2-vision-11b at full width cut to
-# half depth (XATTN_DEPTH; the script's time limit, since phase 23), phase
+# a quarter depth (XATTN_DEPTH; the script's time limit), phase
 # 4's workload (each request with seeded frames or patches);
 # whisper's encoder shape in phase 2 (B, H, Hkv, S, S, D), non-causal; the
 # 2-layer f32 gates' workload XATTN_SMALL (requests, shortest and longest
@@ -474,9 +483,9 @@ LONG_SMALL = 4096
 XATTN_ARCHS = ("whisper-large-v3", "llama-3.2-vision-11b")
 WHISPER_ENCODER = (8, 20, 20, 1500, 1500, 64)
 XATTN_SMALL, XATTN_SMALL_PATCHES, XATTN_GATE = (4, 24, 56, 6), 64, 0.5
-XATTN_DEPTH = {"whisper-large-v3": {"n_layers": 16, "encoder_layers": 16},
-               "llama-3.2-vision-11b": {"n_layers": 20}}
-# phase 23: xlstm-350m and zamba2-7b at full width and depth, phase 4's
+XATTN_DEPTH = {"whisper-large-v3": {"n_layers": 8, "encoder_layers": 8},
+               "llama-3.2-vision-11b": {"n_layers": 10}}
+# phase 23: xlstm-350m and zamba2-7b at full width cut to SSM_DEPTH, phase 4's
 # workload over the slab pool; zamba2's shared attention heads, and its
 # forward's flash shape (B, H, Hkv, S, S, D) in phase 2; the 2-layer f32
 # gates' cuts (zamba2 at full width in 2 groups
@@ -493,6 +502,8 @@ SSM_TRAIN_STEPS, SSM_TRAIN_GROUPS = 3, 1
 # CAUSAL_ATOL (a leak moves them by O(1))
 CAUSAL_LEN, CAUSAL_AT, CAUSAL_ATOL = 512, 300, 1e-3
 SSM_SMALL = {"xlstm-350m": {}, "zamba2-7b": {"n_layers": 4, "attn_every": 2}}
+# the served families' depth (of 24 and 81 layers; zamba2 in whole groups)
+SSM_DEPTH = {"xlstm-350m": 12, "zamba2-7b": 45}
 # the training phases: TRAIN_BATCH sequences of TRAIN_SEQ tokens a step (one
 # batch of batch_at, repeated), TRAIN_MB microbatches, TRAIN_STEPS steps;
 # the Table I analogue trains TABLE1_STEPS steps
@@ -565,8 +576,7 @@ TRACE_ATTEMPTS = 3  # traces of a rerun, taken until one holds the GN kernels' r
 # counting their records in a profiled run, graph replays included
 KERNEL_NAMES = {"gn_paged_attention": ("gn_paged_attention_kernel", "gn_paged_attention_tc_kernel"),
                 "gn_rmsnorm": ("norm_block_kernel", "norm_warp_kernel", "norm_stream_kernel"),
-                "gn_softmax": ("gn_softmax_warp_kernel", "gn_softmax_block_kernel",
-                               "gn_softmax_row_kernel"),
+                "gn_softmax": ("gn_softmax_rows_kernel", "gn_softmax_wide_kernel"),
                 "gn_attention": ("gn_attention_kernel", "gn_attention_tc_kernel")}
 
 
@@ -1109,21 +1119,29 @@ def softmax_rows(rows: int, cols: int, dtype, gen, visible=None, scale: float = 
     return x.to(dtype), masked
 
 
-SOFTMAX_LAYOUTS = {"gn_softmax_warp_kernel": "warp", "gn_softmax_block_kernel": "block",
-                   "gn_softmax_row_kernel": "row"}
+# the softmax kernels' device names: the register layouts (an instance per
+# element type, G threads a row, CPT chunks of 4 columns a thread) and the
+# three-pass wide rows
+SOFTMAX_LAYOUTS = {"gn_softmax_rows_kernel": "rows", "gn_softmax_wide_kernel": "wide"}
+SOFTMAX_INSTANCE = re.compile(r"gn_softmax_rows_kernel<[^,>]+, (\d+), (\d+)>")
 
 
 def softmax_layouts(fn) -> list[str]:
     """The softmax layouts a call of ``fn`` ran, read from the kernel names
-    of its device trace (a warp per row, a block per row, or the three-pass
-    row kernel)."""
+    of its device trace: "rows G=g CPT=c" (g threads a row, c chunks a
+    thread) or "wide" (the three-pass kernel)."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sorted({layout for key in _device_us(prof) for name, layout in SOFTMAX_LAYOUTS.items()
-                   if name in key})
+    out = set()
+    for key in _device_us(prof):
+        for name, layout in SOFTMAX_LAYOUTS.items():
+            if name in key:
+                inst = SOFTMAX_INSTANCE.search(key)
+                out.add(f"{layout} G={inst[1]} CPT={inst[2]}" if inst else layout)
+    return sorted(out)
 
 
 def softmax_case(label: str, x, masked, cfg=None, iters: int = 0) -> dict:
@@ -1150,13 +1168,139 @@ def softmax_case(label: str, x, masked, cfg=None, iters: int = 0) -> dict:
     return res
 
 
+def fused_case(label: str, raw, mask, scale: float, gen_iters: int = 0) -> dict:
+    """The fused entry on a call site's raw scores (one launch of scale,
+    cast, mask, softmax and cast to the scores' dtype) against the chain it
+    replaces over the softmax kernel (bit for bit: the gate) and against
+    the plain chain (the softmax cases' tolerances, masked entries 0, Σp at
+    f32); with ``gen_iters`` its time beside the chain's five launches and
+    its bound: the raw scores read once, the probabilities written once in
+    their dtype and the mask's own bytes (4 bytes an element at bf16)."""
+    dtype = raw.dtype
+
+    def chain():
+        s = (raw * torch.tensor(scale, dtype=dtype)).float()
+        if mask is not None:
+            s = torch.where(mask, s, -1e30)
+        return sm_ops.gn_softmax(s).to(dtype)
+
+    def fused():
+        return sm_ops.gn_softmax_scores(raw, scale, mask, dtype)
+
+    got, want = fused(), chain()
+    plain = sm_ref.gn_softmax_scores_ref(raw, scale, mask, dtype)
+    f32 = dtype == torch.float32
+    check = compare(got, plain, SM_ATOL_F32, 0.0 if f32 else BF16_REL)
+    full = mask.expand(raw.shape) if mask is not None else None
+    masked_max = (got[~full & full.any(-1, keepdim=True)].abs().max().item()
+                  if full is not None and not full.all() else 0.0)
+    sum_err = (got.double().sum(-1) - 1).abs().max().item() if f32 else None
+    bitwise = bool(torch.equal(got, want))
+    check["ok"] = (bitwise and check["bad_rows"] == 0 and masked_max == 0.0
+                   and (sum_err is None or sum_err <= SUM_ATOL))
+    res = {"name": "gn_softmax", "case": label, "entry": "gn_softmax_scores",
+           "shape": list(raw.shape), "mask": None if mask is None else list(mask.shape),
+           "dtype": str(dtype).split(".")[-1], "scale": scale,
+           "layout": list(sm_ops.layout(raw.shape[-1])),
+           "bitwise_chain": bitwise, **check, "sum_err": sum_err, "masked_max": masked_max}
+    del got, want, plain
+    if gen_iters:
+        nbytes = 2 * raw.numel() * raw.element_size() + (0 if mask is None else mask.numel())
+        b_ms, b_by = bound(nbytes, (SM_OPS_PER_ELEM + 2) * raw.numel(), torch.float32)
+        res.update(bound_ms=b_ms, bound_by=b_by, chain_ms=device_ms(chain, gen_iters),
+                   **timings(fused, lambda: sm_ref.gn_softmax_scores_ref(raw, scale, mask, dtype),
+                             None, gen_iters))
+    return res
+
+
+def fused_cases(gen) -> list[dict]:
+    """The fused entry at each call site's shape, bf16 as served: ``_sdpa``'s
+    static prefill (BATCH x 8 kv heads x 2 x PROMPT^2 under the causal
+    (1, 1, 1, S, T) mask) and decode step (a (B, 1, 1, 1, T) mask: the slab
+    decode's), the slab tick and the streamed paged read (SLOTS x 8 x 2 x
+    CHUNK lanes over PROMPT + NEW columns, lane i at PROMPT - CHUNK + i, an
+    (N, 1, 1, C, T) mask), whisper's cross-attention (20 heads over 1500
+    frames, no mask), the VLM's (32 heads over 1601 patches, no mask: rows
+    off the 16-byte grid), MLA's tick (40 heads, (N, 1, C, T)); and the
+    slab tick at f32 (the Σp gate)."""
+    def raw(*shape, scale, dtype=torch.bfloat16):
+        return (torch.randn(*shape, generator=gen, device=DEV) * (3 / scale)).to(dtype)
+
+    cols = PROMPT + NEW
+    lanes = PROMPT - CHUNK + torch.arange(CHUNK, device=DEV)
+    tick = (torch.arange(cols, device=DEV)[None, None, :] <= lanes[None, :, None]).expand(
+        SLOTS, CHUNK, cols).contiguous()
+    decode = (torch.arange(cols, device=DEV) <= PROMPT + NEW // 2)[None].expand(BATCH, cols)
+    sc, mla_sc = 128 ** -0.5, 96 ** -0.5
+    out = [fused_case("fused-prefill", raw(BATCH, 8, 2, PROMPT, PROMPT, scale=sc),
+                      attention_mod.causal_mask(PROMPT, PROMPT, DEV)[:, :, None], sc, 10)]
+    out.append(fused_case("fused-decode", raw(BATCH, 8, 2, 1, cols, scale=sc),
+                          decode.contiguous()[:, None, None, None], sc, 50))
+    for label in ("fused-slab-tick", "fused-paged-read"):
+        out.append(fused_case(label, raw(SLOTS, 8, 2, CHUNK, cols, scale=sc),
+                              tick[:, None, None], sc, 20))
+    out.append(fused_case("fused-xattn-whisper", raw(SLOTS, 20, 1, CHUNK, 1500, scale=64 ** -0.5),
+                          None, 64 ** -0.5, 20))
+    out.append(fused_case("fused-xattn-vlm", raw(SLOTS, 32, 1, CHUNK, 1601, scale=sc),
+                          None, sc, 20))
+    out.append(fused_case("fused-mla-tick", raw(SLOTS, 40, CHUNK, cols, scale=mla_sc),
+                          tick[:, None], mla_sc, 20))
+    out.append(fused_case("fused-slab-tick-f32",
+                          raw(SLOTS, 8, 2, CHUNK, cols, scale=sc, dtype=torch.float32),
+                          tick[:, None, None], sc))
+    out.append(site_trace(gen))
+    return out
+
+
+def device_kernels(fn) -> list[str]:
+    """The device kernels one call of ``fn`` launches, in launch order."""
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.name for e in sorted(prof.events(), key=lambda e: e.time_range.start)
+            if str(e.device_type).endswith("CUDA")]
+
+
+def site_trace(gen) -> dict:
+    """The static prefill's one-pass attention (``attention._sdpa``: 2
+    prompts of PROMPT tokens, internlm2's 16 q over 8 kv heads of 128, bf16,
+    the causal mask) under the profiler: its device kernels in launch order,
+    gated to one GN softmax launch with nothing before it but the kernels of
+    the score product alone (traced apart): no scale, cast, ``where`` or
+    copy kernel between the product and the softmax."""
+    cfg = get_config(ARCH)
+    b, s, dh = 2, PROMPT, cfg.head_dim
+    q, k, v = (torch.randn(b, s, n, dh, generator=gen, device=DEV).bfloat16()
+               for n in (cfg.n_heads, cfg.n_kv_heads, cfg.n_kv_heads))
+    mask = attention_mod.causal_mask(s, s, DEV)
+    qg = q.reshape(b, s, cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, dh)
+
+    def run():
+        return attention_mod._sdpa(cfg, q, k, v, mask)
+
+    run()
+    torch.cuda.synchronize()
+    product = set(device_kernels(lambda: attention_mod._score_product(qg, k)))
+    before = sm_ops.launches
+    kernels = device_kernels(run)
+    sm = [i for i, name in enumerate(kernels) if "gn_softmax_rows_kernel" in name]
+    between = [name[:60] for name in kernels[:sm[0]] if name not in product] if sm else None
+    return {"name": "gn_softmax", "case": "site-trace", "shape": [b, s, cfg.n_heads, dh],
+            "dtype": "bfloat16", "launches": sm_ops.launches - before,
+            "kernels": [name[:60] for name in kernels], "between": between,
+            "ok": len(sm) == 1 and between == [] and sm_ops.launches - before == 1}
+
+
 def softmax_cases(gen) -> list[dict]:
-    """The prefill's causally masked score rows (B·H·S, S) and a decode
-    step's (B·H, max_seq) with the tail past pos masked, both f32 as the
-    model casts its scores, and the long phases' decode rows (4128 and 8224
-    columns); a bf16 case, a ragged case, a vocab-wide row set (the
-    wide-row path) and the reference's three LUT configs."""
-    out = []
+    """The fused entry at every call site (``fused_cases``, the static
+    prefill's first: the main path's call); then the kernel's own rows: the
+    prefill's causally masked score rows (B·H·S, S) and a decode step's
+    (B·H, max_seq) with the tail past pos masked, both f32 as the model
+    cast its scores before the fused entry, and the long phases' decode
+    rows (4128 and 8224 columns); a bf16 case, a ragged case, a vocab-wide
+    row set (the wide-row path) and the reference's three LUT configs."""
+    out = fused_cases(gen)
+    torch.cuda.empty_cache()
     x, masked = softmax_rows(BATCH * 16 * PROMPT, PROMPT, torch.float32, gen,
                              visible=lambda r: r % PROMPT)
     out.append(softmax_case("prefill", x, masked, iters=10))
@@ -1732,7 +1876,7 @@ def static_parity(base, master) -> dict:
         model = make_model(dataclasses.replace(base, dtype=dt))
         cpu, fed = run(model, "cpu")
         gap = gaps(run(model, DEV, fed)[0], cpu)
-        with swapped("gn_softmax", sm_ref.gn_softmax_ref):
+        with swapped("gn_softmax_scores", sm_ref.gn_softmax_scores_ref):
             plain_sm = gaps(run(model, DEV, fed)[0], cpu)
         with swapped("gn_attention", fa_ref.gn_attention_ref):
             plain_fa = gaps(run(model, DEV, fed)[0], cpu)
@@ -4546,9 +4690,10 @@ def ssm_snapshot(label: str, arch: str, root: Path) -> dict:
 
 
 def ssm_family(label: str, arch: str, root: Path) -> dict:
-    """Phase 23 for one family at full width and depth (module docstring)."""
+    """Phase 23 for one family at full width, SSM_DEPTH layers (module
+    docstring)."""
     t0, stages = time.perf_counter(), {}
-    model = make_model(get_config(arch))
+    model = make_model(dataclasses.replace(get_config(arch), n_layers=SSM_DEPTH[arch]))
     master = layerwise_master(model, SEED)
     reqs = seeded_requests(model.cfg.vocab, REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW, 1, SEED)
     # max_seq also covers the static path's prompts, which ssm_oracle serves
@@ -4633,7 +4778,7 @@ SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
                            "src/repro/kernels/gn_paged_attention/kernel.py:160"),
     "gn_paged_attention_int8": ("src/repro_torch/csrc/gn_paged_attention.cu",
                                 "src/repro/kernels/gn_paged_attention/kernel.py:97-104"),
-    "gn_softmax": ("src/repro_torch/csrc/gn_softmax.cu",
+    "gn_softmax": ("src/repro_torch/csrc/gn_softmax.cuh",
                    "src/repro/kernels/gn_softmax/kernel.py:59"),
     "gn_attention": ("src/repro_torch/csrc/gn_attention.cu",
                      "src/repro/kernels/gn_attention/kernel.py:140"),

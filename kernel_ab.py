@@ -9,8 +9,16 @@ JSON line of device ms per call (torch.profiler, the CUDA kernels the calls
 ran):
 - ``gn_attention`` at the perplexity forward's shape (B 8, H 16, Hkv 8,
   S 1056, D 128, causal) in bf16 and in f32, and SDPA on the same inputs;
-- ``gn_softmax`` at a decode step's rows (128, 1056) and at the prefill's
-  rows (131072, 1024) f32, and ``torch.softmax`` on the same inputs;
+- ``gn_softmax`` over f32 rows (``SOFTMAX_ROWS``): a decode step's (128,
+  1056), the prefill's (131072, 1024), the MoE router's (8192, 16), an MLA
+  tick's (5120, 1056), zamba2's slab tick (4096, 1056), whisper's cross
+  rows (2560, 1500), the VLM's cross rows (4096, 1601) and mixtral's slab
+  tick (6144, 4112), and
+  ``torch.softmax`` on the same inputs; each call site's score softmax
+  (``FUSED_SITES``, bf16 raw scores, ``fused_<site>_ms``): one launch of
+  the fused entry where the root's wrapper has ``gn_softmax_scores``, else
+  the chain it replaces (scale, cast, mask, ``gn_softmax``, cast), the
+  device time of every kernel the call ran;
 - ``gn_paged_attention`` at the serving tick's shape (chip_smoke.py's phase
   2 inputs: 8 sequences of up to 1056 tokens, H 16, Hkv 8, D 128, block 16,
   shuffled tables with stale ids past each length, one empty sequence),
@@ -47,6 +55,11 @@ row, forced, at 8..16896 rows of 2048 columns (bf16 RMS and LayerNorm, f32
 RMS) and of 7168 (bf16 RMS), beside a plain copy of the norm's bytes: the
 measurements behind the kernel's layout pick (one JSON line a shape).
 
+    python3 kernel_ab.py --softmax PARENT_ROOT . . PARENT_ROOT
+
+runs only the softmax lines above (rows and call sites), each root in a
+process of its own: one JSON line a root.
+
     python3 kernel_ab.py --ticks ROOT
 
 serves chip_smoke.py's phase-4 workload (full-width internlm2-1.8b, random
@@ -64,6 +77,17 @@ serves the same workload through full-width minicpm3-4b (62 layers, random
 weights from seed 0) over the fp latent pool, each root in a process of its
 own: one JSON line a root, as ``--serve``'s continuous lines.
 
+    python3 kernel_ab.py --serve-arch ARCH[:LAYERS][:slab|:int8][:trace] PARENT_ROOT . . PARENT_ROOT
+
+serves the same workload through ARCH (full width, cut to LAYERS layers
+where given: an encoder-decoder's encoder too; seeded frames or patches for
+the encoder-decoder and VLM families) over its fp paged pool or, with
+``slab``, the slab pool (the only pool of the SSM and windowed families),
+with ``int8`` its int8 paged pool, continuous only: one JSON line a root,
+as ``--serve``'s continuous lines; with ``trace``, one more run under a
+CUDA-only profiler adds the device busy seconds and the device ms a tick of
+the kernels that took the most (``top_kernels_ms_per_tick``).
+
     python3 kernel_ab.py --serve PARENT_ROOT . . PARENT_ROOT
 
 serves phase 4's workload (above) over the fp pool and over the int8 pool
@@ -73,7 +97,8 @@ in a process of its own, in the order given: one JSON line a root and path.
 Continuous: one cold run (a root that captures graphs captures them there),
 then two reset runs timed on the host clock around synchronized work (tok/s,
 mean tick ms), and the graph captures where the root counts them.  Static:
-``generate`` once to warm up, then twice timed (tok/s), and the decode step
+``generate`` once to warm up, then twice timed (tok/s), the prefill of the
+8 prompts five times (``prefill_ms``, their median), and the decode step
 alone, 16 steps after a warm-up step on the host clock around each
 synchronized step (ms): the root's ``static_decoder`` where it has one (a
 graph replay), else its eager ``decode_step``.
@@ -85,8 +110,28 @@ import subprocess
 import sys
 from pathlib import Path
 
-ITERS = {"attention": 10, "softmax_decode": 200, "softmax_prefill": 10, "paged": 50,
-         "norm": 100}
+ITERS = {"attention": 10, "softmax_decode": 200, "softmax_prefill": 10, "softmax": 50,
+         "fused": 20, "paged": 50, "norm": 100}
+# (label, rows, cols, the last visible column of each row (a function of
+# the row index), or None: every column visible)
+SOFTMAX_ROWS = (
+    ("decode", 128, 1056, lambda r: r * 0 + 1040),
+    ("prefill", 131072, 1024, lambda r: r % 1024),
+    ("router", 8192, 16, None),
+    ("mla", 5120, 1056, lambda r: 1008 + r % 16),
+    ("zamba2_slab", 4096, 1056, lambda r: 1008 + r % 16),
+    ("whisper", 2560, 1500, None),
+    ("vlm_cross", 4096, 1601, None),
+    ("mixtral_slab", 6144, 4112, lambda r: 4096 + r % 16))
+# (site, raw score shape, mask kind, scale): ``_sdpa``'s static prefill
+# (causal), the slab tick (lane i of 16 at 1040 + i over 1056 columns),
+# whisper's and the VLM's cross-attention (no mask), MLA's tick (its
+# (N, 1, C, T) mask)
+FUSED_SITES = (("prefill", (8, 8, 2, 1024, 1024), "causal", 128 ** -0.5),
+               ("slab_tick", (8, 8, 2, 16, 1056), "tick", 128 ** -0.5),
+               ("whisper_cross", (8, 20, 1, 16, 1500), None, 64 ** -0.5),
+               ("vlm_cross", (8, 32, 1, 16, 1601), None, 128 ** -0.5),
+               ("mla_tick", (8, 40, 16, 1056), "tick", 96 ** -0.5))
 NORM_ROWS = (8, 128, 8448)  # a decode step's, a tick's and the forward's rows
 CAP_PAGES = 8  # the capped chain-split rule: at most two 64-key tiles a range
 
@@ -280,6 +325,69 @@ def paged_inputs(c: int, int8: bool):
     return (q, *arenas, *ints), {"scales": tuple(scales)}
 
 
+def softmax_rows(gen, rows: int, cols: int, visible):
+    """f32 logits of scale 3, -1e30 past ``visible(row index)``."""
+    import torch
+    x = torch.randn(rows, cols, generator=gen, device="cuda") * 3
+    if visible is not None:
+        col = torch.arange(cols, device="cuda")[None]
+        x = x.masked_fill_(col > visible(torch.arange(rows, device="cuda"))[:, None], -1e30)
+    return x
+
+
+def softmaxes(res: dict, sm, gen) -> None:
+    """``SOFTMAX_ROWS`` through the root's ``gn_softmax`` and through
+    ``torch.softmax``, then ``fused``."""
+    import torch
+
+    for label, rows, cols, visible in SOFTMAX_ROWS:
+        x = softmax_rows(gen, rows, cols, visible)
+        iters = ITERS.get(f"softmax_{label}", ITERS["softmax"])
+        res[f"gn_softmax_{label}_ms"] = device_ms(lambda: sm.gn_softmax(x), iters)
+        res[f"torch_softmax_{label}_ms"] = device_ms(lambda: torch.softmax(x, dim=-1), iters)
+        del x
+    fused(res, sm, gen)
+
+
+def softmax_one(root: str) -> list[dict]:
+    """The softmax part of ``one`` alone: one JSON line."""
+    sys.path.insert(0, str(Path(root).resolve() / "src"))
+    import torch
+
+    from repro_torch.kernels.gn_softmax import ops as sm
+
+    res = {"root": root}
+    softmaxes(res, sm, torch.Generator(device="cuda").manual_seed(0))
+    return [res]
+
+
+def fused(res: dict, sm, gen) -> None:
+    """Each of ``FUSED_SITES``: the root's score softmax on bf16 raw scores,
+    device ms of every kernel a call runs."""
+    import torch
+
+    for site, shape, kind, scale in FUSED_SITES:
+        raw = (torch.randn(*shape, generator=gen, device="cuda") * (3 / scale)).bfloat16()
+        cols = shape[-1]
+        mask = None
+        if kind == "causal":
+            mask = torch.ones(cols, cols, dtype=torch.bool, device="cuda").tril()
+        elif kind == "tick":
+            lanes = 1040 + torch.arange(shape[-2], device="cuda")
+            mask = torch.arange(cols, device="cuda")[None, :] <= lanes[:, None]
+        if hasattr(sm, "gn_softmax_scores"):
+            def call():
+                return sm.gn_softmax_scores(raw, scale, mask, torch.bfloat16)
+        else:
+            def call():
+                s = (raw * torch.tensor(scale, dtype=raw.dtype)).float()
+                if mask is not None:
+                    s = torch.where(mask, s, -1e30)
+                return sm.gn_softmax(s).to(torch.bfloat16)
+        res[f"fused_{site}_ms"] = device_ms(call, ITERS["fused"])
+        del raw
+
+
 def one(root: str) -> dict:
     sys.path.insert(0, str(Path(root).resolve() / "src"))
     import torch
@@ -304,16 +412,7 @@ def one(root: str) -> dict:
             lambda: F.scaled_dot_product_attention(qq, kk, vv, is_causal=True, enable_gqa=True),
             ITERS["attention"])
     del q, k, v
-    for label, rows, cols, pos in (("decode", 128, 1056, 1040), ("prefill", 131072, 1024, None)):
-        x = torch.randn(rows, cols, generator=gen, device="cuda") * 3
-        col = torch.arange(cols, device="cuda")[None]
-        vis = (torch.full((rows, 1), pos, device="cuda") if pos is not None
-               else (torch.arange(rows, device="cuda") % cols)[:, None])
-        x = x.masked_fill_(col > vis, -1e30)
-        iters = ITERS[f"softmax_{label}"]
-        res[f"gn_softmax_{label}_ms"] = device_ms(lambda: sm.gn_softmax(x), iters)
-        res[f"torch_softmax_{label}_ms"] = device_ms(lambda: torch.softmax(x, dim=-1), iters)
-    del x
+    softmaxes(res, sm, gen)
     norms(res)
     from repro_torch.kernels.gn_paged_attention import ops as pa
 
@@ -379,8 +478,9 @@ def ticks(root: str) -> list[dict]:
 
 
 def serve(root: str, arch: str = "internlm2-1.8b", kvs: tuple = ("fp", "int8"),
-          static: bool = True) -> list[dict]:
+          static: bool = True, layers: int | None = None, trace: bool = False) -> list[dict]:
     sys.path.insert(0, str(Path(root).resolve() / "src"))
+    import dataclasses
     import time
 
     import numpy as np
@@ -402,13 +502,27 @@ def serve(root: str, arch: str = "internlm2-1.8b", kvs: tuple = ("fp", "int8"),
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
-    model = make_model(get_config(arch))
+    cfg = get_config(arch)
+    if layers:  # cut to depth; an encoder-decoder's encoder alike
+        cut = {"n_layers": layers}
+        if getattr(cfg, "encoder_layers", 0):
+            cut["encoder_layers"] = layers
+        cfg = dataclasses.replace(cfg, **cut)
+    model = make_model(cfg)
     master = model.init(0, "cuda")
     reqs = seeded_requests(model.cfg.vocab, 16, 32, 1024, 32, 1, 0)
+    if cfg.family in ("encdec", "vlm"):  # seeded frames or patches, f32 N(0, 1)
+        rng = np.random.default_rng(0)
+        key, shape = (("frames", (cfg.encoder_seq, cfg.d_model)) if cfg.family == "encdec"
+                      else ("patches", (cfg.num_patches, cfg.d_model)))
+        for r in reqs:
+            r.extras = {key: rng.standard_normal(shape, dtype=np.float32)}
     out = []
     for kv in kvs:
+        pool = ({"paged": False} if kv == "slab" else
+                {"block_size": 16, "kv_dtype": kv} if model.supports_paging else {})
         engine = eng.ContinuousEngine(model, master, num_slots=8, max_seq=required_max_seq(reqs),
-                                      chunk=16, block_size=16, kv_dtype=kv, device="cuda")
+                                      chunk=16, device="cuda", **pool)
         line = {"root": root, "path": f"continuous_{kv}", "cold_seconds": timed(
             lambda: engine.run(reqs)), "seconds": [], "tokens_per_s": [], "mean_tick_ms": []}
         for _ in range(2):
@@ -421,12 +535,31 @@ def serve(root: str, arch: str = "internlm2-1.8b", kvs: tuple = ("fp", "int8"),
         line.update(ticks=m["model_ticks"], graphed=getattr(engine, "_graphs", None) is not None,
                     captures=m.get("fused_step_compilations", 0) + m.get("decode_compilations", 0),
                     capture_seconds=m.get("capture_seconds"))
+        if trace:
+            engine.reset()
+            with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                engine.run(reqs)
+                torch.cuda.synchronize()
+            us = {}
+            for e in prof.key_averages():
+                if str(e.device_type).endswith("CUDA"):
+                    t = getattr(e, "self_device_time_total", None)
+                    us[e.key] = t if t is not None else e.self_cuda_time_total
+            n = max(len(engine.tick_log), 1)
+            line.update(traced_ticks=len(engine.tick_log), device_busy_s=sum(us.values()) / 1e6,
+                        top_kernels_ms_per_tick={k[:90]: v / 1e3 / n for k, v in sorted(
+                            us.items(), key=lambda kv: -kv[1])[:12]})
         out.append(line)
         del engine
         torch.cuda.empty_cache()
     if not static:
         return out
     params = model.prepare(master, "cuda")
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, model.cfg.vocab, size=(8, 1024)),
+                             dtype=torch.int32, device="cuda")
+    model.prefill(params, {"tokens": tokens}, 1056)
+    prefill_ms = [timed(lambda: model.prefill(params, {"tokens": tokens}, 1056)) * 1e3
+                  for _ in range(5)]
     del master
     tokens = torch.as_tensor(np.random.default_rng(0).integers(0, model.cfg.vocab, size=(8, 1024)),
                              dtype=torch.int32, device="cuda")
@@ -443,7 +576,8 @@ def serve(root: str, arch: str = "internlm2-1.8b", kvs: tuple = ("fp", "int8"),
     else:
         step = lambda i: model.decode_step(params, cache, nxt, 1024 + i)  # noqa: E731
     step_ms = [timed(lambda: step(i)) * 1e3 for i in range(17)][1:]
-    out.append({"root": root, "path": "static", "generate_seconds": gen_s,
+    out.append({"root": root, "path": "static", "prefill_ms": float(np.median(prefill_ms)),
+                "prefill_ms_all": prefill_ms, "generate_seconds": gen_s,
                 "tokens_per_s": [8 * 32 / t for t in gen_s], "graphed": graphed,
                 "decode_ms": float(np.median(step_ms)), "decode_ms_all": step_ms})
     return out
@@ -454,23 +588,34 @@ def main(argv: list[str]) -> int:
         print(json.dumps(one(argv[1])))
         return 0
     modes = {"--ticks": ticks, "--norm-layouts": norm_layouts, "--forward": forward,
+             "--softmax-one": softmax_one,
              "--serve-one": serve,
              "--mla-one": lambda root: serve(root, "minicpm3-4b", ("fp",), static=False)}
     if len(argv) == 2 and argv[0] in modes:
         for line in modes[argv[0]](argv[1]):
             print(json.dumps(line))
         return 0
+    if len(argv) == 3 and argv[0] == "--serve-arch-one":
+        arch, *rest = argv[1].split(":")
+        kvs = ("slab",) if "slab" in rest else ("int8",) if "int8" in rest else ("fp",)
+        layers = next((int(x) for x in rest if x.isdigit()), None)
+        for line in serve(argv[2], arch, kvs, static=False, layers=layers,
+                          trace="trace" in rest):
+            print(json.dumps({"spec": argv[1], **line}))
+        return 0
     if not argv:
         print(__doc__, file=sys.stderr)
         return 2
-    mode = "--one"
-    if argv[0] in ("--serve", "--mla"):
+    mode, extra = "--one", []
+    if argv[0] in ("--serve", "--mla", "--softmax"):
         mode, argv = f"{argv[0]}-one", argv[1:]
+    elif argv[0] == "--serve-arch":
+        mode, extra, argv = "--serve-arch-one", [argv[1]], argv[2:]
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[card] {card}")
     for root in argv:
-        out = subprocess.run([sys.executable, __file__, mode, root], capture_output=True,
+        out = subprocess.run([sys.executable, __file__, mode, *extra, root], capture_output=True,
                              text=True, timeout=900)
         if out.returncode:
             print(out.stdout, out.stderr, file=sys.stderr)

@@ -5,7 +5,10 @@ block-paged serving tick; full attention or a sliding window
 (``cfg.sliding_window``, mixtral).
 
 The softmax is ``cfg.softmax_impl``, any name of ``core.get_softmax``:
-``"gn"`` (the paper's Algorithm 1) runs through the port's GN kernels;
+``"gn"`` (the paper's Algorithm 1) runs through the port's GN kernels (at
+the one-pass score sites, ``_score_softmax``: one launch of the GN softmax
+kernel's fused entry over the raw score product, which scales, casts,
+masks, normalizes and casts back as the chain below does);
 every other name (the exact FP32 softmax, the bit-accurate ``gn_hwsim``,
 the prior-work baselines of Table II) runs its ``core`` function in plain
 torch, as the reference computes them in jnp outside any Pallas kernel.
@@ -19,8 +22,9 @@ Contiguous paths:
     ``use_pallas``.  Every other softmax runs the one-pass ``_sdpa``.
   * ``attn_prefill`` and ``attn_decode_step`` keep the reference's one-pass
     form: scores by ``torch.matmul`` scaled in the activation dtype, cast to
-    f32, masked at -1e30, then the softmax over each score row (the GN
-    softmax kernel, or the ``core`` function of the other names).
+    f32, masked at -1e30, then the softmax over each score row, cast to v's
+    dtype (for GN all of it after the product in one fused kernel launch,
+    bit for bit the chain; the ``core`` function of the other names).
   * A GN prefill or forward past ``CHUNKED_FROM`` (2048) tokens takes the GN
     flash-attention kernel, causal, where the reference takes
     ``chunked_self_attention``: the same online GN accumulation (a running
@@ -70,8 +74,9 @@ only when ``FORCE_PAGED_READ`` names it: ``"streamed"`` gathers K one tile of
 ``"gathered"`` materializes each slot's K and V streams, the oracle the
 streamed read is held to bit for bit.  Both keep the reference's rounding
 points: scores in the activation dtype, scaled in it, then cast to f32 and
-masked; the GN softmax kernel over the (N, KV, G, C, T) rows; probabilities
-cast to the value dtype before P·V; int8 blocks gathered first and
+masked; the GN softmax kernel over the (N, KV, G, C, T) rows (with the
+scale, cast and mask, its fused entry); probabilities cast to the value
+dtype before P·V; int8 blocks gathered first and
 dequantized in the activation dtype by their scale cast to it; the softmax
 of ``cfg.softmax_impl``.
 
@@ -107,7 +112,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.core import get_softmax
 from repro_torch.kernels.gn_attention.ops import CHUNKED_FROM, gn_attention
 from repro_torch.kernels.gn_paged_attention.ops import gn_paged_attention_chunk
-from repro_torch.kernels.gn_softmax.ops import gn_softmax
+from repro_torch.kernels.gn_softmax.ops import gn_softmax, gn_softmax_scores
+from repro_torch.kernels.gn_softmax.ref import scores_chain
 from repro_torch.models.chunked_attention import chunked_self_attention
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.rope import apply_rope
@@ -156,23 +162,31 @@ def _split_heads(x, n_heads, head_dim):
     return x.reshape(b, s, n_heads, head_dim)
 
 
-def _scaled_scores(qg, k, head_dim):
-    """(B,S,KV,G,dh) x (B,T,KV,dh) -> (B,KV,G,S,T) scores times head_dim^-0.5,
-    in the activation dtype, the scale rounded to that dtype first as jnp
-    rounds a Python float; the caller casts to f32 after the scaling."""
-    scores = torch.einsum("bskgd,btkd->bkgst", qg, k)
-    return scores * torch.tensor(head_dim ** -0.5, dtype=scores.dtype)
+def _score_product(qg, k):
+    """(B,S,KV,G,dh) x (B,T,KV,dh) -> (B,KV,G,S,T) raw scores in the
+    activation dtype, before the scale (``_score_softmax`` applies it)."""
+    return torch.einsum("bskgd,btkd->bkgst", qg, k)
+
+
+def _score_softmax(impl: str, scores, scale: float, mask, dtype):
+    """The probabilities of a raw score product: ``scores * scale`` in the
+    scores' dtype (the scale rounded to it first, as jnp rounds a Python
+    float), cast to f32, -1e30 where the bool ``mask`` (broadcastable, or
+    None) is False, the row softmax of ``impl``, cast to ``dtype`` (v's).
+    GN: one launch of the fused kernel (``gn_softmax_scores``); every other
+    name runs that chain with its ``core`` function."""
+    if impl == "gn":
+        return gn_softmax_scores(scores, scale, mask, dtype)
+    return scores_chain(scores, scale, mask, dtype, get_softmax(impl))
 
 
 def _sdpa(cfg: ModelConfig, q, k, v, mask):
     """q: (B,S,H,dh), k/v: (B,T,KV,dh), mask: (B,1,S,T) or (1,1,S,T) bool.
     One-pass attention through the softmax of ``cfg.softmax_impl``."""
-    softmax = _softmax(cfg)
     b, s, h, dh = q.shape
     kv = k.shape[2]
-    scores = _scaled_scores(q.reshape(b, s, kv, h // kv, dh), k, dh).float()
-    scores = torch.where(mask[:, :, None], scores, NEG_INF)
-    p = softmax(scores).to(v.dtype)
+    scores = _score_product(q.reshape(b, s, kv, h // kv, dh), k)
+    p = _score_softmax(cfg.softmax_impl, scores, dh ** -0.5, mask[:, :, None], v.dtype)
     return torch.einsum("bkgst,btkd->bskgd", p, v).reshape(b, s, h, dh)
 
 
@@ -236,8 +250,8 @@ def cross_attend_cached(cfg: ModelConfig, p: dict, x, k, v):
     b, s, _ = x.shape
     q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
     kv, dh = cfg.n_kv_heads, cfg.head_dim
-    scores = _scaled_scores(q.reshape(b, s, kv, cfg.n_heads // kv, dh), k, dh).float()
-    pmat = _softmax(cfg)(scores).to(v.dtype)
+    scores = _score_product(q.reshape(b, s, kv, cfg.n_heads // kv, dh), k)
+    pmat = _score_softmax(cfg.softmax_impl, scores, dh ** -0.5, None, v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", pmat, v).reshape(b, s, cfg.q_features)
     return out @ p["wo"]
 
@@ -307,13 +321,13 @@ def _ring_valid(cfg: ModelConfig, slots: int, slot, pos):
 def _attend_slab(cfg: ModelConfig, p: dict, q, k, v, valid):
     """q (N, C, H, dh) against k/v (N, T, KV, dh), ``valid`` broadcastable
     to (N, C, T): scores in the activation dtype, f32 after the scale,
-    masked at -1e30, the softmax of ``cfg.softmax_impl`` (the GN kernel),
-    probabilities cast to v's dtype; projected by wo: (N, C, D)."""
+    masked at -1e30, the softmax of ``cfg.softmax_impl`` (the GN kernel,
+    the whole chain in one launch), probabilities cast to v's dtype;
+    projected by wo: (N, C, D)."""
     n, c_len = q.shape[:2]
     kv, dh = cfg.n_kv_heads, cfg.head_dim
-    scores = _scaled_scores(q.reshape(n, c_len, kv, cfg.n_heads // kv, dh), k, dh).float()
-    scores = torch.where(valid[:, None, None], scores, NEG_INF)
-    pmat = _softmax(cfg)(scores).to(v.dtype)
+    scores = _score_product(q.reshape(n, c_len, kv, cfg.n_heads // kv, dh), k)
+    pmat = _score_softmax(cfg.softmax_impl, scores, dh ** -0.5, valid[:, None, None], v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", pmat, v).reshape(n, c_len, cfg.q_features)
     return out @ p["wo"]
 
@@ -405,9 +419,11 @@ SCALE_SANITY_MAX = 1e4
 def _probe_sum_residual(pmat, scores, out, valid, lane_ok):
     """Sentinel channel 0 per slot (the reference's ``_probe_sum_residual``):
     the largest |Σp − 1| over the slot's live lanes, +inf when a visible
-    score or a live lane's output is nonfinite.  pmat/scores: (N, KV, G, C,
-    T); out: (N, C, ...) before wo; valid: (N, C, T); lane_ok: (N, C).
-    Returns (N,) f32."""
+    score or a live lane's output is nonfinite.  pmat: (N, KV, G, C, T);
+    scores: the raw score product of the same shape, before the scale (for
+    a positive finite scale that is < 1, a visible score is finite exactly
+    when its scaled f32 value is, which the reference tests); out: (N, C,
+    ...) before wo; valid: (N, C, T); lane_ok: (N, C).  Returns (N,) f32."""
     n = pmat.shape[0]
     lane = lane_ok[:, None, None]
     sumres = (pmat.float().sum(dim=-1) - 1.0).abs()
@@ -535,7 +551,7 @@ def _gather_blocks(arena, scale, tables, dt):
 
 
 def _paged_read_plain(q, arena_k, arena_v, tables, rows, scales, streamed: bool,
-                      probe_nv=None, softmax=gn_softmax):
+                      probe_nv=None, impl: str = "gn"):
     """The reference's streamed (``_stream_paged_tiles``) or gathered read.
 
     q: (N, C, H, dh) rotated, in the activation dtype; arenas (nb + 1, bs,
@@ -546,8 +562,8 @@ def _paged_read_plain(q, arena_k, arena_v, tables, rows, scales, streamed: bool,
     the same softmax and the same P·V over the horizon's V blocks.  Returns
     (N, C, H * dh) in the value dtype; with ``probe_nv`` (the tick's n_valid)
     also the full Σp probe (``_probe_sum_residual``) of its scores and
-    probabilities, as the reference's two reads return it.  ``softmax``: the
-    config's row softmax (``_softmax``)."""
+    probabilities, as the reference's two reads return it.  ``impl``: the
+    config's softmax name (``_score_softmax``)."""
     n, c_len, h, dh = q.shape
     kv = arena_k.shape[2]
     dt = q.dtype
@@ -556,16 +572,14 @@ def _paged_read_plain(q, arena_k, arena_v, tables, rows, scales, streamed: bool,
     k_scale, v_scale = scales if scales is not None else (None, None)
     if streamed:
         scores = torch.cat([
-            _scaled_scores(qg, _gather_blocks(arena_k, k_scale, tbl, dt).reshape(n, -1, kv, dh),
-                           dh)
+            _score_product(qg, _gather_blocks(arena_k, k_scale, tbl, dt).reshape(n, -1, kv, dh))
             for tbl in tables.split(STREAM_TILE, dim=1)], dim=-1)
     else:
         k_at = _gather_blocks(arena_k, k_scale, tables, dt).reshape(n, -1, kv, dh)
-        scores = _scaled_scores(qg, k_at, dh)
+        scores = _score_product(qg, k_at)
     valid = torch.arange(scores.shape[-1], device=q.device)[None, None, :] <= rows[:, :, None]
-    scores = torch.where(valid[:, None, None], scores.float(), NEG_INF)
     v_at = _gather_blocks(arena_v, v_scale, tables, dt).reshape(n, -1, kv, dh)
-    pmat = softmax(scores).to(v_at.dtype)
+    pmat = _score_softmax(impl, scores, dh ** -0.5, valid[:, None, None], v_at.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", pmat, v_at)
     if probe_nv is None:
         return out.reshape(n, c_len, h * dh)
@@ -591,7 +605,7 @@ def attn_paged_chunk(cfg: ModelConfig, p: dict, arena_k, arena_v, x, positions,
     row sums (N, C) f32, its (N, C, H) flags of a nonfinite live score);
     clip the (N * C,) int8 writes that saturated, or None over fp arenas.
     """
-    softmax = _softmax(cfg)
+    _softmax(cfg)  # an unknown softmax name raises before the arenas change
     b, c_len, _ = x.shape
     nb, bs = arena_k.shape[0] - 1, arena_k.shape[1]
     kv, dh = cfg.n_kv_heads, cfg.head_dim
@@ -619,7 +633,7 @@ def attn_paged_chunk(cfg: ModelConfig, p: dict, arena_k, arena_v, x, positions,
     else:
         out = _paged_read_plain(q, arena_k, arena_v, tables, rows, scales,
                                 streamed=path == "streamed", probe_nv=n_valid if probe else None,
-                                softmax=softmax)
+                                impl=cfg.softmax_impl)
         if probe:
             out, probe0 = out
     out = out.reshape(b, c_len, cfg.q_features).to(x.dtype) @ p["wo"]

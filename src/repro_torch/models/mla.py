@@ -7,10 +7,12 @@ latent ``c_kv`` (kv_lora_rank a token) and the shared rotated rope key
 through ``wkv_b`` into per-head no-rope keys and values.  Both latents' GN
 RMSNorms go through the GN norm kernel's wrapper, as every GN norm of the
 port does (the plain version on the CPU).  The softmax is
-``cfg.softmax_impl`` (the GN softmax kernel for ``"gn"``), over f32 score
-rows, as in ``attention.py``.  The score is the reference's decomposition
-q_nope·k_nope + q_rope·k_rope, in the activation dtype, scaled by
-(nope + rope)^-0.5 rounded to that dtype, then cast to f32 and masked.
+``cfg.softmax_impl`` over f32 score rows, as in ``attention.py``.  The
+score is the reference's decomposition q_nope·k_nope + q_rope·k_rope, in
+the activation dtype, scaled by (nope + rope)^-0.5 rounded to that dtype,
+then cast to f32 and masked; for ``"gn"`` the scale, the cast, the mask,
+the softmax and the cast to v's dtype are one launch of the fused GN
+softmax kernel (``attention._score_softmax``).
 
 Contiguous paths: ``mla_self_attention`` (the forward) and ``mla_prefill``
 run one pass over the (S, S) scores up to ``CHUNKED_FROM`` (2048) tokens.
@@ -46,7 +48,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.gn_attention.ops import gn_attention
 from repro_torch.kernels.gn_layernorm import ops as norm_ops
 from repro_torch.models import attention as attn
-from repro_torch.models.attention import CHUNKED_FROM, NEG_INF, causal_mask
+from repro_torch.models.attention import CHUNKED_FROM, causal_mask
 from repro_torch.models.chunked_attention import causal_chunked
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.rope import apply_rope
@@ -89,21 +91,23 @@ def _expand(cfg: ModelConfig, p: dict, c_kv):
     return kv[..., :m.qk_nope_head_dim], kv[..., m.qk_nope_head_dim:]
 
 
-def _scores(cfg: ModelConfig, q_nope, q_rope, k_nope, k_rope):
-    """(B, H, S, T) scores in the activation dtype, scaled by
-    (nope + rope)^-0.5 rounded to it (jnp rounds a Python float so)."""
-    m = cfg.mla
-    s = (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
-         + torch.einsum("bshd,btd->bhst", q_rope, k_rope))
-    return s * torch.tensor((m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5, dtype=s.dtype)
+def _scores(q_nope, q_rope, k_nope, k_rope):
+    """(B, H, S, T) raw scores q_nope·k_nope + q_rope·k_rope in the
+    activation dtype, before the scale (``_softmax_av`` applies it)."""
+    return (torch.einsum("bshd,bthd->bhst", q_nope, k_nope)
+            + torch.einsum("bshd,btd->bhst", q_rope, k_rope))
 
 
 def _softmax_av(cfg: ModelConfig, scores, v, mask, probe_lanes=None):
-    """Mask the f32 scores, softmax them, weight v (B, T, H, dv): the
-    attention (B, S, H, dv) in v's dtype; with ``probe_lanes`` ((B, S) live
-    lanes) also the Σp probe (B,) of ``attention._probe_sum_residual``."""
-    scores = torch.where(mask, scores.float(), NEG_INF)
-    pmat = attn._softmax(cfg)(scores).to(v.dtype)
+    """Scale the raw scores by (nope + rope)^-0.5 (rounded to their dtype,
+    as jnp rounds a Python float), cast them to f32, mask, softmax them
+    (``attention._score_softmax``: one fused kernel launch for GN), weight
+    v (B, T, H, dv): the attention (B, S, H, dv) in v's dtype; with
+    ``probe_lanes`` ((B, S) live lanes) also the Σp probe (B,) of
+    ``attention._probe_sum_residual`` over the raw scores."""
+    m = cfg.mla
+    pmat = attn._score_softmax(cfg.softmax_impl, scores,
+                               (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5, mask, v.dtype)
     att = torch.einsum("bhst,bthd->bshd", pmat, v)
     if probe_lanes is None:
         return att
@@ -119,7 +123,7 @@ def _attend(cfg: ModelConfig, p: dict, q_nope, q_rope, c_kv, k_rope, mask, probe
     rope), mask broadcastable to (B, 1, S, T)."""
     b, s = q_nope.shape[:2]
     k_nope, v = _expand(cfg, p, c_kv)
-    att = _softmax_av(cfg, _scores(cfg, q_nope, q_rope, k_nope, k_rope), v, mask, probe_lanes)
+    att = _softmax_av(cfg, _scores(q_nope, q_rope, k_nope, k_rope), v, mask, probe_lanes)
     probe = None
     if probe_lanes is not None:
         att, probe = att
@@ -246,7 +250,7 @@ def _paged_read(cfg: ModelConfig, p: dict, q_nope, q_rope, arena_ckv, arena_krop
     tables = tables.long()
     c_scale, r_scale = scales if scales is not None else (None, None)
     k_nope, v = _expand(cfg, p, _gather_latent(arena_ckv, c_scale, tables, dt))
-    scores = _scores(cfg, q_nope, q_rope, k_nope, _gather_latent(arena_krope, r_scale, tables, dt))
+    scores = _scores(q_nope, q_rope, k_nope, _gather_latent(arena_krope, r_scale, tables, dt))
     valid = (torch.arange(scores.shape[-1], device=rows.device)[None, None, :]
              <= rows[:, :, None])[:, None]
     lanes = None

@@ -9,8 +9,12 @@ flash attention to 2e-4 on random inputs with at most 1% of rows past it
 (a Δ-grid flip, see chip_smoke.py), to 2e-5 on exact-score inputs and to
 1e-5 of 1 with V = 1, in the dtype under test (bf16: the tensor-core
 design; f32: the CUDA-core design); bf16 one bf16 rounding on top.  The
-softmax shapes cover both of its layouts (a warp per row for many rows, a
-block per row for few) and rows off a 16-byte boundary; the norm's shapes
+softmax shapes cover its layouts (1 to 256 threads a row, as many chunks a
+thread as the row needs, and the three-pass wide rows), picked on both
+sides of every switch and each one forced, and rows off a 16-byte boundary;
+its fused score entry equals the chain of scale, cast, mask, the softmax
+kernel and cast bit for bit at every call site's shape, over strided
+scores and broadcast masks; the norm's shapes
 cover its three layouts, picked and forced, and its fused residual add,
 held bit for bit to the eager add and to the unfused kernel on the sum.
 The paged read's int8 mode keeps the fp mode's tolerances; ``paged_quant_write`` on the card equals the CPU bit for
@@ -407,9 +411,9 @@ def _masked_logits(cuda, rows, cols, seed, scale=3.0):
 @pytest.mark.parametrize("rows,cols", [(37, 7), (300, 100), (64, 1024), (128, 1056), (5, 3000),
                                        (16, 2048), (3, 1500), (4500, 300), (8, 12000)])
 def test_softmax_kernel_matches_plain(cuda, rows, cols, dtype):
-    """The block layout (few rows, or up to 8192 columns; bf16 rows of 1500
-    and f32 rows of 7 start off a 16-byte boundary), the warp layout (4500
-    rows) and the wide-row path (12000 f32 columns)."""
+    """Sub-warp, warp and multi-warp row groups (bf16 rows of 1500 and f32
+    rows of 7 start off a 16-byte boundary) and the wide-row path (12000
+    columns)."""
     x, keep = _masked_logits(cuda, rows, cols, seed=cols)
     x = x.to(dtype)
     before = sm_ops.launches
@@ -438,6 +442,153 @@ def test_softmax_kernel_cfg_sweep(cuda, frac_bits, delta_scale):
     cfg = SoftmaxLUTConfig(frac_bits, delta_scale=delta_scale)
     x, _ = _masked_logits(cuda, 200, 333, seed=frac_bits, scale=8.0)
     _close(sm_ops.gn_softmax(x, cfg), sm_ref.gn_softmax_ref(x, cfg), 1e-6, torch.float32)
+
+
+# the layout switches (chunks of 4 columns, and up to 3 columns of a row's
+# head shift): 32 chunks (sub-warp groups below), each group's reach at 3
+# chunks a thread (384, 768, 1536), 8192 columns (the wide kernel above);
+# the widths of the paths' rows between (the VLM's 1601)
+SOFTMAX_EDGE_COLS = [16, 17, 32, 33, 128, 129, 384, 385, 768, 769, 1024, 1025, 1056, 1500, 1536,
+                     1537, 1601, 2048, 2049, 4112, 8191, 8192, 8193]
+
+
+def _chunks(cols: int) -> int:
+    """The chunks a row of ``cols`` columns spans at its largest head shift
+    (the row's offset in the output mod 4: 0, 2 or 3 columns)."""
+    k = sm_ops.CHUNK_COLS
+    return -(-(cols + (0 if cols % k == 0 else 2 if cols % k == 2 else k - 1)) // k)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cols", SOFTMAX_EDGE_COLS)
+def test_softmax_kernel_over_the_layout_switches(cuda, cols, dtype):
+    """Each width at a few rows and at many (the wider rows at fewer), rows
+    starting off 16-byte boundaries (an odd start of 1 element), against
+    the plain version; the pick named by ``ops.layout`` covers the row at
+    its largest head shift with no thread's chunks wholly outside it."""
+    for rows in ((37, 4224) if cols <= 2049 else (700, 4224) if cols <= 4112 else (3, 300)):
+        g, cpt = sm_ops.layout(cols)
+        if _chunks(cols) * sm_ops.CHUNK_COLS > 8192:
+            assert (g, cpt) == (0, 0)
+        else:
+            assert g * cpt >= _chunks(cols) and g * (cpt - 1) < _chunks(cols)
+        x, keep = _masked_logits(cuda, rows, cols + 1, seed=cols + rows)
+        x = x.to(dtype).reshape(-1)[1:rows * cols + 1].view(rows, cols)  # odd start
+        keep = keep.reshape(-1)[1:rows * cols + 1].view(rows, cols)
+        got = sm_ops.gn_softmax(x)
+        _close(got, sm_ref.gn_softmax_ref(x), 1e-6, dtype)
+        assert (got[~keep & keep.any(-1, keepdim=True)] == 0).all()
+        if dtype == torch.float32:
+            assert (got.double().sum(-1) - 1).abs().max().item() <= 2e-6
+
+
+def _instances():
+    """The kernel's (G, CPT) instances (csrc/gn_softmax.cuh ``launch_g``)."""
+    out = [(g, 1) for g in (1, 2, 4, 8, 16, 32)]
+    return out + [(g, c) for g in (32, 64, 128) for c in (2, 3)] + [(256, c) for c in range(2, 9)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_softmax_kernel_every_instance_by_width(cuda, dtype):
+    """Every instance through the narrowest and the widest row that picks
+    it (the widest: 4 G CPT columns), at a row count that is not a
+    multiple of its rows a block, against the plain version; every width
+    of the register layouts picks an instance."""
+    k = sm_ops.CHUNK_COLS
+    widths = {}
+    for cols in range(1, 8193):
+        widths.setdefault(sm_ops.layout(cols), []).append(cols)
+    assert set(widths) - {(0, 0)} == set(_instances())
+    for g, cpt in _instances():
+        assert max(widths[g, cpt]) == k * g * cpt
+        for cols in (min(widths[g, cpt]), max(widths[g, cpt])):
+            x, _ = _masked_logits(cuda, 257, cols, seed=g * 10 + cpt)
+            x = x.to(dtype)
+            _close(sm_ops.gn_softmax(x), sm_ref.gn_softmax_ref(x), 1e-6, dtype)
+
+
+def _fused_sites(cuda):
+    """(label, raw scores, mask broadcastable to them, scale) at each call
+    site's full-width shape: ``_sdpa``'s static prefill and decode step
+    (internlm2-1.8b, 8 kv heads x 2), the slab and the paged tick (8 slots
+    x 16 lanes over 1056 columns), whisper's cross-attention (20 heads over
+    1500 frames, no mask), the VLM's cross-attention (32 heads over 1601
+    patches, no mask: rows off the 16-byte grid), MLA's tick (40 heads,
+    (N, 1, C, T) mask)."""
+    g = torch.Generator(device=cuda).manual_seed(0)
+
+    def raw(*shape):
+        return torch.randn(*shape, generator=g, device=cuda) * 3 * 128 ** 0.5
+
+    rows = 1040 + torch.arange(16, device=cuda)[None, :] + 0 * torch.arange(8, device=cuda)[:, None]
+    tick = torch.arange(1056, device=cuda)[None, None, :] <= rows[:, :, None]
+    causal = t_attn.causal_mask(1024, 1024, cuda)
+    return [("sdpa-prefill", raw(2, 8, 2, 1024, 1024), causal[:, :, None], 128 ** -0.5),
+            ("sdpa-decode", raw(8, 8, 2, 1, 1056),
+             (torch.arange(1056, device=cuda) <= 1040)[None, None, None, None], 128 ** -0.5),
+            ("slab-tick", raw(8, 8, 2, 16, 1056), tick[:, None, None], 128 ** -0.5),
+            ("paged-read", raw(8, 8, 2, 16, 1056), tick[:, None, None], 128 ** -0.5),
+            ("whisper-cross", raw(8, 20, 1, 16, 1500), None, 64 ** -0.5),
+            ("vlm-cross", raw(8, 32, 1, 16, 1601), None, 128 ** -0.5),
+            ("mla-tick", raw(8, 40, 16, 1056), tick[:, None], 128 ** -0.5)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_scores_entry_is_the_chain_bitwise(cuda, dtype):
+    """One launch of ``gn_softmax_scores`` against the chain it replaces
+    (scale in the scores' dtype, f32 cast, where, the softmax kernel, cast),
+    bit for bit, at every call site's shape; again over strided scores (a
+    column slice of wider rows, leading dims permuted) and with f32
+    probabilities out of bf16 scores."""
+    def chain(s, scale, mask, out_dtype):
+        s = (s * torch.tensor(scale, dtype=s.dtype)).float()
+        if mask is not None:
+            s = torch.where(mask, s, -1e30)
+        return sm_ops.gn_softmax(s).to(out_dtype)
+
+    for label, raw, mask, scale in _fused_sites(cuda):
+        raw = raw.to(dtype)
+        before = sm_ops.launches
+        got = sm_ops.gn_softmax_scores(raw, scale, mask, dtype)
+        assert sm_ops.launches == before + 1, label
+        want = chain(raw, scale, mask, dtype)
+        assert torch.equal(got, want), (label, (got.float() - want.float()).abs().max().item())
+        assert torch.equal(sm_ops.gn_softmax_scores(raw, scale, mask, torch.float32),
+                           chain(raw, scale, mask, torch.float32)), label
+        if mask is not None:
+            full = mask.expand(raw.shape)
+            assert (got[~full & full.any(-1, keepdim=True)] == 0).all(), label
+        wide = torch.cat([raw, raw[..., :5]], dim=-1)[..., 3:raw.shape[-1] + 3]  # strided rows
+        assert wide.stride(-2) == raw.shape[-1] + 5
+        assert torch.equal(sm_ops.gn_softmax_scores(wide, scale, mask, dtype),
+                           chain(wide, scale, mask, dtype)), label
+        perm = raw.transpose(0, 1).contiguous().transpose(0, 1)  # leading dims permuted
+        assert not perm.is_contiguous()
+        assert torch.equal(sm_ops.gn_softmax_scores(perm, scale, mask, dtype), want), label
+        del raw, wide, perm
+    with pytest.raises(ValueError, match="unit stride"):
+        sm_ops.gn_softmax_scores(torch.zeros(4, 8, device=cuda).t(), 0.5)
+
+
+def test_fused_scores_backward_on_card_is_autograd_through_the_chain(cuda):
+    """The fused entry's backward on the card against autograd through the
+    chain over the softmax kernel: bit for bit (bf16 scores, a causal
+    mask)."""
+    g = torch.Generator(device=cuda).manual_seed(3)
+    raw = (torch.randn(2, 4, 2, 64, 64, generator=g, device=cuda) * 30).bfloat16()
+    w = torch.randn(raw.shape, generator=g, device=cuda)
+    mask = t_attn.causal_mask(64, 64, cuda)[:, :, None]
+    grads = []
+    for fused in (False, True):
+        x = raw.clone().requires_grad_(True)
+        if fused:
+            p = sm_ops.gn_softmax_scores(x, 0.125, mask, torch.bfloat16)
+        else:
+            s = torch.where(mask, (x * torch.tensor(0.125, dtype=x.dtype)).float(), -1e30)
+            p = sm_ops.gn_softmax(s).to(torch.bfloat16)
+        (p.float() * w).sum().backward()
+        grads.append(x.grad)
+    assert torch.equal(grads[0], grads[1])
 
 
 def _attn_inputs(cuda, shape, dtype, seed, exact=False, v_ones=False):

@@ -139,16 +139,16 @@ def test_continuous_engine_past_2048_equals_both_static_oracles(pair, monkeypatc
 
 
 def test_prefill_routes_2048_one_pass_and_2049_flash(pair, monkeypatch):
-    """s <= 2048 takes the one-pass route (the softmax kernel over the score
-    rows) and s > 2048 the flash-attention kernel, causal, as the reference
-    routes to ``chunked_self_attention``."""
+    """s <= 2048 takes the one-pass route (the softmax kernel's fused score
+    entry over the score rows) and s > 2048 the flash-attention kernel,
+    causal, as the reference routes to ``chunked_self_attention``."""
     _, _, tmodel, tparams, _ = pair
     calls = []
-    for name in ("gn_softmax", "gn_attention"):
+    for name in ("gn_softmax_scores", "gn_attention"):
         kernel = getattr(t_attn, name)
         monkeypatch.setattr(t_attn, name, lambda *a, _k=kernel, _n=name, **kw:
                             calls.append((_n, kw.get("causal"))) or _k(*a, **kw))
-    for s, want in ((2048, ("gn_softmax", None)), (2049, ("gn_attention", True))):
+    for s, want in ((2048, ("gn_softmax_scores", None)), (2049, ("gn_attention", True))):
         calls.clear()
         logits, cache = tmodel.prefill(tparams, {"tokens": torch.zeros(1, s, dtype=torch.int32)})
         assert calls == [want] * tmodel.cfg.n_layers
