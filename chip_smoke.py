@@ -297,7 +297,7 @@ Phases, each fatal on failure (exit code 1):
                C (8, 4, 512, 512) f32 a layer) and zamba2-7b (81 Mamba2
                layers in 9 groups, each behind one weight-shared attention +
                MLP block; d_model 3584, 32 heads of 112) at full width, cut
-               to SSM_DEPTH layers (12 and 45: 5 groups; the time limit),
+               to SSM_DEPTH layers (12 and 27: 3 groups; the time limit),
                bf16, random weights from a seed (``layerwise_master``),
                phase 4's workload over the slab pool (they do not page):
                phase 17's lean checks (launches exact, a tick's as
@@ -319,6 +319,22 @@ Phases, each fatal on failure (exit code 1):
                launches exact, losses finite, the trained forward causal),
                and ``launch.train --arch xlstm-350m --smoke`` as a
                subprocess.
+ 24. audit   - run right after phase 6, on its engine and phase 4's (nothing
+               is built; both dropped after): ``repro_torch.analysis``'s
+               audit (``[audit]``): the trace keys against the captures, and
+               one eager call of each entry point under the op recorder (the
+               tick at every captured (step kind, bucket), every lane
+               parked; the sentinel step; the prefix fork), every audit rule
+               on each, at full width over fp and int8 arenas; the
+               self-check of every rule's fixtures; then (``[roofline]``)
+               ``launch.profile_cell``'s core over phase 4's steady ticks:
+               one eager tick's work (``roofline.op_cost``, each GN kernel's
+               ``work()``), a profiled window of LONG_WINDOW replayed ticks
+               (taken again until its trace holds every GN kernel's
+               records) with each GN kernel's device time beside its bound,
+               and exactly one device-to-host copy a replayed tick.
+Every bound in the script is the roofline module's (``roofline.analysis``,
+one copy of the H100 peaks) over a kernel wrapper's ``work()``.
 Phases 4-10 and 15-18 serve with the GN sentinels on, the engine's default:
 a tick launches one more norm, the head's σ probe.
 Each path's launch counters are set to 0 just before it runs and read just
@@ -349,7 +365,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
-from repro_torch.analysis import tracekeys  # noqa: E402
+from repro_torch.analysis import audit, tracekeys  # noqa: E402
+from repro_torch.analysis.__main__ import run_self_check  # noqa: E402
 from repro_torch.benchmarks import (fig5_norm_error, norm_error_study,  # noqa: E402
                                     table1_accuracy, table2_score_tasks, table3_hw_cost)
 from repro_torch.benchmarks.common import tiny_cfg  # noqa: E402
@@ -369,12 +386,14 @@ from repro_torch.kernels.gn_paged_attention import ops as attn_ops  # noqa: E402
 from repro_torch.kernels.gn_paged_attention import ref as attn_ref  # noqa: E402
 from repro_torch.kernels.gn_softmax import ops as sm_ops  # noqa: E402
 from repro_torch.kernels.gn_softmax import ref as sm_ref  # noqa: E402
+from repro_torch.launch import profile_cell  # noqa: E402
 from repro_torch.launch import serve as serve_mod  # noqa: E402
 from repro_torch.models import attention as attention_mod  # noqa: E402
 from repro_torch.models import moe as moe_mod  # noqa: E402
 from repro_torch.models import transformer as transformer_mod  # noqa: E402
 from repro_torch.models.layers import make_param  # noqa: E402
 from repro_torch.models.transformer import make_model  # noqa: E402
+from repro_torch.roofline import analysis as roofline  # noqa: E402
 from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, generate,  # noqa: E402
                                       perplexity, static_decoder, static_reference)
 from repro_torch.serve.faults import FaultInjector  # noqa: E402
@@ -385,11 +404,6 @@ from repro_torch.serve.workload import (required_max_seq, seeded_requests,  # no
 from repro_torch.train.loop import make_train_step  # noqa: E402
 from repro_torch.train.optimizer import (OptimizerConfig, init_opt_state,  # noqa: E402
                                          tree_leaves, tree_map)
-
-# H100 SXM peaks (NVIDIA data sheet, dense): memory rate and the op rate per
-# input type (bf16 on the tensor cores, f32 on the CUDA cores)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
 DEV = "cuda"
 ARCH = "internlm2-1.8b"
@@ -503,7 +517,7 @@ SSM_TRAIN_STEPS, SSM_TRAIN_GROUPS = 3, 1
 CAUSAL_LEN, CAUSAL_AT, CAUSAL_ATOL = 512, 300, 1e-3
 SSM_SMALL = {"xlstm-350m": {}, "zamba2-7b": {"n_layers": 4, "attn_every": 2}}
 # the served families' depth (of 24 and 81 layers; zamba2 in whole groups)
-SSM_DEPTH = {"xlstm-350m": 12, "zamba2-7b": 45}
+SSM_DEPTH = {"xlstm-350m": 12, "zamba2-7b": 27}
 # the training phases: TRAIN_BATCH sequences of TRAIN_SEQ tokens a step (one
 # batch of batch_at, repeated), TRAIN_MB microbatches, TRAIN_STEPS steps;
 # the Table I analogue trains TABLE1_STEPS steps
@@ -527,7 +541,6 @@ BF16_REL = 2.0 ** -7      # bf16 outputs: one bf16 rounding of either side
 ONES_ATOL = 1e-5          # V = 1: sum of p to one rounding
 SM_ATOL_F32 = 1e-6        # GN softmax: the reference's own kernel-vs-ref tolerance
 SUM_ATOL = 2e-6           # GN softmax: |Σp - 1| at f32 (the reference's invariant test)
-SM_OPS_PER_ELEM = 8       # max, Δ, grid scale, round, LUT product, round, sum, scale
 # model logits at |logit| <= ~4.4, kernels on the card vs plain on the CPU, same
 # weights.  f32: the paged read's online LUT'd corrections and Δ flips on the
 # first tokens' short rows; phase 3 also prints the gap with the plain read
@@ -745,13 +758,6 @@ def timings(fn, plain, library, iters: int) -> dict:
             "library_ms": None if library is None else device_ms(library, iters)}
 
 
-def bound(nbytes: float, ops: float, dtype) -> tuple[float, str]:
-    """The least time the card could take: bytes over the memory rate or
-    operations over the peak rate for ``dtype``, whichever is larger."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, ops / PEAK_OPS[dtype] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def compare(got, want, atol: float, rel: float = 0.0) -> dict:
     """Max |got - want|, and the rows (last dim) with an element past
     atol + rel*|want|; the worst element relative to its bound beside them."""
@@ -800,10 +806,8 @@ def norm_case(rows: int, dtype, gen, cols: int = 2048, subtract_mean: bool = Fal
     check = compare(norm_ops.gn_layernorm(x, gamma, beta, **kw),
                     norm_ref.gn_layernorm_ref(x, gamma, beta, **kw), *norm_tol(dtype))
     check["ok"] = check["bad_rows"] == 0
-    # x read and y written once, gamma (and beta) read once; f32 arithmetic
-    # on the CUDA cores: 5 operations an element (RMS), 8 with the mean
-    nbytes = 2 * x.numel() * x.element_size() + cols * 4 * (with_gamma + subtract_mean)
-    b_ms, b_by = bound(nbytes, (8 if subtract_mean else 5) * x.numel(), torch.float32)
+    b_ms, b_by = roofline.work_bound(norm_ops.work(x, None, gamma, beta,
+                                                   subtract_mean=subtract_mean))
     lib_w = None if gamma is None else gamma.to(dtype)
     lib_b = None if beta is None else beta.to(dtype)
     library = (functools.partial(F.layer_norm, x, (cols,), lib_w, lib_b) if subtract_mean
@@ -832,9 +836,7 @@ def fused_norm_case(rows: int, dtype, gen, cols: int = 2048) -> dict:
     check = compare(y, norm_ref.gn_add_layernorm_ref(x, r, gamma, None, subtract_mean=False)[1],
                     *norm_tol(dtype))
     check["ok"] = check["bad_rows"] == 0 and s_exact and y_exact
-    # x and r read, s and y written once, gamma read once
-    b_ms, b_by = bound(4 * x.numel() * x.element_size() + cols * 4, 6 * x.numel(),
-                       torch.float32)
+    b_ms, b_by = roofline.work_bound(norm_ops.work(x, r, gamma, None, subtract_mean=False))
     lib_w = gamma.to(dtype)
     return {
         "name": "gn_rmsnorm_fused", "mode": "rms", "layout": norm_ops.layout(x, r),
@@ -918,22 +920,6 @@ def attn_inputs(c: int, dtype, gen, v_ones: bool = False, exact: bool = False,
     return (q, k_ar, v_ar, *ints), lengths, n_valid
 
 
-def attn_bound(args, lengths, n_valid, kv_item: int, scales: bool) -> tuple[float, str]:
-    """Bytes: every live K/V block once (``kv_item`` bytes an element, plus
-    its two f32 scales in int8 mode), q read and out written once, the
-    tables and per-sequence ints; operations: q.k and p.v over the visible
-    (row, column) pairs."""
-    q = args[0]
-    n, _, h, d = q.shape
-    hkv, item = args[1].shape[2], q.element_size()
-    blocks = sum(-(-int(L) // BLOCK) for L in lengths)
-    nbytes = (2 * blocks * BLOCK * hkv * d * kv_item + (2 * 4 * blocks if scales else 0)
-              + 2 * q.numel() * item + 4 * (args[3].numel() + 2 * n))
-    seen = sum(min(int(L) - int(nv) + i + 1, int(L)) for L, nv in zip(lengths, n_valid)
-               for i in range(int(nv)))  # visible columns over the valid rows
-    return bound(nbytes, 4 * h * d * seen, q.dtype)
-
-
 def attn_case(c: int, dtype, gen, max_bt: int = 66, h: int = 16) -> dict:
     rel = 0.0 if dtype == torch.float32 else BF16_REL
     args, lengths, n_valid = attn_inputs(c, dtype, gen, max_bt=max_bt, h=h)
@@ -959,7 +945,7 @@ def attn_case(c: int, dtype, gen, max_bt: int = 66, h: int = 16) -> dict:
         check["poisoned"] = poison
     n, _, h, d = args[0].shape
     hkv = args[1].shape[2]
-    b_ms, b_by = attn_bound(args, lengths, n_valid, args[1].element_size(), False)
+    b_ms, b_by = roofline.work_bound(attn_ops.work(*args))
     return {
         "name": "gn_paged_attention", "design": attn_ops.call_design(*args[:3]),
         "shape": {"N": n, "C": c, "H": h, "Hkv": hkv, "D": d, "block": BLOCK,
@@ -1042,7 +1028,7 @@ def attn_int8_case(c: int, dtype, gen, max_bt: int = 66, h: int = 16) -> dict:
     check["ok"] = (check["bad_rows"] <= FLIP_ROWS * check["rows"] and exact["bad_rows"] == 0
                    and ones_err <= ONES_ATOL and empty_read == 0.0)
     n, _, h, d = q.shape
-    b_ms, b_by = attn_bound(args, lengths, n_valid, 1, True)
+    b_ms, b_by = roofline.work_bound(attn_ops.work(*args, scales=scales))
     return {
         "name": "gn_paged_attention_int8", "design": attn_ops.call_design(*args[:3]),
         "shape": {"N": n, "C": c, "H": h, "Hkv": k8.shape[2], "D": d, "block": BLOCK,
@@ -1159,8 +1145,7 @@ def softmax_case(label: str, x, masked, cfg=None, iters: int = 0) -> dict:
            "lut": [cfg.frac_bits, cfg.delta_scale], **check, "sum_err": sum_err,
            "masked_max": masked_max}
     if iters:  # one read and one write of every element; elementwise ops on the CUDA cores
-        b_ms, b_by = bound(2 * x.numel() * x.element_size(), SM_OPS_PER_ELEM * x.numel(),
-                           torch.float32)
+        b_ms, b_by = roofline.work_bound(sm_ops.work(x))
         res.update(bound_ms=b_ms, bound_by=b_by,
                    layout=softmax_layouts(lambda: sm_ops.gn_softmax(x, cfg)), **timings(
                        lambda: sm_ops.gn_softmax(x, cfg), lambda: sm_ref.gn_softmax_ref(x, cfg),
@@ -1205,8 +1190,7 @@ def fused_case(label: str, raw, mask, scale: float, gen_iters: int = 0) -> dict:
            "bitwise_chain": bitwise, **check, "sum_err": sum_err, "masked_max": masked_max}
     del got, want, plain
     if gen_iters:
-        nbytes = 2 * raw.numel() * raw.element_size() + (0 if mask is None else mask.numel())
-        b_ms, b_by = bound(nbytes, (SM_OPS_PER_ELEM + 2) * raw.numel(), torch.float32)
+        b_ms, b_by = roofline.work_bound(sm_ops.scores_work(raw, scale, mask, dtype))
         res.update(bound_ms=b_ms, bound_by=b_by, chain_ms=device_ms(chain, gen_iters),
                    **timings(fused, lambda: sm_ref.gn_softmax_scores_ref(raw, scale, mask, dtype),
                              None, gen_iters))
@@ -1400,12 +1384,7 @@ def fa_case(label: str, shape, dtype, causal: bool, gen, iters: int = 0) -> dict
            "exact_scores": {key: exact[key] for key in ("max_abs_err", "bad_rows")},
            "ones_err": ones_err}
     if iters:
-        # visible (row, column) pairs: row i sees min(Sk, i + Sk - Sq + 1) columns
-        seen = (sum(max(0, min(sk, i + sk - sq + 1)) for i in range(sq)) if causal
-                else sq * sk)
-        item = q.element_size()
-        b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * item,
-                           4 * b * h * d * seen, dtype)
+        b_ms, b_by = roofline.work_bound(fa_ops.work(q, k, v, causal=causal))
         lib = functools.partial(F.scaled_dot_product_attention, q, k, v,
                                 is_causal=causal and sq == sk, enable_gqa=True)
         res.update(bound_ms=b_ms, bound_by=b_by, **timings(
@@ -1430,8 +1409,7 @@ def fa_long_case(b: int, s: int, gen, iters: int = 5) -> dict:
     ones_err = (ones.float() - 1.0).abs().max().item()
     del ones
     check["ok"] = check["bad_rows"] <= FLIP_ROWS * check["rows"] and ones_err <= ONES_ATOL
-    b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-                       4 * b * 16 * 128 * (s * (s + 1) // 2), torch.bfloat16)
+    b_ms, b_by = roofline.work_bound(fa_ops.work(q, k, v, causal=True))
     lib = functools.partial(F.scaled_dot_product_attention, q, k, v, is_causal=True,
                             enable_gqa=True)
     return {"name": "gn_attention", "case": f"prefill-{s}",
@@ -1469,8 +1447,9 @@ def fa_mla_case(gen, iters: int = 5) -> dict:
                    and ones_err <= ONES_ATOL)
     seen = s * (s + 1) // 2
     item = q.element_size()
-    b_ms, b_by = bound((2 * q.numel() + k.numel() + 2 * b * h * s * dv) * item,
-                       2 * b * h * seen * (dqk + dv), torch.bfloat16)
+    b_ms, b_by = roofline.bound(2 * b * h * seen * (dqk + dv),
+                                (2 * q.numel() + k.numel() + 2 * b * h * s * dv) * item,
+                                torch.bfloat16)
     v64 = v[..., :dv].contiguous()
     try:
         F.scaled_dot_product_attention(q, k, v64, is_causal=True)
@@ -1487,12 +1466,6 @@ def fa_mla_case(gen, iters: int = 5) -> dict:
             "call_ms": call_ms(lambda: fa_ops.gn_attention(q, k, v, causal=True), iters),
             "plain_ms": device_ms(lambda: fa_ref.gn_attention_ref(q, k, v, causal=True), 3),
             "library_ms": None if lib is None else device_ms(lib, iters)}
-
-
-def band_pairs(sq: int, sk: int, window: int) -> int:
-    """Visible (row, column) pairs of a causal call with a sliding window:
-    row i sees min(window, i + Sk - Sq + 1) columns."""
-    return sum(min(window, i + sk - sq + 1) for i in range(sq))
 
 
 def fa_window_case(label: str, shape, window: int, dtype, gen, iters: int = 0,
@@ -1539,8 +1512,7 @@ def fa_window_case(label: str, shape, window: int, dtype, gen, iters: int = 0,
            "exact_scores": {key: exact[key] for key in ("max_abs_err", "bad_rows")},
            "ones_err": ones_err, "wide_window_bitwise_causal": wide}
     if iters:
-        b_ms, b_by = bound((2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
-                           4 * b * h * d * band_pairs(sq, sk, window), dtype)
+        b_ms, b_by = roofline.work_bound(fa_ops.work(q, k, v, causal=True, window=window))
         band = attention_mod.causal_mask(sq, sk, DEV, window)[0, 0]
         lib = functools.partial(F.scaled_dot_product_attention, q, k, v, attn_mask=band,
                                 enable_gqa=True)
@@ -2156,7 +2128,7 @@ def phase_serve() -> dict:
                              "sentinel_peak_sigma_residual")},
     }
     print(f"[serve] {json.dumps(res)}")
-    return {**res, "new_tokens": first}
+    return {**res, "new_tokens": first, "_engine": (engine, reqs)}
 
 
 # ------------------------------------------------------------------ phase 5 --
@@ -2365,7 +2337,7 @@ def phase_int8(served: dict) -> dict:
         "fp_identical": f"{sum(p == 1.0 for p in prefix)}/{len(prefix)}",
     }
     print(f"[int8] {json.dumps(res)}")
-    return {**res, "new_tokens": first}
+    return {**res, "new_tokens": first, "_engine": (engine, reqs)}
 
 
 # ------------------------------------------------------------------ phase 7 --
@@ -4768,6 +4740,67 @@ def phase_ssm() -> dict:
                                 "hybrid": out["zamba2"]["launches"]}}
 
 
+# ----------------------------------------------------------------- phase 24 --
+AUDIT_TRACES = 5  # profiled windows taken until one holds every GN kernel's records
+
+
+def phase_audit(served: dict, int8: dict) -> dict:
+    """Phase 24 (``[audit]``, ``[roofline]``), run right after phase 6 on its
+    engines: the invariant auditor (``repro_torch.analysis.audit``) over phase
+    4's full-width engine (fp arenas, sentinels on) and phase 6's int8 engine
+    as their runs left them (nothing is built): the trace keys against the
+    captures, then one eager call of each entry point under the op recorder
+    (the tick at every (step kind, bucket) it captured, every lane parked;
+    the sentinel step; the prefix fork), every audit rule on each; the
+    self-check of every rule's fixtures; then ``profile_cell``'s core over
+    phase 4's steady ticks: one eager tick's work (``op_cost``, each GN
+    kernel's ``work()``) and a profiled window of LONG_WINDOW replayed ticks
+    with each GN kernel's device time beside its bound, taken again (up to
+    AUDIT_TRACES times) until its trace holds every GN kernel's records, in
+    which the tick's one device-to-host copy is counted: exactly one a tick
+    (A-TRANSFER's boundary on the card).  Fatal on any audit error, a
+    fixture that does not bite, a window that lost records in every trace,
+    or another copy count.  Drops both engines."""
+    card = roofline.card()
+    out = {"card": str(card)}
+    engines = {label: res.pop("_engine") for label, res in (("fp", served), ("int8", int8))}
+    t0 = time.perf_counter()
+    for label, (engine, _) in engines.items():
+        findings = audit.audit_engine(engine, f"{ARCH}:{label}")
+        errors = [f.format() for f in findings if f.severity == "error"]
+        if errors:
+            fail(f"[audit] {label}: {len(errors)} errors\n" + "\n".join(errors))
+        out[label] = {"entry_points": [ep.name for ep in audit.collect_entry_points(engine)],
+                      "findings": len(findings), "read_path": engine.read_path,
+                      "gather_budget": audit.read_budget(engine)[0]}
+    out["audit_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    findings, results = run_self_check()
+    if findings or any(v != "ok" for v in results.values()):
+        fail(f"[audit] self-check: {results}: " + "; ".join(f.format() for f in findings))
+    out["self_check"] = {"rules": len(results), "seconds": time.perf_counter() - t0}
+    print(f"[audit] {json.dumps(out)}")
+
+    engine, reqs = engines.pop("fp")
+    del engines
+    t0 = time.perf_counter()
+    cell = profile_cell.engine_cell(f"{ARCH} continuous ({engine.model.cfg.n_layers} layers, "
+                                    "fp KV, sentinels on)", engine, reqs, LONG_WINDOW)
+    prof = profile_cell.profile(cell, LONG_WINDOW, top=12, attempts=AUDIT_TRACES)
+    window = prof.pop("window")
+    if window["records"] != window["launches"]:
+        fail(f"[roofline] every one of {window['traces']} traces lost GN kernel records: "
+             f"{window['records']} against launches {window['launches']}")
+    copies = audit.memcpy_records(window["prof"])
+    if copies.get("DtoH", 0) != LONG_WINDOW:
+        fail(f"[roofline] {copies.get('DtoH', 0)} device-to-host copies in {LONG_WINDOW} "
+             f"replayed ticks, want one a tick: {copies}")
+    res = {**prof, "card": str(card), "memcpy_records": copies, "traces": window["traces"],
+           "gn_records": window["records"], "seconds": time.perf_counter() - t0}
+    print(f"[roofline] {json.dumps(res)}")
+    return {"audit": out, "roofline": res}
+
+
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "gn_rmsnorm": ("src/repro_torch/csrc/gn_layernorm.cu",
                    "src/repro/kernels/gn_layernorm/kernel.py:81"),
@@ -4808,6 +4841,7 @@ def main() -> int:
     served = phase("serve", phase_serve)
     static = phase("static", phase_static)
     int8 = phase("int8", phase_int8, served)
+    phase("audit", phase_audit, served, int8)
     long_static = phase("long-static", phase_long_static, kern["gn_attention"])
     long_cont = phase("long", phase_long_continuous)
     reads = phase("reads", phase_reads, served, int8)

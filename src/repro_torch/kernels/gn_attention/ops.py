@@ -14,7 +14,9 @@ LUT numerator to the tensor cores as an exact sum of two bf16, which holds
 up to that width), the CUDA-core design for f32 and for finer LUTs.
 Unlike the TPU wrapper it pads nothing: the kernel masks the ragged edges
 itself.  ``launches`` counts kernel launches and nothing else.  One
-device per process: the kernel runs on the current CUDA device.
+device per process: the kernel runs on the current CUDA device.  ``work``
+counts a call's operations and bytes for the roofline; under the analysis
+package's op recorder a call is one opaque record carrying it.
 
 The wrapper is differentiable: when grad is on and q, k or v requires it,
 it runs as a ``torch.autograd.Function``.  Its forward is the same kernel
@@ -45,6 +47,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis.op_walk import opaque
 from repro_torch.core.gn_softmax import exp_lut_tensors, factorized_exp
 from repro_torch.core.luts import SoftmaxLUTConfig, TPU_SOFTMAX_LUT
 from repro_torch.kernels import _build
@@ -52,6 +55,7 @@ from repro_torch.kernels.gn_attention import ref
 from repro_torch.kernels.gn_layernorm.ops import DTYPE_CODES
 from repro_torch.kernels.gn_softmax import ops as softmax_ops
 from repro_torch.kernels.gn_softmax.ops import exp_lut_args
+from repro_torch.roofline.analysis import PRECISION, Work
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 6 + [_I] * 10 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
@@ -211,6 +215,32 @@ def gn_attention(
     return _forward(q, k, v, cfg, causal, sm_scale, window)
 
 
+def visible_pairs(sq: int, sk: int, causal: bool, window: int = 0) -> int:
+    """(row, column) pairs a call attends: all of them, or with ``causal``
+    row i sees the columns (i + Sk - Sq - window, i + Sk - Sq] within
+    [0, Sk) (no lower edge without a window)."""
+    if not causal:
+        return sq * sk
+    total = 0
+    for i in range(sq):
+        hi = min(i + sk - sq, sk - 1)
+        lo = max(i + sk - sq - window + 1, 0) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def work(q, k, v, cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT, causal: bool = False,
+         sm_scale=None, window: int = 0) -> Work:
+    """The attention's work on these inputs, whatever design runs it: q, k
+    and v read and the output (q's shape) written once; operations: q.k
+    and p.v over the visible (row, column) pairs, at q's precision."""
+    b, h, sq, d = q.shape
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    return Work(4 * b * h * d * visible_pairs(sq, k.shape[2], causal, int(window or 0)),
+                nbytes, PRECISION[q.dtype])
+
+
+@opaque("gn_attention", work)
 def _forward(q, k, v, cfg: SoftmaxLUTConfig, causal: bool, sm_scale: float,
              window: int = 0) -> torch.Tensor:
     """The plain version for CPU tensors, the kernel for CUDA ones."""

@@ -7,7 +7,9 @@ current stream, or raises.  ``launches`` counts kernel launches of both
 entries and nothing else; ``launches_fused`` counts the fused entry's apart.
 A wrapper does no host sync and allocates only with ``torch.empty``, so a
 CUDA graph can capture it.  One device per process: the kernel runs on the
-current CUDA device.
+current CUDA device.  ``work`` counts a call's operations and bytes for
+the roofline; under the analysis package's op recorder a call is one
+opaque record carrying it.
 
 The wrappers are differentiable: when grad is on and an input requires it,
 the call runs as a ``torch.autograd.Function`` whose forward is the same
@@ -28,10 +30,12 @@ import functools
 
 import torch
 
+from repro_torch.analysis.op_walk import opaque
 from repro_torch.core.gn_layernorm import newton_rsqrt, rsqrt_lut_tensor
 from repro_torch.core.luts import INV_SQRT2, PAPER_RSQRT, RsqrtConfig
 from repro_torch.kernels import _build
 from repro_torch.kernels.gn_layernorm import ref
+from repro_torch.roofline.analysis import Work
 
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # the C entries' layout codes: a row group's size in threads (a warp, or a
@@ -166,6 +170,25 @@ def _norm(x, r, gamma, beta, cfg, subtract_mean, layout_name):
     return _forward(x, r, gamma, beta, cfg, subtract_mean, layout_name)
 
 
+# f32 operations an element on the CUDA cores: square, sum, scale, multiply,
+# gamma (RMS); the mean and its subtraction, beta and the centered square
+# with LayerNorm; one more for the fused residual add
+OPS_PER_ELEM = {False: 5, True: 8}
+
+
+def work(x, r=None, gamma=None, beta=None, cfg: RsqrtConfig = PAPER_RSQRT,
+         subtract_mean: bool = True, layout_name=None) -> Work:
+    """The norm's (or with ``r`` the fused add + norm's) work on these
+    inputs, whatever layout runs it: x (and r) read and y (and s) written
+    once in x's dtype, gamma and beta read once in f32; f32 operations."""
+    fused = r is not None
+    cols = x.shape[-1]
+    nbytes = (2 + 2 * fused) * x.numel() * x.element_size() + 4 * cols * (
+        (gamma is not None) + (beta is not None))
+    return Work((OPS_PER_ELEM[subtract_mean] + fused) * x.numel(), nbytes, "f32")
+
+
+@opaque(lambda x, r, *args: "gn_rmsnorm" if r is None else "gn_rmsnorm_fused", work)
 def _forward(x, r, gamma, beta, cfg, subtract_mean, layout_name):
     """The plain version for a CPU tensor, one kernel launch for a CUDA one."""
     if x.device.type == "cpu":

@@ -17,7 +17,9 @@ int32 flag: 1 where a live score (visible and inside the length) was NaN or
 the output alone cannot show a poisoned K tile; the GN sentinels read the
 flag.  ``launches`` counts the kernel's launches over fp arenas and
 ``launches_int8`` those over int8 arenas, and nothing else.  One device per
-process: the kernel runs on the current CUDA device.
+process: the kernel runs on the current CUDA device.  ``work`` counts a
+call's operations and bytes for the roofline; under the analysis package's
+op recorder a call is one opaque record carrying it.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import functools
 
 import torch
 
+from repro_torch.analysis.op_walk import opaque
 from repro_torch.core.gn_softmax import exp_lut_tensors
 from repro_torch.core.luts import SoftmaxLUTConfig, TPU_SOFTMAX_LUT
 from repro_torch.kernels import _build
@@ -33,6 +36,7 @@ from repro_torch.kernels.gn_attention.ops import CUDA_CORE, MAX_BF16_LUT_BITS, T
 from repro_torch.kernels.gn_layernorm.ops import DTYPE_CODES
 from repro_torch.kernels.gn_paged_attention import ref
 from repro_torch.kernels.gn_softmax.ops import exp_lut_args
+from repro_torch.roofline.analysis import PRECISION, Work
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _ARGTYPES = [_P] * 16 + [_I] * 12 + [_F, _F, _F, _I, _I, _I, _I, _I, _F, _P]
@@ -123,6 +127,34 @@ def _check(q, k_arena, v_arena, tables, starts, n_valid, scales) -> None:
             raise ValueError(f"{name} must be contiguous")
 
 
+def work(q, k_arena, v_arena, tables, starts, n_valid, cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT,
+         sm_scale=None, scales=None, nonfinite: bool = False) -> Work:
+    """The read's work on these inputs, whatever design runs it: every live
+    K and V block once (in int8 mode with its two f32 scales), q read and
+    the output written once (with ``nonfinite`` its (N, C, H) int32 flags
+    too), the tables and the per-sequence ints; operations: q.k and p.v
+    over the visible (row, column) pairs of the valid rows, at q's
+    precision.  The live blocks and the visible pairs are what this call's
+    lengths (starts + n_valid, read from the device) need."""
+    n, c, h, d = q.shape
+    bs, hkv = k_arena.shape[1], k_arena.shape[2]
+    blocks = seen = 0
+    for s0, nv in zip(starts.tolist(), n_valid.tolist()):
+        blocks += -(-(s0 + nv) // bs)
+        seen += nv * s0 + nv * (nv + 1) // 2  # row i sees s0 + i + 1 columns
+    nbytes = (2 * blocks * bs * hkv * d * k_arena.element_size()
+              + (2 * 4 * blocks if scales is not None else 0)
+              + 2 * q.numel() * q.element_size() + 4 * (tables.numel() + 2 * n)
+              + (4 * n * c * h if nonfinite else 0))
+    return Work(4 * h * d * seen, nbytes, PRECISION[q.dtype])
+
+
+def _record_name(q, k_arena, v_arena, tables, starts, n_valid, cfg=None, sm_scale=None,
+                 scales=None, nonfinite=False) -> str:
+    return "gn_paged_attention" if scales is None else "gn_paged_attention_int8"
+
+
+@opaque(_record_name, work)
 def gn_paged_attention_chunk(
     q: torch.Tensor,        # (N, C, H, D) one query chunk per sequence
     k_arena: torch.Tensor,  # (nb, bs, Hkv, D) the pool's arena layout

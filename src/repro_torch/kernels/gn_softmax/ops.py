@@ -16,7 +16,9 @@ Nothing is padded or copied on the way in: the kernel masks the ragged edge
 itself and reads the scores and the mask through their strides (a mask is
 passed as its broadcast view).  ``launches`` counts kernel launches of both
 entries and nothing else.  One device per process: the kernel runs on the
-current CUDA device.
+current CUDA device.  ``work`` and ``scores_work`` count a call's
+operations and bytes for the roofline; under the analysis package's op
+recorder a call is one opaque record carrying them.
 
 The wrappers are differentiable: when grad is on and the input requires
 it, the call runs as a ``torch.autograd.Function`` whose forward is the same
@@ -37,17 +39,22 @@ import functools
 import numpy as np
 import torch
 
+from repro_torch.analysis.op_walk import opaque, tensor_info
 from repro_torch.core.gn_softmax import exp_lut_tensors
 from repro_torch.core.luts import SoftmaxLUTConfig, TPU_SOFTMAX_LUT
 from repro_torch.kernels import _build
 from repro_torch.kernels.gn_layernorm.ops import DTYPE_CODES
 from repro_torch.kernels.gn_softmax import ref
+from repro_torch.roofline.analysis import Work
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 _LUT = [_F, _F, _I, _I, _I, _I, _I, _F]  # the gn::ExpLut fields (exp_lut_args)
 _LONGS = ctypes.POINTER(ctypes.c_longlong)
 MAX_DIMS = 5  # the fused entry's scores: up to 4 leading dims and the columns
 CHUNK_COLS = 4  # columns a chunk of the kernel's register layouts (csrc K)
+# f32 operations an element: max, delta, grid scale, round, LUT product,
+# round, sum, scale; the fused entry adds the score scale and the mask
+OPS_PER_ELEM, FUSED_OPS = 8, 2
 
 launches = 0
 
@@ -120,6 +127,24 @@ def gn_softmax(x: torch.Tensor, cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT) -> torc
     return _forward(x, cfg)
 
 
+def work(x: torch.Tensor, cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT) -> Work:
+    """The softmax's work on x: every element read and written once in x's
+    dtype; f32 operations on the CUDA cores."""
+    return Work(OPS_PER_ELEM * x.numel(), 2 * x.numel() * x.element_size(), "f32")
+
+
+def scores_work(scores: torch.Tensor, scale=None, mask=None, out_dtype=None,
+                cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT) -> Work:
+    """The fused entry's work: the raw scores read once, the probabilities
+    written once in ``out_dtype``, the mask's own elements (not its
+    broadcast) read once; f32 operations."""
+    out_item = (out_dtype or scores.dtype).itemsize
+    mask_bytes = 0 if mask is None else tensor_info(mask).nbytes
+    return Work((OPS_PER_ELEM + FUSED_OPS) * scores.numel(),
+                scores.numel() * (scores.element_size() + out_item) + mask_bytes, "f32")
+
+
+@opaque("gn_softmax", work)
 def _forward(x: torch.Tensor, cfg: SoftmaxLUTConfig) -> torch.Tensor:
     """The plain version for a CPU tensor, the kernel for a CUDA one."""
     global launches
@@ -186,6 +211,7 @@ def gn_softmax_scores(scores: torch.Tensor, scale: float | None = None,
     return _scores_forward(scores, scale, mask, out_dtype, cfg)
 
 
+@opaque("gn_softmax_scores", scores_work)
 def _scores_forward(scores, scale, mask, out_dtype, cfg) -> torch.Tensor:
     """The plain chain for a CPU tensor, the fused kernel for a CUDA one."""
     global launches
