@@ -333,6 +333,28 @@ Phases, each fatal on failure (exit code 1):
                (taken again until its trace holds every GN kernel's
                records) with each GN kernel's device time beside its bound,
                and exactly one device-to-host copy a replayed tick.
+ 25. sharded - (``[sharded]``) phase 4's workload and weights through
+               ``ContinuousEngine(devices=2)``: full-width internlm2-1.8b,
+               bf16, fp paged, sentinels on, on two cards where the machine
+               has them, else as two shards of cuda:0 (the line names which);
+               every request done, launches exact (each shard's tick launches
+               a one-device tick's kernels), one graph a shard a key, a timed
+               rerun of replays (tok/s, tick ms, ``shard_balance``,
+               ``device_admits``), a profiled window of LONG_WINDOW replayed
+               ticks (busy share; exactly one device-to-host copy a shard a
+               tick: ``audit.dtoh_budget``), a rerun in which every shard's
+               first replay of each captured graph is held bitwise against
+               its eager tick (``checked_graphs``), the first
+               SHARD_PROBE_TICKS ticks in lockstep with a one-device engine
+               (held logits within SHARD_LOGIT_RTOL of the row's largest
+               |logit|, gated; the top-1/top-2 gaps reported), and the share
+               of greedy tokens that agree with phase 4's one-device run
+               (reported); then at
+               f32 on 2 layers (gated): the two-shard engine's tokens equal
+               the one-device engine's and ``static_reference``'s on the
+               card, and a ``device_loss`` injection is logged
+               (``device_lost``), its range quarantined, and every request
+               completes with the static oracle's tokens.
 Every bound in the script is the roofline module's (``roofline.analysis``,
 one copy of the H100 peaks) over a kernel wrapper's ``work()``.
 Phases 4-10 and 15-18 serve with the GN sentinels on, the engine's default:
@@ -708,14 +730,14 @@ def eager_against_graphed(label: str, engine, reqs, graphed: dict, state: dict) 
     directly (no graph): its tokens, held logits and real arena blocks (and
     int8 scales) must equal the graphed run's bit for bit; returns its
     tick and tok/s."""
-    graphs, engine._graphs = engine._graphs, None
+    graphs, engine.shards[0]._graphs = engine.shards[0]._graphs, None
     try:
         toks, seconds = timed_run(engine, reqs)
     finally:
-        engine._graphs = graphs
+        engine.shards[0]._graphs = graphs
     if any(not np.array_equal(toks[i], graphed[i]) for i in graphed):
         fail(f"{label}: the eager tick's tokens differ from the graphed tick's")
-    now = {"last_logits": engine._last_logits, **real_leaves(engine)}
+    now = {"last_logits": engine.shards[0]._last_logits, **real_leaves(engine)}
     bad = [k for k, v in state.items() if not torch.equal(v, now[k])]
     if bad:
         fail(f"{label}: the eager tick's {bad} differ from the graphed tick's")
@@ -724,17 +746,17 @@ def eager_against_graphed(label: str, engine, reqs, graphed: dict, state: dict) 
             "eager_mean_tick_ms": float(np.mean([dt * 1e3 for _, _, dt in engine.tick_log]))}
 
 
-def real_leaves(engine) -> dict:
-    """The pool's device leaves a tick reads: the real blocks of the arenas
-    (and scales; the write sink is never read), or the slabs."""
-    nb = engine.pool.num_blocks if engine.paged else None
-    return {k: v[:, :nb] for k, v in engine.pool.cache.items()}
+def real_leaves(engine, d: int = 0) -> dict:
+    """Shard ``d``'s device leaves a tick reads: the real blocks of its
+    arenas (and scales; the write sink is never read), or its slabs."""
+    nb = engine.pool.blocks_per_device if engine.paged else None
+    return {k: v[:, :nb] for k, v in engine.pool.caches[d].items()}
 
 
 def engine_state(engine) -> dict:
     """Clones of what a run leaves on the device: the held logits and the
     pool's real leaves."""
-    return {"last_logits": engine._last_logits.clone(),
+    return {"last_logits": engine.shards[0]._last_logits.clone(),
             **{k: v.clone() for k, v in real_leaves(engine).items()}}
 
 
@@ -2052,7 +2074,8 @@ def want_for(engine, ticks: int, passes=(), admitted: int | None = None) -> dict
     cfg = engine.model.cfg
     if cfg.family in ("ssm", "hybrid"):
         return recurrent_want(cfg, ticks)
-    want = continuous_want(cfg.n_layers, ticks, engine.kv_dtype == "int8",
+    # a sharded engine's tick is each shard's tick, each launching alike
+    want = continuous_want(cfg.n_layers, ticks * engine.num_devices, engine.kv_dtype == "int8",
                            engine.read_path, engine.sentinels, mla=cfg.mla is not None,
                            moe=cfg.moe is not None, cross=cross_blocks(cfg))
     for n in passes:
@@ -2109,7 +2132,7 @@ def phase_serve() -> dict:
         fail(f"continuous serving launches {launches} != {want}")
     if plain_on_cuda:
         fail(f"{plain_on_cuda} plain-version calls on CUDA tensors in the serving run")
-    if not bool(torch.isfinite(engine._last_logits).all()):
+    if not bool(torch.isfinite(engine.shards[0]._last_logits).all()):
         fail("non-finite logits")
     check_silent("serve", engine)
     first = {c.request_id: c.new_tokens for c in comps}
@@ -2275,7 +2298,7 @@ def first_run(label: str, engine, reqs,
         fail(f"{label}: not every request completed with its budget")
     if getattr(engine.pool, "blocks_in_use", 0) or engine.pool.num_free != engine.num_slots:
         fail(f"{label}: slots or blocks not returned")
-    if not bool(torch.isfinite(engine._last_logits).all()):
+    if not bool(torch.isfinite(engine.held_logits()).all()):
         fail(f"{label}: non-finite logits")
     check_silent(label, engine)
     return {c.request_id: c.new_tokens for c in comps}, launches, seconds
@@ -3018,7 +3041,7 @@ def served_run(label: str, engine, reqs) -> dict:
             or engine.pool.num_free != engine.num_slots):
         fail(f"{label}: {engine.pool.blocks_in_use} blocks in use, "
              f"{engine.pool.cached_blocks} cached, {engine.pool.num_free} slots free")
-    if not bool(torch.isfinite(engine._last_logits).all()):
+    if not bool(torch.isfinite(engine.shards[0]._last_logits).all()):
         fail(f"{label}: non-finite logits")
     check_silent(label, engine)
     comps = list(engine.completions)
@@ -3056,7 +3079,7 @@ def checked_forks(pool) -> list:
     def checked(src: int, dst: int) -> None:
         fork(src, dst)
         verdicts.append(all(torch.equal(leaf[:, dst], leaf[:, src])
-                            for leaf in pool.cache.values()))
+                            for leaf in pool.caches[0].values()))
 
     pool.fork_block = checked
     return verdicts
@@ -3072,7 +3095,7 @@ def checked_spills(engine) -> dict:
 
     def chain_blocks(slot, n):
         ix = torch.tensor(pool.chain_of(slot)[:n], dtype=torch.long, device=DEV)
-        return {k: leaf.index_select(1, ix).cpu() for k, leaf in pool.cache.items()}
+        return {k: leaf.index_select(1, ix).cpu() for k, leaf in pool.caches[0].items()}
 
     def checked_extract(slot):
         payload = extract(slot)
@@ -3099,7 +3122,7 @@ def checked_spills(engine) -> dict:
         admit()
         for e in engine.event_log[first:]:
             if e[0] == "resume" and e[2] in spilled:
-                if not torch.equal(engine._last_logits[e[3]].cpu(), spilled[e[2]]):
+                if not torch.equal(engine.shards[0]._last_logits[e[3]].cpu(), spilled[e[2]]):
                     st["bad"].append(("logits", engine.step_count, e[3]))
 
     pool.extract_blocks, pool.restore_blocks, engine._admit = (checked_extract, checked_restore,
@@ -3438,57 +3461,60 @@ def window_seconds(engine, reqs, start: int, ticks: int) -> float:
 
 class checked_graphs:
     """Within the block, the first tick of each (step kind, bucket) that
-    ``skip(model tick)`` does not exclude runs twice from one device state:
-    the graph's replay, then (the state put back) the eager tick.  Their
-    outputs (tokens and health words), held logits, positions and real
-    arena blocks (int8 scales included) must be bitwise equal; the run goes
-    on from the eager tick's state.  ``keys`` lists the (kind, bucket)
-    checked, ``eager_ms`` the eager ticks' times and ``seconds`` the time
-    the checks added to the run."""
+    ``skip(model tick)`` does not exclude runs twice from one device state,
+    on every shard: the shard's graph replay, then (its state put back) its
+    eager tick.  Their outputs (tokens and health words), the shard's held
+    logits, positions and real arena blocks (int8 scales included) must be
+    bitwise equal; the run goes on from the eager tick's state.  ``keys``
+    lists the (kind, bucket) checked, with the shard index after them on a
+    sharded engine; ``eager_ms`` the eager ticks' times and ``seconds`` the
+    time the checks added to the run."""
 
     def __init__(self, label: str, engine, skip):
         self.label, self.engine, self.skip = label, engine, skip
         self.keys, self.eager_ms, self.seconds = [], [], 0.0
 
-    def state(self) -> dict:
-        engine = self.engine
-        return {"last_logits": engine._last_logits.clone(), "pos": engine._pos_dev.clone(),
-                **{k: v.clone() for k, v in real_leaves(engine).items()}}
+    def state(self, d: int) -> dict:
+        sh = self.engine.shards[d]
+        return {"last_logits": sh._last_logits.clone(), "pos": sh._pos_dev.clone(),
+                **{k: v.clone() for k, v in real_leaves(self.engine, d).items()}}
 
-    def restore(self, state: dict) -> None:
-        engine = self.engine
-        engine._last_logits.copy_(state["last_logits"])
-        engine._pos_dev.copy_(state["pos"])
-        for k, v in real_leaves(engine).items():
+    def restore(self, d: int, state: dict) -> None:
+        sh = self.engine.shards[d]
+        sh._last_logits.copy_(state["last_logits"])
+        sh._pos_dev.copy_(state["pos"])
+        for k, v in real_leaves(self.engine, d).items():
             v.copy_(state[k])
 
     def __enter__(self):
         engine, run = self.engine, self.engine._run_tick
 
-        def checked(kind: str, bucket):
-            key = (kind, bucket)
+        def checked(kind: str, bucket, d: int = 0):
+            key = (kind, bucket) if engine.num_devices == 1 else (kind, bucket, d)
             if key in self.keys or self.skip(engine.model_ticks):
-                return run(kind, bucket)
+                return run(kind, bucket, d)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            before = self.state()
-            graphed = run(kind, bucket).clone()  # the graph's output buffer is static
-            after = self.state()
-            self.restore(before)
-            graphs, engine._graphs = engine._graphs, None
+            before = self.state(d)
+            graphed = run(kind, bucket, d).clone()  # the graph's output buffer is static
+            after = self.state(d)
+            self.restore(d, before)
+            sh = engine.shards[d]
+            graphs, sh._graphs = sh._graphs, None
             torch.cuda.synchronize()
             t1 = time.perf_counter()
             try:
-                eager = run(kind, bucket)
+                eager = run(kind, bucket, d)
             finally:
-                engine._graphs = graphs
+                sh._graphs = graphs
             torch.cuda.synchronize()
             self.eager_ms.append((time.perf_counter() - t1) * 1e3)
-            now = self.state()
+            now = self.state(d)
             bad = [k for k in after if not torch.equal(after[k], now[k])]
             if not torch.equal(eager, graphed) or bad:
-                fail(f"{self.label}: tick {engine.model_ticks} ({kind}, bucket {bucket}) eager "
-                     f"differs from its graph: output {torch.equal(eager, graphed)}, state {bad}")
+                fail(f"{self.label}: tick {engine.model_ticks} ({kind}, bucket {bucket}, shard "
+                     f"{d}) eager differs from its graph: output "
+                     f"{torch.equal(eager, graphed)}, state {bad}")
             self.keys.append(key)
             self.seconds += time.perf_counter() - t0
             return eager
@@ -3899,8 +3925,8 @@ def slab_mixtral() -> dict:
     engine = ContinuousEngine(model, master, num_slots=SLOTS, max_seq=required_max_seq(reqs),
                               chunk=CHUNK, device=DEV)
     del master
-    if engine.paged or engine.pool.cache["k"].shape[2] != MIXTRAL_WINDOW:
-        fail(f"mixtral: paged {engine.paged}, ring {tuple(engine.pool.cache['k'].shape)}")
+    if engine.paged or engine.pool.caches[0]["k"].shape[2] != MIXTRAL_WINDOW:
+        fail(f"mixtral: paged {engine.paged}, ring {tuple(engine.pool.caches[0]['k'].shape)}")
     stages["weights"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     first, launches, seconds = first_run("mixtral", engine, reqs)
@@ -4520,7 +4546,7 @@ def xattn_family(label: str, arch: str) -> dict:
                         **family_replays(label, engine, reqs, first, launches),
                         "hbm_bytes": engine.pool.hbm_bytes(),
                         "extras_bytes": sum(t.numel() * t.element_size()
-                                            for t in engine.pool.extras.values()),
+                                            for t in engine.pool.extras_shards[0].values()),
                         "encoder_ms_per_admission": encoder_ms(model, engine.params, reqs[0])}}
     total = launches
     params = engine.params
@@ -4684,7 +4710,7 @@ def ssm_family(label: str, arch: str, root: Path) -> dict:
     carries = set(model.carry_leaves)
     res = {**stats, **replays, "launches": launches, "hbm_bytes": engine.pool.hbm_bytes(),
            "carry_bytes": sum(t.numel() * t.element_size()
-                              for k, t in engine.pool.cache.items() if k in carries)}
+                              for k, t in engine.pool.caches[0].items() if k in carries)}
     stages["replays"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     static = family_static(label, model, engine.params)
@@ -4801,6 +4827,195 @@ def phase_audit(served: dict, int8: dict) -> dict:
     return {"audit": out, "roofline": res}
 
 
+# ----------------------------------------------------------------- phase 25 --
+SHARDS = 2
+SHARD_SMALL = (12, 16, 96, 8)  # the 2-layer f32 cut's workload: n, prompt lo..hi, new
+# the full-width bf16 probe: the first SHARD_PROBE_TICKS ticks of one device
+# and of the shards in lockstep; a held-logits row of the shards may differ
+# from one device's by at most SHARD_LOGIT_RTOL of the row's largest |logit|
+# (16 bf16 steps at the row's top: the shards' GEMMs and paged-read splits
+# round otherwise than the whole pool's, never by more)
+SHARD_PROBE_TICKS, SHARD_LOGIT_RTOL = 16, 2.0 ** -4
+
+
+def shard_placement() -> tuple:
+    """(``device`` for the engine, a label): one card a shard where the
+    machine has SHARDS cards, else every shard on cuda:0."""
+    if torch.cuda.device_count() >= SHARDS:
+        return None, f"{SHARDS} cards"
+    return "cuda:0", f"{SHARDS} shards of cuda:0 (the machine has one card)"
+
+
+def held_agreement(label: str, one, two, reqs, ticks: int) -> dict:
+    """``one`` (a one-device engine, eager) and ``two`` (the shards) from a
+    reset through their first ``ticks`` model ticks in lockstep: after each
+    tick, each request live in both with the same tokens so far holds a
+    logits row in each.  Gated: every such row's largest |difference| is
+    within SHARD_LOGIT_RTOL of the row's largest |logit| in ``one``.
+    Returns the rows compared, the largest relative difference, and the
+    share of rows whose top-1 - top-2 gap in ``one`` is no larger than the
+    row's difference (a greedy token the difference can flip)."""
+    for engine in (one, two):
+        engine.reset()
+        for r in reqs:
+            engine.submit(r)
+    rel, diffs, gaps, flippable = [], [], [], 0
+    while one.model_ticks < ticks:
+        if not (one.step() and two.step()):
+            break
+        if one.model_ticks != two.model_ticks:
+            fail(f"{label}: one device and the shards ran {one.model_ticks} and "
+                 f"{two.model_ticks} model ticks")
+        live = [{st.req.id: (s, st.generated) for s, st in enumerate(e._slots) if st is not None}
+                for e in (one, two)]
+        held = [e.held_logits().float().cpu() for e in (one, two)]
+        for rid, (s, gen) in live[0].items():
+            if rid not in live[1] or live[1][rid][1] != gen:
+                continue
+            a, b = held[0][s], held[1][live[1][rid][0]]
+            diff, top = float((a - b).abs().max()), torch.topk(a, 2).values
+            rel.append(diff / float(a.abs().max()))
+            diffs.append(diff)
+            gaps.append(float(top[0] - top[1]))
+            flippable += gaps[-1] <= diff
+    res = {"ticks": one.model_ticks, "rows": len(rel), "max_rel_diff": max(rel, default=None),
+           "max_abs_diff": max(diffs, default=None),
+           "median_abs_diff": float(np.median(diffs)) if diffs else None,
+           "median_top2_gap": float(np.median(gaps)) if gaps else None,
+           "flippable_share": flippable / len(rel) if rel else None}
+    if not rel or max(rel) > SHARD_LOGIT_RTOL:
+        fail(f"{label}: the shards' held logits part from one device's by more than "
+             f"{SHARD_LOGIT_RTOL} of the row's largest |logit|: {res}")
+    return res
+
+
+def sharded_small(label: str, device) -> dict:
+    """At f32 on 2 layers (full widths), SHARD_SMALL's workload at once:
+    the two-shard engine's tokens equal the one-device engine's and the
+    static oracle's on the card; then a ``device_loss`` injection in a
+    rerun is logged, its device's range quarantined and its slots retired,
+    and every request still completes with the oracle's tokens.  Gated."""
+    small = make_model(dataclasses.replace(get_config(ARCH), n_layers=2, dtype="float32"))
+    master = small.init(SEED, DEV)
+    n, lo, hi, new = SHARD_SMALL
+    reqs = seeded_requests(small.cfg.vocab, n, lo, hi, new, 0, SEED)
+    kw = {"num_slots": SLOTS, "max_seq": required_max_seq(reqs), "chunk": CHUNK,
+          "block_size": BLOCK}
+    one = ContinuousEngine(small, master, device=DEV, **kw)
+    one_toks = {c.request_id: c.tokens for c in one.run(reqs)}
+    oracle = static_reference(small, one.params, reqs, ServeConfig())
+    del one
+    two = ContinuousEngine(small, master, devices=SHARDS, device=device, **kw)
+    two_toks = {c.request_id: c.tokens for c in two.run(reqs)}
+    same_one = sum(np.array_equal(t, one_toks[i]) for i, t in two_toks.items())
+    same_oracle = sum(np.array_equal(t, oracle[i]) for i, t in two_toks.items())
+    two.reset()
+    inj = FaultInjector(two, seed=3)
+    for r in reqs:
+        two.submit(r)
+    lost = None
+    while two.step():
+        if lost is None:
+            rec = inj.inject("device_loss")
+            lost = None if rec is None else rec.device
+    dead = sorted(two.pool._lost_devices)
+    survivors = {c.request_id: c.tokens for c in two.completions}
+    same_loss = sum(np.array_equal(t, oracle[i]) for i, t in survivors.items())
+    m = two.metrics()
+    lo_b = (lost or 0) * two.pool.blocks_per_device
+    res = {"one_device_identical": f"{same_one}/{n}", "oracle_identical": f"{same_oracle}/{n}",
+           "device_lost": lost, "lost_devices": dead,
+           "device_lost_logged": any(e[0] == "device_lost" for e in two.event_log),
+           "range_quarantined": set(range(lo_b, lo_b + two.pool.blocks_per_device))
+           <= two.pool.quarantined,
+           "after_loss_oracle_identical": f"{same_loss}/{n}",
+           "after_loss_retries": m["retries"], "after_loss_device_admits": m["device_admits"]}
+    print(f"[{label}-2l-f32] {json.dumps(res)}")
+    if same_one != n or same_oracle != n:
+        fail(f"{label}: at 2 layers f32 the two-shard tokens part from one device's or the "
+             f"static oracle's: {res}")
+    if (lost is None or dead != [lost] or not res["device_lost_logged"]
+            or not res["range_quarantined"] or len(survivors) != n or same_loss != n
+            or any(two.pool.device_of(s) == lost for s in two.pool._free_slots)):
+        fail(f"{label}: device loss not contained: {res}")
+    return res
+
+
+def phase_sharded(served: dict) -> dict:
+    """Phase 25 (``[sharded]``): phase 4's workload and weights through a
+    two-shard engine (see the module docstring)."""
+    label = "sharded"
+    device, placement = shard_placement()
+    model = make_model(get_config(ARCH))
+    reqs = seeded_requests(model.cfg.vocab, REQUESTS, MIN_PROMPT, MAX_PROMPT, NEW, 1, SEED)
+    master = model.init(SEED, DEV)
+    engine = ContinuousEngine(model, master, num_slots=SLOTS,
+                              max_seq=required_max_seq(reqs), chunk=CHUNK, block_size=BLOCK,
+                              devices=SHARDS, device=device)
+    first, launches, seconds = first_run(label, engine, reqs)
+    m = engine.metrics()
+    keys = len(m["fused_buckets"]) + len(m["decode_buckets"])
+    if m["graph_captures"] != [keys] * SHARDS:
+        fail(f"{label}: captures {m['graph_captures']}, want {keys} a shard (one a key)")
+    captures, steady_s, m = timed_replay(label, engine, reqs, first, launches)
+    tick_ms = [dt * 1e3 for _, _, dt in engine.tick_log]
+    ticks = m["model_ticks"]
+    traced = min(LONG_WINDOW, ticks)
+    start = (ticks - traced) // 2
+    toks, base_s, _ = window_run(engine, reqs, start, traced)
+    toks_traced, traced_s, prof = window_run(engine, reqs, start, traced, trace=True)
+    if any(not np.array_equal(first[i], t[i]) for t in (toks, toks_traced) for i in first):
+        fail(f"{label}: a windowed rerun gave other tokens")
+    busy_s = sum(_device_us(prof).values()) / 1e6
+    copies = audit.memcpy_records(prof)
+    budget = audit.dtoh_budget(engine, traced)
+    if copies.get("DtoH", 0) != budget:
+        fail(f"{label}: {copies.get('DtoH', 0)} device-to-host copies in {traced} replayed "
+             f"ticks, want one a shard a tick ({budget}): {copies}")
+    # every shard's replay of every captured graph, bitwise against its eager tick
+    engine.reset()
+    for req in reqs:
+        engine.submit(req)
+    with checked_graphs(label, engine, lambda t: False) as checks:
+        while engine.step():
+            pass
+    toks = {c.request_id: c.new_tokens for c in engine.completions}
+    if toks.keys() != first.keys() or any(not np.array_equal(first[i], toks[i]) for i in first):
+        fail(f"{label}: the checked rerun gave other tokens")
+    captured = {(*key, d) for d, sh in enumerate(engine.shards) for key in sh._graphs._graphs}
+    if set(checks.keys) != captured:
+        fail(f"{label}: graphs checked against their eager tick {sorted(checks.keys)} != "
+             f"captured {sorted(captured)}")
+    one = ContinuousEngine(model, master, num_slots=SLOTS, max_seq=engine.max_seq, chunk=CHUNK,
+                           block_size=BLOCK, device=DEV)
+    one.shards[0]._graphs = None  # eager: held to its graphs in phase 4
+    held = held_agreement(label, one, engine, reqs, SHARD_PROBE_TICKS)
+    del one
+    prefix = common_prefix(first, served["new_tokens"])
+    res = {"card": str(roofline.card()), "placement": placement,
+           "devices": [str(d) for d in engine.shard_devices],
+           "requests": len(first), "generated_tokens": m["generated_tokens"],
+           "first_run_seconds": seconds, "launches": launches,
+           "captures": {"fused": captures[0], "decode": captures[1]},
+           "graph_captures": m["graph_captures"], "capture_seconds": m["capture_seconds"],
+           "steady_seconds": steady_s, "steady_tokens_per_s": m["generated_tokens"] / steady_s,
+           "steady_mean_tick_ms": float(np.mean(tick_ms)), "model_ticks": ticks,
+           "shard_balance": m["shard_balance"], "device_admits": m["device_admits"],
+           "profiled_ticks": traced, "device_busy_seconds": busy_s,
+           "device_busy_share": busy_s / base_s, "memcpy_records": copies,
+           "one_device_identical": f"{sum(p == 1.0 for p in prefix)}/{len(prefix)}",
+           "one_device_agreement": float(np.mean(prefix)),
+           "one_device_tokens_per_s": served["steady_tokens_per_s"],
+           "held_logits_vs_one_device": held, "eager_checked": len(checks.keys),
+           "eager_mean_tick_ms": float(np.mean(checks.eager_ms)),
+           "eager_check_seconds": checks.seconds}
+    print(f"[{label}] {json.dumps(res)}")
+    del engine
+    release()
+    small = sharded_small(label, device)
+    return {**res, "small": small}
+
+
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
     "gn_rmsnorm": ("src/repro_torch/csrc/gn_layernorm.cu",
                    "src/repro/kernels/gn_layernorm/kernel.py:81"),
@@ -4863,6 +5078,7 @@ def main() -> int:
     long_chunked = phase("long-chunked", phase_long_chunked)
     cross = phase("cross", phase_cross)
     ssm = phase("ssm", phase_ssm)
+    sharded = phase("sharded", phase_sharded, served)
     by_path = {"continuous": served["launches"], "static": static["launches"],
                "int8": int8["launches"], "long_static": long_static["launches"],
                "long_continuous": long_cont["launches"], "reads": reads["launches"],
@@ -4871,7 +5087,7 @@ def main() -> int:
                "prefix": prefix["launches"], "sla": sla["launches"], "mla": mla["launches"],
                "moe": moe["launches"], "slab": slab["launches"], "snapshot": snap["launches"],
                "long_chunked": long_chunked["launches"], "cross": cross["launches"],
-               **ssm["launches"]}
+               **ssm["launches"], "sharded": sharded["launches"]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         # the main path's shape: bf16 tick (fp or int8 KV; the norms' 128

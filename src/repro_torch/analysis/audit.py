@@ -10,8 +10,8 @@ and checks the record.  Per arch it builds a smoke engine (``build_engine``,
 the reference's reduced shapes) or takes one the caller passes (the
 full-width engines on the card), runs a small staggered workload so the
 engine sees its (step kind, horizon bucket) keys, then records the tick
-body ``ContinuousEngine._tick`` at each seen key with every lane parked
-(the graphs' own warm-up call: every op runs, nothing observable is
+body ``_Shard._tick`` of every shard at each seen key with every lane
+parked (the graphs' own warm-up call: every op runs, nothing observable is
 written) and asserts:
 
 * **A-GATHER**: arena gathers (``GATHER_OPS`` with an arena's storage as
@@ -31,9 +31,10 @@ written) and asserts:
 * **A-F64**: no op input or output is float64 or complex.
 * **A-TRANSFER**: no ``SYNC_OPS`` op and no copy across devices inside the
   body.  The boundary is named, not recorded: ``ContinuousEngine.step``
-  stages the tick's inputs with ``copy_`` before the body and takes its
-  one device->host copy after it; on the card ``device_transfers`` counts
-  the DtoH copies of a profiled window of replayed ticks, one a tick.
+  stages the tick's inputs with ``copy_`` before the body and takes one
+  device->host copy a shard after it; on the card the DtoH copies of a
+  profiled window of replayed ticks must be ``dtoh_budget``: one a shard a
+  tick.
 * **A-TRACEKEY**: ``check_trace_keys`` over ``metrics()``: the seen keys
   lie in ``tracekeys.trace_key_space``; with graphs the capture counts
   equal the seen keys per kind within ``compile_bound``, and on the CPU,
@@ -279,23 +280,25 @@ def check_trace_keys(metrics: dict, where: str, *, paged: bool, captures: bool,
 
 def audit_trace_keys(engine, where: str) -> list[Finding]:
     return check_trace_keys(
-        engine.metrics(), where, paged=engine.paged, captures=engine._graphs is not None,
+        engine.metrics(), where, paged=engine.paged,
+        captures=engine.shards[0]._graphs is not None,
         max_seq=engine.max_seq, block_size=engine.pool.block_size if engine.paged else 0,
         engine_grid=engine.horizon_bucket_grid if engine.paged else None)
 
 
 # --------------------------------------------------------- entry points --
 def build_engine(arch: str, *, num_slots: int = 2, chunk: int = 4, block_size: int = 4,
-                 kv_dtype: str = "fp", device=None, **over):
+                 kv_dtype: str = "fp", device=None, devices: int = 1, **over):
     """A smoke-scale engine for one registry arch, and its workload: the
     reference's shapes, with prompts up to 36 tokens so that the paged
     tick's widest bucket (10 blocks of 4) exceeds the streamed read's K
-    tile."""
+    tile; ``devices`` shards it (``device`` then names the one device all
+    shards take, None for one card each)."""
     cfg = reduce_config(get_config(arch), **over)
     model = make_model(cfg)
     reqs = staggered_requests(cfg, n_requests=4, base_len=24, max_new_tokens=4, stagger=1)
     kw = dict(num_slots=num_slots, max_seq=required_max_seq(reqs), cfg=ServeConfig(),
-              chunk=min(chunk, cfg.sliding_window or chunk), device=device)
+              chunk=min(chunk, cfg.sliding_window or chunk), device=device, devices=devices)
     if model.supports_paging:
         kw.update(block_size=block_size, kv_dtype=kv_dtype)
     return ContinuousEngine(model, model.init(0, device), **kw), reqs
@@ -311,7 +314,14 @@ def kv_leaf_names(engine) -> tuple[str, ...]:
     from their own values every lane) and the per-request extras."""
     model = engine.model
     skip = set(model.carry_leaves) | set(model.extra_leaves)
-    return tuple(k for k in engine.pool.cache if not k.endswith("_scale") and k not in skip)
+    return tuple(k for k in engine.pool.caches[0]
+                 if not k.endswith("_scale") and k not in skip)
+
+
+def dtoh_budget(engine, ticks: int) -> int:
+    """Device->host copies ``ticks`` replayed ticks may make: one a shard
+    a tick (its tokens and health words in one copy)."""
+    return ticks * engine.num_devices
 
 
 def _seen_kinds(engine) -> list[tuple[str, Optional[int]]]:
@@ -340,44 +350,56 @@ def _on_read_path(engine, fn: Callable) -> Callable:
 
 
 def collect_entry_points(engine, keys=None) -> list[EntryPoint]:
-    """The engine's tick at each seen key (or ``keys``), every lane parked;
+    """Every shard's tick at each seen key (or ``keys``), every lane parked;
     its model step with the sentinels' health at the widest fused bucket;
-    and the pool's in-place copies (a prefix fork, or a slab insert)."""
-    leaves = lambda: engine.pool.cache  # noqa: E731 (read anew: a rebind shows)
+    and the pool's in-place copies (a prefix fork, or a slab insert).  A
+    sharded engine's entry points end in ``@<shard>``."""
+    eps = []
+    for sh in engine.shards:
+        tag = "" if engine.num_devices == 1 else f"@{sh.index}"
+        eps += [dataclasses.replace(ep, name=ep.name + tag)
+                for ep in _shard_entry_points(engine, sh, keys)]
+    return eps
+
+
+def _shard_entry_points(engine, sh, keys) -> list[EntryPoint]:
+    leaves = lambda: sh.cache  # noqa: E731 (read anew: a rebind shows)
     kv = kv_leaf_names(engine)
     quantized = getattr(engine.pool, "kv_dtype", "fp") == "int8"
     budget = read_budget(engine)[0] if engine.paged else None
     keys = _seen_kinds(engine) if keys is None else keys
     eps = []
     for kind, bucket in keys:
-        tables = None if bucket is None else engine._tables_dev[bucket]
-        gather = ((budget, engine.model.cfg.n_layers, engine.num_slots * bucket)
+        tables = None if bucket is None else sh._tables_dev[bucket]
+        gather = ((budget, engine.model.cfg.n_layers, sh.n * bucket)
                   if budget is not None and bucket > attention.STREAM_TILE else None)
         eps.append(EntryPoint(
             name=f"{kind}_tick" + ("" if bucket is None else f"[{bucket}]"),
-            call=_on_read_path(engine, lambda kind=kind, tables=tables: engine._tick(
-                engine._parked, kind, *engine._inputs[kind], tables)),
+            call=_on_read_path(engine, lambda kind=kind, tables=tables: sh._tick(
+                sh._parked, kind, *sh._inputs[kind], tables)),
             leaves=leaves, kv_leaves=kv, gather=gather, quantized=quantized))
     fused = [b for kind, b in keys if kind == "fused" and b is not None]
     if engine.paged and engine.sentinels and fused:
-        tokens, _, _ = engine._inputs["fused"]
-        parked = torch.zeros_like(engine._pos_dev)
-        tables = engine._tables_dev[max(fused)]
+        tokens, _, _ = sh._inputs["fused"]
+        parked = torch.zeros_like(sh._pos_dev)
+        tables = sh._tables_dev[max(fused)]
         eps.append(EntryPoint(
             name=f"sentinel_step[{max(fused)}]",
             call=_on_read_path(engine, lambda: engine.model.fused_step_slots_paged(
-                engine.params, engine.pool.cache, tokens, engine._pos_dev, parked, tables,
-                sentinel=True, extras=engine.pool.extras)),
+                sh.params, sh.cache, tokens, sh._pos_dev, parked, tables,
+                sentinel=True, extras=sh.extras)),
             leaves=leaves, kv_leaves=kv, quantized=quantized,
             health=lambda out: [out[1]["layers"], out[1]["head"]],
-            sources=lambda: [tokens, engine._pos_dev, parked, tables]))
+            sources=lambda: [tokens, sh._pos_dev, parked, tables]))
     if engine.paged:
-        eps.append(EntryPoint(name="prefix_cow_fork", call=lambda: engine.pool.fork_block(0, 0),
+        first = sh.index * engine.pool.blocks_per_device  # the shard's block 0, global
+        eps.append(EntryPoint(name="prefix_cow_fork",
+                              call=lambda: engine.pool.fork_block(first, first),
                               leaves=leaves, kv_leaves=kv, quantized=quantized))
     else:
         eps.append(EntryPoint(
             name="slot_insert",
-            call=lambda: engine.model.insert_cache_slot(engine.pool.cache, engine._fresh, 0),
+            call=lambda: engine.model.insert_cache_slot(sh.cache, engine._fresh, 0),
             leaves=leaves, kv_leaves=kv))
     return eps
 
@@ -398,7 +420,8 @@ def audit_engine(engine, label: str) -> list[Finding]:
 
 def audit_arch(arch: str, *, tier: str = "full", device=None, **over) -> list[Finding]:
     """Pass A for one arch at its smoke size; ``tier="full"`` adds the other
-    forced read paths and, paged, the int8 pool."""
+    forced read paths and, paged, the int8 pool (``devices=N`` in ``over``
+    shards each engine)."""
     engine, reqs = build_engine(arch, device=device, **over)
     engine.run(reqs)
     findings = audit_engine(engine, arch)

@@ -478,6 +478,10 @@ __global__ void __launch_bounds__(kRowThreads) gn_softmax_wide_kernel(const __gr
   }
 }
 
+// The SM count and each instance's occupancy are cached once a process, from
+// the device current at the first launch.  A sharded engine launches on every
+// shard's card, but its cards are of one model, so the cached values hold for
+// each of them.
 int num_sms() {
   static int sms = 0;
   if (!sms) {

@@ -1,5 +1,5 @@
 """Continuous batching with the GN datapath: a serving timeline (port of
-``examples/serve_continuous.py``, one device).
+``examples/serve_continuous.py``).
 
 A synthetic staggered-arrival workload (mixed prompt lengths and decode
 budgets) streams through the scheduler, the block-paged KV pool and the
@@ -7,6 +7,12 @@ fused prefill/decode tick: admitted prompts drain chunk by chunk (P marks)
 while other slots decode (D marks).  The timeline shows requests joining
 and leaving the running batch; the epilogue holds the greedy outputs
 against the static path.
+
+``--devices N`` shards the slot pool over N devices (``cuda:0 ..
+cuda:N-1``, or N shards of ``--device`` when it is given, ``--num-slots``
+rounded up to a multiple of N): the timeline splits the slot marks by
+device (``|``) and gives each tick's live slots a device; the epilogue the
+admissions a device and their balance.
 
 ``--shared-prefix``: N users over one system prompt and a few persona
 preambles (``shared_prefix_requests``), with the radix prefix cache on.
@@ -24,6 +30,7 @@ Runs on CUDA unless ``--device`` says otherwise.
 
 Usage:
   python -m repro_torch.examples.serve_continuous --device cpu [--arch internlm2-1.8b]
+  python -m repro_torch.examples.serve_continuous --device cpu --devices 2
   python -m repro_torch.examples.serve_continuous --device cpu --shared-prefix
   python -m repro_torch.examples.serve_continuous --device cpu --sla [--preempt recompute]
 """
@@ -37,7 +44,8 @@ import numpy as np
 from repro_torch import resolve_device
 from repro_torch.configs.registry import get_config, list_archs, reduce_config
 from repro_torch.models.transformer import make_model
-from repro_torch.serve.engine import ContinuousEngine, ServeConfig, static_reference
+from repro_torch.serve.engine import (ContinuousEngine, ServeConfig, round_slots_to_devices,
+                                      static_reference)
 from repro_torch.serve.workload import (required_max_seq, shared_prefix_requests, sla_requests,
                                         staggered_requests)
 
@@ -64,6 +72,8 @@ def main(argv=None) -> dict:
     ap.add_argument("--requests", type=int, default=9)
     ap.add_argument("--num-slots", type=int, default=3)
     ap.add_argument("--new-tokens", type=int, default=8)
+    ap.add_argument("--devices", type=int, default=1,
+                    help="shard the slot pool over N devices (N shards of --device if given)")
     ap.add_argument("--shared-prefix", action="store_true",
                     help="shared system-prompt workload + radix prefix cache")
     ap.add_argument("--sla", action="store_true",
@@ -90,16 +100,19 @@ def main(argv=None) -> dict:
     else:
         reqs = staggered_requests(cfg, n_requests=args.requests, base_len=16,
                                   max_new_tokens=args.new_tokens, stagger=2, seed=3)
-    engine = ContinuousEngine(model, master, num_slots=args.num_slots,
+    num_slots = round_slots_to_devices(args.num_slots, args.devices)
+    engine = ContinuousEngine(model, master, num_slots=num_slots,
                               max_seq=required_max_seq(reqs), cfg=ServeConfig(),
                               prefix_cache=args.shared_prefix,
                               sched="priority" if args.sla else "fcfs",
                               preempt=args.preempt if args.sla else "off", aging_steps=24,
-                              device=device)
+                              devices=args.devices,
+                              device=device if args.devices == 1 else args.device)
     for r in reqs:
         engine.submit(r)
     kind = "shared-prefix " if args.shared_prefix else "sla " if args.sla else ""
-    print(f"{args.requests} {kind}requests / {args.num_slots} slots on {device} "
+    print(f"{args.requests} {kind}requests / {num_slots} slots on {args.devices} device(s) "
+          f"({', '.join(str(d) for d in engine.shard_devices)}) "
           f"(prompt lens {sorted({r.prompt_len for r in reqs})}, "
           f"max_new {sorted({r.max_new_tokens for r in reqs})})\n")
     done = seen_hits = seen_events = 0
@@ -107,8 +120,11 @@ def main(argv=None) -> dict:
     while engine.step():
         newly = engine.completions[done:]
         done = len(engine.completions)
-        marks = "".join(_mark(st) for st in engine._slots)
+        pds = engine.pool.per_device_slots
+        marks = "|".join("".join(_mark(st) for st in engine._slots[d * pds:(d + 1) * pds])
+                         for d in range(engine.num_devices))
         live = sum(st is not None for st in engine._slots)
+        dev = f"  per-device {engine.device_occupancy()}" if engine.num_devices > 1 else ""
         hits = list(engine.request_prefix_hits.items())[seen_hits:]
         seen_hits += len(hits)
         hit = " ".join(f"hit req{rid}: {h['tokens']}tok/{h['blocks']}blk"
@@ -117,7 +133,7 @@ def main(argv=None) -> dict:
         seen_events = len(engine.event_log)
         sla = " ".join(_event(e) for e in events if e[0] in ("preempt", "resume", "reject"))
         fin = " ".join(f"req{c.request_id}[{c.finish_reason}]" for c in newly)
-        print(f"step {engine.step_count - 1:3d}  slots [{marks}] active={live}"
+        print(f"step {engine.step_count - 1:3d}  slots [{marks}] active={live}{dev}"
               + (f"  {hit}" if hit else "") + (f"  {sla}" if sla else "")
               + (f"  finished: {fin}" if fin else ""))
     dt = time.time() - t0
@@ -128,6 +144,10 @@ def main(argv=None) -> dict:
     print(f"slot utilization {m['mean_slot_utilization'] * 100:.0f}%  graph captures "
           f"{m['fused_step_compilations'] + m['decode_compilations']} (one per step kind and "
           "horizon bucket on the card, none on the CPU)")
+    if engine.num_devices > 1:
+        print(f"sharded: {m['num_devices']} devices x {m['per_device_slots']} slots — "
+              f"admissions/device {m['device_admits']}, balance {m['shard_balance']:.2f} "
+              "(1.0 = perfectly even)")
     if args.shared_prefix:
         print(f"prefix cache: hit rate {m['prefix_hit_rate'] * 100:.0f}% "
               f"({m['prefix_hit_tokens']}/{m['prefix_prompt_tokens']} prompt tokens), "

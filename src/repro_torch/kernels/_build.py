@@ -10,6 +10,7 @@ without ``nvcc``.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -100,6 +101,25 @@ def build_logs() -> dict[str, str]:
 def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu``."""
     return build_all()[name]
+
+
+def on_device(device: torch.device | None):
+    """A context in which ``device`` is the CUDA runtime's current device (a
+    device without an index names the current one: nothing to enter)."""
+    if device is None or device.index is None:
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def launch(device: torch.device, entry, *args) -> int:
+    """Call the C ``entry`` with ``device``, the device of the tensors it
+    takes, current: a launch, and the ``cudaFuncSetAttribute`` before it,
+    apply to the runtime's current device, not to the device of the
+    pointers or of the stream passed in, so a shard's tensors on ``cuda:1``
+    launched while ``cuda:0`` is current would go to the wrong card.  Every
+    ctypes entry of the kernels' wrappers is called through here."""
+    with on_device(device):
+        return entry(*args)
 
 
 def check(rc: int, what: str) -> None:

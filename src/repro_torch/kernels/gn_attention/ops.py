@@ -256,11 +256,11 @@ def _forward(q, k, v, cfg: SoftmaxLUTConfig, causal: bool, sm_scale: float,
     if out.numel() == 0:
         return out
     coarse, residual = exp_lut_tensors(cfg, str(q.device))
-    rc = _entry()(q.data_ptr(), k.data_ptr(), v.data_ptr(), coarse.data_ptr(),
-                  residual.data_ptr(), out.data_ptr(), b, h, hkv, sq, sk, d, int(causal),
-                  window, DTYPE_CODES[q.dtype], int(design(q.dtype, cfg) == TENSOR_CORE),
-                  float(sm_scale), *exp_lut_args(cfg),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+    rc = _build.launch(q.device, _entry(), q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                       coarse.data_ptr(), residual.data_ptr(), out.data_ptr(), b, h, hkv, sq,
+                       sk, d, int(causal), window, DTYPE_CODES[q.dtype],
+                       int(design(q.dtype, cfg) == TENSOR_CORE), float(sm_scale),
+                       *exp_lut_args(cfg), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "gn_attention")
     launches += 1
     return out

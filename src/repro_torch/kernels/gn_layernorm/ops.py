@@ -76,8 +76,8 @@ def layout(x: torch.Tensor, r: torch.Tensor | None = None) -> str:
     too."""
     cols = x.shape[-1]
     aligned = x.data_ptr() % 16 == 0 and (r is None or r.data_ptr() % 16 == 0)
-    code = _lib().gn_layernorm_layout(x.numel() // max(cols, 1), cols, DTYPE_CODES[x.dtype],
-                                      int(aligned))
+    code = _build.launch(x.device, _lib().gn_layernorm_layout, x.numel() // max(cols, 1), cols,
+                         DTYPE_CODES[x.dtype], int(aligned))
     return next(name for name, c in LAYOUTS.items() if c == code)
 
 
@@ -108,11 +108,12 @@ def _launch(x, r, gamma, beta, cfg: RsqrtConfig, subtract_mean: bool, layout_nam
             INV_SQRT2, code, torch.cuda.current_stream(x.device).cuda_stream)
     beta_ptr = None if beta is None else beta.data_ptr()
     if r is None:
-        rc = _lib().gn_layernorm_launch(x.data_ptr(), gamma.data_ptr(), beta_ptr, *tail)
+        rc = _build.launch(x.device, _lib().gn_layernorm_launch, x.data_ptr(),
+                           gamma.data_ptr(), beta_ptr, *tail)
     else:
         s = torch.empty_like(x)
-        rc = _lib().gn_add_layernorm_launch(x.data_ptr(), r.data_ptr(), s.data_ptr(),
-                                            gamma.data_ptr(), beta_ptr, *tail)
+        rc = _build.launch(x.device, _lib().gn_add_layernorm_launch, x.data_ptr(),
+                           r.data_ptr(), s.data_ptr(), gamma.data_ptr(), beta_ptr, *tail)
     _build.check(rc, "gn_layernorm")
     launches += 1
     if r is None:

@@ -202,14 +202,16 @@ def gn_paged_attention_chunk(
             part[3] = torch.empty(n, hkv, splits, rows, dtype=torch.int32, device=q.device)
     scale_ptrs = (None, None) if scales is None else (scales[0].data_ptr(), scales[1].data_ptr())
     kv_code = DTYPE_CODES[q.dtype] if scales is None else INT8_CODE
-    rc = _entry()(
-        q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *scale_ptrs, tables.data_ptr(),
-        starts.data_ptr(), n_valid.data_ptr(), coarse.data_ptr(), residual.data_ptr(),
-        out.data_ptr(), *(None if t is None else t.data_ptr() for t in part[:3]),
+    rc = _build.launch(
+        q.device, _entry(), q.data_ptr(), k_arena.data_ptr(), v_arena.data_ptr(), *scale_ptrs,
+        tables.data_ptr(), starts.data_ptr(), n_valid.data_ptr(), coarse.data_ptr(),
+        residual.data_ptr(), out.data_ptr(),
+        *(None if t is None else t.data_ptr() for t in part[:3]),
         None if flags is None else flags.data_ptr(),
         None if part[3] is None else part[3].data_ptr(),
         n, c, h, hkv, d, bs, max_bt, splits, split_blocks, DTYPE_CODES[q.dtype], kv_code,
-        int(tensor_core), float(sm_scale), *exp_lut_args(cfg), torch.cuda.current_stream(q.device).cuda_stream,
+        int(tensor_core), float(sm_scale), *exp_lut_args(cfg),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "gn_paged_attention")
     if scales is None:

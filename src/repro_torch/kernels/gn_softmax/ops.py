@@ -94,7 +94,7 @@ def layout(cols: int) -> tuple[int, int]:
     or (0, 0) for the three-pass wide-row kernel (on the card: it asks the
     library)."""
     g, cpt = _I(), _I()
-    _lib().gn_softmax_layout(cols, ctypes.byref(g), ctypes.byref(cpt))
+    _build.launch(None, _lib().gn_softmax_layout, cols, ctypes.byref(g), ctypes.byref(cpt))
     return g.value, cpt.value
 
 
@@ -166,9 +166,10 @@ def _forward(x: torch.Tensor, cfg: SoftmaxLUTConfig) -> torch.Tensor:
     if rows == 0:
         return out
     coarse, residual = exp_lut_tensors(cfg, str(x.device))
-    rc = _lib(x.dtype).gn_softmax_launch(
-        x.data_ptr(), coarse.data_ptr(), residual.data_ptr(), out.data_ptr(), rows, cols,
-        DTYPE_CODES[x.dtype], *exp_lut_args(cfg), torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _build.launch(
+        x.device, _lib(x.dtype).gn_softmax_launch, x.data_ptr(), coarse.data_ptr(),
+        residual.data_ptr(), out.data_ptr(), rows, cols, DTYPE_CODES[x.dtype],
+        *exp_lut_args(cfg), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "gn_softmax")
     launches += 1
     return out
@@ -246,9 +247,10 @@ def _scores_forward(scores, scale, mask, out_dtype, cfg) -> torch.Tensor:
     arr = ctypes.c_longlong * len(lead)
     coarse, residual = exp_lut_tensors(cfg, str(scores.device))
     rscale = 1.0 if scale is None else float(torch.tensor(scale, dtype=scores.dtype))
-    rc = _lib(scores.dtype).gn_softmax_scores_launch(
-        scores.data_ptr(), mptr, out.data_ptr(), coarse.data_ptr(), residual.data_ptr(),
-        len(lead), arr(*lead), arr(*xs), arr(*ms), cols, 1, mcs, DTYPE_CODES[scores.dtype],
+    rc = _build.launch(
+        scores.device, _lib(scores.dtype).gn_softmax_scores_launch, scores.data_ptr(), mptr,
+        out.data_ptr(), coarse.data_ptr(), residual.data_ptr(), len(lead), arr(*lead),
+        arr(*xs), arr(*ms), cols, 1, mcs, DTYPE_CODES[scores.dtype],
         int(out_dtype == torch.bfloat16), int(scale is not None), rscale, *exp_lut_args(cfg),
         torch.cuda.current_stream(scores.device).cuda_stream)
     _build.check(rc, "gn_softmax_scores")

@@ -225,11 +225,11 @@ def engine_cell(label: str, engine, reqs, steps: int) -> Cell:
             pass
 
     def step():
-        graphs, engine._graphs = engine._graphs, None
+        graphs, engine.shards[0]._graphs = engine.shards[0]._graphs, None
         try:
             return engine.step()
         finally:
-            engine._graphs = graphs
+            engine.shards[0]._graphs = graphs
 
     def window(n):
         end = engine.model_ticks + n

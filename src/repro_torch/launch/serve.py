@@ -20,7 +20,12 @@ keys), and serves.  Runs on CUDA unless
     the per-tick phases and times, the sentinels' counters, then at
     temperature 0 the greedy outputs held against ``static_reference`` on
     the same requests (printed as k/n token-identical; a sampled run skips
-    the oracle, as the reference launcher does).  The two agree token for
+    the oracle, as the reference launcher does).  ``--devices N`` shards the
+    slot pool over N devices (``--num-slots`` rounded up to a multiple of
+    N): ``cuda:0 .. cuda:N-1``, or N shards of ``--device`` when it is
+    given (``--device cpu`` is the counterpart of the reference smoke run's
+    forced host devices).  A sharded run prints the reference's line:
+    devices x slots, ``device_admits`` and the balance.  The two agree token for
     token on the CPU at float32 (an encoder-decoder or VLM config gets zero
     ``frames`` or ``patches`` with each batch or request, as the reference
     launcher gives them).  At bfloat16 the paged read keeps its
@@ -38,6 +43,8 @@ Usage:
   python -m repro_torch.launch.serve --arch xlstm-350m --continuous
   python -m repro_torch.launch.serve --arch zamba2-7b --batches 1 --batch-size 8
   python -m repro_torch.launch.serve --smoke --device cpu [--continuous]
+  python -m repro_torch.launch.serve --smoke --device cpu --continuous --devices 2
+  python -m repro_torch.launch.serve --arch internlm2-1.8b --continuous --devices 2
   python -m repro_torch.launch.serve --smoke --device cpu --ckpt runs/default/ckpt
 """
 from __future__ import annotations
@@ -60,6 +67,7 @@ from repro_torch.serve.engine import (
     ServeConfig,
     generate,
     perplexity,
+    round_slots_to_devices,
     static_reference,
 )
 from repro_torch.serve.workload import extras_for, required_max_seq, seeded_requests
@@ -89,6 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--continuous", action="store_true", help="continuous batching")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--num-slots", type=int, default=4)
+    ap.add_argument("--devices", type=int, default=1,
+                    help="continuous: shard the slot pool over N devices (cuda:0..N-1, or N "
+                         "shards of --device)")
     ap.add_argument("--chunk", type=int, default=8, help="prefill chunk (fused-tick lanes)")
     ap.add_argument("--block-size", type=int, default=0, help="KV block size (0: = chunk)")
     ap.add_argument("--min-prompt", type=int, default=8)
@@ -155,11 +166,14 @@ def _serve_continuous(model, master, args, device) -> dict:
     for r in reqs:
         r.extras = extras_for(cfg)
     # the engine keeps only its prepared copy of the weights
-    engine = ContinuousEngine(model, master, num_slots=args.num_slots,
+    num_slots = round_slots_to_devices(args.num_slots, args.devices)
+    engine = ContinuousEngine(model, master, num_slots=num_slots,
                               max_seq=required_max_seq(reqs),
                               cfg=ServeConfig(temperature=args.temperature, seed=args.seed),
                               chunk=args.chunk, block_size=args.block_size,
-                              sentinels=False if args.no_sentinels else None, device=device)
+                              sentinels=False if args.no_sentinels else None,
+                              devices=args.devices,
+                              device=device if args.devices == 1 else args.device)
     before = counters.launch_counts()
     t0 = time.perf_counter()
     comps = engine.run(reqs)
@@ -169,12 +183,17 @@ def _serve_continuous(model, master, args, device) -> dict:
     pool = (f"peak blocks {m['peak_blocks_in_use']}/{engine.pool.num_blocks}, horizon "
             f"buckets fused {m['fused_buckets']} decode {m['decode_buckets']}" if m["kv_paged"]
             else f"slab pool of {m['kv_hbm_bytes']} bytes")
-    print(f"served {cfg.name} on {device}: {m['completed']} requests, "
+    where = ", ".join(str(d) for d in engine.shard_devices)
+    print(f"served {cfg.name} on {where}: {m['completed']} requests, "
           f"{m['generated_tokens']} tokens in {seconds:.3f}s "
           f"({m['generated_tokens'] / seconds:.1f} tok/s), {m['model_ticks']} model ticks "
           f"({m['fused_ticks']} fused), {pool}, "
           f"{m['fused_step_compilations'] + m['decode_compilations']} "
           f"graph captures ({m['capture_seconds']:.2f}s)")
+    if m["num_devices"] > 1:
+        print(f"slot pool sharded over {m['num_devices']} devices ({m['per_device_slots']} "
+              f"slots each): admissions/device {m['device_admits']}, balance "
+              f"{m['shard_balance']:.2f}")
     print(f"  sentinels {'on' if m['sentinels'] else 'off'}: {m['sentinel_checks']} checks, "
           f"{m['sentinel_violations']} violations, {m['quarantined_blocks']} quarantined, "
           f"{m['retries']} retries, {m['fallbacks']} fallbacks")

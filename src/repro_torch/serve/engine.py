@@ -2,9 +2,10 @@
 (``generate``, ``perplexity``, ``static_reference``) and the
 continuous-batching engine with chunked prefill fused into the tick
 (``ContinuousEngine``: FCFS or priority admission, block-paged fp or int8
-KV or a slab a slot, one device, GN runtime sentinels on by default over
-the paged pool, an optional radix prefix cache, preemption by spill or
-recompute, shedding, and crash-consistent snapshots).
+KV or a slab a slot, one device or sharded over several, GN runtime
+sentinels on by default over the paged pool, an optional radix prefix
+cache, preemption by spill or recompute, shedding, and crash-consistent
+snapshots).
 
 The static path serves uniform-length prompt batches: one prefill over a
 dense slab cache, then one decode step per new token; greedy, it is the
@@ -126,9 +127,36 @@ prefix cache keys on tokens alone, as the reference's: two requests with
 one prompt and other frames would share decoder blocks that depend on the
 frames.
 
-Not ported, and refused with an error rather than ignored: multi-device
-pools (and so device-loss aggregation).  ``kv_dtype="int8"`` serves over
-int8 arenas with per-block f32 scales frozen at each block's first write.
+``kv_dtype="int8"`` serves over int8 arenas with per-block f32 scales
+frozen at each block's first write.
+
+Sharded serving (``devices=N``, the reference's slot-axis mesh): the pool
+splits into N contiguous slot ranges, and paged into N block ranges, one a
+device (``serve/kv_cache.py``), and the engine into N ``_Shard``s, each
+with the prepared weights on its device (shards of one device share them),
+its slice of the tick state (held logits, positions, active mask,
+temperatures, request ids, staged inputs, bucket tables in its arenas'
+local block ids) and its own ``StepGraphs``.  ``device`` names the one
+device every shard takes (the CPU tests' ``"cpu"``, or one card), or is
+None for ``cuda:0 .. cuda:N-1`` (``parallel/sharding.make_slot_mesh``).  A
+tick stages every shard's inputs, launches every shard's tick (its graph
+replay on the card) before it waits on any, then takes one device->host
+copy a shard and assembles the tokens and health words in global slot
+order.  The horizon bucket is the whole pool's, so every shard runs the
+same key: one graph a shard a key.  Admission places a request on the
+least-loaded device (most free slots, paged also a block range that
+covers its reservation); a prefix hit pulls it to the device that holds
+its blocks when that device can take it (one radix tree a device).  With
+the sentinels on, a device whose every live slot (at least
+``device_loss_min_slots``) violates in one tick is lost: its block range
+is quarantined, its slots retired from admission, ``("device_lost", step,
+d)`` logged, and its requests resume on the others.  Sharding changes
+placement, never values: at f32 on the CPU the tokens and completions of
+``devices=2`` equal ``devices=1``'s.  A MoE model is refused under
+``devices > 1``: its paged tick routes the whole pool as one GShard group,
+and a shard's tick would route its own slots as a group of its own.
+With ``devices=1`` the engine is the unsharded one: one shard,
+``shards[0]``.
 """
 from __future__ import annotations
 
@@ -145,6 +173,7 @@ from repro_torch.analysis import tracekeys
 from repro_torch.checkpoint import store as ckpt_store
 from repro_torch.models.attention import SCALE_SANITY_MAX
 from repro_torch.models.transformer import Model
+from repro_torch.parallel.sharding import make_slot_mesh
 from repro_torch.serve.graphs import StepGraphs
 from repro_torch.serve.kv_cache import BlockPagedKVPool, SlotKVPool
 from repro_torch.serve.prefix_cache import PrefixCache
@@ -380,6 +409,100 @@ class _Suspended:
     spill: Optional[dict] = None
 
 
+def round_slots_to_devices(num_slots: int, devices: int) -> int:
+    """``num_slots`` rounded up to a multiple of ``devices``: the engine
+    wants equal per-device slot ranges."""
+    return -(-int(num_slots) // int(devices)) * int(devices)
+
+
+class _Shard:
+    """One device's share of a ``ContinuousEngine``: global slots [lo, lo + n)
+    on ``device``, the prepared weights there, the pool's leaves of its
+    range, and the tick's device state of its slots, allocated once and
+    updated in place, so a graph captured from one tick reads and writes the
+    same tensors on every replay.  Per step kind: chunk tokens, n_valid,
+    is_prefill; per bucket: a contiguous (n, bucket) block table in the
+    shard's local block ids.  On the card its ticks are graph replays of its
+    own ``StepGraphs``; on the CPU they run eagerly."""
+
+    def __init__(self, engine: "ContinuousEngine", index: int, device: torch.device, params):
+        pool = engine.pool
+        self.index, self.device, self.params = index, device, params
+        self.model, self.sentinels, self.seed = engine.model, engine.sentinels, engine.cfg.seed
+        n = pool.per_device_slots
+        self.lo, self.n = index * n, n
+        self.cache = pool.caches[index]
+        self.extras = pool.extras_shards[index] if engine.paged else None
+        dev = device
+        self._last_logits = torch.zeros(n, self.model.cfg.vocab, dtype=torch.float32, device=dev)
+        self._pos_dev = torch.zeros(n, dtype=torch.int32, device=dev)
+        self._active_dev = torch.zeros(n, dtype=torch.bool, device=dev)
+        self._temps_dev = torch.zeros(n, dtype=torch.float32, device=dev)
+        self._rids_dev = torch.zeros(n, dtype=torch.int64, device=dev)  # the sampler's streams
+        self._parked = torch.zeros(n, dtype=torch.bool, device=dev)  # the warm-up's mask
+        self._inputs = {kind: (torch.zeros(n, c, dtype=torch.int32, device=dev),
+                               torch.zeros(n, dtype=torch.int32, device=dev),
+                               torch.zeros(n, dtype=torch.bool, device=dev))
+                        for kind, c in (("fused", engine.chunk), ("decode", 1))}
+        self._tables_dev = {b: torch.zeros(n, b, dtype=torch.int32, device=dev)
+                            for b in engine.horizon_bucket_grid}
+        # captured once per key and kept across reset, as the reference keeps
+        # its compiled ticks
+        self._graphs = StepGraphs(dev) if dev.type == "cuda" else None
+
+    def zero(self) -> None:
+        for t in (self._last_logits, self._pos_dev, self._active_dev, self._temps_dev,
+                  self._rids_dev):
+            t.zero_()
+
+    def _tick(self, active, kind, tokens, n_valid, is_prefill, tables):
+        """Sample each decoding slot's token from the held logits into lane 0,
+        run the model once, and update the held logits and positions in
+        place.  Returns the sampled tokens (n,) int32, followed with
+        sentinels by the health word's f32 bits (L * n * 3 + n), still on
+        the device: one copy takes both.  With ``active`` all false (the
+        warm-up before a capture) every lane is parked: nothing is written
+        (paged writes go to the sink block), and the held logits and
+        positions keep their values.  The slab pool (``tables`` None) runs
+        the model's slab tick of ``kind``."""
+        nxt = sample(self._last_logits, self._temps_dev, self.seed, self._rids_dev,
+                     self._pos_dev)
+        dec = torch.where(active & ~is_prefill, nxt, 0).to(torch.int32)
+        lane0 = torch.zeros_like(tokens)
+        lane0[:, 0] = dec
+        tokens = torch.where(is_prefill[:, None], tokens, lane0)
+        nv = torch.where(active, torch.where(is_prefill, n_valid, 1), 0).to(torch.int32)
+        pos = torch.where(active, self._pos_dev, 0).to(torch.int32)
+        if tables is None and kind == "decode":
+            out = self.model.decode_step_slots(self.params, self.cache, tokens, pos, active)
+        elif tables is None:
+            out = self.model.fused_step_slots(self.params, self.cache, tokens, pos, nv)
+        else:
+            out = self.model.fused_step_slots_paged(self.params, self.cache, tokens, pos, nv,
+                                                    tables, sentinel=self.sentinels,
+                                                    extras=self.extras)
+        logits, health = out if self.sentinels else (out, None)
+        self._last_logits.copy_(torch.where(active[:, None], logits[:, 0].float(),
+                                            self._last_logits))
+        self._pos_dev.add_(nv)
+        if health is None:
+            return dec
+        return torch.cat([dec, health["layers"].flatten().view(torch.int32),
+                          health["head"].view(torch.int32)])
+
+    def run_tick(self, kind: str, bucket: Optional[int]):
+        """The tick of ``kind`` over the ``bucket``-wide tables (None: the
+        slab pool): eagerly on the CPU, on the card the replay (launched,
+        not waited on) of the graph keyed (kind, bucket) or, slab, (kind,)."""
+        args = (kind, *self._inputs[kind],
+                None if bucket is None else self._tables_dev[bucket])
+        if self._graphs is None:
+            return self._tick(self._active_dev, *args)
+        key = (kind,) if bucket is None else (kind, bucket)
+        return self._graphs.run(key, lambda: self._tick(self._active_dev, *args),
+                                lambda: self._tick(self._parked, *args))
+
+
 class ContinuousEngine:
     def __init__(self, model: Model, params, num_slots: int, max_seq: int,
                  cfg: ServeConfig = ServeConfig(), chunk: int = 8, block_size: int = 0, num_blocks: int = 0,
@@ -389,9 +512,6 @@ class ContinuousEngine:
                  kv_dtype: str = "fp", sentinels: Optional[bool] = None,
                  fault_retry_budget: int = 3, clip_fallback_frac: float = 0.5,
                  clip_patience: int = 3, device_loss_min_slots: int = 2, device=None):
-        if devices != 1:
-            raise NotImplementedError(
-                f"ContinuousEngine(devices={devices!r}) is not ported yet (only 1)")
         # the SLA control plane, as the reference's: the policy is an engine
         # argument so reset() rebuilds an equal scheduler; preemption needs
         # the priority policy (its victims are chosen by the rank rule, and
@@ -415,7 +535,17 @@ class ContinuousEngine:
         if not 1 <= self.chunk <= limit:
             raise ValueError(f"chunk {chunk} must be in [1, {limit}] "
                              "(cache ring capacity bounds the per-tick chunk)")
-        self.device = resolve_device(device)
+        # the shards, as the reference's slot mesh: one device (devices=1: the
+        # unsharded engine), N cards, or N shards of one given device
+        self.num_devices = int(devices)
+        if self.num_devices < 1:
+            raise ValueError(f"devices must be >= 1, got {devices}")
+        if self.num_slots % self.num_devices:
+            raise ValueError(f"num_slots {num_slots} must divide evenly over {devices} "
+                             "devices (per-device slot shards)")
+        self.shard_devices = ([resolve_device(device)] if self.num_devices == 1
+                              else make_slot_mesh(self.num_devices, device))
+        self.device = self.shard_devices[0]
         # the pool, as the reference picks it: block-paged wherever the KV
         # pages, the slab pool for a sliding window's ring (or when asked)
         self.paged = model.supports_paging if paged is None else bool(paged)
@@ -425,10 +555,18 @@ class ContinuousEngine:
         if kv_dtype == "int8" and not self.paged:
             raise ValueError("kv_dtype='int8' requires the block-paged pool (per-block scales "
                              "live in the block tables); the slab pool is fp-only")
+        if self.num_devices > 1 and model.cfg.moe is not None:
+            # the paged tick routes the whole pool's N * C tokens as one GShard
+            # group, and a shard's tick would route only its own slots: refused,
+            # so that tokens never part silently
+            raise NotImplementedError(
+                f"{model.cfg.name}: a MoE model serves on one device only (devices > 1 "
+                "would route each shard's tick as a GShard group of its own: ROADMAP "
+                "Queue A 8b)")
         # GN runtime sentinels, on unless asked off over the paged pool (the
         # reference's default); the slab pool has no probe path.  The retry
-        # budget, the int8 clip watchdog, and the reference's device-loss
-        # floor (no device loss on one device)
+        # budget, the int8 clip watchdog, and the device-loss floor: the live
+        # slots of one device that must all violate in one tick
         self.sentinels = self.paged if sentinels is None else bool(sentinels)
         if self.sentinels and not self.paged:
             raise ValueError("sentinels ride the paged tick bodies; the slab pool has no probe "
@@ -437,17 +575,23 @@ class ContinuousEngine:
         self.clip_fallback_frac = float(clip_fallback_frac)
         self.clip_patience = int(clip_patience)
         self.device_loss_min_slots = int(device_loss_min_slots)
-        self.params = model.prepare(params, self.device)
+        # the prepared weights, one replica a device the shards sit on
+        replicas = {}
+        for dev in self.shard_devices:
+            if dev not in replicas:
+                replicas[dev] = model.prepare(params, dev)
+        self.params = replicas[self.device]
         if self.paged:
             # the paged read every tick takes, fixed here: a graph captured
             # under one read is never replayed under another (``step``
             # refuses a change)
             self.read_path = model.paged_read_path
             self.pool = BlockPagedKVPool(model, num_slots, max_seq, block_size or self.chunk,
-                                         num_blocks, self.device, kv_dtype)
-            # the radix prefix index (opt-in: a retaining cache keeps blocks
-            # resident after a drain)
-            self.prefix = PrefixCache(self.pool.block_size) if prefix_cache else None
+                                         num_blocks, self.shard_devices, kv_dtype)
+            # the radix prefix index, one tree a device (opt-in: a retaining
+            # cache keeps blocks resident after a drain)
+            self.prefix = (PrefixCache(self.pool.block_size, self.num_devices)
+                           if prefix_cache else None)
             if self.prefix is not None:
                 self.pool.attach_prefix_cache(self.prefix)
             # the horizon-bucket grid, as the reference's: each tick reads the
@@ -466,32 +610,28 @@ class ContinuousEngine:
                     "block_size/num_blocks only apply to paged pools (paged=False forces "
                     "the slab pool)")
             self.read_path, self.prefix, self.horizon_bucket_grid = "slab", None, []
-            self.pool = SlotKVPool(model, num_slots, max_seq, self.device)
+            self.pool = SlotKVPool(model, num_slots, max_seq, self.shard_devices)
             # the batch-1 cache admission copies into a slot
             self._fresh = model.fresh_request_cache(self.max_seq, self.device)
         self.kv_dtype = kv_dtype
-        # the tick's device state: allocated once and updated in place, so a
-        # graph captured from one tick reads and writes the same tensors on
-        # every replay.  Per step kind: chunk tokens, n_valid, is_prefill;
-        # per bucket: a contiguous (N, bucket) block table.
-        dev, n = self.device, self.num_slots
-        self._last_logits = torch.zeros(n, model.cfg.vocab, dtype=torch.float32, device=dev)
-        self._pos_dev = torch.zeros(n, dtype=torch.int32, device=dev)
-        self._active_dev = torch.zeros(n, dtype=torch.bool, device=dev)
-        self._temps_dev = torch.zeros(n, dtype=torch.float32, device=dev)
-        self._rids_dev = torch.zeros(n, dtype=torch.int64, device=dev)  # the sampler's streams
-        self._parked = torch.zeros(n, dtype=torch.bool, device=dev)  # the warm-up's mask
-        self._inputs = {kind: (torch.zeros(n, c, dtype=torch.int32, device=dev),
-                               torch.zeros(n, dtype=torch.int32, device=dev),
-                               torch.zeros(n, dtype=torch.bool, device=dev))
-                        for kind, c in (("fused", self.chunk), ("decode", 1))}
-        self._tables_dev = {b: torch.zeros(n, b, dtype=torch.int32, device=dev)
-                            for b in self.horizon_bucket_grid}
-        # on the card every tick is a graph replay (captured once per key and
-        # kept across reset, as the reference keeps its compiled ticks); on
-        # the CPU the same tick runs eagerly
-        self._graphs = StepGraphs(dev) if dev.type == "cuda" else None
+        self.shards = [_Shard(self, d, dev, replicas[dev])
+                       for d, dev in enumerate(self.shard_devices)]
         self.reset()
+
+    def _shard_of(self, slot: int) -> _Shard:
+        return self.shards[int(slot) // self.pool.per_device_slots]
+
+    def _held_row(self, slot: int) -> torch.Tensor:
+        """Global ``slot``'s row of its shard's held logits (a view)."""
+        sh = self._shard_of(slot)
+        return sh._last_logits[int(slot) - sh.lo]
+
+    def held_logits(self) -> torch.Tensor:
+        """Every slot's held logits (num_slots, vocab) f32 in global slot
+        order: the one shard's tensor at ``devices=1``, else a CPU copy."""
+        if self.num_devices == 1:
+            return self.shards[0]._last_logits
+        return torch.cat([sh._last_logits.cpu() for sh in self.shards])
 
     def reset(self) -> None:
         """Clear all serving state but keep the weights and the pool's arenas;
@@ -499,9 +639,8 @@ class ContinuousEngine:
         with identical slot assignment, block tables and sampled tokens."""
         self.pool.reset()
         n = self.num_slots
-        for t in (self._last_logits, self._pos_dev, self._active_dev, self._temps_dev,
-                  self._rids_dev):
-            t.zero_()
+        for sh in self.shards:
+            sh.zero()
         self._temps = np.zeros(n, np.float32)  # host mirrors of the sampler's state
         self._rids = np.zeros(n, np.int64)
         self._tables_fresh: set[int] = set()  # buckets whose buffer holds the host tables
@@ -514,7 +653,8 @@ class ContinuousEngine:
         self._replayed_ticks = 0  # ... of which as a graph replay
         self.fused_ticks = 0      # ... of which carried a prefill lane
         self.generated_tokens = 0
-        self._device_admits = 0   # admissions and resumes (one device)
+        # admissions and resumes a device: the balance least-loaded placement keeps
+        self._device_admits = np.zeros(self.num_devices, np.int64)
         # the reference's occupancy counters, summed over model ticks: live
         # slots, prefilling slots, and attended columns (bucket * block size)
         self._active_steps = 0
@@ -566,8 +706,10 @@ class ContinuousEngine:
     def _admit(self) -> None:
         """Page empty slots in for ready requests (no forward pass: the fused
         tick drains each prompt chunk by chunk).  Shedding first; then per
-        head: a prefix lookup (fresh requests only), placement, or an
-        interactive head's preemption of a batch victim, or the head waits."""
+        head: a prefix lookup (fresh requests only), which pulls the request
+        to the device holding its blocks if that device can take it, else
+        placement on the least-loaded device, or an interactive head's
+        preemption of a batch victim, or the head waits."""
         self._tick_admitted: set[int] = set()  # slots filled this pass
         live_units, unit_fn = self._shed_signal()
         for req in self.scheduler.poll_shed(self.step_count, live_units, unit_fn):
@@ -580,34 +722,39 @@ class ContinuousEngine:
             if footprint > self.max_seq:
                 raise ValueError(f"request {head.id}: prompt {head.prompt_len} + "
                                  f"{head.max_new_tokens} new tokens exceeds max_seq {self.max_seq}")
-            if self.paged and self.pool.blocks_for(footprint) > self.pool.num_blocks:
+            if self.paged and self.pool.blocks_for(footprint) > self.pool.max_request_blocks:
                 raise ValueError(f"request {head.id}: footprint {footprint} tokens needs "
-                                 f"{self.pool.blocks_for(footprint)} blocks, the arena has "
-                                 f"{self.pool.num_blocks} — unservable at any occupancy")
+                                 f"{self.pool.blocks_for(footprint)} blocks, a device's "
+                                 f"arena has {self.pool.max_request_blocks} — unservable at "
+                                 "any occupancy")
             # a resuming request skips the lookup: a spill rebuilds the exact
             # chain its payload came from, and a recompute re-prefills prompt
             # + generated tokens, which the prompt-only index does not cover
-            hit = None
+            hit = device = None
             resuming = head.id in self._suspended
             if self.prefix is not None and not resuming:
                 # capped at prompt_len - 1: the first sampled token needs the
                 # request's own last prompt position to run through prefill
                 hit = self.prefix.lookup(head.tokens, cap=head.prompt_len - 1)
-                if hit is not None and not (self.pool.num_free and self.pool.can_reserve(
-                        footprint, prefix=hit)):
-                    hit = None
-            if hit is None and not (self.pool.num_free and (
-                    not self.paged or self.pool.can_reserve(footprint))):
-                # the head waits for a free slot AND its whole reservation,
-                # unless it may evict a batch victim it outranks
+                if hit is not None:
+                    if (self.pool.free_slots_on(hit.device)
+                            and self.pool.can_reserve(footprint, hit.device, prefix=hit)):
+                        device = hit.device
+                    else:
+                        hit = None
+            if device is None and self.pool.num_free:
+                device = self.pool.pick_device(footprint if self.paged else 0)
+            if device is None:
+                # no device has a free slot AND the whole reservation: the head
+                # waits, unless it may evict a batch victim it outranks
                 if self._try_preempt(head):
                     continue
                 break
             req = self.scheduler.pop_ready(self.step_count)
             sus = self._suspended.pop(req.id, None)
-            slot = (self.pool.allocate(reserve_tokens=footprint, prefix=hit) if self.paged
-                    else self.pool.allocate())
-            self._device_admits += 1
+            slot = (self.pool.allocate(reserve_tokens=footprint, device=device, prefix=hit)
+                    if self.paged else self.pool.allocate(device=device))
+            self._device_admits[device] += 1
             if hit is not None:
                 self.pool.attach_prefix(slot, hit)
             if sus is not None and sus.spill is not None:
@@ -618,12 +765,12 @@ class ContinuousEngine:
                 sp = sus.spill
                 if self.paged:
                     self.pool.insert(slot, sp["position"])
-                    self.pool.insert_extras(slot, self.model.request_extras(self.params,
-                                                                            req.extras))
+                    self.pool.insert_extras(slot, self.model.request_extras(
+                        self._shard_of(slot).params, req.extras))
                     self.pool.restore_blocks(slot, sp["kv"])
                 else:
                     self.pool.insert(sp["kv"], slot, sp["position"])
-                self._last_logits[slot].copy_(sp["last_logits"])
+                self._held_row(slot).copy_(sp["last_logits"])
                 padded, written = sp["padded"], sp["written"]
                 phase, prefill_len = sp["phase"], sp["prefill_len"]
             elif sus is not None:
@@ -671,13 +818,14 @@ class ContinuousEngine:
             self._tick_admitted.add(slot)
             if sus is not None:
                 self._resumes += 1
-            self.event_log.append(("resume" if sus else "admit", self.step_count, req.id, slot, 0))
+            self.event_log.append(("resume" if sus else "admit", self.step_count, req.id, slot,
+                                   device))
 
     def _insert_fresh(self, slot: int, position: int, req: Request) -> None:
         """Start an admitted slot at ``position``: its chain ensured over
         the paged pool, a fresh batch-1 cache copied into its slab; and the
         request's extra leaves (``model.request_extras``) written in."""
-        extras = self.model.request_extras(self.params, req.extras)
+        extras = self.model.request_extras(self._shard_of(slot).params, req.extras)
         if self.paged:
             self.pool.insert(slot, position)
             self.pool.insert_extras(slot, extras)
@@ -727,7 +875,7 @@ class ContinuousEngine:
             spill = {"kv": kv,
                      "position": int(self.pool.positions[slot]), "padded": st.padded,
                      "written": st.written, "prefill_len": st.prefill_len, "phase": st.phase,
-                     "last_logits": self._last_logits[slot].to("cpu", copy=True)}
+                     "last_logits": self._held_row(slot).to("cpu", copy=True)}
         self._suspended[rid] = _Suspended(
             generated=st.generated, admit_step=st.admit_step, admit_time=st.admit_time,
             first_token_step=st.first_token_step, first_token_time=st.first_token_time,
@@ -757,7 +905,8 @@ class ContinuousEngine:
         request finishes.  Generated tokens are never indexed."""
         if up_to > 0:
             self.prefix.insert(np.asarray(self._slots[slot].req.tokens[:up_to], np.int32),
-                               self.pool.chain_of(slot)[:self.pool.blocks_for(up_to)])
+                               self.pool.chain_of(slot)[:self.pool.blocks_for(up_to)],
+                               self.pool.device_of(slot))
 
     def _finish(self, slot: int, reason: str) -> None:
         st = self._slots[slot]
@@ -820,7 +969,10 @@ class ContinuousEngine:
         A violating slot's chain is scanned, its corrupt blocks quarantined
         and scrubbed, and the request evicted to re-prefill prompt +
         generated tokens, or finished "failed" once its retry budget is
-        spent."""
+        spent.  Before that, over several devices: a device whose every live
+        slot (at least ``device_loss_min_slots``) violates in this tick is
+        lost (``pool.mark_device_lost``): flaky hardware, not corrupt
+        blocks."""
         layers, head = health["layers"].astype(np.float64), health["head"].astype(np.float64)
         cfg = self.model.cfg
         sigma_certified = cfg.norm_impl.startswith(("gn", "exact"))
@@ -857,6 +1009,17 @@ class ContinuousEngine:
         if not violating:
             return
         self._sentinel_violations += len(violating)
+        # device-loss aggregation, before eviction changes residency
+        if self.num_devices > 1:
+            for d in range(self.num_devices):
+                if d in self.pool._lost_devices:
+                    continue
+                live_d = [s for s in live if self.pool.device_of(s) == d
+                          and self._slots[s] is not None]
+                viol_d = [s for s in violating if self.pool.device_of(s) == d]
+                if len(viol_d) >= self.device_loss_min_slots and len(viol_d) == len(live_d):
+                    self.pool.mark_device_lost(d)
+                    self.event_log.append(("device_lost", self.step_count, d))
         # quarantine and scrub the blocks that are corrupt; a flagged slot
         # with a clean chain read a poisoned block through a stale entry and
         # recovers the same way, its own blocks recycled as usual
@@ -888,9 +1051,12 @@ class ContinuousEngine:
         chain = self.pool.chain_of(slot)
         if not chain:
             return set()
-        ix = torch.tensor(chain, dtype=torch.long, device=self.device)
+        d = self.pool.device_of(slot)
+        off = d * self.pool.blocks_per_device
+        ix = torch.tensor([b - off for b in chain], dtype=torch.long,
+                          device=self.pool.devices[d])
         hit = torch.zeros(len(chain), dtype=torch.bool)
-        for name, leaf in self.pool.cache.items():
+        for name, leaf in self.pool.caches[d].items():
             a = leaf.index_select(1, ix).cpu()
             if name.endswith("_scale"):
                 f = a.double()
@@ -931,7 +1097,8 @@ class ContinuousEngine:
             gcfg = dataclasses.replace(self.cfg, max_new_tokens=remaining, temperature=0.0)
             batch = {"tokens": seq[None],
                      **{k: np.asarray(v)[None] for k, v in req.extras.items()}}
-            row = generate(self.model, self.params, batch, gcfg)[0].cpu().numpy()
+            row = generate(self.model, self._shard_of(slot).params, batch,
+                           gcfg)[0].cpu().numpy()
             gen = list(st.generated)
             for tok in row[seq.shape[0]:]:
                 gen.append(int(tok))
@@ -942,53 +1109,11 @@ class ContinuousEngine:
         self._finish(slot, reason)
 
     # ----------------------------------------------------------------- ticks --
-    def _tick(self, active, kind, tokens, n_valid, is_prefill, tables):
-        """Sample each decoding slot's token from the held logits into lane 0,
-        run the model once, and update the held logits and positions in
-        place.  Returns the sampled tokens (N,) int32, followed with
-        sentinels by the health word's f32 bits (L * N * 3 + N), still on
-        the device: one copy takes both.  With ``active`` all false (the
-        warm-up before a capture) every lane is parked: nothing is written
-        (paged writes go to the sink block), and the held logits and
-        positions keep their values.  The slab pool (``tables`` None) runs
-        the model's slab tick of ``kind``."""
-        nxt = sample(self._last_logits, self._temps_dev, self.cfg.seed, self._rids_dev,
-                     self._pos_dev)
-        dec = torch.where(active & ~is_prefill, nxt, 0).to(torch.int32)
-        lane0 = torch.zeros_like(tokens)
-        lane0[:, 0] = dec
-        tokens = torch.where(is_prefill[:, None], tokens, lane0)
-        nv = torch.where(active, torch.where(is_prefill, n_valid, 1), 0).to(torch.int32)
-        pos = torch.where(active, self._pos_dev, 0).to(torch.int32)
-        if tables is None and kind == "decode":
-            out = self.model.decode_step_slots(self.params, self.pool.cache, tokens, pos, active)
-        elif tables is None:
-            out = self.model.fused_step_slots(self.params, self.pool.cache, tokens, pos, nv)
-        else:
-            out = self.model.fused_step_slots_paged(self.params, self.pool.cache, tokens, pos,
-                                                    nv, tables, sentinel=self.sentinels,
-                                                    extras=self.pool.extras)
-        logits, health = out if self.sentinels else (out, None)
-        self._last_logits.copy_(torch.where(active[:, None], logits[:, 0].float(),
-                                            self._last_logits))
-        self._pos_dev.add_(nv)
-        if health is None:
-            return dec
-        return torch.cat([dec, health["layers"].flatten().view(torch.int32),
-                          health["head"].view(torch.int32)])
-
-    def _run_tick(self, kind: str, bucket: Optional[int]):
-        """The tick of ``kind`` over the ``bucket``-wide tables (None: the
-        slab pool): eagerly on the CPU, a graph replay on the card, keyed
-        (kind, bucket) or, slab, (kind,)."""
-        args = (kind, *self._inputs[kind],
-                None if bucket is None else self._tables_dev[bucket])
-        if self._graphs is None:
-            return self._tick(self._active_dev, *args)
-        self._replayed_ticks += 1
-        key = (kind,) if bucket is None else (kind, bucket)
-        return self._graphs.run(key, lambda: self._tick(self._active_dev, *args),
-                                lambda: self._tick(self._parked, *args))
+    def _run_tick(self, kind: str, bucket: Optional[int], d: int = 0):
+        """Shard ``d``'s tick of ``kind`` over the ``bucket``-wide tables (None:
+        the slab pool), launched and not waited on: its output (tokens, then
+        the health words), on its device."""
+        return self.shards[d].run_tick(kind, bucket)
 
     def step(self) -> bool:
         """One engine tick.  Returns False once fully drained."""
@@ -1013,9 +1138,11 @@ class ContinuousEngine:
         decoders = [s for s in live if self._slots[s].phase == "decoding"]
         if self._lanes_dirty:  # residency changed: refresh the device mirrors
             active = np.array([st is not None for st in self._slots])
-            for buf, host in ((self._active_dev, active), (self._pos_dev, self.pool.positions),
-                              (self._temps_dev, self._temps), (self._rids_dev, self._rids)):
-                buf.copy_(torch.from_numpy(host))
+            for sh in self.shards:
+                rows = slice(sh.lo, sh.lo + sh.n)
+                for buf, host in ((sh._active_dev, active), (sh._pos_dev, self.pool.positions),
+                                  (sh._temps_dev, self._temps), (sh._rids_dev, self._rids)):
+                    buf.copy_(torch.from_numpy(host[rows]))
             self._lanes_dirty = False
         takes = {s: min(self.chunk, self._slots[s].prefill_len - self._slots[s].written)
                  for s in prefills}
@@ -1030,16 +1157,17 @@ class ContinuousEngine:
                 chunk_toks[s] = st.padded[st.written: st.written + self.chunk]
                 n_valid[s] = takes[s]
                 is_pref[s] = True
-            for buf, host in zip(self._inputs[kind], (chunk_toks, n_valid, is_pref)):
-                buf.copy_(torch.from_numpy(host))
+            for sh in self.shards:
+                rows = slice(sh.lo, sh.lo + sh.n)
+                for buf, host in zip(sh._inputs[kind], (chunk_toks, n_valid, is_pref)):
+                    buf.copy_(torch.from_numpy(host[rows]))
             self.fused_ticks += 1
-        out = self._run_tick(kind, bucket).cpu().numpy()  # the tick's one device->host copy
-        n = self.num_slots
-        toks, health = out[:n], None
-        if self.sentinels:
-            words = out[n:].view(np.float32)
-            split = self.model.cfg.n_layers * n * 3
-            health = {"layers": words[:split].reshape(-1, n, 3), "head": words[split:]}
+        if self.shards[0]._graphs is not None:
+            self._replayed_ticks += 1
+        # every shard's tick is launched before any is waited on; then one
+        # device->host copy a shard, assembled in global slot order
+        outs = [self._run_tick(kind, bucket, d) for d in range(self.num_devices)]
+        toks, health = self._assemble([o.cpu().numpy() for o in outs])
         self.pool.advance({s: takes.get(s, 1) for s in live})
         self.model_ticks += 1
         self.phase_log.append((len(prefills), len(decoders)))
@@ -1097,9 +1225,23 @@ class ContinuousEngine:
             self._tables_fresh.clear()
             self.pool.tables_dirty = False
         if bucket not in self._tables_fresh:
-            self._tables_dev[bucket].copy_(torch.from_numpy(self.pool.tables[:, :bucket]))
+            for d, sh in enumerate(self.shards):
+                sh._tables_dev[bucket].copy_(torch.from_numpy(self.pool.local_tables(d, bucket)))
             self._tables_fresh.add(bucket)
         return bucket
+
+    def _assemble(self, outs: list[np.ndarray]) -> tuple:
+        """The shards' tick outputs as the whole pool's: the tokens (N,) and,
+        with sentinels, the health {"layers": (L, N, 3), "head": (N,)} f32."""
+        n = self.pool.per_device_slots
+        toks = np.concatenate([o[:n] for o in outs])
+        if not self.sentinels:
+            return toks, None
+        split = self.model.cfg.n_layers * n * 3
+        words = [o[n:].view(np.float32) for o in outs]
+        return toks, {"layers": np.concatenate([w[:split].reshape(-1, n, 3) for w in words],
+                                               axis=1),
+                      "head": np.concatenate([w[split:] for w in words])}
 
     def run(self, requests: Sequence[Request]) -> list[Completion]:
         """Serve a workload to completion; returns completions in finish order."""
@@ -1122,7 +1264,7 @@ class ContinuousEngine:
     def _topology(self) -> dict:
         t = {"family": self.model.cfg.family, "norm_impl": self.model.cfg.norm_impl,
              "num_slots": self.num_slots, "max_seq": self.max_seq, "chunk": self.chunk,
-             "paged": self.paged, "kv_dtype": self.kv_dtype, "num_devices": 1,
+             "paged": self.paged, "kv_dtype": self.kv_dtype, "num_devices": self.num_devices,
              "sched": self.sched_policy, "preempt": self.preempt_mode, "seed": self.cfg.seed,
              "sentinels": self.sentinels}
         if self.paged:
@@ -1143,13 +1285,29 @@ class ContinuousEngine:
                 "has_padded": req.padded_tokens is not None,
                 "extras_keys": sorted(req.extras)}
 
-    def _cache_leaves(self) -> dict:
-        """The pool's device leaves, flat (KV, then the extras), the paged
-        arenas' write-sink block left out."""
+    def _shard_leaves(self, d: int) -> dict:
+        """Shard ``d``'s pool leaves, flat (KV, then the extras), its arenas'
+        write-sink block left out."""
         if not self.paged:
-            return dict(self.pool.cache)
-        nb = self.pool.num_blocks
-        return {**{k: v[:, :nb] for k, v in self.pool.cache.items()}, **self.pool.extras}
+            return dict(self.pool.caches[d])
+        nb = self.pool.blocks_per_device
+        return {**{k: v[:, :nb] for k, v in self.pool.caches[d].items()},
+                **self.pool.extras_shards[d]}
+
+    def _leaf_axis(self, name: str) -> int:
+        """The axis the shards split a leaf along: an extra leaf's slot axis,
+        else 1 (the arenas' block axis, the slabs' slot axis)."""
+        return self.model.extra_leaves.get(name, 1)
+
+    def _cache_leaves(self) -> dict:
+        """The whole pool's device leaves, flat: the one shard's own tensors
+        at ``devices=1``, else CPU copies of the shards' leaves joined along
+        their block or slot axis (the reference's global leaves)."""
+        if self.num_devices == 1:
+            return self._shard_leaves(0)
+        shards = [self._shard_leaves(d) for d in range(self.num_devices)]
+        return {k: torch.cat([sh[k].cpu() for sh in shards], dim=self._leaf_axis(k))
+                for k in shards[0]}
 
     def _cache_tree(self) -> dict:
         """The pool's device leaves under the reference's names (its cache
@@ -1165,13 +1323,13 @@ class ContinuousEngine:
             raise ValueError("snapshot with an attached prefix cache is not supported")
         seed = int(self.cfg.seed)
         tree: dict = {
-            "cache": self._cache_tree(), "last_logits": self._last_logits,
+            "cache": self._cache_tree(), "last_logits": self.held_logits(),
             # the reference's initial PRNG key for the seed (the port's
             # sampler is keyed by counters and reads no key)
             "key": np.array([(seed >> 32) & 0xFFFFFFFF, seed & 0xFFFFFFFF], np.uint32),
             "temps": np.asarray(self._temps), "positions": np.asarray(self.pool.positions),
             "clip_streak": np.asarray(self._clip_streak),
-            "device_admits": np.array([self._device_admits], np.int64)}
+            "device_admits": np.asarray(self._device_admits)}
         requests: dict[int, Request] = {}
         slots_meta = {}
         for s, st in enumerate(self._slots):
@@ -1232,12 +1390,13 @@ class ContinuousEngine:
             pool_meta = {
                 "free_slots": list(pool._free_slots), "used": sorted(pool._slot_blocks),
                 "slot_blocks": {str(s): list(ch) for s, ch in pool._slot_blocks.items()},
-                "free_blocks": [list(pool._free_blocks)],
+                "free_blocks": [list(q) for q in pool._free_blocks],
                 "quarantined": sorted(pool.quarantined), "doomed": sorted(pool._doomed),
-                "lost_devices": [], "peak_blocks_in_use": pool.peak_blocks_in_use,
+                "lost_devices": sorted(pool._lost_devices),
+                "peak_blocks_in_use": pool.peak_blocks_in_use,
                 "peak_blocks_reserved": pool.peak_blocks_reserved,
-                "peak_reserved_per_device": [pool.peak_blocks_reserved],
-                "peak_used_per_device": [pool.peak_blocks_in_use]}
+                "peak_reserved_per_device": [int(x) for x in pool.peak_reserved_per_device],
+                "peak_used_per_device": [int(x) for x in pool.peak_used_per_device]}
             tree.update(tables=pool.tables, refcounts=pool.refcounts, reserved=pool._reserved,
                         shared=pool._shared, owned=pool._owned)
         else:
@@ -1308,13 +1467,16 @@ class ContinuousEngine:
             raise ValueError(f"snapshot topology mismatch: {diff}")
         self.reset()
         # --- device state, in place ----------------------------------------
-        for name, leaf in self._cache_leaves().items():
-            leaf.copy_(flat[f"cache/{_leaf_path(name)}"])
-        self._last_logits.copy_(flat["last_logits"])
+        for d, sh in enumerate(self.shards):
+            for name, leaf in self._shard_leaves(d).items():
+                ax = self._leaf_axis(name)
+                size = leaf.shape[ax]
+                leaf.copy_(flat[f"cache/{_leaf_path(name)}"].narrow(ax, d * size, size))
+            sh._last_logits.copy_(flat["last_logits"][sh.lo:sh.lo + sh.n])
         self._temps = np.array(flat["temps"].numpy(), np.float32)
         self.pool.positions[:] = flat["positions"].numpy()
         self._clip_streak = np.array(flat["clip_streak"].numpy(), np.int32)
-        self._device_admits = int(flat["device_admits"].sum())
+        self._device_admits = np.array(flat["device_admits"].numpy(), np.int64)
         self._lanes_dirty = True  # step() refreshes the device mirrors
         # --- pool ledger ----------------------------------------------------
         p, pool = extra["pool"], self.pool
@@ -1327,10 +1489,13 @@ class ContinuousEngine:
             pool._owned = np.array(flat["owned"].numpy(), np.int32)
             pool._free_slots = collections.deque(p["free_slots"])
             pool._slot_blocks = {int(s): list(ch) for s, ch in p["slot_blocks"].items()}
-            pool._free_blocks = collections.deque(b for q in p["free_blocks"] for b in q)
+            pool._free_blocks = [collections.deque(q) for q in p["free_blocks"]]
             pool.quarantined, pool._doomed = set(p["quarantined"]), set(p["doomed"])
+            pool._lost_devices = set(p["lost_devices"])
             pool.peak_blocks_in_use = p["peak_blocks_in_use"]
             pool.peak_blocks_reserved = p["peak_blocks_reserved"]
+            pool.peak_reserved_per_device = np.array(p["peak_reserved_per_device"], np.int64)
+            pool.peak_used_per_device = np.array(p["peak_used_per_device"], np.int64)
             pool.check_ledger()
         else:
             pool._free, pool._used = collections.deque(p["free"]), set(p["used"])
@@ -1364,7 +1529,7 @@ class ContinuousEngine:
                     kv = {"len": sp["len"], "layers": self._nest(flat, f"sus/{rid}/kv/") or None}
                 else:
                     kv = {name: flat[f"sus/{rid}/kv/{_leaf_path(name)}"]
-                          for name in self.pool.cache}
+                          for name in self.pool.caches[0]}
                 spill = {"kv": kv, "position": sp["position"],
                          "padded": (flat[f"sus/{rid}/padded"].numpy()
                                     if sp["has_padded"] else None),
@@ -1402,13 +1567,29 @@ class ContinuousEngine:
                            "sentinel_checks", "sentinel_violations", "retries", "fallbacks",
                            "table_repairs"))
 
+    def device_occupancy(self) -> list[int]:
+        """Live slots a device range right now: what least-loaded placement
+        balances."""
+        n = self.pool.per_device_slots
+        return [sum(st is not None for st in self._slots[d * n:(d + 1) * n])
+                for d in range(self.num_devices)]
+
+    @property
+    def shard_balance(self) -> float:
+        """Admission balance over the device ranges: min / max of the
+        admissions a device (1.0 even, and on one device)."""
+        if self.num_devices == 1 or self._device_admits.max() == 0:
+            return 1.0
+        return float(self._device_admits.min() / self._device_admits.max())
+
     def metrics(self) -> dict:
         """The reference's telemetry keys with its meanings (computed on the
         host, outside the captured tick), and the port's own: ``ticks``,
         ``model_ticks``, ``completed`` (= ``completions``), the peak
-        residuals and ``capture_seconds``.  ``kv_hbm_bytes`` counts the
-        port's resident pool, its write-sink block included."""
-        graphs = self._graphs
+        residuals, ``capture_seconds`` and ``graph_captures`` (a shard's
+        captures, every shard's).  ``kv_hbm_bytes`` counts the
+        port's resident pool, its write-sink blocks included."""
+        graphs = self.shards[0]._graphs
         out = {
             "ticks": self.step_count,
             "model_ticks": self.model_ticks,
@@ -1451,22 +1632,26 @@ class ContinuousEngine:
             # counters: one per (step kind, bucket) run on the card (slab:
             # per step kind), kept across reset; 0 on the CPU, where no graph
             # exists.  No tick depends on the prompt length, so no prefill is
-            # ever captured.
+            # ever captured.  Sharded, every shard captures each key once: the
+            # counts are a shard's (``graph_captures`` has every shard's)
             "fused_step_compilations": graphs.captures.get("fused", 0) if graphs else 0,
             "decode_compilations": graphs.captures.get("decode", 0) if graphs else 0,
             "prefill_compilations": 0,
-            "capture_seconds": graphs.capture_seconds if graphs else 0.0,
+            "capture_seconds": sum(sh._graphs.capture_seconds for sh in self.shards
+                                   if sh._graphs is not None),
+            "graph_captures": [sum(sh._graphs.captures.values()) if sh._graphs else 0
+                               for sh in self.shards],
             # the reference counts ticks dispatched under a guard that refuses
             # implicit host->device transfers; a graph replay moves no host
             # data into the tick (its inputs are staged before), so the port
             # counts its replayed ticks, against decode_steps = model ticks
             "decode_steps": self.model_ticks,
             "transfer_guarded_ticks": self._replayed_ticks,
-            # one device: the reference's mesh keys at their one-device values
-            "num_devices": 1,
-            "per_device_slots": self.num_slots,
-            "shard_balance": 1.0,
-            "device_admits": [self._device_admits],
+            # slot-pool sharding (devices=1: one range, balance 1.0)
+            "num_devices": self.num_devices,
+            "per_device_slots": self.pool.per_device_slots,
+            "shard_balance": self.shard_balance,
+            "device_admits": [int(n) for n in self._device_admits],
         }
         if self.paged:
             out.update(self._paged_metrics())
@@ -1496,3 +1681,4 @@ class ContinuousEngine:
                 "prefix_evictions": self.pool.prefix_evictions,
                 "prefix_cached_blocks": self.pool.cached_blocks,
                 "prefix_inserts": self.prefix.inserts}
+

@@ -2,9 +2,10 @@
 ``repro/serve/faults.py``).
 
 The injector corrupts engine state between ticks.  Arena and scale faults
-are written in place on the device, into the pool's own tensors, so the
-tick's captured graphs read them on their next replay; no host copy of an
-arena is made.  Targets are drawn from ``np.random.default_rng(seed)`` in
+are written in place on the device, into the pool's own tensors (a global
+block id addresses its device's arenas at its local id), so the tick's
+captured graphs read them on their next replay; no host copy of an arena
+is made.  Targets are drawn from ``np.random.default_rng(seed)`` in
 the reference's order (leaf names sorted, then slot, block and layer), and
 block tables are bitwise the reference's, so one seed hits the same
 (leaf, slot, block, layer) in both packages.
@@ -30,9 +31,12 @@ Fault classes and the sentinel channel that catches each:
     renormalizes any finite score set to Σp = 1, so the read stays valid
     over an almost-right value; recorded with ``detectable=False``.
 ``device_loss``
-    A whole device's block range; the engine serves one device, so there is
-    no device to lose and the injection returns None, as the reference's
-    does on one device.
+    NaN over a whole device's block range in its fp arenas (every arena
+    leaf, whatever ``leaves`` says, every layer; the sink block is left), so
+    every live slot there violates in one tick and the engine declares the
+    device lost.  A device with at least ``device_loss_min_slots`` live slots
+    is drawn; None on one device or when no device has that many, as the
+    reference's.
 """
 from __future__ import annotations
 
@@ -99,10 +103,16 @@ class FaultInjector:
         n = max(1, min(len(chain), pool.blocks_for(int(pool.positions[slot]))))
         return int(chain[self.rng.integers(n)])
 
-    def _arena_items(self, want_scale: bool) -> list:
-        return [(k, v) for k, v in sorted(self.engine.pool.cache.items())
+    def _arena_names(self, want_scale: bool) -> list:
+        return [k for k in sorted(self.engine.pool.caches[0])
                 if k.endswith("_scale") == want_scale
                 and (want_scale or self.leaves is None or k in self.leaves)]
+
+    def _tile(self, name: str, block: int):
+        """(the leaf of ``block``'s device, the block's local id there)."""
+        pool = self.engine.pool
+        d, local = pool.shard_of_block(block)
+        return pool.caches[d][name], local
 
     # ----------------------------------------------------------- injection --
     def inject(self, kind: Optional[str] = None) -> Optional[FaultRecord]:
@@ -120,15 +130,17 @@ class FaultInjector:
         slots = self._live_slots()
         if not slots:
             return None
-        items = self._arena_items(want_scale=False)
-        name, leaf = items[self.rng.integers(len(items))]
-        if not leaf.is_floating_point():
-            raise ValueError(f"{kind} targets fp arenas; the {leaf.dtype} arena cannot "
+        names = self._arena_names(want_scale=False)
+        name = names[self.rng.integers(len(names))]
+        dtype = eng.pool.caches[0][name].dtype
+        if not dtype.is_floating_point:
+            raise ValueError(f"{kind} targets fp arenas; the {dtype} arena cannot "
                              "encode nonfinite payloads: use 'scale' against int8")
         slot = int(slots[self.rng.integers(len(slots))])
         block = self._pick_block(slot)
+        leaf, local = self._tile(name, block)
         layer = int(self.rng.integers(leaf.shape[0]))
-        leaf[layer, block].fill_(value)
+        leaf[layer, local].fill_(value)
         return FaultRecord(kind=kind, step=eng.step_count, slot=slot, block=block, layer=layer,
                            leaf=name, value=kind[:3])
 
@@ -141,16 +153,17 @@ class FaultInjector:
     def _inject_scale(self) -> Optional[FaultRecord]:
         eng = self.engine
         slots = self._live_slots()
-        items = self._arena_items(want_scale=True)
-        if not slots or not items:
+        names = self._arena_names(want_scale=True)
+        if not slots or not names:
             return None  # an fp pool has no scales
-        name, leaf = items[self.rng.integers(len(items))]
+        name = names[self.rng.integers(len(names))]
         slot = int(slots[self.rng.integers(len(slots))])
         block = self._pick_block(slot)
+        leaf, local = self._tile(name, block)
         layer = int(self.rng.integers(leaf.shape[0]))
         vals = (np.nan, np.inf, -1.0, 1e6)
         v = vals[self.rng.integers(len(vals))]
-        leaf[layer, block].fill_(v)
+        leaf[layer, local].fill_(v)
         return FaultRecord(kind="scale", step=eng.step_count, slot=slot, block=block,
                            layer=layer, leaf=name, value=str(v))
 
@@ -174,16 +187,36 @@ class FaultInjector:
         slots = self._live_slots()
         if not slots:
             return None
-        items = self._arena_items(want_scale=False)
-        name, leaf = items[self.rng.integers(len(items))]
+        names = self._arena_names(want_scale=False)
+        name = names[self.rng.integers(len(names))]
         slot = int(slots[self.rng.integers(len(slots))])
         block = self._pick_block(slot)
+        leaf, local = self._tile(name, block)
         layer = int(self.rng.integers(leaf.shape[0]))
-        tile = leaf[layer, block].view(torch.uint8).view(-1)
+        tile = leaf[layer, local].view(torch.uint8).view(-1)
         i = int(self.rng.integers(tile.shape[0]))
         tile[i:i + 1].bitwise_xor_(1)  # the lowest bit of one byte, in place
         return FaultRecord(kind="bit_flip", step=eng.step_count, slot=slot, block=block,
                            layer=layer, leaf=name, detectable=False)
 
     def _inject_device_loss(self) -> Optional[FaultRecord]:
-        return None  # one device: nothing to lose
+        eng = self.engine
+        pool = eng.pool
+        if eng.num_devices < 2:
+            return None
+        counts: dict[int, int] = {}
+        for s in self._live_slots():
+            counts[pool.device_of(s)] = counts.get(pool.device_of(s), 0) + 1
+        viable = [d for d, n in counts.items()
+                  if n >= eng.device_loss_min_slots and d not in pool._lost_devices]
+        if not viable:
+            return None
+        dev = int(viable[self.rng.integers(len(viable))])
+        for name, leaf in sorted(pool.caches[dev].items()):
+            if name.endswith("_scale"):
+                continue
+            if not leaf.is_floating_point():
+                raise ValueError("device_loss poisons arenas with NaN; int8 arenas cannot "
+                                 "encode it")
+            leaf[:, :pool.blocks_per_device].fill_(float("nan"))
+        return FaultRecord(kind="device_loss", step=eng.step_count, device=dev, value="nan")

@@ -19,6 +19,12 @@ step's ~900 launches leave the host once per key instead of once per step.
     ``fn`` returned at capture, which each replay overwrites.
 A capture or a replay that fails raises; nothing falls back to eager.
 
+A runner belongs to one device: its memory pool handle, its side stream,
+and every warm-up, capture and replay are taken with that device current
+(``kernels._build.on_device``), so the shards of a sharded engine, one
+runner each, capture and replay on their own cards whichever device the
+caller left current.
+
 No Python garbage collection runs during a capture: a collection there may
 free a graph held by a dead reference cycle (an engine whose prefix cache
 points back at its pool, a model holding its static decoders), and
@@ -40,7 +46,7 @@ from typing import Callable, Hashable
 
 import torch
 
-from repro_torch.kernels import counters
+from repro_torch.kernels import _build, counters
 
 
 class StepGraphs:
@@ -51,8 +57,9 @@ class StepGraphs:
         if device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
         self.device = device
-        self.pool = torch.cuda.graph_pool_handle()
-        self._side = torch.cuda.Stream(device)
+        with _build.on_device(device):
+            self.pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(device)
         self._graphs: dict[Hashable, tuple] = {}
         self.captures: dict[str, int] = {}
         self.capture_seconds = 0.0  # host time of warm-ups and captures
@@ -60,12 +67,13 @@ class StepGraphs:
     def run(self, key: tuple, fn: Callable, warmup: Callable):
         """Replay ``key``'s graph (captured from ``fn`` first if new) and
         return ``fn``'s static outputs."""
-        entry = self._graphs.get(key)
-        if entry is None:
-            entry = self._graphs[key] = self._capture(fn, warmup)
-            self.captures[key[0]] = self.captures.get(key[0], 0) + 1
-        graph, out, per_replay = entry
-        graph.replay()
+        with _build.on_device(self.device):
+            entry = self._graphs.get(key)
+            if entry is None:
+                entry = self._graphs[key] = self._capture(fn, warmup)
+                self.captures[key[0]] = self.captures.get(key[0], 0) + 1
+            graph, out, per_replay = entry
+            graph.replay()
         counters.add(per_replay)
         return out
 

@@ -1,11 +1,16 @@
 """Radix prefix cache: token prefixes -> physical block chains (port of
-``repro/serve/prefix_cache.py``, one device).
+``repro/serve/prefix_cache.py``).
 
 A physical KV block reads the same through any slot's table: the GN
 softmax maps masked scores to numerators of exactly zero with Σp = 1, so
 sharing a block changes no result.  This module is the host-side index that
 finds the blocks to share; the pool owns refcounts and free lists, and the
 copy-on-write fork of a partially matched block.
+
+One radix tree a device, as the reference's: a slot only holds blocks of its
+own device's range, so a chain is device-local.  A lookup takes the longest
+match over every device's tree (ties to the lowest device) and names its
+device (``PrefixHit.device``), to which admission pulls the request.
 
 Each tree node keys one block-aligned chunk of ``block_size`` tokens (the
 raw int32 bytes) and holds the physical block whose KV covers those tokens
@@ -39,7 +44,8 @@ class PrefixHit:
     blocks (``shared_len // block_size`` of them) the slot attaches read-only;
     ``tail_src`` is the block holding the partially matched remainder, which
     the pool forks into a private block (None when the match ends on a block
-    boundary).  ``device`` is always 0 (the reference's per-device index)."""
+    boundary).  ``device`` is the device whose tree matched: its range holds
+    every block of the hit."""
 
     device: int
     blocks: list[int]
@@ -59,13 +65,14 @@ class _Node:
 
 
 class PrefixCache:
-    def __init__(self, block_size: int):
+    def __init__(self, block_size: int, num_devices: int = 1):
         self.block_size = int(block_size)
+        self.num_devices = int(num_devices)
         self.pool = None  # bound by BlockPagedKVPool.attach_prefix_cache
         self.clear()
 
     def clear(self) -> None:
-        self._root = _Node(None)
+        self._roots = [_Node(None) for _ in range(self.num_devices)]
         self._clock = 0
         self.hits = 0
         self.misses = 0
@@ -76,25 +83,26 @@ class PrefixCache:
         self._clock += 1
         return self._clock
 
-    def _iter_nodes(self):
-        stack = [self._root]
+    def _iter_nodes(self, device: int):
+        stack = [self._roots[device]]
         while stack:
             node = stack.pop()
             yield node
             stack.extend(node.children.values())
 
-    def cached_blocks(self) -> int:
-        """Blocks the index holds a reference to."""
+    def cached_blocks(self, device: Optional[int] = None) -> int:
+        """Blocks the index holds a reference to (on ``device``, or all)."""
+        devs = range(self.num_devices) if device is None else (device,)
         return sum((node.block is not None) + (node.tail is not None)
-                   for node in self._iter_nodes())
+                   for d in devs for node in self._iter_nodes(d))
 
-    def evictable_count(self, refcounts: np.ndarray) -> int:
-        """Indexed blocks no live slot references (refcount 1: the cache's
-        own): what block pressure can reclaim.  Exact because ``evict_lru``
-        falls back to cutting a pinned subtree, so every counted block can be
-        reached."""
+    def evictable_count(self, device: int, refcounts: np.ndarray) -> int:
+        """Indexed blocks on ``device`` no live slot references (refcount 1:
+        the cache's own): what block pressure can reclaim there.  Exact
+        because ``evict_lru`` falls back to cutting a pinned subtree, so
+        every counted block can be reached."""
         n = 0
-        for node in self._iter_nodes():
+        for node in self._iter_nodes(device):
             if node.block is not None and refcounts[node.block] == 1:
                 n += 1
             if node.tail is not None and refcounts[node.tail[2]] == 1:
@@ -114,16 +122,34 @@ class PrefixCache:
 
     def lookup(self, tokens, cap: Optional[int] = None,
                touch: bool = True) -> Optional[PrefixHit]:
-        """Longest matched prefix of ``tokens``, at most ``cap`` tokens (the
-        engine passes prompt_len - 1, so the last prompt token always runs
-        through prefill and the first sampled token comes from its logits)."""
+        """Longest matched prefix of ``tokens`` over every device's tree (ties
+        to the lowest device), at most ``cap`` tokens (the engine passes
+        prompt_len - 1, so the last prompt token always runs through prefill
+        and the first sampled token comes from its logits)."""
         tokens = np.ascontiguousarray(np.asarray(tokens, np.int32).reshape(-1))
         limit = tokens.shape[0] if cap is None else min(cap, tokens.shape[0])
         if limit <= 0:
             self.misses += touch
             return None
+        best, best_path = None, []
+        for d in range(self.num_devices):
+            hit, path = self._match(d, tokens, limit)
+            if hit is not None and (best is None or hit.shared_len > best.shared_len):
+                best, best_path = hit, path
+        if best is None:
+            self.misses += touch
+            return None
+        if touch:
+            self.hits += 1
+            stamp = self._tick()
+            for n in best_path:
+                n.stamp = stamp
+        return best
+
+    def _match(self, device: int, tokens: np.ndarray, limit: int) -> tuple:
+        """(the hit on ``device``'s tree or None, the nodes it walked)."""
         bs = self.block_size
-        node, path = self._root, []
+        node, path = self._roots[device], []
         for key in self._chunks(tokens, limit):
             child = node.children.get(key)
             if child is None:
@@ -159,19 +185,14 @@ class PrefixCache:
                     # next eviction
                     path.append(src_node)
         if not shared:
-            self.misses += touch
-            return None
-        if touch:
-            self.hits += 1
-            stamp = self._tick()
-            for n in path:
-                n.stamp = stamp
-        return PrefixHit(device=0, blocks=[n.block for n in path[:shared // bs]],
-                         shared_len=shared, tail_src=tail_src)
+            return None, path
+        return PrefixHit(device=device, blocks=[n.block for n in path[:shared // bs]],
+                         shared_len=shared, tail_src=tail_src), path
 
-    def insert(self, tokens, blocks: list[int]) -> None:
+    def insert(self, tokens, blocks: list[int], device: int = 0) -> None:
         """Index ``tokens`` (a prefilled prompt prefix) backed by the chain
-        ``blocks`` (``ceil(len(tokens) / block_size)`` entries).  Existing
+        ``blocks`` (``ceil(len(tokens) / block_size)`` entries) of
+        ``device``'s range, in that device's tree.  Existing
         nodes stay (their block holds the same KV: same tokens at the same
         positions through the same tick), so only new nodes take a cache
         reference.  A sub-block remainder becomes the node's one partial
@@ -181,7 +202,7 @@ class PrefixCache:
         tokens = np.ascontiguousarray(np.asarray(tokens, np.int32).reshape(-1))
         bs = self.block_size
         full, rem = divmod(tokens.shape[0], bs)
-        node = self._root
+        node = self._roots[device]
         stamp = self._tick()
         for i, key in enumerate(self._chunks(tokens, full * bs)):
             child = node.children.get(key)
@@ -202,9 +223,9 @@ class PrefixCache:
             if old is not None:
                 self.pool.cache_unref(old[2])
 
-    def evict_lru(self, refcounts: np.ndarray) -> Optional[int]:
-        """Detach and return the least recently used evictable block
-        (refcount 1), leaf first: partial tails, then childless tail-less
+    def evict_lru(self, device: int, refcounts: np.ndarray) -> Optional[int]:
+        """Detach and return the least recently used evictable block on
+        ``device`` (refcount 1), leaf first: partial tails, then childless tail-less
         nodes.  When none is evictable but refcount-1 interior nodes remain
         (live slots pin their descendants), the deepest LRU one's subtree is
         cut: the descendants' entries are dropped (cache-only ones recycle
@@ -213,7 +234,7 @@ class PrefixCache:
         reference."""
         best = None  # leaves: ((stamp, kind), holder, key, node)
         cut = None   # fallback: ((stamp, -depth), parent, key, node)
-        stack = [(self._root, None, None, 0)]
+        stack = [(self._roots[device], None, None, 0)]
         while stack:
             node, parent, key, depth = stack.pop()
             if node.tail is not None and refcounts[node.tail[2]] == 1:

@@ -17,6 +17,9 @@ the reference's (``repro.analysis``), on the CPU.
   read: 2 against the reference's 0, ``audit.GATHER_BUDGETS`` says why);
   the kernel's opaque record keeps its plain version's two stream gathers
   a layer out of the count.
+* A sharded engine (two shards of the CPU): Pass A walks every shard's
+  ticks and finds nothing, and a tick takes one device->host copy a shard
+  (``audit.dtoh_budget``).
 """
 from __future__ import annotations
 
@@ -24,6 +27,7 @@ import json
 from pathlib import Path
 
 import pytest
+import torch
 
 from repro.analysis.audit import GATHER_BUDGETS as REF_BUDGETS
 from repro.analysis.rules import ALL_RULES as REF_RULES
@@ -200,3 +204,36 @@ def test_trace_keys_on_cpu_want_no_captures():
                                    max_seq=engine.max_seq, block_size=engine.pool.block_size,
                                    engine_grid=engine.horizon_bucket_grid)
     assert [f.rule for f in found] == ["A-TRACEKEY"]
+
+
+# ----------------------------------------------------------- two shards ---
+def test_audit_walks_every_shard_of_a_sharded_engine():
+    """Pass A over a two-shard engine at the smoke size (every read path and
+    the int8 pool): nothing found, each shard's entry points recorded."""
+    assert audit.audit_arch(DENSE, tier="full", device="cpu", devices=2) == []
+    engine, reqs = audit.build_engine(DENSE, device="cpu", devices=2)
+    engine.run(reqs)
+    names = [ep.name for ep in audit.collect_entry_points(engine)]
+    for shard in ("@0", "@1"):
+        mine = [n for n in names if n.endswith(shard)]
+        assert "prefix_cow_fork" + shard in mine and any(n.startswith("sentinel") for n in mine)
+    assert len(names) == 2 * len({n.rsplit("@", 1)[0] for n in names})
+
+
+@pytest.mark.parametrize("devices", [1, 2])
+def test_one_device_to_host_copy_a_shard_a_tick(devices, monkeypatch):
+    """``step`` takes one ``.cpu()`` copy a shard a model tick (its tokens and
+    health words), the budget ``dtoh_budget`` gives the card's profiled
+    window."""
+    engine, reqs = audit.build_engine(DENSE, device="cpu", devices=devices)
+    for r in reqs:
+        engine.submit(r)
+    copies = []
+    real = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda t, *a, **k: copies.append(1) or real(
+        t, *a, **k))
+    before = engine.model_ticks
+    while engine.step():
+        pass
+    ticks = engine.model_ticks - before
+    assert ticks > 0 and len(copies) == audit.dtoh_budget(engine, ticks) == devices * ticks

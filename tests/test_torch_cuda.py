@@ -929,7 +929,7 @@ def test_sampled_engine_graphed_equals_eager_and_replays(cuda, kv_dtype):
                                cfg=ServeConfig(temperature=0.7, seed=3), chunk=4, block_size=4,
                                kv_dtype=kv_dtype, device=cuda)
         if eager:
-            eng._graphs = None
+            eng.shards[0]._graphs = None
         return eng, {c.request_id: c.tokens.tolist() for c in eng.run(reqs)}
 
     eng, graphed = run(False)
@@ -1060,7 +1060,7 @@ def _filled_pool(cuda, kv_dtype, seed):
     pool = BlockPagedKVPool(model, num_slots=3, max_seq=32, block_size=4, num_blocks=12,
                             device=cuda, kv_dtype=kv_dtype)
     g = torch.Generator(device=cuda).manual_seed(seed)
-    for leaf in pool.cache.values():
+    for leaf in pool.caches[0].values():
         if leaf.dtype == torch.int8:
             leaf.copy_(torch.randint(-127, 128, leaf.shape, generator=g, device=cuda))
         else:
@@ -1075,8 +1075,8 @@ def test_fork_and_spill_restore_bitwise_on_card(cuda, kv_dtype):
     for bit; both write the arenas and scales in place."""
     pool = _filled_pool(cuda, kv_dtype, seed=5)
     pool.attach_prefix_cache(PrefixCache(4))
-    ptrs = {k: v.data_ptr() for k, v in pool.cache.items()}
-    before = {k: v.clone() for k, v in pool.cache.items()}
+    ptrs = {k: v.data_ptr() for k, v in pool.caches[0].items()}
+    before = {k: v.clone() for k, v in pool.caches[0].items()}
     s0 = pool.allocate(reserve_tokens=16)
     pool.ensure(s0, 16)
     chain0 = pool.chain_of(s0)
@@ -1087,13 +1087,13 @@ def test_fork_and_spill_restore_bitwise_on_card(cuda, kv_dtype):
     s1 = pool.allocate(reserve_tokens=16, prefix=hit)
     pool.attach_prefix(s1, hit)
     dst = pool.chain_of(s1)[3]
-    for k, leaf in pool.cache.items():
+    for k, leaf in pool.caches[0].items():
         assert torch.equal(leaf[:, dst], before[k][:, hit.tail_src]), k
         keep = torch.arange(leaf.shape[1], device=cuda) != dst
         assert torch.equal(leaf[:, keep], before[k][:, keep]), k
     pool.ensure(s1, 16)
     chain1 = pool.chain_of(s1)
-    values = {k: v[:, chain1].clone() for k, v in pool.cache.items()}
+    values = {k: v[:, chain1].clone() for k, v in pool.caches[0].items()}
     payload = pool.extract_blocks(s1)
     assert payload["len"] == 4 and all(t.device.type == "cpu" for t in payload["layers"].values())
     pool.free(s1)
@@ -1104,9 +1104,9 @@ def test_fork_and_spill_restore_bitwise_on_card(cuda, kv_dtype):
     chain2 = pool.chain_of(s2)
     assert chain2 != chain1
     pool.restore_blocks(s2, payload)
-    for k, leaf in pool.cache.items():
+    for k, leaf in pool.caches[0].items():
         assert torch.equal(leaf[:, chain2], values[k]), k
-    assert {k: v.data_ptr() for k, v in pool.cache.items()} == ptrs
+    assert {k: v.data_ptr() for k, v in pool.caches[0].items()} == ptrs
 
 
 def _aliased(cuda, c, dtype, seed=0):
@@ -1165,8 +1165,8 @@ def test_paged_read_over_aliased_tables_matches_plain(cuda, c, dtype, int8):
 
 def _engine_state(eng):
     nb = eng.pool.num_blocks
-    return {"last_logits": eng._last_logits.clone(),
-            **{k: v[:, :nb].clone() for k, v in eng.pool.cache.items()}}
+    return {"last_logits": eng.shards[0]._last_logits.clone(),
+            **{k: v[:, :nb].clone() for k, v in eng.pool.caches[0].items()}}
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
@@ -1191,7 +1191,7 @@ def test_graphed_ticks_after_forks_and_restores_equal_eager(cuda, kv_dtype):
             eng = ContinuousEngine(model, master, num_slots=2, max_seq=32, chunk=4, block_size=4,
                                    kv_dtype=kv_dtype, device=device, **kw)
             if eager:
-                eng._graphs = None
+                eng.shards[0]._graphs = None
             toks = {c.request_id: c.tokens.tolist() for c in eng.run(reqs)}
             return eng, toks
 
@@ -1288,7 +1288,7 @@ def test_graphed_mla_ticks_equal_eager(cuda, kv_dtype, dtype):
         eng = ContinuousEngine(model, master, num_slots=2, max_seq=required_max_seq(reqs),
                                chunk=4, block_size=4, kv_dtype=kv_dtype, device=device)
         if eager:
-            eng._graphs = None
+            eng.shards[0]._graphs = None
         return eng, {c.request_id: c.tokens.tolist() for c in eng.run(reqs)}
 
     eng, graphed = run(cuda)
@@ -1358,7 +1358,7 @@ def _slab_run(model, master, reqs, device, eager=False, **kw):
     eng = ContinuousEngine(model, master, num_slots=2, max_seq=required_max_seq(reqs), chunk=4,
                            paged=False, device=device, **kw)
     if eager:
-        eng._graphs = None
+        eng.shards[0]._graphs = None
     return eng, {c.request_id: c.tokens.tolist() for c in eng.run(reqs)}
 
 
@@ -1373,12 +1373,12 @@ def test_graphed_slab_ticks_equal_eager(cuda, arch):
     m = eng.metrics()
     assert m["read_path"] == "slab" and m["transfer_guarded_ticks"] == m["model_ticks"]
     assert (m["fused_step_compilations"], m["decode_compilations"]) == (1, 1)
-    state = {"last_logits": eng._last_logits.clone(),
-             **{k: v.clone() for k, v in eng.pool.cache.items()}}
+    state = {"last_logits": eng.shards[0]._last_logits.clone(),
+             **{k: v.clone() for k, v in eng.pool.caches[0].items()}}
     eager_eng, eager = _slab_run(model, master, reqs, cuda, eager=True)
     assert eager == graphed
-    assert torch.equal(state["last_logits"], eager_eng._last_logits)
-    assert all(torch.equal(state[k], v) for k, v in eager_eng.pool.cache.items())
+    assert torch.equal(state["last_logits"], eager_eng.shards[0]._last_logits)
+    assert all(torch.equal(state[k], v) for k, v in eager_eng.pool.caches[0].items())
     assert _slab_run(model, master, reqs, "cpu")[1] == graphed
 
 
@@ -1406,10 +1406,36 @@ def test_snapshot_restores_into_captured_graphs_and_drains_bitwise(cuda, paged, 
     want = fingerprint(writer)
     restorer = ContinuousEngine(model, master, **kw)
     restorer.run(reqs)
-    captured = dict(restorer._graphs.captures)
+    captured = dict(restorer.shards[0]._graphs.captures)
     for step in steps:
         restorer.restore(tmp_path, step)
         while restorer.step():
             pass
         assert fingerprint(restorer) == want, step
-    assert restorer._graphs.captures == captured  # resumed by replay alone
+    assert restorer.shards[0]._graphs.captures == captured  # resumed by replay alone
+
+
+# ---------------------------------------------------------- sharded engine --
+@pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
+def test_two_shards_on_the_card_equal_one_device_and_the_cpu(cuda, kv_dtype):
+    """Two shards of cuda:0 (or of cuda:0 and cuda:1 where the machine has
+    two cards), reduced internlm2-1.8b at f32: every tick a replay of its
+    shard's graphs, one graph a shard a key, and the tokens of the one-device
+    engine on the card and of the two-shard engine on the CPU."""
+    cfg = reduce_config(get_config("internlm2-1.8b"), dtype="float32")
+    model = make_model(cfg)
+    master = model.init(0, "cpu")
+    reqs = seeded_requests(cfg.vocab, 6, 4, 24, 6, seed=7)
+    kw = dict(num_slots=4, max_seq=required_max_seq(reqs), chunk=4, block_size=8,
+              kv_dtype=kv_dtype)
+    device = None if torch.cuda.device_count() >= 2 else "cuda:0"
+    toks = []
+    for devices, dev in ((2, device), (1, "cuda"), (2, "cpu")):
+        eng = ContinuousEngine(model, master, devices=devices, device=dev, **kw)
+        toks.append({c.request_id: c.new_tokens.tolist() for c in eng.run(reqs)})
+        m = eng.metrics()
+        if dev != "cpu":
+            assert m["transfer_guarded_ticks"] == m["model_ticks"]
+            keys = len(m["fused_buckets"]) + len(m["decode_buckets"])
+            assert m["graph_captures"] == [keys] * devices
+    assert toks[0] == toks[1] == toks[2]

@@ -11,6 +11,10 @@
   (relative) of the JAX static path's on the converted weights at f32.
 * ``train_lm``: the first three losses within 1e-4 (relative) of the JAX
   training loop's from the same converted init and batches.
+* ``--devices 2`` of ``launch.serve --continuous`` and of
+  ``examples.serve_continuous``, with ``--device cpu``: both sharded,
+  every request served token for token as the static path, the sharded
+  line printed.
 """
 from __future__ import annotations
 
@@ -38,7 +42,8 @@ from repro.train.optimizer import OptimizerConfig as JaxOptimizerConfig
 from repro.train.optimizer import init_opt_state as jax_init_opt_state
 from repro_torch.convert import params_from_numpy
 from repro_torch.data.synthetic import DataConfig, batch_at
-from repro_torch.examples import quickstart, serve_batched, train_lm
+from repro_torch.examples import quickstart, serve_batched, serve_continuous, train_lm
+from repro_torch.launch import serve as launch_serve
 from repro_torch.models.transformer import make_model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -124,3 +129,21 @@ def test_train_lm_losses_equal_the_references():
     _, losses = train_lm.train(cfg, steps, seq, batch, "cpu", params=master,
                                batches=lambda s: batches[s], log=lambda *a: None)
     np.testing.assert_allclose(losses, ref, rtol=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("entry", ["launch.serve", "examples.serve_continuous"])
+def test_devices_flag_shards_the_pool(entry, capsys):
+    if entry == "launch.serve":
+        out = launch_serve.main(["--smoke", "--device", "cpu", "--continuous", "--devices", "2",
+                                 "--dtype", "float32", "--requests", "4", "--new-tokens", "4"])
+        served, line = len(out["completions"]), "slot pool sharded over 2 devices (2 slots each)"
+    else:
+        out = serve_continuous.main(["--device", "cpu", "--devices=2", "--requests", "5",
+                                     "--new-tokens", "4"])
+        served, line = out["served"], "sharded: 2 devices x 2 slots"
+    engine = out["engine"]
+    assert engine.num_devices == 2 and engine.shard_devices == [torch.device("cpu")] * 2
+    assert out["static_identical"] == served > 0
+    m = engine.metrics()
+    assert sum(m["device_admits"]) == served and 0 < m["shard_balance"] <= 1
+    assert line in capsys.readouterr().out

@@ -115,11 +115,13 @@ def test_engine_device_state_stays_in_place_across_ticks_and_reset():
     eng = ContinuousEngine(model, model.init(0, "cpu"), num_slots=2,
                            max_seq=required_max_seq(reqs), chunk=4, block_size=4, device="cpu")
 
+    sh = eng.shards[0]
+
     def state():
-        tensors = [eng._last_logits, eng._pos_dev, eng._active_dev, eng._parked,
-                   *[t for kind in sorted(eng._inputs) for t in eng._inputs[kind]],
-                   *[eng._tables_dev[b] for b in eng.horizon_bucket_grid],
-                   *eng.pool.cache.values()]
+        tensors = [sh._last_logits, sh._pos_dev, sh._active_dev, sh._parked,
+                   *[t for kind in sorted(sh._inputs) for t in sh._inputs[kind]],
+                   *[sh._tables_dev[b] for b in eng.horizon_bucket_grid],
+                   *eng.pool.caches[0].values()]
         return [t.data_ptr() for t in tensors]
 
     before = state()
@@ -129,7 +131,7 @@ def test_engine_device_state_stays_in_place_across_ticks_and_reset():
     assert len(m["horizon_buckets"]) >= 2 and m["fused_buckets"] and m["decode_buckets"]
     assert m["horizon_bucket_grid"] == tracekeys.horizon_bucket_grid(eng.max_seq, 4)
     eng.reset()
-    assert state() == before and not eng._active_dev.any() and not eng._pos_dev.any()
+    assert state() == before and not sh._active_dev.any() and not sh._pos_dev.any()
     assert eng.metrics()["horizon_buckets"] == []
     assert {c.request_id: c.new_tokens.tolist() for c in eng.run(reqs)} == first
     assert eng.metrics()["horizon_buckets"] == m["horizon_buckets"]
@@ -234,7 +236,7 @@ def _engine_run(device, dtype, kv_dtype, eager=False):
                            max_seq=required_max_seq(reqs), chunk=4, block_size=4, device=device,
                            kv_dtype=kv_dtype)
     if eager:
-        eng._graphs = None
+        eng.shards[0]._graphs = None
     toks = {c.request_id: c.tokens for c in eng.run(reqs)}
     return eng, reqs, toks
 
@@ -257,10 +259,10 @@ def test_graphed_engine_equals_the_eager_tick_on_card(cuda, kv_dtype, dtype):
     assert eager.metrics()["horizon_buckets"] == m["horizon_buckets"]
     for rid, t in eager_toks.items():
         assert np.array_equal(toks[rid], t), rid
-    assert torch.equal(eng._last_logits, eager._last_logits)
+    assert torch.equal(eng.shards[0]._last_logits, eager.shards[0]._last_logits)
     nb = eng.pool.num_blocks  # the write sink past them is never read
-    for key, arena in eng.pool.cache.items():
-        assert torch.equal(arena[:, :nb], eager.pool.cache[key][:, :nb]), key
+    for key, arena in eng.pool.caches[0].items():
+        assert torch.equal(arena[:, :nb], eager.pool.caches[0][key][:, :nb]), key
     captures = (m["fused_step_compilations"], m["decode_compilations"])
     eng.reset()
     again = {c.request_id: c.tokens for c in eng.run(reqs)}

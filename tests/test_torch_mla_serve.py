@@ -132,8 +132,8 @@ def test_mla_engine_equals_jax_engine(mla, kv_dtype):
     # the latent arenas: (L, nb + 1, bs, width), scales beside them for int8
     widths = {"c_kv": mla["model"].cfg.mla.kv_lora_rank,
               "k_rope": mla["model"].cfg.mla.qk_rope_head_dim}
-    assert {k: v.shape[-1] for k, v in eng.pool.cache.items() if k in widths} == widths
-    assert sorted(eng.pool.cache) == sorted(
+    assert {k: v.shape[-1] for k, v in eng.pool.caches[0].items() if k in widths} == widths
+    assert sorted(eng.pool.caches[0]) == sorted(
         list(widths) + ([f"{k}_scale" for k in widths] if kv_dtype == "int8" else []))
     if kv_dtype == "fp":
         oracle = static_reference(mla["model"], eng.params, reqs, ServeConfig())

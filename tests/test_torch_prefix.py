@@ -237,30 +237,28 @@ def test_unaligned_shared_start_repads_the_prompt(runs):
 
 # ------------------------------------------------------ pools, both sides --
 class _Side:
-    """One package's pool and radix cache behind one interface: the
-    reference keys its index and ledger by device (always 0 here)."""
+    """One package's pool and radix cache behind one interface: both key
+    their index and ledger by device, as the reference does (always 0
+    here)."""
 
     def __init__(self, pool, cache, jax_side: bool):
         self.pool, self.cache, self.jax = pool, cache, jax_side
         pool.attach_prefix_cache(cache)
 
     def insert(self, tokens, chain):
-        self.cache.insert(tokens, chain, *((0,) if self.jax else ()))
+        self.cache.insert(tokens, chain, 0)
 
     def evictable(self):
-        refs = self.pool.refcounts
-        return self.cache.evictable_count(0, refs) if self.jax else self.cache.evictable_count(refs)
+        return self.cache.evictable_count(0, self.pool.refcounts)
 
     def can_reserve(self, tokens, prefix=None):
-        if self.jax:
-            return self.pool.can_reserve(tokens, 0, prefix=prefix)
-        return self.pool.can_reserve(tokens, prefix=prefix)
+        return self.pool.can_reserve(tokens, 0, prefix=prefix)
 
     def free_blocks(self):
-        return list(self.pool._free_blocks[0] if self.jax else self.pool._free_blocks)
+        return list(self.pool._free_blocks[0])
 
     def unfilled(self):
-        return self.pool.unfilled_on(0) if self.jax else self.pool.unfilled
+        return self.pool.unfilled_on(0)
 
     def state(self):
         return (np.array(self.pool.refcounts).tolist(), np.array(self.pool.tables).tolist(),
@@ -386,7 +384,7 @@ def _fill_both(jax_side, port_side, rng):
         else:
             vals = rng.uniform(0.01, 1.0, size=leaf.shape).astype(np.float32)
         layers[k] = jnp.asarray(vals).astype(leaf.dtype)
-        port_leaf = port_side.pool.cache[k]
+        port_leaf = port_side.pool.caches[0][k]
         port_leaf[:, :leaf.shape[1]] = torch.from_numpy(vals).to(port_leaf.dtype)
     jax_side.pool.cache = {**jax_side.pool.cache, "layers": layers}
 
@@ -396,7 +394,7 @@ def _real_blocks(side):
     if side.jax:
         return {k: np.asarray(v) for k, v in side.pool.cache["layers"].items()}
     nb = side.pool.num_blocks
-    return {k: v[:, :nb].numpy() for k, v in side.pool.cache.items()}
+    return {k: v[:, :nb].numpy() for k, v in side.pool.caches[0].items()}
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
@@ -411,7 +409,7 @@ def test_fork_copies_block_bitwise_and_preserves_arena(request, runs, family, kv
                    kv_dtype=kv_dtype)
     _fill_both(*sides, np.random.default_rng(3))
     tokens = prompt(runs["model"].cfg.vocab, 14, seed=901)
-    ptrs = {k: v.data_ptr() for k, v in sides[1].pool.cache.items()}
+    ptrs = {k: v.data_ptr() for k, v in sides[1].pool.caches[0].items()}
     after = []
     for side in sides:
         pool, cache = side.pool, side.cache
@@ -445,7 +443,7 @@ def test_fork_copies_block_bitwise_and_preserves_arena(request, runs, family, kv
     assert after[0][1] == after[1][1]
     for k in after[0][0]:
         np.testing.assert_array_equal(after[1][0][k], after[0][0][k])
-    assert {k: v.data_ptr() for k, v in sides[1].pool.cache.items()} == ptrs
+    assert {k: v.data_ptr() for k, v in sides[1].pool.caches[0].items()} == ptrs
 
 
 @pytest.mark.parametrize("kv_dtype", ["fp", "int8"])
@@ -459,7 +457,7 @@ def test_spill_restore_bitwise_into_another_chain(request, runs, family, kv_dtyp
     sides = _sides(runs, num_slots=3, max_seq=16, block_size=4, num_blocks=8,
                    kv_dtype=kv_dtype)
     _fill_both(*sides, np.random.default_rng(7))
-    ptrs = {k: v.data_ptr() for k, v in sides[1].pool.cache.items()}
+    ptrs = {k: v.data_ptr() for k, v in sides[1].pool.caches[0].items()}
     payloads, restored = [], []
     for side in sides:
         pool = side.pool
@@ -485,4 +483,4 @@ def test_spill_restore_bitwise_into_another_chain(request, runs, family, kv_dtyp
         assert v.shape[1] == 4  # padded to a power of two
         np.testing.assert_array_equal(payloads[1][1][k], v, err_msg=k)
         np.testing.assert_array_equal(restored[1][k], restored[0][k], err_msg=k)
-    assert {k: v.data_ptr() for k, v in sides[1].pool.cache.items()} == ptrs
+    assert {k: v.data_ptr() for k, v in sides[1].pool.caches[0].items()} == ptrs

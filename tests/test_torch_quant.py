@@ -303,10 +303,10 @@ def test_int8_pool_hbm_well_under_fp():
                          kv_dtype="int8")
     assert q.num_blocks == fp.num_blocks
     assert q.hbm_bytes() < 0.55 * fp.hbm_bytes()
-    assert {k: v.dtype for k, v in q.cache.items()} == {
+    assert {k: v.dtype for k, v in q.caches[0].items()} == {
         "k": torch.int8, "v": torch.int8, "k_scale": torch.float32, "v_scale": torch.float32}
-    assert q.cache["k_scale"].shape == q.cache["k"].shape[:2]
-    assert fp.hbm_bytes() == (2 * fp.cache["k"].numel() * fp.cache["k"].element_size()
+    assert q.caches[0]["k_scale"].shape == q.caches[0]["k"].shape[:2]
+    assert fp.hbm_bytes() == (2 * fp.caches[0]["k"].numel() * fp.caches[0]["k"].element_size()
                               + fp.tables.nbytes)
 
 

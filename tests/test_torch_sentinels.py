@@ -167,7 +167,7 @@ def _tokens(eng):
 def _assert_ledger(pool):
     pool.check_ledger()
     held = {b for chain in pool._slot_blocks.values() for b in chain}
-    free = set(pool._free_blocks)
+    free = {b for q in pool._free_blocks for b in q}
     assert not pool.quarantined & held and not pool.quarantined & free
     assert len(free) + len(held) + len(pool.quarantined) == pool.num_blocks
 
@@ -510,9 +510,9 @@ def test_ledger_reconciles_through_recycle_churn(dense):
 # -------------------------------------------------------- pool, injector --
 def test_pool_quarantine_doom_and_scrub_in_place(dense):
     pool = BlockPagedKVPool(dense["model"], 2, 16, 4, 6, "cpu", "int8")
-    for leaf in pool.cache.values():
+    for leaf in pool.caches[0].values():
         leaf.fill_(3)
-    ptrs = {k: v.data_ptr() for k, v in pool.cache.items()}
+    ptrs = {k: v.data_ptr() for k, v in pool.caches[0].items()}
     slot = pool.allocate(reserve_tokens=8)
     pool.ensure(slot, 8)
     held = pool.chain_of(slot)
@@ -521,13 +521,13 @@ def test_pool_quarantine_doom_and_scrub_in_place(dense):
     pool.quarantine_block(1)  # held: doomed until its slot is freed
     assert pool.quarantined == {4} and pool.blocks_in_use == 2
     pool.scrub_blocks({1, 4})
-    for key, leaf in pool.cache.items():
+    for key, leaf in pool.caches[0].items():
         assert leaf.data_ptr() == ptrs[key]
         assert bool((leaf[:, [1, 4]] == 0).all()) and bool((leaf[:, [0, 2, 3, 5]] == 3).all())
     pool.free(slot)
-    assert pool.quarantined == {1, 4} and list(pool._free_blocks) == [2, 3, 5, 0]
+    assert pool.quarantined == {1, 4} and list(pool._free_blocks[0]) == [2, 3, 5, 0]
     assert pool.blocks_in_use == 0 and not pool.can_reserve(4 * 5)
-    pool._free_blocks.append(2)
+    pool._free_blocks[0].append(2)
     with pytest.raises(RuntimeError, match="ledger"):
         pool.check_ledger()
     pool.reset()

@@ -162,7 +162,7 @@ def test_telemetry_equals_jax_engine_f32(reference, bs):
                 "intake_padding", "peak_blocks_reserved", "mean_attended_tokens_per_tick"):
         assert key in shared
     assert {k: mine[k] for k in shared} == {k: ref[k] for k in shared}
-    cache = eng.pool.cache
+    cache = eng.pool.caches[0]
     sink = sum(t[:, -1].numel() * t.element_size() for t in cache.values())
     assert mine["kv_hbm_bytes"] == ref["kv_hbm_bytes"] + sink
     assert mine["completed"] == mine["completions"] == len(reqs)
@@ -176,7 +176,7 @@ def test_pool_reserve_ensure_recycle():
     model = make_model(reduce_config(get_config("internlm2-1.8b")))
     pool = BlockPagedKVPool(model, num_slots=3, max_seq=16, block_size=4, num_blocks=6,
                             device="cpu")
-    assert pool.cache["k"].shape[1] == 7  # six blocks and the write sink
+    assert pool.caches[0]["k"].shape[1] == 7  # six blocks and the write sink
     s0 = pool.allocate(reserve_tokens=12)
     s1 = pool.allocate(reserve_tokens=12)
     assert pool.blocks_reserved == 6
@@ -220,10 +220,21 @@ def test_admission_waits_for_blocks_and_unservable_raises(reference):
 
 @pytest.mark.parametrize("kw", [{"devices": 2}, {"paged": False}, {"devices": 4}])
 def test_unported_options_are_refused(reference, kw):
-    # sampling, the GN sentinels, the prefix cache, the SLA control plane and
-    # the slab pool are ported (tests/test_torch_sampling.py,
+    # sampling, the GN sentinels, the prefix cache, the SLA control plane,
+    # the slab pool and sharded serving are ported (tests/test_torch_sampling.py,
     # test_torch_sentinels.py, test_torch_prefix.py, test_torch_sla.py,
-    # test_torch_slab.py); more devices are still refused
+    # test_torch_slab.py, test_torch_sharded.py): two shards of the CPU serve
+    # the one-device tokens, and slots that do not divide over the devices
+    # are refused, as the reference refuses them
+    if "devices" in kw:
+        if kw["devices"] == 2:
+            eng, reqs = _engine(reference, "float32", 4, **kw)
+            assert _tokens(eng.run(reqs)) == reference["float32", 4]
+            assert eng.metrics()["num_devices"] == 2
+            return
+        with pytest.raises(ValueError, match="divide evenly"):
+            _engine(reference, "float32", 4, **kw)
+        return
     if kw.get("paged") is False:
         # the slab pool: a block size is refused as the reference refuses it,
         # and without one the slab engine serves the paged engine's f32 tokens
@@ -232,9 +243,6 @@ def test_unported_options_are_refused(reference, kw):
         eng, reqs = _engine(reference, "float32", 0, sentinels=False, **kw)
         assert _tokens(eng.run(reqs)) == reference["float32", 4]
         assert eng.metrics()["read_path"] == "slab"
-        return
-    with pytest.raises(NotImplementedError):
-        _engine(reference, "float32", 4, **kw)
 
 
 @pytest.mark.parametrize("kw", [

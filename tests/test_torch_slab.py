@@ -99,20 +99,20 @@ def test_preempt_resume_identity_slab(runs, mode):
 def test_slot_pool_order_and_rows():
     _, _, model, _ = pair(FAMILIES["dense"])
     pool = SlotKVPool(model, num_slots=3, max_seq=8, device="cpu")
-    assert pool.hbm_bytes() == sum(t.numel() * t.element_size() for t in pool.cache.values())
+    assert pool.hbm_bytes() == sum(t.numel() * t.element_size() for t in pool.caches[0].values())
     assert [pool.allocate() for _ in range(3)] == [0, 1, 2] and pool.num_free == 0
     with pytest.raises(RuntimeError):
         pool.allocate()
     pool.free(1)
     pool.free(0)
     assert pool.allocate() == 1  # FIFO
-    row = {k: torch.randn(v[:, :1].shape) for k, v in pool.cache.items()}
-    addrs = [v.data_ptr() for v in pool.cache.values()]
+    row = {k: torch.randn(v[:, :1].shape) for k, v in pool.caches[0].items()}
+    addrs = [v.data_ptr() for v in pool.caches[0].values()]
     pool.insert(row, 1, position=5)
     assert pool.positions[1] == 5
     out = pool.extract(1)
     assert all(torch.equal(out[k], row[k]) for k in row)
-    assert [v.data_ptr() for v in pool.cache.values()] == addrs  # written in place
+    assert [v.data_ptr() for v in pool.caches[0].values()] == addrs  # written in place
     pool.advance({1: 3})
     with pytest.raises(ValueError, match="exceeds max_seq"):
         pool.advance({1: 1})
@@ -142,7 +142,7 @@ def test_windowed_model_picks_the_slab_and_devices_stay_refused():
     _, _, model, master = pair("mixtral-8x22b")
     eng = ContinuousEngine(model, master, num_slots=2, max_seq=32, chunk=4, device="cpu")
     assert not eng.paged and eng.metrics()["read_path"] == "slab" and not eng.sentinels
-    assert eng.pool.cache["k"].shape[2] == model.cfg.sliding_window  # the ring
+    assert eng.pool.caches[0]["k"].shape[2] == model.cfg.sliding_window  # the ring
     with pytest.raises(NotImplementedError):
         ContinuousEngine(model, master, num_slots=2, max_seq=32, chunk=4, device="cpu",
                          devices=2)

@@ -259,11 +259,11 @@ def test_fresh_cache_and_the_slot_pool(family):
     for name, leaf in fresh.items():
         assert torch.equal(leaf, torch.full_like(leaf, -1e30 if name == "m" else 0.0)), name
     pool = SlotKVPool(model, num_slots=3, max_seq=16, device="cpu")
-    assert pool.hbm_bytes() == sum(t.numel() * t.element_size() for t in pool.cache.values())
-    assert set(pool.cache) == set(model.carry_leaves) | (
+    assert pool.hbm_bytes() == sum(t.numel() * t.element_size() for t in pool.caches[0].values())
+    assert set(pool.caches[0]) == set(model.carry_leaves) | (
         {"shared_k", "shared_v"} if family == "hybrid" else set())
     slot = pool.allocate()
-    row = {k: torch.randn(v[:, :1].shape).to(v.dtype) for k, v in pool.cache.items()}
+    row = {k: torch.randn(v[:, :1].shape).to(v.dtype) for k, v in pool.caches[0].items()}
     pool.insert(row, slot, position=3)
     assert all(torch.equal(pool.extract(slot)[k], row[k]) for k in row)
 

@@ -160,12 +160,12 @@ def test_engine_equals_jax_and_the_static_oracle(family, pool):
     eng = ContinuousEngine(model, master, cfg=ServeConfig(), device="cpu", **_kw(reqs, pool))
     mine = run(eng, to_port(reqs))
     assert_same(mine, family["runs"][pool][1])
-    assert eng.paged == (pool != "slab") and set(eng.pool.cache) >= set(
+    assert eng.paged == (pool != "slab") and set(eng.pool.caches[0]) >= set(
         model.extra_leaves if pool == "slab" else ())
     oracle = engine.static_reference(model, eng.params, to_port(reqs), ServeConfig())
     assert {r.id: np.asarray(oracle[r.id])[len(r.tokens):].tolist() for r in reqs} == mine["tokens"]
     if pool != "slab":  # the extras count in the paged pool's bytes
-        extra = sum(t.numel() * t.element_size() for t in eng.pool.extras.values())
+        extra = sum(t.numel() * t.element_size() for t in eng.pool.extras_shards[0].values())
         assert extra > 0 and eng.pool.hbm_bytes() > extra
 
 
