@@ -279,8 +279,9 @@ Phases, each fatal on failure (exit code 1):
                layers f32 card = CPU: prefill logits (GN and exact) and the
                flash kernel's straight-through gradients.
  22. cross   - whisper-large-v3 and llama-3.2-vision-11b at full width cut
-               to a quarter depth (XATTN_DEPTH: whisper 8 + 8 of 32 + 32
-               layers, the VLM 10 of 40 in 2 blocks; the time limit; random weights, VLM gates
+               to a sixteenth and an eighth of their depth (XATTN_DEPTH:
+               whisper 2 + 2 of 32 + 32 layers, the VLM 5 of 40 in 1 block;
+               the time limit; random weights, VLM gates
                XATTN_GATE), phase 4's
                workload, each request with seeded frames or patches: the
                paged fp pool with phase 17's lean checks (launches exact,
@@ -297,7 +298,7 @@ Phases, each fatal on failure (exit code 1):
                C (8, 4, 512, 512) f32 a layer) and zamba2-7b (81 Mamba2
                layers in 9 groups, each behind one weight-shared attention +
                MLP block; d_model 3584, 32 heads of 112) at full width, cut
-               to SSM_DEPTH layers (12 and 27: 3 groups; the time limit),
+               to SSM_DEPTH layers (3 and 9: 1 group; the time limit),
                bf16, random weights from a seed (``layerwise_master``),
                phase 4's workload over the slab pool (they do not page):
                phase 17's lean checks (launches exact, a tick's as
@@ -342,7 +343,9 @@ Phases, each fatal on failure (exit code 1):
                rerun of replays (tok/s, tick ms, ``shard_balance``,
                ``device_admits``), a profiled window of LONG_WINDOW replayed
                ticks (busy share; exactly one device-to-host copy a shard a
-               tick: ``audit.dtoh_budget``), a rerun in which every shard's
+               tick: ``audit.dtoh_budget``; a trace that lost records is
+               taken again, up to AUDIT_TRACES times, each one's count
+               reported), a rerun in which every shard's
                first replay of each captured graph is held bitwise against
                its eager tick (``checked_graphs``), the first
                SHARD_PROBE_TICKS ticks in lockstep with a one-device engine
@@ -354,7 +357,33 @@ Phases, each fatal on failure (exit code 1):
                the one-device engine's and ``static_reference``'s on the
                card, and a ``device_loss`` injection is logged
                (``device_lost``), its range quarantined, and every request
-               completes with the static oracle's tokens.
+               completes with the static oracle's tokens; then
+               (``[sharded-moe]``) llama4-scout at phase 18's 4 layers, f32,
+               over two slots, one a shard: the shards tick in lockstep
+               (one GShard group a tick across them, eager; gated), on the
+               streamed and on the kernel read, in step with one eager
+               device on the streamed read (``moe_in_step``): each tick the
+               shards route alike and place every token as one device does
+               (gated); up to the first routing or token difference every
+               router logit of a live lane and every held logits row within
+               MOE_RTOL of one device's, and at a routing difference that
+               layer's router logits too (gated; the difference, the ticks
+               compared and each read's share of one device's new tokens
+               reported); every request one device's tokens where no
+               difference came (gated); the kernel read's whole sequences
+               keep the reference's MoE pin against ``static_reference``
+               (gated); each engine's tick ms reported.
+ 26. sharded-train - (``[sharded-train]``) phase 11's full-width training
+               (its weights, batch, optimizer and microbatches) under an NCCL
+               group of one rank on a (1, 1) (data, model) mesh, every leaf a
+               DTensor and every kernel on local shards: 3 steps whose
+               launches equal phase 11's and whose losses stay within 1e-5
+               relative of phase 11's (gated), the step ms beside phase 11's
+               and the card's name and power limit; the reduced config saved
+               after a step on the mesh, ``restore_sharded`` and a second
+               step equal to the unsharded second step within 1e-5 (gated); where the machine has n >= 2 cards also (1, n)
+               and (n, 1) meshes, one NCCL rank a card (losses finite and
+               falling, gated; the gap to phase 11's reported).
 Every bound in the script is the roofline module's (``roofline.analysis``,
 one copy of the H100 peaks) over a kernel wrapper's ``work()``.
 Phases 4-10 and 15-18 serve with the GN sentinels on, the engine's default:
@@ -393,7 +422,7 @@ from repro_torch.benchmarks import (fig5_norm_error, norm_error_study,  # noqa: 
                                     table1_accuracy, table2_score_tasks, table3_hw_cost)
 from repro_torch.benchmarks.common import tiny_cfg  # noqa: E402
 from repro_torch.checkpoint import store  # noqa: E402
-from repro_torch.configs.registry import get_config  # noqa: E402
+from repro_torch.configs.registry import get_config, reduce_config  # noqa: E402
 from repro_torch.core import baselines, get_norm, get_softmax  # noqa: E402
 from repro_torch.core.fixedpoint import lod, shift_subtract_div  # noqa: E402
 from repro_torch.core.gn_layernorm import newton_rsqrt  # noqa: E402
@@ -443,11 +472,11 @@ BATCHES, BATCH, PROMPT, NEW = 2, 8, 1024, 32
 LONG_BATCHES = ((4, 4096), (2, 8192))
 LONG_REQUESTS, LONG_MIN, LONG_MAX = 8, 2049, 8192
 LONG_BT = -(-(LONG_MAX + NEW) // BLOCK)
-# ticks of the long continuous rerun (and phases 6, 9, 10, 15, 16) that are
-# profiled: 16 keeps the whole script, phases 19 and 20 included, well
-# inside its time limit (the profiler's host time grows with the window's
-# kernel records; 64 ticks took the script to ~1060 s on an H100)
-LONG_WINDOW = 16
+# ticks of the long continuous rerun (and phases 6, 9, 10, 15, 16, 24, 25)
+# that are profiled: the profiler's host time grows with the window's kernel
+# records (64 ticks took the script to ~1060 s on an H100, 16 to 1373 s on a
+# slow host with phases 25's MoE case and 26), so 8 keep it inside its limit
+LONG_WINDOW = 8
 # phase 10: the sampled run's temperature; the chaos runs inject a fault every
 # CHAOS_EVERY model ticks, CHAOS_FAULTS in all, drawn in turn from each
 # pool's kinds (V tiles on the fp pool; K tiles, flagged by the paged
@@ -473,7 +502,7 @@ SLA_BLOCKS, SLA_SHED = 160, 320
 # resident at once); the 2-layer f32 identity runs on the card and the CPU
 # serve FAMILY_SMALL = (requests, shortest and longest prompt, new tokens)
 MLA_ARCH, MOE_ARCH, MOE_LAYERS = "minicpm3-4b", "llama4-scout-17b-a16e", 4
-MLA_LAYERS = 16
+MLA_LAYERS = 4
 FAMILY_SMALL = (4, 32, 64, 8)
 # the deep MLA tick's lean checks: a window of FAMILY_WINDOW ticks from
 # FAMILY_START on (timed, traced; the sentinels' cost), past the last
@@ -487,7 +516,7 @@ FAMILY_START, FAMILY_WINDOW, FAMILY_FAULTS, MOE_WINDOW = 40, 4, 3, 16
 # MIXTRAL_REQUESTS prompts of MIXTRAL_PROMPT_MIN..MAX tokens, NEW new tokens
 # each, over SLOTS slots at CHUNK; the static path's MIXTRAL_STATIC
 # (prompts, tokens) past the window; the 2-layer f32 token gate's window
-MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_WINDOW = "mixtral-8x22b", 4, 4096
+MIXTRAL_ARCH, MIXTRAL_LAYERS, MIXTRAL_WINDOW = "mixtral-8x22b", 2, 4096
 MIXTRAL_REQUESTS, MIXTRAL_PROMPT_MIN, MIXTRAL_PROMPT_MAX = 12, 3584, 6144
 MIXTRAL_STATIC, SMALL_WINDOW = (2, 6144), 64
 # phase 20: snapshots at ticks SNAP_TICKS (early, mid, late) of phase 4's
@@ -510,7 +539,7 @@ MLA_LONG, MLA_FLASH = (2, 4096), (1, 40, 4096, 96, 64)
 TRAIN_LONG = (2, 4096, 2, 3)
 LONG_SMALL = 4096
 # phase 22: whisper-large-v3 and llama-3.2-vision-11b at full width cut to
-# a quarter depth (XATTN_DEPTH; the script's time limit), phase
+# 2 + 2 and 5 layers (XATTN_DEPTH; the script's time limit), phase
 # 4's workload (each request with seeded frames or patches);
 # whisper's encoder shape in phase 2 (B, H, Hkv, S, S, D), non-causal; the
 # 2-layer f32 gates' workload XATTN_SMALL (requests, shortest and longest
@@ -519,8 +548,8 @@ LONG_SMALL = 4096
 XATTN_ARCHS = ("whisper-large-v3", "llama-3.2-vision-11b")
 WHISPER_ENCODER = (8, 20, 20, 1500, 1500, 64)
 XATTN_SMALL, XATTN_SMALL_PATCHES, XATTN_GATE = (4, 24, 56, 6), 64, 0.5
-XATTN_DEPTH = {"whisper-large-v3": {"n_layers": 8, "encoder_layers": 8},
-               "llama-3.2-vision-11b": {"n_layers": 10}}
+XATTN_DEPTH = {"whisper-large-v3": {"n_layers": 2, "encoder_layers": 2},
+               "llama-3.2-vision-11b": {"n_layers": 5}}
 # phase 23: xlstm-350m and zamba2-7b at full width cut to SSM_DEPTH, phase 4's
 # workload over the slab pool; zamba2's shared attention heads, and its
 # forward's flash shape (B, H, Hkv, S, S, D) in phase 2; the 2-layer f32
@@ -539,7 +568,7 @@ SSM_TRAIN_STEPS, SSM_TRAIN_GROUPS = 3, 1
 CAUSAL_LEN, CAUSAL_AT, CAUSAL_ATOL = 512, 300, 1e-3
 SSM_SMALL = {"xlstm-350m": {}, "zamba2-7b": {"n_layers": 4, "attn_every": 2}}
 # the served families' depth (of 24 and 81 layers; zamba2 in whole groups)
-SSM_DEPTH = {"xlstm-350m": 12, "zamba2-7b": 27}
+SSM_DEPTH = {"xlstm-350m": 3, "zamba2-7b": 9}
 # the training phases: TRAIN_BATCH sequences of TRAIN_SEQ tokens a step (one
 # batch of batch_at, repeated), TRAIN_MB microbatches, TRAIN_STEPS steps;
 # the Table I analogue trains TABLE1_STEPS steps
@@ -2672,6 +2701,11 @@ def train_batch(vocab: int) -> dict:
                                seed=1234), 0)
 
 
+def step_opt() -> OptimizerConfig:
+    """Phase 11's optimizer (phase 26 trains with it too)."""
+    return OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=TRAIN_STEPS + 2)
+
+
 def phase_train() -> dict:
     """Full-width, full-depth training: bf16 compute over f32 masters,
     TRAIN_STEPS AdamW steps of TRAIN_MB microbatches on one repeated batch.
@@ -2681,7 +2715,7 @@ def phase_train() -> dict:
     profiled step, and one microbatch's launches in forward and backward."""
     cfg = get_config(ARCH)
     model = make_model(cfg)
-    opt = OptimizerConfig(lr=1e-4, warmup_steps=1, total_steps=TRAIN_STEPS + 2)
+    opt = step_opt()
     torch.cuda.reset_peak_memory_stats()
     params = model.init(SEED, DEV)
     state = init_opt_state(opt, params)
@@ -4941,6 +4975,244 @@ def sharded_small(label: str, device) -> dict:
     return res
 
 
+# the MoE case: llama4-scout at MOE_LAYERS layers (phase 18's cut), f32, over
+# SHARDS slots, one a shard, so that the shards place every request in the
+# slot one device gives it and each tick's GShard group holds the same tokens
+# in the same order; SHARD_MOE = (requests, shortest and longest prompt, new).
+# The shards' projections see half the rows of one device's and round
+# otherwise on the card, even at f32, and one flipped routing choice moves
+# other tokens' capacity slots, so a run is held to one device's tick by tick
+# up to its first routing or token difference: every held logit and router
+# logit before it, and the router logits of the layer where routing first
+# differs, within MOE_RTOL of the row's (the layer's) largest |value|
+SHARD_MOE = (6, 16, 96, 8)
+MOE_RTOL = 2.0 ** -5
+
+
+class routes_recorded:
+    """``models.moe.route`` wrapped for a block: each call appends (the
+    calling shard of a lockstep tick, or None; then, each over the group's
+    tokens in slot order, the router logits, the top-k choices and which
+    of them are kept), copied to the CPU, to the list ``with`` gives."""
+
+    def __enter__(self) -> list:
+        self.saved, calls = moe_mod.route, []
+
+        def recorded(*args, **kw):
+            r = self.saved(*args, **kw)
+            ex = getattr(moe_mod._tls, "exchange", None)
+            calls.append((None if ex is None else ex[1],
+                          *(r[k].flatten(0, 1).cpu() for k in ("logits", "idx", "keep"))))
+            return r
+
+        moe_mod.route = recorded
+        return calls
+
+    def __exit__(self, *exc):
+        moe_mod.route = self.saved
+
+
+def _ticked_lanes(engine) -> list:
+    """A list that gets, at each tick of ``engine``, its slots' lanes that
+    held a token (slot -> a prefill chunk's, or 1 a decoding slot), as the
+    tick hands them to ``pool.advance``; the other lanes route too, and
+    reach a live token only through the capacity they take."""
+    got, advance = [], engine.pool.advance
+
+    def recorded(counts):
+        got.append(dict(counts))
+        return advance(counts)
+
+    engine.pool.advance = recorded
+    return got
+
+
+def _tokens_so_far(engine) -> dict:
+    """Request id -> its new tokens so far, live or done."""
+    out = {c.request_id: list(c.new_tokens) for c in engine.completions}
+    out.update({st.req.id: list(st.generated) for st in engine._slots if st is not None})
+    return out
+
+
+def moe_in_step(label: str, pairs: dict, reqs) -> dict:
+    """For each read (name -> (a one-device engine, eager; lockstep shards;
+    the read)), both engines from a reset through ``reqs``, tick by tick.
+    Gated, each tick: the shards' slots hold one device's tokens in their
+    lanes, and the shards route their group alike (bitwise); up to the
+    read's first routing or token difference (its ``event``), the router
+    logits of every token a lane holds and every held logits row of the
+    tick's slots within MOE_RTOL of the layer's (the row's) largest |value|
+    on one device; at a routing difference, that layer's router logits
+    too.  At the end every request has one device's tokens when no event
+    came.  Returns per read the event, the rows, router layers and ticks
+    compared, the largest relative differences, the shards' launches and
+    mean tick ms, one device's mean tick ms, both engines' tokens."""
+    zero = {k: 0 for k in counters.launch_counts()}
+    res, ticked = {}, {}
+    for name, (one, two, _) in pairs.items():
+        for engine in (one, two):
+            engine.reset()
+            for r in reqs:
+                engine.submit(r)
+        ticked[name] = (_ticked_lanes(one), _ticked_lanes(two))
+        res[name] = {"event": None, "rows": 0, "router_layers": 0, "ticks": 0,
+                     "max_held_rel_diff": 0.0, "max_router_rel_diff": 0.0,
+                     "launches": dict(zero)}
+    going = set(pairs)
+    with routes_recorded() as calls:
+        while going:
+            for name in sorted(going):
+                one, two, read = pairs[name]
+                st = res[name]
+                with swapped("FORCE_PAGED_READ", read):
+                    n0 = len(calls)
+                    if not one.step():
+                        going.discard(name)
+                        if two.step():
+                            fail(f"{label}-moe: {name}: the shards outlast one device")
+                        continue
+                    mine, lanes = [r[1:] for r in calls[n0:]], ticked[name][0][-1]
+                    n0, before = len(calls), counters.launch_counts()
+                    two.step()
+                st["launches"] = {k: st["launches"][k] + v - before[k]
+                                  for k, v in counters.launch_counts().items()}
+                if two.model_ticks != one.model_ticks or ticked[name][1][-1] != lanes:
+                    fail(f"{label}-moe: {name}: the shards' tick {two.model_ticks} took "
+                         f"{ticked[name][1][-1]}, one device's {one.model_ticks} {lanes}")
+                shards = {}
+                for d, *rec in calls[n0:]:
+                    shards.setdefault(d, []).append(rec)
+                if (set(shards) != set(range(SHARDS))
+                        or any(len(v) != len(mine) or any(
+                            not all(torch.equal(x, y) for x, y in zip(a, b))
+                            for a, b in zip(v, shards[0])) for v in shards.values())):
+                    fail(f"{label}-moe: {name}: the shards route the tick's group apart")
+                if st["event"] is not None:
+                    continue
+                st["ticks"] += 1
+                width = mine[0][0].shape[0] // one.num_slots if mine else 0
+                valid = torch.tensor([j < lanes.get(s, 0) for s in range(one.num_slots)
+                                      for j in range(width)], dtype=torch.bool)
+                for layer, (a, b) in enumerate(zip(mine, shards[0])):
+                    lo1, lo2 = a[0][valid], b[0][valid]
+                    rel = float((lo1 - lo2).abs().max() / lo1.abs().max())
+                    st["router_layers"] += 1
+                    st["max_router_rel_diff"] = max(st["max_router_rel_diff"], rel)
+                    moved = ((a[1][valid] != b[1][valid]) | (a[2][valid] != b[2][valid])).any(-1)
+                    if moved.any():
+                        st["event"] = {"kind": "routing", "tick": one.model_ticks,
+                                       "layer": layer, "router_rel_diff": rel,
+                                       "tokens_rerouted": int(moved.sum())}
+                        break
+                if st["event"] is not None:
+                    continue
+                held, other = one.held_logits().float().cpu(), two.held_logits().float().cpu()
+                for s in lanes:
+                    diff = float((held[s] - other[s]).abs().max())
+                    st["rows"] += 1
+                    st["max_held_rel_diff"] = max(st["max_held_rel_diff"],
+                                                  diff / float(held[s].abs().max()))
+                mine_toks, theirs = _tokens_so_far(one), _tokens_so_far(two)
+                parted = sorted(i for i in mine_toks if mine_toks[i] != theirs.get(i))
+                if parted:
+                    st["event"] = {"kind": "token", "tick": one.model_ticks,
+                                   "requests": parted}
+    for name, (one, two, _) in pairs.items():
+        st = res[name]
+        want = {c.request_id: c.new_tokens for c in one.completions}
+        got = {c.request_id: c.new_tokens for c in two.completions}
+        if got.keys() != want.keys():
+            fail(f"{label}-moe: {name}: the shards completed {sorted(got)}, one device "
+                 f"{sorted(want)}")
+        same = sum(np.array_equal(t, want[i]) for i, t in got.items())
+        st.update({"one_device_identical": f"{same}/{len(want)}",
+                   "one_device_new_token_share": common_prefix(got, want),
+                   "tick_ms": float(np.mean([dt * 1e3 for *_, dt in two.tick_log])),
+                   "one_device_tick_ms": float(np.mean([dt * 1e3 for *_, dt in one.tick_log])),
+                   "sentinel_violations": [e.metrics()["sentinel_violations"]
+                                           for e in (one, two)],
+                   "tokens": (want, got)})
+        if not st["rows"] and not st["router_layers"]:
+            fail(f"{label}-moe: {name}: nothing compared before its first difference: {st}")
+        if max(st["max_held_rel_diff"], st["max_router_rel_diff"]) > MOE_RTOL:
+            fail(f"{label}-moe: {name}: the shards part from one device by more than "
+                 f"{MOE_RTOL} before their first routing or token difference: "
+                 f"{ {k: v for k, v in st.items() if k != 'tokens'} }")
+        if st["event"] is None and same != len(want):
+            fail(f"{label}-moe: {name}: the shards' tokens part from one device's with no "
+                 f"routing or token difference in their ticks: {st['one_device_identical']}")
+    return res
+
+
+def moe_pin(toks: dict, ref: dict) -> list[float]:
+    """Each request's longest common prefix with ``ref`` as a share of its
+    whole sequence (prompt and new tokens): the reference's MoE pin
+    (``tests/test_torch_moe.py``) asks at least 0.5 of each and 0.7 on
+    average."""
+    return [common_prefix({i: toks[i]}, {i: ref[i]})[0] for i in ref]
+
+
+def sharded_moe(label: str, device) -> dict:
+    """A MoE model over two shards (lockstep ticks, one GShard group a tick
+    across them) on the streamed and on the kernel read, each in step with
+    one device on the same read (``moe_in_step``, gated); the shards tick
+    in lockstep, eagerly (gated); the kernel read's whole sequences keep
+    the reference's MoE pin against the static oracle (gated).  Reported:
+    each read's first difference from one device, its share of one
+    device's new tokens and its tick ms; the two reads' share of each
+    other's new tokens on one device; the kernel read's share of the
+    oracle's new tokens."""
+    cfg = dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS, dtype="float32")
+    model = make_model(cfg)
+    master = model.init(SEED, DEV)
+    n, lo, hi, new = SHARD_MOE
+    reqs = seeded_requests(cfg.vocab, n, lo, hi, new, 1, SEED)
+    kw = {"num_slots": SHARDS, "max_seq": required_max_seq(reqs), "chunk": CHUNK,
+          "block_size": BLOCK}
+    pairs = {}
+    for name, read in (("streamed", "streamed"), ("kernel", None)):
+        with swapped("FORCE_PAGED_READ", read):
+            pairs[name] = (ContinuousEngine(model, master, device=DEV, **kw),
+                           ContinuousEngine(model, master, devices=SHARDS, device=device, **kw),
+                           read)
+        pairs[name][0].shards[0]._graphs = None  # eager, so that its routing is recorded
+        two = pairs[name][1]
+        if not two.lockstep or any(sh._graphs is not None for sh in two.shards):
+            fail(f"{label}-moe: the MoE shards do not tick in lockstep, eagerly")
+        if two.read_path != name:
+            fail(f"{label}-moe: the {name} shards read through {two.read_path}")
+    reads = moe_in_step(label, pairs, reqs)
+    kern = pairs["kernel"][1]
+    oracle = static_reference(model, kern.params, reqs, ServeConfig())
+    # the oracle's static decoders, kept on the model, hold the 4 layers' f32
+    # weights (~42 GB) until a collection
+    model.__dict__.pop("_static_decoders", None)
+    kern_full = {c.request_id: c.tokens for c in kern.completions}
+    del pairs, kern, master, model
+    release()
+    fracs = moe_pin(kern_full, oracle)
+    launches = {k: reads["streamed"]["launches"][k] + reads["kernel"]["launches"][k]
+                for k in reads["streamed"]["launches"]}
+    prompts = {r.id: len(r.tokens) for r in reqs}
+    res = {"arch": MOE_ARCH, "layers": MOE_LAYERS, "dtype": "float32", "slots": SHARDS,
+           "rtol": MOE_RTOL,
+           **{read: {k: v for k, v in reads[read].items() if k != "tokens"}
+              for read in ("streamed", "kernel")},
+           "one_device_kernel_vs_streamed_new_token_share": common_prefix(
+               reads["kernel"]["tokens"][0], reads["streamed"]["tokens"][0]),
+           "kernel_read_oracle_lcp": fracs,
+           "kernel_read_oracle_new_token_share": common_prefix(
+               reads["kernel"]["tokens"][1], {i: t[prompts[i]:] for i, t in oracle.items()}),
+           "launches": launches}
+    print(f"[{label}-moe] {json.dumps(res)}")
+    if min(fracs) < 0.5 or float(np.mean(fracs)) < 0.7:
+        fail(f"{label}-moe: the kernel read misses the reference's MoE pin against the "
+             f"static oracle: {res}")
+    if not launches["gn_softmax"] or not reads["kernel"]["launches"]["gn_paged_attention"]:
+        fail(f"{label}-moe: the shards' ticks launched no GN kernel: {res}")
+    return res
+
+
 def phase_sharded(served: dict) -> dict:
     """Phase 25 (``[sharded]``): phase 4's workload and weights through a
     two-shard engine (see the module docstring)."""
@@ -4963,12 +5235,16 @@ def phase_sharded(served: dict) -> dict:
     traced = min(LONG_WINDOW, ticks)
     start = (ticks - traced) // 2
     toks, base_s, _ = window_run(engine, reqs, start, traced)
-    toks_traced, traced_s, prof = window_run(engine, reqs, start, traced, trace=True)
+    budget, dtoh_traces = audit.dtoh_budget(engine, traced), []
+    for _ in range(AUDIT_TRACES):  # a trace of replays can lose records: take it again
+        toks_traced, traced_s, prof = window_run(engine, reqs, start, traced, trace=True)
+        copies = audit.memcpy_records(prof)
+        dtoh_traces.append(copies.get("DtoH", 0))
+        if dtoh_traces[-1] == budget:
+            break
     if any(not np.array_equal(first[i], t[i]) for t in (toks, toks_traced) for i in first):
         fail(f"{label}: a windowed rerun gave other tokens")
     busy_s = sum(_device_us(prof).values()) / 1e6
-    copies = audit.memcpy_records(prof)
-    budget = audit.dtoh_budget(engine, traced)
     if copies.get("DtoH", 0) != budget:
         fail(f"{label}: {copies.get('DtoH', 0)} device-to-host copies in {traced} replayed "
              f"ticks, want one a shard a tick ({budget}): {copies}")
@@ -5003,6 +5279,7 @@ def phase_sharded(served: dict) -> dict:
            "shard_balance": m["shard_balance"], "device_admits": m["device_admits"],
            "profiled_ticks": traced, "device_busy_seconds": busy_s,
            "device_busy_share": busy_s / base_s, "memcpy_records": copies,
+           "dtoh_budget": budget, "dtoh_traces": dtoh_traces,
            "one_device_identical": f"{sum(p == 1.0 for p in prefix)}/{len(prefix)}",
            "one_device_agreement": float(np.mean(prefix)),
            "one_device_tokens_per_s": served["steady_tokens_per_s"],
@@ -5013,7 +5290,144 @@ def phase_sharded(served: dict) -> dict:
     del engine
     release()
     small = sharded_small(label, device)
-    return {**res, "small": small}
+    moe = sharded_moe(label, device)
+    return {**res, "small": small, "moe": {k: v for k, v in moe.items() if k != "launches"},
+            "launches": {k: res["launches"][k] + moe["launches"][k] for k in res["launches"]}}
+
+
+# ----------------------------------------------------------------- phase 26 --
+# phase 11's training on a (data, model) mesh: SHARD_TRAIN_STEPS steps from
+# phase 11's weights, held to phase 11's losses within SHARD_TRAIN_RTOL (the
+# tolerance test_torch_train.py holds the port's step to JAX's); the
+# checkpoint round trip on the reduced config (at full widths even 2 layers'
+# f32 masters and moments are 7.4 GB: 28 s to save and restore on a slow host)
+SHARD_TRAIN_STEPS, SHARD_TRAIN_RTOL = 3, 1e-5
+
+
+def mesh_steps(shape: tuple, model, steps: int, seed: int = SEED) -> dict:
+    """``steps`` of phase 11's step (optimizer, batch, microbatches) over a
+    ``shape`` (data, model) mesh of this process group, from ``model.init
+    (seed)``: losses, step ms, launches, and the final (params, state)."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.sharding import distribute_params, use_sharding
+
+    opt = step_opt()
+    batch = train_batch(model.cfg.vocab)
+    step = make_train_step(model, opt, TRAIN_MB)
+    losses, ms = [], []
+    with use_sharding(make_test_mesh(shape)):
+        params = distribute_params(model, model.init(seed, DEV))
+        state = init_opt_state(opt, params)
+        torch.cuda.synchronize()
+        counters.reset()
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+    return {"losses": losses, "step_ms": ms, "launches": counters.launch_counts(),
+            "plain": counters.plain_cuda_calls(), "tree": (params, state), "step": step,
+            "batch": batch}
+
+
+def mesh_rank(rank: int, world: int, shape: tuple, want: list) -> dict:
+    """One rank of phase 26's multi-card meshes (rank 0's result returned)."""
+    run = mesh_steps(shape, make_model(get_config(ARCH)), SHARD_TRAIN_STEPS)
+    return {"mesh": list(shape), "losses": run["losses"], "step_ms": run["step_ms"],
+            "max_rel_gap_to_one_device": max(abs(a - b) / abs(b)
+                                             for a, b in zip(run["losses"], want))}
+
+
+def phase_sharded_train(train: dict, card: str) -> dict:
+    """Phase 26 (``[sharded-train]``): phase 11's full-width training under
+    an NCCL group of one rank on a (1, 1) mesh (parameters, moments and
+    gradients DTensors; every kernel through ``local_map`` on local
+    shards), then the reduced config's checkpoint saved, ``restore_sharded``
+    and one more step; with two cards or more, (1, n) and (n, 1) meshes over them
+    (one NCCL rank a card).  Gated: the launches exact (phase 11's kernels,
+    no plain version), each loss within SHARD_TRAIN_RTOL of phase 11's (and
+    of the unsharded 2-layer steps), the multi-card losses finite and
+    falling."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import _host_devices
+
+    label = "sharded-train"
+    cfg = get_config(ARCH)
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_"))
+    try:
+        _host_devices.join_group(0, 1, str(root / "store"), DEV)
+        try:
+            run = mesh_steps((1, 1), make_model(cfg), SHARD_TRAIN_STEPS)
+            del run["tree"]
+            want = train_want(cfg.n_layers, TRAIN_MB * SHARD_TRAIN_STEPS)
+            gaps = [abs(a - b) / abs(b) for a, b in zip(run["losses"], train["losses"])]
+            res = {"card": card, "arch": ARCH, "mesh": [1, 1], "losses": run["losses"],
+                   "phase11_losses": train["losses"][:SHARD_TRAIN_STEPS],
+                   "max_rel_gap": max(gaps), "first_step_ms": run["step_ms"][0],
+                   "step_ms": run["step_ms"][1:], "phase11_step_ms": train["step_ms"],
+                   "launches": run["launches"]}
+            if run["launches"] != want or any(run["plain"].values()):
+                fail(f"{label}: launches {run['launches']} != {want}, plain {run['plain']}")
+            if max(gaps) > SHARD_TRAIN_RTOL:
+                fail(f"{label}: the (1, 1) mesh's losses part from phase 11's by more than "
+                     f"{SHARD_TRAIN_RTOL}: {res}")
+            res["restore"] = mesh_restore(label, root)
+        finally:
+            dist.destroy_process_group()
+        n = torch.cuda.device_count()
+        for shape in (((1, n), (n, 1)) if n >= 2 else ()):
+            got = _host_devices.run_ranks(n, mesh_rank, (shape, train["losses"]), "cuda")
+            res[f"mesh_{shape[0]}x{shape[1]}"] = got
+            if (not all(math.isfinite(x) for x in got["losses"])
+                    or any(b >= a for a, b in zip(got["losses"], got["losses"][1:]))):
+                fail(f"{label}: the {shape} mesh's losses are not finite and falling: {got}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[{label}] {json.dumps(res)}")
+    release()
+    return res
+
+
+def mesh_restore(label: str, root: Path) -> dict:
+    """The reduced config (CPU tests' size): one step on the (1, 1) mesh,
+    the checkpoint saved (rank 0 writes the logical arrays), restored with
+    ``restore_sharded`` onto fresh DTensors, and a second step, whose loss
+    must equal the unsharded second step's within SHARD_TRAIN_RTOL."""
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.parallel.sharding import use_sharding
+
+    small = make_model(reduce_config(get_config(ARCH)))
+    t0 = time.perf_counter()
+    run = mesh_steps((1, 1), small, 1)
+    store.save(root / "ckpt", 1, run["tree"])
+    saved_s = time.perf_counter() - t0
+    del run
+    fresh = mesh_steps((1, 1), small, 0)  # the mesh's DTensors to restore onto
+    t0 = time.perf_counter()
+    with use_sharding(make_test_mesh((1, 1))):
+        (params, state), man = store.restore_sharded(root / "ckpt", 1, fresh["tree"])
+        restored_s = time.perf_counter() - t0
+        _, _, m = fresh["step"](params, state, fresh["batch"])
+    restored = float(m["loss"])
+    del fresh, params, state
+    opt = step_opt()
+    step = make_train_step(small, opt, TRAIN_MB)
+    params = small.init(SEED, DEV)
+    state = init_opt_state(opt, params)
+    batch = train_batch(small.cfg.vocab)
+    losses = []
+    for _ in range(2):
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+    del params, state
+    res = {"config": small.cfg.name, "step": man["step"], "restored_step_loss": restored,
+           "unsharded_losses": losses, "save_seconds": saved_s, "restore_seconds": restored_s,
+           "rel_gap": abs(restored - losses[1]) / abs(losses[1])}
+    if res["rel_gap"] > SHARD_TRAIN_RTOL or man["step"] != 1:
+        fail(f"{label}: the restored step parts from the unsharded second step: {res}")
+    return res
 
 
 SOURCES = {  # kernel -> (CUDA source, the TPU kernel it replaces)
@@ -5079,6 +5493,7 @@ def main() -> int:
     cross = phase("cross", phase_cross)
     ssm = phase("ssm", phase_ssm)
     sharded = phase("sharded", phase_sharded, served)
+    sharded_train = phase("sharded-train", phase_sharded_train, train, card)
     by_path = {"continuous": served["launches"], "static": static["launches"],
                "int8": int8["launches"], "long_static": long_static["launches"],
                "long_continuous": long_cont["launches"], "reads": reads["launches"],
@@ -5087,7 +5502,8 @@ def main() -> int:
                "prefix": prefix["launches"], "sla": sla["launches"], "mla": mla["launches"],
                "moe": moe["launches"], "slab": slab["launches"], "snapshot": snap["launches"],
                "long_chunked": long_chunked["launches"], "cross": cross["launches"],
-               **ssm["launches"], "sharded": sharded["launches"]}
+               **ssm["launches"], "sharded": sharded["launches"],
+               "sharded_train": sharded_train["launches"]}
     kernels = []
     for name, (src, replaces) in SOURCES.items():
         # the main path's shape: bf16 tick (fp or int8 KV; the norms' 128

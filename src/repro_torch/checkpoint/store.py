@@ -14,8 +14,15 @@ leaves a torn step, and stale temporary directories are pruned.
 
 Leaves are saved from any device and restored as tensors on the device of
 the matching leaf of ``like`` (``restore``) or on the CPU
-(``restore_flat``), in the dtype the manifest names.  ``restore_sharded``
-(a multi-device mesh) is not ported.
+(``restore_flat``), in the dtype the manifest names.
+
+Sharded trees (DTensor leaves, ``parallel.sharding``): ``save`` writes the
+logical arrays, so every rank of the mesh calls it (each DTensor leaf is
+gathered whole, ``full_tensor()``), rank 0 writes, and all wait for the
+write; a checkpoint does not know the mesh that saved it.
+``restore_sharded`` re-places every leaf onto the mesh and the placements
+of the matching DTensor leaf of ``like``, which may differ from the saver's
+(the reference's elastic restore), each rank keeping its own chunk.
 """
 from __future__ import annotations
 
@@ -27,6 +34,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from repro_torch.parallel.sharding import is_dtensor
 
 
 def _flatten(tree, prefix: str = "") -> dict:
@@ -60,15 +68,31 @@ def _to_tensor(a: np.ndarray, want: str | None, device) -> torch.Tensor:
 
 
 def save(path: str | Path, step: int, tree, extra: dict | None = None) -> Path:
-    """Atomically write checkpoint ``step`` under ``path``; returns its directory."""
+    """Atomically write checkpoint ``step`` under ``path``; returns its
+    directory.  A tree with DTensor leaves is written by rank 0 of the
+    process group, after every rank has gathered them (every rank calls)."""
     path = Path(path)
     final = path / f"step_{step:08d}"
+    flat = _flatten(tree)
+    if any(is_dtensor(v) for v in flat.values()):
+        import torch.distributed as dist
+
+        flat = {k: v.full_tensor() if is_dtensor(v) else v for k, v in flat.items()}
+        if dist.get_rank() == 0:
+            _write(path, final, step, flat, extra)
+        dist.barrier()
+        return final
+    _write(path, final, step, flat, extra)
+    return final
+
+
+def _write(path: Path, final: Path, step: int, flat: dict, extra: dict | None) -> None:
     tmp = path / f".tmp_step_{step:08d}"
     if tmp.exists():
         shutil.rmtree(tmp)
     tmp.mkdir(parents=True)
     arrays, dtypes = {}, {}
-    for k, v in _flatten(tree).items():
+    for k, v in flat.items():
         arrays[k], dtypes[k] = _to_numpy(v)
     np.savez(tmp / "arrays.npz", **arrays)
     manifest = {"step": step, "keys": sorted(arrays), "dtypes": dtypes, "extra": extra or {}}
@@ -78,7 +102,6 @@ def save(path: str | Path, step: int, tree, extra: dict | None = None) -> Path:
     os.rename(tmp, final)
     for stale in path.glob(".tmp_step_*"):  # from crashed saves
         shutil.rmtree(stale, ignore_errors=True)
-    return final
 
 
 def latest_step(path: str | Path) -> int | None:
@@ -117,6 +140,29 @@ def restore(path: str | Path, step: int, like) -> tuple:
         return _to_tensor(data[prefix], dtypes.get(prefix), device)
 
     return build(like), manifest
+
+
+def restore_sharded(path: str | Path, step: int, like) -> tuple:
+    """Elastic restore: (tree, manifest) with every leaf placed as the
+    matching leaf of ``like`` is: a DTensor leaf gives the mesh and the
+    placements (the reference's ``shardings`` tree), a plain tensor leaf
+    stays plain.  The checkpoint may have been written on another mesh: its
+    arrays are logical, so this is a pure re-placement, each rank taking its
+    chunk of the arrays it reads."""
+    tree, manifest = restore(path, step, like)
+    return _placed_as(tree, like), manifest
+
+
+def _placed_as(tree, like):
+    from torch.distributed.tensor import distribute_tensor
+
+    if isinstance(tree, dict):
+        return {k: _placed_as(v, like[k]) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_placed_as(v, lk) for v, lk in zip(tree, like))
+    if not is_dtensor(like):
+        return tree
+    return distribute_tensor(tree, like.device_mesh, like.placements, src_data_rank=None)
 
 
 def restore_flat(path: str | Path, step: int) -> tuple[dict, dict]:

@@ -478,30 +478,36 @@ __global__ void __launch_bounds__(kRowThreads) gn_softmax_wide_kernel(const __gr
   }
 }
 
-// The SM count and each instance's occupancy are cached once a process, from
-// the device current at the first launch.  A sharded engine launches on every
-// shard's card, but its cards are of one model, so the cached values hold for
-// each of them.
-int num_sms() {
-  static int sms = 0;
-  if (!sms) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
+// The SM count and each instance's occupancy are cached per device ordinal,
+// from the device current at the launch (the launch helper makes the tensors'
+// card current), so the shards of a sharded engine or the ranks of a sharded
+// step on cards of two models each size their grids to their own card.
+constexpr int kMaxDevices = 64;
+
+int current_device() {
+  int dev = 0;
+  cudaGetDevice(&dev);
+  return dev < 0 || dev >= kMaxDevices ? 0 : dev;
+}
+
+int num_sms(int dev) {
+  static int sms[kMaxDevices] = {};
+  if (!sms[dev]) cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
 }
 
 template <typename T, int G, int CPT>
 cudaError_t launch_rows(const Args& a, size_t smem, cudaStream_t s) {
-  static int per_sm = 0;  // blocks of this instance resident on one SM
-  if (!per_sm) {
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, gn_softmax_rows_kernel<T, G, CPT>,
+  static int per_sm[kMaxDevices] = {};  // blocks of this instance resident on one SM
+  const int dev = current_device();
+  if (!per_sm[dev]) {
+    int n = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, gn_softmax_rows_kernel<T, G, CPT>,
                                                   kThreads, smem);
-    if (per_sm < 1) per_sm = 1;
+    per_sm[dev] = n < 1 ? 1 : n;
   }
   const long long groups = (a.rows + kThreads / G - 1) / (kThreads / G);
-  const long long cap = (long long)per_sm * num_sms();
+  const long long cap = (long long)per_sm[dev] * num_sms(dev);
   gn_softmax_rows_kernel<T, G, CPT><<<(unsigned)(groups < cap ? groups : cap), kThreads, smem, s>>>(a);
   return cudaGetLastError();
 }

@@ -16,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -23,6 +24,9 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent / "_build"
+# taken around every wrapper's launch counter: the shards of a lockstep
+# serving tick launch from threads of their own at once
+COUNT_LOCK = threading.Lock()
 # -fmad=false: no a*b+c contraction into an FMA, so the kernels round where
 # the reference rounds; -Xptxas -v: registers, shared memory and spills in
 # the build log.

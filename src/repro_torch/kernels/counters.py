@@ -10,6 +10,7 @@ counted, and ``add``s the capture's increments on every replay: the counts
 stay the launches the card executed on the path."""
 from __future__ import annotations
 
+from repro_torch.kernels import _build
 from repro_torch.kernels.gn_attention import ops as attention_ops
 from repro_torch.kernels.gn_attention import ref as attention_ref
 from repro_torch.kernels.gn_layernorm import ops as norm_ops
@@ -52,8 +53,9 @@ def snapshot() -> tuple[int, ...]:
 
 def add(delta) -> None:
     """Add ``delta`` (a ``snapshot``-ordered sequence) to the counters."""
-    for (mod, attr), d in zip(_all(), delta, strict=True):
-        setattr(mod, attr, getattr(mod, attr) + d)
+    with _build.COUNT_LOCK:
+        for (mod, attr), d in zip(_all(), delta, strict=True):
+            setattr(mod, attr, getattr(mod, attr) + d)
 
 
 def reset() -> None:

@@ -262,5 +262,6 @@ def _forward(q, k, v, cfg: SoftmaxLUTConfig, causal: bool, sm_scale: float,
                        int(design(q.dtype, cfg) == TENSOR_CORE), float(sm_scale),
                        *exp_lut_args(cfg), torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(rc, "gn_attention")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out

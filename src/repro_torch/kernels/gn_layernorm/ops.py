@@ -115,11 +115,10 @@ def _launch(x, r, gamma, beta, cfg: RsqrtConfig, subtract_mean: bool, layout_nam
         rc = _build.launch(x.device, _lib().gn_add_layernorm_launch, x.data_ptr(),
                            r.data_ptr(), s.data_ptr(), gamma.data_ptr(), beta_ptr, *tail)
     _build.check(rc, "gn_layernorm")
-    launches += 1
-    if r is None:
-        return y
-    launches_fused += 1
-    return s, y
+    with _build.COUNT_LOCK:
+        launches += 1
+        launches_fused += r is not None
+    return y if r is None else (s, y)
 
 
 def norm_backward(s, gy, gamma, beta, cfg: RsqrtConfig, subtract_mean: bool):

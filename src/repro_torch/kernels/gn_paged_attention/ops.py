@@ -214,8 +214,9 @@ def gn_paged_attention_chunk(
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     _build.check(rc, "gn_paged_attention")
-    if scales is None:
-        launches += 1
-    else:
-        launches_int8 += 1
+    with _build.COUNT_LOCK:
+        if scales is None:
+            launches += 1
+        else:
+            launches_int8 += 1
     return (out, flags) if nonfinite else out

@@ -171,7 +171,8 @@ def _forward(x: torch.Tensor, cfg: SoftmaxLUTConfig) -> torch.Tensor:
         residual.data_ptr(), out.data_ptr(), rows, cols, DTYPE_CODES[x.dtype],
         *exp_lut_args(cfg), torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(rc, "gn_softmax")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out
 
 
@@ -254,5 +255,6 @@ def _scores_forward(scores, scale, mask, out_dtype, cfg) -> torch.Tensor:
         int(out_dtype == torch.bfloat16), int(scale is not None), rscale, *exp_lut_args(cfg),
         torch.cuda.current_stream(scores.device).cuda_stream)
     _build.check(rc, "gn_softmax_scores")
-    launches += 1
+    with _build.COUNT_LOCK:
+        launches += 1
     return out

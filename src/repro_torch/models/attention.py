@@ -117,6 +117,7 @@ from repro_torch.kernels.gn_softmax.ref import scores_chain
 from repro_torch.models.chunked_attention import chunked_self_attention
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.rope import apply_rope
+from repro_torch.parallel.sharding import current_ctx, local_kernel
 
 NEG_INF = -1e30
 # CHUNKED_FROM (2048, ``kernels/gn_attention/ops.py``): longer prompts take the
@@ -135,10 +136,10 @@ STREAM_TILE = 8
 def attn_specs(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     return {
-        "wq": ParamSpec((d, cfg.q_features)),
-        "wk": ParamSpec((d, cfg.kv_features)),
-        "wv": ParamSpec((d, cfg.kv_features)),
-        "wo": ParamSpec((cfg.q_features, d)),
+        "wq": ParamSpec((d, cfg.q_features), ("embed_fsdp", "heads_tp")),
+        "wk": ParamSpec((d, cfg.kv_features), ("embed_fsdp", "heads_tp")),
+        "wv": ParamSpec((d, cfg.kv_features), ("embed_fsdp", "heads_tp")),
+        "wo": ParamSpec((cfg.q_features, d), ("heads_tp", "embed_fsdp")),
     }
 
 
@@ -147,8 +148,16 @@ def _softmax(cfg: ModelConfig):
     ``get_softmax``): the GN kernel's wrapper for ``"gn"``, else the
     ``core`` function of the name (``KeyError`` for an unknown one)."""
     if cfg.softmax_impl == "gn":
-        return gn_softmax
+        return _local_softmax
     return get_softmax(cfg.softmax_impl)
+
+
+def _local_softmax(x):
+    """``gn_softmax`` over rows (..., N); under a sharding context over local
+    shards, the leading dim on the batch axes and each whole row on every
+    rank."""
+    rows = ("batch", *([None] * (x.dim() - 1)))
+    return local_kernel(gn_softmax, (x,), (rows,), rows)
 
 
 def _long_exact(cfg: ModelConfig, s: int) -> bool:
@@ -176,7 +185,9 @@ def _score_softmax(impl: str, scores, scale: float, mask, dtype):
     GN: one launch of the fused kernel (``gn_softmax_scores``); every other
     name runs that chain with its ``core`` function."""
     if impl == "gn":
-        return gn_softmax_scores(scores, scale, mask, dtype)
+        axes = ("batch", "heads_act", None, None, None)[:scores.dim()]
+        return local_kernel(lambda s, m: gn_softmax_scores(s, scale, m, dtype),
+                            (scores, mask), (axes, None), axes)
     return scores_chain(scores, scale, mask, dtype, get_softmax(impl))
 
 
@@ -210,6 +221,21 @@ def _qkv(cfg: ModelConfig, p: dict, x, positions):
             v)
 
 
+def local_flash(q, k, v, causal: bool, window: int = 0, sm_scale: float | None = None):
+    """``gn_attention`` over (B, heads, S, dh) q, k, v; under a sharding
+    context over local shards: batch on its axes, heads on ``heads_act``
+    (for q, k and v alike, so a rank's q heads read its own kv heads: a
+    mesh axis that does not divide the kv heads shards no heads)."""
+    def fn(q, k, v):
+        return gn_attention(q, k, v, causal=causal, sm_scale=sm_scale, window=window)
+
+    heads = ("batch", "heads_act", None, None)
+    ctx = current_ctx()
+    if ctx is not None and ctx.spec_for_shape(tuple(k.shape), heads)[1] is None:
+        heads = ("batch", None, None, None)
+    return local_kernel(fn, (q, k, v), (heads,) * 3, heads)
+
+
 def self_attention(cfg: ModelConfig, p: dict, x, positions, causal: bool = True):
     """x: (B, S, D), positions: (B, S) -> (B, S, D): GN through the
     flash-attention kernel (q, k, v moved to its (B, heads, S, dh) layout;
@@ -223,7 +249,7 @@ def self_attention(cfg: ModelConfig, p: dict, x, positions, causal: bool = True)
     win = cfg.sliding_window if causal else 0
     if cfg.softmax_impl == "gn":
         q, k, v = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        out = gn_attention(q, k, v, causal=causal, window=win).transpose(1, 2)
+        out = local_flash(q, k, v, causal, win).transpose(1, 2)
     elif _long_exact(cfg, s):
         out = chunked_self_attention(cfg, q, k, v, causal)
     else:
@@ -282,9 +308,8 @@ def attn_prefill(cfg: ModelConfig, p: dict, x, positions):
     win = cfg.sliding_window or 0
     q, k, v = _qkv(cfg, p, x, positions)
     if s > CHUNKED_FROM and cfg.softmax_impl == "gn":
-        out = gn_attention(*(t.transpose(1, 2).contiguous() for t in (q, k, v)), causal=True,
-                           window=win)
-        out = out.transpose(1, 2)
+        out = local_flash(*(t.transpose(1, 2).contiguous() for t in (q, k, v)), True,
+                          win).transpose(1, 2)
     elif _long_exact(cfg, s):
         out = chunked_self_attention(cfg, q, k, v, True)
     else:

@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.core.gn_softmax import factorized_exp_ste
 from repro_torch.core.luts import SoftmaxLUTConfig, TPU_SOFTMAX_LUT
+from repro_torch.parallel.sharding import shard
 
 NEG = -1e30
 
@@ -233,7 +234,8 @@ def chunked_self_attention(cfg, q, k, v, causal: bool,
     if group > 1:
         k = k.repeat_interleave(group, dim=2)
         v = v.repeat_interleave(group, dim=2)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    qt, kt, vt = (shard(x.transpose(1, 2), "batch", "heads_act", None, None)
+                  for x in (q, k, v))
     impl = cfg.softmax_impl
     if causal and cfg.sliding_window and s > cfg.sliding_window:
         out = windowed_chunked(qt, kt, vt, window=cfg.sliding_window, impl=impl, lut_cfg=lut_cfg)

@@ -18,20 +18,49 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import get_norm
 from repro_torch.kernels.gn_layernorm import ops as norm_ops
+from repro_torch.parallel.sharding import current_ctx, is_dtensor, local_kernel
+
+
+def _row_axes(x) -> tuple:
+    """The logical axes of a norm's rows (..., D): batch first, the
+    feature dim ``embed_act``."""
+    return ("batch", *([None] * (x.dim() - 2)), "embed_act")
+
+
+def _local_norm(fn, args: tuple, fused: bool = False):
+    """``fn(*args)`` (x, [the residual of a fused add,] gamma[, beta]) over
+    local shards under a sharding context: rows stay where they are and the
+    whole feature dim, which the GN norm reduces over, lies on every rank.
+    ``embed_act`` maps to None in the rules; a rule that shards it raises."""
+    x = args[0]
+    ctx = current_ctx()
+    if ctx is None:
+        return fn(*args)
+    rows = _row_axes(x)
+    if is_dtensor(x) and ctx.spec(rows)[-1] is not None:
+        raise ValueError("the GN norm reduces over the whole feature dim: the rules must not "
+                         "shard embed_act")
+    n_rows = 2 if fused else 1
+    in_axes = (rows,) * n_rows + ((None,),) * (len(args) - n_rows)
+    return local_kernel(fn, args, in_axes, (rows, rows) if fused else rows)
+
 
 _KERNEL_NORMS = {
-    "gn_rms": lambda x, gamma, beta=None: norm_ops.gn_rmsnorm(x, gamma),
-    "gn_ln": lambda x, gamma, beta=None: norm_ops.gn_layernorm(x, gamma, beta),
+    "gn_rms": lambda x, gamma, beta=None: _local_norm(norm_ops.gn_rmsnorm, (x, gamma)),
+    "gn_ln": lambda x, gamma, beta=None: _local_norm(norm_ops.gn_layernorm, (x, gamma, beta)),
 }
 _KERNEL_ADD_NORMS = {
-    "gn_rms": lambda x, r, gamma, beta=None: norm_ops.gn_add_rmsnorm(x, r, gamma),
-    "gn_ln": lambda x, r, gamma, beta=None: norm_ops.gn_add_layernorm(x, r, gamma, beta),
+    "gn_rms": lambda x, r, gamma, beta=None: _local_norm(norm_ops.gn_add_rmsnorm,
+                                                         (x, r, gamma), fused=True),
+    "gn_ln": lambda x, r, gamma, beta=None: _local_norm(norm_ops.gn_add_layernorm,
+                                                        (x, r, gamma, beta), fused=True),
 }
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
     shape: tuple
+    logical_axes: tuple = ()  # the reference's logical axis name (or None) per dim
     init: str = "normal"  # normal | zeros | ones
     scale: float = 0.02
 
@@ -51,18 +80,20 @@ def init_tree(spec_tree, generator: torch.Generator, device):
     return {k: init_tree(v, generator, device) for k, v in spec_tree.items()}
 
 
-def stack_specs(spec_tree, n: int):
-    """Prepend the stacked layer dimension to every ParamSpec."""
+def stack_specs(spec_tree, n: int, axis_name="layers"):
+    """Prepend the stacked layer dimension (logical axis ``axis_name``) to
+    every ParamSpec."""
     if isinstance(spec_tree, ParamSpec):
-        return dataclasses.replace(spec_tree, shape=(n, *spec_tree.shape))
-    return {k: stack_specs(v, n) for k, v in spec_tree.items()}
+        return dataclasses.replace(spec_tree, shape=(n, *spec_tree.shape),
+                                   logical_axes=(axis_name, *spec_tree.logical_axes))
+    return {k: stack_specs(v, n, axis_name) for k, v in spec_tree.items()}
 
 
 # ------------------------------------------------------------------- norms --
 def norm_specs(cfg: ModelConfig) -> dict:
-    specs = {"gamma": ParamSpec((cfg.d_model,), init="ones")}
+    specs = {"gamma": ParamSpec((cfg.d_model,), (None,), init="ones")}
     if "ln" in cfg.norm_impl:  # LayerNorm variants carry beta; RMS variants don't
-        specs["beta"] = ParamSpec((cfg.d_model,), init="zeros")
+        specs["beta"] = ParamSpec((cfg.d_model,), (None,), init="zeros")
     return specs
 
 
@@ -86,15 +117,18 @@ def gn_rmsnorm(x: torch.Tensor, gamma: torch.Tensor | None = None) -> torch.Tens
     """The reference's ``core.gn_rmsnorm`` inside a mixer (the mLSTM's
     normalizer without gamma, Mamba2's gated norm with its f32 ``norm``):
     the GN norm kernel on a CUDA tensor, its plain version on the CPU."""
-    return norm_ops.gn_rmsnorm(x, gamma)
+    return _local_norm(norm_ops.gn_rmsnorm, (x, gamma))
 
 
 # -------------------------------------------------------------------- MLP ---
 def mlp_specs(cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.mlp_act == "swiglu":
-        return {"wi": ParamSpec((d, f)), "wg": ParamSpec((d, f)), "wo": ParamSpec((f, d))}
-    return {"wi": ParamSpec((d, f)), "wo": ParamSpec((f, d))}
+        return {"wi": ParamSpec((d, f), ("embed_fsdp", "ff")),
+                "wg": ParamSpec((d, f), ("embed_fsdp", "ff")),
+                "wo": ParamSpec((f, d), ("ff", "embed_fsdp"))}
+    return {"wi": ParamSpec((d, f), ("embed_fsdp", "ff")),
+            "wo": ParamSpec((f, d), ("ff", "embed_fsdp"))}
 
 
 def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -108,8 +142,8 @@ def apply_mlp(cfg: ModelConfig, p: dict, x: torch.Tensor) -> torch.Tensor:
 
 # -------------------------------------------------------------- embeddings --
 def embed_specs(cfg: ModelConfig) -> dict:
-    return {"tok": ParamSpec((cfg.vocab, cfg.d_model))}
+    return {"tok": ParamSpec((cfg.vocab, cfg.d_model), ("vocab", "embed_fsdp"))}
 
 
 def lm_head_specs(cfg: ModelConfig) -> dict:
-    return {"w": ParamSpec((cfg.d_model, cfg.vocab))}
+    return {"w": ParamSpec((cfg.d_model, cfg.vocab), ("embed_fsdp", "vocab"))}

@@ -45,25 +45,25 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.gn_attention.ops import gn_attention
-from repro_torch.kernels.gn_layernorm import ops as norm_ops
 from repro_torch.models import attention as attn
 from repro_torch.models.attention import CHUNKED_FROM, causal_mask
 from repro_torch.models.chunked_attention import causal_chunked
-from repro_torch.models.layers import ParamSpec
+from repro_torch.models.layers import ParamSpec, gn_rmsnorm
 from repro_torch.models.rope import apply_rope
+from repro_torch.parallel.sharding import shard
 
 def mla_specs(cfg: ModelConfig) -> dict:
     d, m, h = cfg.d_model, cfg.mla, cfg.n_heads
     qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
     return {
-        "wq_a": ParamSpec((d, m.q_lora_rank)),
-        "q_norm": ParamSpec((m.q_lora_rank,), init="ones"),
-        "wq_b": ParamSpec((m.q_lora_rank, h * qk_head)),
-        "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim)),
-        "kv_norm": ParamSpec((m.kv_lora_rank,), init="ones"),
-        "wkv_b": ParamSpec((m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim))),
-        "wo": ParamSpec((h * m.v_head_dim, d)),
+        "wq_a": ParamSpec((d, m.q_lora_rank), ("embed_fsdp", None)),
+        "q_norm": ParamSpec((m.q_lora_rank,), (None,), init="ones"),
+        "wq_b": ParamSpec((m.q_lora_rank, h * qk_head), (None, "heads_tp")),
+        "wkv_a": ParamSpec((d, m.kv_lora_rank + m.qk_rope_head_dim), ("embed_fsdp", None)),
+        "kv_norm": ParamSpec((m.kv_lora_rank,), (None,), init="ones"),
+        "wkv_b": ParamSpec((m.kv_lora_rank, h * (m.qk_nope_head_dim + m.v_head_dim)),
+                           (None, "heads_tp")),
+        "wo": ParamSpec((h * m.v_head_dim, d), ("heads_tp", "embed_fsdp")),
     }
 
 
@@ -73,12 +73,12 @@ def _project(cfg: ModelConfig, p: dict, x, positions):
     rope) rotated; p holds x's dtype (the gammas f32)."""
     m = cfg.mla
     b, s, _ = x.shape
-    q_lat = norm_ops.gn_rmsnorm(x @ p["wq_a"], p["q_norm"])
+    q_lat = gn_rmsnorm(x @ p["wq_a"], p["q_norm"])
     q = (q_lat @ p["wq_b"]).reshape(b, s, cfg.n_heads, m.qk_nope_head_dim + m.qk_rope_head_dim)
     q_nope, q_rope = q[..., :m.qk_nope_head_dim], q[..., m.qk_nope_head_dim:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     kv_a = x @ p["wkv_a"]
-    c_kv = norm_ops.gn_rmsnorm(kv_a[..., :m.kv_lora_rank].contiguous(), p["kv_norm"])
+    c_kv = gn_rmsnorm(kv_a[..., :m.kv_lora_rank].contiguous(), p["kv_norm"])
     k_rope = apply_rope(kv_a[..., m.kv_lora_rank:], positions, cfg.rope_theta)
     return q_nope, q_rope, c_kv, k_rope
 
@@ -143,15 +143,16 @@ def _attend_chunked(cfg: ModelConfig, p: dict, q_nope, q_rope, c_kv, k_rope):
     b, s = q_nope.shape[:2]
     k_nope, v = _expand(cfg, p, c_kv)
     scale = (m.qk_nope_head_dim + m.qk_rope_head_dim) ** -0.5
-    qq = torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2)
-    kk = torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, k_rope.shape[-1])],
-                   dim=-1).transpose(1, 2)
-    vt = v.transpose(1, 2)
+    heads = ("batch", "heads_act", None, None)
+    qq = shard(torch.cat([q_nope, q_rope], dim=-1).transpose(1, 2), *heads)
+    kk = shard(torch.cat([k_nope, k_rope[:, :, None].expand(b, s, h, k_rope.shape[-1])],
+                         dim=-1).transpose(1, 2), *heads)
+    vt = shard(v.transpose(1, 2), *heads)
     if cfg.softmax_impl == "gn":
         pad = qq.shape[-1] - m.v_head_dim
         vp = torch.nn.functional.pad(vt, (0, pad))
-        out = gn_attention(qq.contiguous(), kk.contiguous(), vp.contiguous(), causal=True,
-                           sm_scale=scale)[..., :m.v_head_dim]
+        out = attn.local_flash(qq.contiguous(), kk.contiguous(), vp.contiguous(), True,
+                               sm_scale=scale)[..., :m.v_head_dim]
     else:
         out = causal_chunked(qq, kk, vt, impl=cfg.softmax_impl, scale=scale).to(q_nope.dtype)
     return out.transpose(1, 2).reshape(b, s, h * m.v_head_dim) @ p["wo"]

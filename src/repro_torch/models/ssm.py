@@ -52,15 +52,15 @@ def mlstm_specs(cfg: ModelConfig) -> dict:
     d_in = s.expand * d
     dh = d // cfg.n_heads * s.expand
     return {
-        "w_up": ParamSpec((d, 2 * d_in)),
-        "conv_w": ParamSpec((s.conv_dim, d_in)),
+        "w_up": ParamSpec((d, 2 * d_in), ("embed_fsdp", "ff")),
+        "conv_w": ParamSpec((s.conv_dim, d_in), (None, "ff")),
         # block-diagonal per-head projections (the xLSTM paper)
-        "wq": ParamSpec((cfg.n_heads, dh, dh)),
-        "wk": ParamSpec((cfg.n_heads, dh, dh)),
-        "wv": ParamSpec((cfg.n_heads, dh, dh)),
-        "w_gate": ParamSpec((d_in, 2 * cfg.n_heads)),
-        "b_gate": ParamSpec((2 * cfg.n_heads,), init="zeros"),
-        "w_down": ParamSpec((d_in, d)),
+        "wq": ParamSpec((cfg.n_heads, dh, dh), (None, "heads_tp", None)),
+        "wk": ParamSpec((cfg.n_heads, dh, dh), (None, "heads_tp", None)),
+        "wv": ParamSpec((cfg.n_heads, dh, dh), (None, "heads_tp", None)),
+        "w_gate": ParamSpec((d_in, 2 * cfg.n_heads), ("ff", None)),
+        "b_gate": ParamSpec((2 * cfg.n_heads,), (None,), init="zeros"),
+        "w_down": ParamSpec((d_in, d), ("ff", "embed_fsdp")),
     }
 
 
@@ -277,13 +277,13 @@ def mamba2_specs(cfg: ModelConfig) -> dict:
     d_in = s.expand * d
     nheads = d_in // s.head_dim
     return {
-        "in_proj": ParamSpec((d, 2 * d_in + 2 * s.state_dim + nheads)),
-        "conv_w": ParamSpec((s.conv_dim, d_in + 2 * s.state_dim)),
-        "a_log": ParamSpec((nheads,), init="zeros"),
-        "d_skip": ParamSpec((nheads,), init="ones"),
-        "dt_bias": ParamSpec((nheads,), init="zeros"),
-        "norm": ParamSpec((d_in,), init="ones"),
-        "out_proj": ParamSpec((d_in, d)),
+        "in_proj": ParamSpec((d, 2 * d_in + 2 * s.state_dim + nheads), ("embed_fsdp", "ff")),
+        "conv_w": ParamSpec((s.conv_dim, d_in + 2 * s.state_dim), (None, None)),
+        "a_log": ParamSpec((nheads,), (None,), init="zeros"),
+        "d_skip": ParamSpec((nheads,), (None,), init="ones"),
+        "dt_bias": ParamSpec((nheads,), (None,), init="zeros"),
+        "norm": ParamSpec((d_in,), (None,), init="ones"),
+        "out_proj": ParamSpec((d_in, d), ("ff", "embed_fsdp")),
     }
 
 

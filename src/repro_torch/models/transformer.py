@@ -94,6 +94,7 @@ from repro_torch.models.layers import (
     norm_specs,
     stack_specs,
 )
+from repro_torch.parallel.sharding import local_kernel, local_mixer, shard
 
 # leaves the forward multiplies in the activation dtype (the reference casts
 # each at its use: attention, MLA's latent projections, the MoE router and
@@ -209,7 +210,7 @@ class Model:
             block.update(ln_x=norm_specs(cfg), xattn=attn.cross_attn_specs(cfg))
             specs["encoder"] = {
                 "layers": stack_specs(self._attn_block_specs(), cfg.encoder_layers),
-                "pos": ParamSpec((cfg.encoder_seq, cfg.d_model)),
+                "pos": ParamSpec((cfg.encoder_seq, cfg.d_model), (None, "embed_fsdp")),
                 "final_norm": norm_specs(cfg),
             }
         specs.update(layers=stack_specs(block, cfg.n_layers), final_norm=norm_specs(cfg),
@@ -218,8 +219,9 @@ class Model:
             specs["shared_attn"] = self._attn_block_specs()  # ONE shared block
         if cfg.family == "vlm":
             xblock = {"ln": norm_specs(cfg), "xattn": attn.cross_attn_specs(cfg),
-                      "gate": ParamSpec((1,), init="zeros"),
-                      "vis_proj": ParamSpec((cfg.d_model, cfg.d_model))}
+                      "gate": ParamSpec((1,), (None,), init="zeros"),
+                      "vis_proj": ParamSpec((cfg.d_model, cfg.d_model),
+                                            ("embed_fsdp", None))}
             specs["xattn_layers"] = stack_specs(xblock, cfg.n_layers // cfg.cross_attn_every)
         return specs
 
@@ -246,8 +248,13 @@ class Model:
 
     def _embed(self, params, tokens):
         """Token rows of the f32 table, cast to the activation dtype (the
-        reference casts the table first: the same values)."""
-        return params["embed"]["tok"][tokens.long()].to(getattr(torch, self.cfg.dtype))
+        reference casts the table first: the same values).  Under a sharding
+        context over local shards: the table gathered whole, the rows of
+        each rank's tokens."""
+        dt = getattr(torch, self.cfg.dtype)
+        return local_kernel(lambda tok, ids: tok[ids.long()].to(dt),
+                            (params["embed"]["tok"], tokens), ((None, None), ("batch", None)),
+                            ("batch", None, "embed_act"), like=1)
 
     def _ln1(self, lp, x, pending):
         """(residual stream, ln1 input): the previous layer's MLP output
@@ -281,7 +288,8 @@ class Model:
             h = apply_norm(cfg, xp["ln"], x)
         else:
             x, h = apply_add_norm(cfg, xp["ln"], x, pending)
-        y = attn.cross_attention(cfg, xp["xattn"], h, mem)
+        y = local_mixer(lambda h, mem, p: attn.cross_attention(cfg, p, h, mem), (h, mem),
+                        xp["xattn"])
         return x, torch.tanh(xp["gate"].to(dt)) * y
 
     def _decoder(self, params, x, mixer, cross=None, patches=None, aux=None,
@@ -298,6 +306,7 @@ class Model:
         cfg = self.cfg
         pending = None
         for i, lp in enumerate(params["layers"]):
+            x = shard(x, "batch", "seq", "embed_act")
             if cfg.family == "vlm" and i % cfg.cross_attn_every == 0:
                 x, pending = self._xattn_block(
                     params["xattn_layers"][i // cfg.cross_attn_every], x, pending, patches)
@@ -362,21 +371,25 @@ class Model:
         zero without MoE), as the reference's ``forward`` returns them."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        x = self._embed(params, tokens)
+        x = shard(self._embed(params, tokens), "batch", "seq", "embed_act")
         positions = torch.arange(tokens.shape[1], device=x.device).expand(tokens.shape)
         memory = self._memory(params, batch)
         if self._recurrent:
             def mixer(i, lp, h):
-                return self._ssm_block(cfg, lp["mixer"], h)[0]
+                return local_mixer(lambda h, p: self._ssm_block(cfg, p, h)[0], (h,),
+                                   lp["mixer"])
+        elif cfg.mla is not None:
+            def mixer(i, lp, h):  # every row of positions is arange(S): a rank's are its own
+                return local_mixer(lambda h, p: mla_mod.mla_self_attention(
+                    cfg, p, h, positions[:h.shape[0]]), (h,), lp["mixer"])
         else:
-            attend = mla_mod.mla_self_attention if cfg.mla is not None else attn.self_attention
-
             def mixer(i, lp, h):
-                return attend(cfg, lp["mixer"], h, positions)
+                return attn.self_attention(cfg, lp["mixer"], h, positions)
         cross = None
         if cfg.family == "encdec":
             def cross(i, lp, hx):
-                return attn.cross_attention(cfg, lp["xattn"], hx, memory)
+                return local_mixer(lambda h, mem, p: attn.cross_attention(cfg, p, h, mem),
+                                   (hx, memory), lp["xattn"])
         auxs = []
         x = self._decoder(params, x, mixer, cross, memory if cfg.family == "vlm" else None,
                           auxs, shared=lambda g, p, h: attn.self_attention(cfg, p, h, positions))
@@ -505,7 +518,7 @@ class Model:
         cfg = self.cfg
         tokens = batch["tokens"]
         b, s = tokens.shape
-        x = self._embed(params, tokens)
+        x = shard(self._embed(params, tokens), "batch", None, "embed_act")
         if cache is None:
             cache = self.init_cache(b, max_seq or s, x.device)
         else:
@@ -560,7 +573,7 @@ class Model:
         (reading the extra leaves ``prefill`` wrote); returns (logits
         (B, 1, V), cache)."""
         cfg = self.cfg
-        x = self._embed(params, token)
+        x = shard(self._embed(params, token), "batch", None, "embed_act")
         if not isinstance(pos, torch.Tensor):
             pos = torch.full((), pos, dtype=torch.int32, device=x.device)
         step = mla_mod.mla_decode_step if cfg.mla is not None else attn.attn_decode_step
@@ -760,7 +773,8 @@ class Model:
                 probes.append(pr)
             return y
 
-        x = self._decoder(params, self._embed(params, tokens), mixer, self._cross_fn(extras),
+        x = shard(self._embed(params, tokens), "batch", None, "embed_act")
+        x = self._decoder(params, x, mixer, self._cross_fn(extras),
                           extras.get("patches"))
         if not sentinel:
             return self._paged_head(params, x, n_valid)
@@ -789,7 +803,8 @@ class Model:
         return logits, head
 
     def _lm_head(self, params, x):
-        return apply_norm(self.cfg, params["final_norm"], x) @ params["lm_head"]["w"]
+        logits = apply_norm(self.cfg, params["final_norm"], x) @ params["lm_head"]["w"]
+        return shard(logits, "batch", "seq", "vocab")
 
 
 def make_model(cfg: ModelConfig) -> Model:

@@ -152,16 +152,22 @@ the sentinels on, a device whose every live slot (at least
 is quarantined, its slots retired from admission, ``("device_lost", step,
 d)`` logged, and its requests resume on the others.  Sharding changes
 placement, never values: at f32 on the CPU the tokens and completions of
-``devices=2`` equal ``devices=1``'s.  A MoE model is refused under
-``devices > 1``: its paged tick routes the whole pool as one GShard group,
-and a shard's tick would route its own slots as a group of its own.
-With ``devices=1`` the engine is the unsharded one: one shard,
-``shards[0]``.
+``devices=2`` equal ``devices=1``'s.  A MoE model's paged tick routes the
+whole pool's N * C tokens, parked lanes included, as one GShard group, so
+its shards tick in lockstep (``lockstep``): one thread a shard runs its
+tick eagerly, and at each MoE layer every shard hands its router input to
+a ``models.moe.TickExchange``, takes every shard's (a copy onto its own
+device), routes the concatenation in slot order and applies the experts
+to its own tokens; no shard captures a graph.  A slab tick routes each
+slot's lanes as a group of their own, so a MoE model's slab shards tick
+alone, graphed as any other.  With ``devices=1`` the engine is the
+unsharded one: one shard, ``shards[0]``.
 """
 from __future__ import annotations
 
 import collections
 import dataclasses
+import threading
 import time
 from typing import Optional, Sequence
 
@@ -171,6 +177,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.analysis import tracekeys
 from repro_torch.checkpoint import store as ckpt_store
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import SCALE_SANITY_MAX
 from repro_torch.models.transformer import Model
 from repro_torch.parallel.sharding import make_slot_mesh
@@ -448,7 +455,7 @@ class _Shard:
                             for b in engine.horizon_bucket_grid}
         # captured once per key and kept across reset, as the reference keeps
         # its compiled ticks
-        self._graphs = StepGraphs(dev) if dev.type == "cuda" else None
+        self._graphs = StepGraphs(dev) if dev.type == "cuda" and not engine.lockstep else None
 
     def zero(self) -> None:
         for t in (self._last_logits, self._pos_dev, self._active_dev, self._temps_dev,
@@ -555,14 +562,10 @@ class ContinuousEngine:
         if kv_dtype == "int8" and not self.paged:
             raise ValueError("kv_dtype='int8' requires the block-paged pool (per-block scales "
                              "live in the block tables); the slab pool is fp-only")
-        if self.num_devices > 1 and model.cfg.moe is not None:
-            # the paged tick routes the whole pool's N * C tokens as one GShard
-            # group, and a shard's tick would route only its own slots: refused,
-            # so that tokens never part silently
-            raise NotImplementedError(
-                f"{model.cfg.name}: a MoE model serves on one device only (devices > 1 "
-                "would route each shard's tick as a GShard group of its own: ROADMAP "
-                "Queue A 8b)")
+        # the paged tick routes the whole pool's N * C tokens as one GShard
+        # group: a MoE model's shards tick in lockstep (``_lockstep_ticks``)
+        self.lockstep = (self.num_devices > 1 and model.cfg.moe is not None
+                         and self.paged)
         # GN runtime sentinels, on unless asked off over the paged pool (the
         # reference's default); the slab pool has no probe path.  The retry
         # budget, the int8 clip watchdog, and the device-loss floor: the live
@@ -1115,6 +1118,32 @@ class ContinuousEngine:
         the health words), on its device."""
         return self.shards[d].run_tick(kind, bucket)
 
+    def _lockstep_ticks(self, kind: str, bucket: Optional[int]) -> list:
+        """Every shard's eager tick at once, one thread a shard, in lockstep
+        at each MoE layer (``moe.TickExchange``): their outputs in shard
+        order.  A shard that raises breaks the others' wait, and its error
+        is raised here."""
+        exchange = moe_mod.TickExchange(self.num_devices)
+        outs, errors = [None] * self.num_devices, [None] * self.num_devices
+
+        def run(d: int) -> None:
+            try:
+                with exchange.shard(d):
+                    outs[d] = self._run_tick(kind, bucket, d)
+            except BaseException as e:  # noqa: BLE001 -- raised below, in this thread
+                errors[d] = e
+
+        threads = [threading.Thread(target=run, args=(d,)) for d in range(self.num_devices)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        failed = [e for e in errors if e is not None]
+        if failed:  # the first cause, not a barrier another shard broke
+            raise next((e for e in failed if not isinstance(e, threading.BrokenBarrierError)),
+                       failed[0])
+        return outs
+
     def step(self) -> bool:
         """One engine tick.  Returns False once fully drained."""
         if self.paged and self.model.paged_read_path != self.read_path:
@@ -1166,7 +1195,8 @@ class ContinuousEngine:
             self._replayed_ticks += 1
         # every shard's tick is launched before any is waited on; then one
         # device->host copy a shard, assembled in global slot order
-        outs = [self._run_tick(kind, bucket, d) for d in range(self.num_devices)]
+        outs = (self._lockstep_ticks(kind, bucket) if self.lockstep
+                else [self._run_tick(kind, bucket, d) for d in range(self.num_devices)])
         toks, health = self._assemble([o.cpu().numpy() for o in outs])
         self.pool.advance({s: takes.get(s, 1) for s in live})
         self.model_ticks += 1

@@ -11,7 +11,9 @@ forced host devices (``tests/test_serve_sharded.py``).
   * the engine at ``devices=2`` against ``devices=1`` and the JAX engine at
     ``devices=1``, reduced f32 models: dense and MLA over the paged and the
     slab pool, int8 arenas and the prefix cache on dense paged, xlstm and
-    zamba2 on the slab, whisper paged and the VLM on the slab; tokens,
+    zamba2 on the slab, whisper paged, the VLM on the slab, the MoE
+    llama4-scout paged (its shards in lockstep, one GShard group a tick;
+    on the streamed read, and the reference's LCP pin on the kernel read); tokens,
     completions and event logs equal (admissions compared without their
     slot and device, which placement changes), the held logits of every
     live request within 1e-6 after every tick;
@@ -19,7 +21,8 @@ forced host devices (``tests/test_serve_sharded.py``).
     the device that holds its blocks, device loss (the reference's
     ``test_device_loss_detected_and_survivors_complete``), a snapshot round
     trip at two shards and a topology mismatch, ``--devices`` in both
-    forms (never the CPU unless asked), the MoE refusal,
+    forms (never the CPU unless asked), MoE shards in lockstep (a failing
+    shard raising, not hanging),
     ``make_slot_mesh``, and the launch helper and the graph runner entering
     the shard's device (the CUDA calls faked), with every ctypes entry of
     the four kernel wrappers called through the helper.
@@ -40,6 +43,7 @@ from repro.serve.kv_cache import SlotKVPool as JaxSlotPool
 from repro.serve.scheduler import Request as JaxRequest
 from repro_torch.kernels import _build
 from repro_torch.launch import serve as launch_serve
+from repro_torch.models import attention as t_attn
 from repro_torch.parallel.sharding import make_slot_mesh
 from repro_torch.serve import graphs as graphs_mod
 from repro_torch.serve.engine import ContinuousEngine, ServeConfig, static_reference
@@ -49,7 +53,7 @@ from repro_torch.serve.kv_cache import BlockPagedKVPool, SlotKVPool
 from _torch_parity import CHUNK, COMPLETION_KEYS, OWN, jax_engine, pair, prompt, to_port
 
 ROOT = Path(__file__).resolve().parents[1]
-DENSE, MLA = "internlm2-1.8b", "minicpm3-4b"
+DENSE, MLA, MOE = "internlm2-1.8b", "minicpm3-4b", "llama4-scout-17b-a16e"
 LENS = (5, 9, 14, 22, 7)  # the reference's mixed requests
 TOL = 1e-6
 
@@ -278,6 +282,12 @@ CASES = {
     "hybrid-slab": ("zamba2-7b", {}),
     "encdec-paged": ("whisper-large-v3", {"block_size": 8}),
     "vlm-slab": ("llama-3.2-vision-11b", {"paged": False, "sentinels": False}),
+    # the paged MoE tick routes the whole pool as one GShard group in slot
+    # order, so its shards tick in lockstep; with one slot a device both
+    # engines place every request in the same slot, so their groups match
+    # (at four slots placement reorders the group, as in the reference); on
+    # the streamed read, the JAX engine's CPU default
+    "moe-paged": (MOE, {"block_size": 8, "num_slots": 2}),
 }
 # a device indexes its own copy of a prompt it served, so with the prefix
 # cache the index's occupancy is per device
@@ -285,20 +295,30 @@ PER_DEVICE_COPIES = {"prefix_cached_blocks", "prefix_inserts", "peak_blocks_in_u
                      "block_utilization"}
 
 
+@pytest.fixture
+def read_path():
+    """Set ``FORCE_PAGED_READ`` for a test; restored after."""
+    yield lambda path: setattr(t_attn, "FORCE_PAGED_READ", path)
+    t_attn.FORCE_PAGED_READ = None
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_two_shards_serve_the_one_device_and_jax_runs(case):
+def test_two_shards_serve_the_one_device_and_jax_runs(case, read_path):
     arch, kw = CASES[case]
     jmodel, jparams, model, master = pair(arch)
     jreqs = (_shared_prefix if "prefix" in case else _mixed)(jmodel.cfg.vocab)
     for r in jreqs:
         r.extras = _modality(jmodel.cfg, 300 + r.id)
     reqs = to_port(jreqs)
-    common = dict(num_slots=4, max_seq=max(r.prompt_len + r.max_new_tokens for r in reqs),
-                  **kw)
+    common = {"num_slots": 4, "max_seq": max(r.prompt_len + r.max_new_tokens for r in reqs),
+              **kw}
     jeng = jax_engine(jmodel, jparams, **common)
     jcomps = jeng.run(jreqs)
+    if case == "moe-paged":
+        read_path("streamed")
     engines = [ContinuousEngine(model, master, cfg=ServeConfig(), chunk=CHUNK, device="cpu",
                                 devices=d, **common) for d in (1, 2)]
+    assert [eng.lockstep for eng in engines] == [False, case == "moe-paged"]
     worst = _lockstep(engines, reqs)
     assert worst <= TOL, f"held logits part by {worst}"
     one, two = engines
@@ -311,7 +331,7 @@ def test_two_shards_serve_the_one_device_and_jax_runs(case):
     assert [tuple(int(x) if isinstance(x, (int, np.integer)) else x for x in e)
             for e in jeng.event_log] == one.event_log
     m1, m2, mj = one.metrics(), two.metrics(), jeng.metrics()
-    assert (m2["num_devices"], m2["per_device_slots"]) == (2, 2)
+    assert (m2["num_devices"], m2["per_device_slots"]) == (2, common["num_slots"] // 2)
     assert sum(m2["device_admits"]) == len(reqs) and 0.0 < m2["shard_balance"] <= 1.0
     shared = (set(m1) & set(mj)) - OWN
     assert {k: m1[k] for k in shared} == {k: mj[k] for k in shared}
@@ -323,6 +343,22 @@ def test_two_shards_serve_the_one_device_and_jax_runs(case):
         assert two.pool.blocks_in_use == two.pool.cached_blocks  # drained on both shards
     if "prefix" in case:
         assert m2["prefix_hit_requests"] > 0 and two.request_prefix_hits
+    if case == "moe-paged":
+        # the kernel read: the reference's MoE pin against the static oracle
+        # (tests/test_torch_moe.py), at two shards
+        read_path(None)
+        kern = ContinuousEngine(model, master, cfg=ServeConfig(), chunk=CHUNK, device="cpu",
+                                devices=2, **common)
+        comps = kern.run(reqs)
+        assert kern.read_path == "kernel" and kern.lockstep
+        oracle = static_reference(model, model.prepare(master, "cpu"), reqs, ServeConfig())
+        fracs = []
+        for c in comps:
+            want_seq, got_seq = oracle[c.request_id].tolist(), c.tokens.tolist()
+            lcp = next((i for i, (a, b) in enumerate(zip(got_seq, want_seq)) if a != b),
+                       len(want_seq))
+            fracs.append(lcp / len(want_seq))
+        assert min(fracs) >= 0.5 and float(np.mean(fracs)) >= 0.7, fracs
 
 
 def _dense_engine(devices=2, **kw):
@@ -450,11 +486,76 @@ def test_devices_flag_parses_both_forms_and_never_falls_back_to_the_cpu():
             launch_serve.main(["--smoke", "--continuous", "--devices", "2"])
 
 
-def test_moe_refused_under_devices():
-    _, _, model, master = pair("llama4-scout-17b-a16e")
-    with pytest.raises(NotImplementedError, match="8b"):
-        ContinuousEngine(model, master, num_slots=2, max_seq=32, chunk=CHUNK, device="cpu",
-                         devices=2)
+def test_moe_shards_tick_in_lockstep_and_a_failing_shard_raises(monkeypatch):
+    """A paged MoE engine over two shards ticks them in lockstep, eagerly
+    (no graph runner); a MoE slab engine, whose slots route alone, ticks
+    them one by one.  A shard whose tick raises breaks the other's wait,
+    and its own error comes out of ``step``."""
+    _, _, model, master = pair(MOE)
+    paged = ContinuousEngine(model, master, num_slots=2, max_seq=32, chunk=CHUNK,
+                             device="cpu", devices=2, block_size=8)
+    slab = ContinuousEngine(model, master, num_slots=2, max_seq=32, chunk=CHUNK,
+                            device="cpu", devices=2, paged=False, sentinels=False)
+    assert paged.lockstep and not slab.lockstep
+    assert all(sh._graphs is None for sh in paged.shards)
+    req = to_port([JaxRequest(id=0, tokens=prompt(model.cfg.vocab, 6, 900), max_new_tokens=2)])
+    assert [c.new_tokens.tolist() for c in slab.run(req)] == [
+        c.new_tokens.tolist() for c in ContinuousEngine(
+            model, master, num_slots=2, max_seq=32, chunk=CHUNK, device="cpu",
+            paged=False, sentinels=False).run(req)]
+    real = type(paged.shards[1])._tick
+
+    def broken(self, *args):
+        if self.index == 1:
+            raise RuntimeError("shard 1 lost")
+        return real(self, *args)
+
+    monkeypatch.setattr(type(paged.shards[1]), "_tick", broken)
+    paged.submit(req[0])
+    with pytest.raises(RuntimeError, match="shard 1 lost"):
+        paged.step()
+
+
+def test_tick_exchange_in_lockstep_under_thread_stress(monkeypatch):
+    """More shards than cores, a short switch interval, several MoE layers
+    in a row: every shard's rows of each layer equal one device's
+    ``apply_moe`` over the whole tick, bit for bit (the exchange hands
+    every shard the right concatenation, and no layer's hand-in overwrites
+    a part another shard still reads)."""
+    import os
+    import sys
+    import threading
+
+    from repro_torch.models import moe
+
+    _, _, model, master = pair(MOE)
+    cfg, p = model.cfg, model.prepare(master, "cpu")["layers"][0]["mlp"]
+    shards, rows, layers = max(2 * (os.cpu_count() or 1), 16), 1, 2
+    gen = torch.Generator().manual_seed(5)
+    xs = [torch.randn(shards * rows, CHUNK, cfg.d_model, generator=gen) for _ in range(layers)]
+    want = [moe.apply_moe(cfg, p, x)[0] for x in xs]
+    monkeypatch.setattr(moe, "BARRIER_TIMEOUT", 60.0)
+    exchange, got = moe.TickExchange(shards), {}
+
+    def shard(d):
+        with exchange.shard(d):
+            for i, x in enumerate(xs):
+                got[d, i] = moe.apply_moe(cfg, p, x[d * rows:(d + 1) * rows])[0]
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=shard, args=(d,)) for d in range(shards)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(t.is_alive() for t in threads)
+    for (d, i), y in got.items():
+        assert torch.equal(y, want[i][d * rows:(d + 1) * rows]), (d, i)
+    assert len(got) == shards * layers
 
 
 def test_make_slot_mesh():

@@ -24,6 +24,7 @@ from repro.serve.engine import static_reference as jax_static_reference
 from repro.serve.scheduler import Request as JaxRequest
 from repro_torch.serve.engine import ContinuousEngine, ServeConfig
 from repro_torch.serve.kv_cache import SlotKVPool
+from repro_torch.serve.scheduler import Request
 
 from _torch_parity import (FAMILIES, assert_same, jax_engine, pair, port_engine, prompt, run,
                            set_policy, to_port)
@@ -139,13 +140,22 @@ def test_slab_refusals_as_the_reference(kw, err):
 
 
 def test_windowed_model_picks_the_slab_and_devices_stay_refused():
+    """The windowed MoE model picks the slab pool, at one device and over
+    shards (which once refused it): a slab tick routes each slot alone, so
+    its shards tick apart, not in lockstep, each over its own rings, and
+    serve one device's tokens (a prompt past the window of 8 wraps them)."""
     _, _, model, master = pair("mixtral-8x22b")
     eng = ContinuousEngine(model, master, num_slots=2, max_seq=32, chunk=4, device="cpu")
     assert not eng.paged and eng.metrics()["read_path"] == "slab" and not eng.sentinels
     assert eng.pool.caches[0]["k"].shape[2] == model.cfg.sliding_window  # the ring
-    with pytest.raises(NotImplementedError):
-        ContinuousEngine(model, master, num_slots=2, max_seq=32, chunk=4, device="cpu",
-                         devices=2)
+    two = ContinuousEngine(model, master, num_slots=2, max_seq=32, chunk=4, device="cpu",
+                           devices=2)
+    assert not two.paged and not two.lockstep and len(two.pool.caches) == 2
+    assert all(c["k"].shape[2] == model.cfg.sliding_window for c in two.pool.caches)
+    reqs = [Request(id=i, tokens=prompt(256, n, 960 + i), max_new_tokens=4)
+            for i, n in enumerate((11, 6))]
+    assert ({c.request_id: c.new_tokens.tolist() for c in two.run(reqs)}
+            == {c.request_id: c.new_tokens.tolist() for c in eng.run(reqs)})
 
 
 def test_prefill_chunk_streams_a_prompt_as_the_reference():

@@ -47,6 +47,7 @@ from repro.serve.engine import generate as jax_generate
 from repro.serve.scheduler import Request as JaxRequest
 from repro_torch.benchmarks import (common, fig5_norm_error, norm_error_study,
                                     table1_accuracy, table2_score_tasks, table3_hw_cost)
+from repro_torch.checkpoint import store
 from repro_torch.configs.registry import get_config, reduce_config
 from repro_torch.convert import params_from_numpy
 from repro_torch.data import synthetic
@@ -186,16 +187,32 @@ def test_continuous_engine_matches_jax(pair, sentinels):
 
 # ------------------------------------------------------------------ tables --
 @pytest.fixture(scope="module")
-def tiny_root(tmp_path_factory):
-    """One 3-step training of the tiny backbone, shared by the tables."""
+def tiny_run(tmp_path_factory):
+    """One 3-step training of the tiny backbone, shared by the tables: the
+    first Table I run, which trains it (its root and rows)."""
     root = tmp_path_factory.mktemp("tables")
-    common.train_tiny(3, device="cpu", root=root)
-    return root
+    return root, table1_accuracy.run(steps=3, device="cpu", root=root)
 
 
-def test_table1_and_table2_smoke(tiny_root):
+@pytest.fixture(scope="module")
+def tiny_root(tiny_run):
+    return tiny_run[0]
+
+
+def test_table1_and_table2_smoke(tiny_run):
+    """Table I trains once and caches the checkpoint: a second run loads it
+    (no training, the same FP32 row); Table II on the same checkpoint."""
+    tiny_root, first = tiny_run
+    assert set(table1_accuracy.ROWS) <= set(first) and first["train_seconds"] > 0
+    base = first["FP32"]
+    assert base["ppl_delta_%"] == 0.0 == base["acc_delta_%"]
+    for label in table1_accuracy.ROWS:
+        assert np.isfinite(first[label]["perplexity"]) and 0 <= first[label]["top1_acc"] <= 1
+    assert store.latest_step(tiny_root / "tiny_lm") == 3
+    assert common.tiny_cfg().softmax_impl == "exact" and common.tiny_cfg().d_model == 128
     t1 = table1_accuracy.run(steps=3, device="cpu", root=tiny_root)
     assert t1["train_seconds"] == 0.0  # the shared checkpoint, not a second training
+    assert t1["FP32"] == first["FP32"]
     assert set(table1_accuracy.ROWS) == {"FP32", "FP32+Ours", "FP32+Ours(hwsim)"}
     assert table1_accuracy.ROWS["FP32+Ours(hwsim)"] == ("gn_hwsim", "gn_ln_hwsim")
     t2 = table2_score_tasks.run(steps=3, device="cpu", root=tiny_root)

@@ -1,6 +1,7 @@
 """The port's accuracy path on the CPU against the JAX package, at f32: the
 differentiable GN kernels, the loss, one training step, AdamW, the exact
-baseline, the training launcher and the Table I analogue.
+baseline and the training launcher (the Table I analogue's smoke is in
+``test_torch_tables.py``, on the tables' shared training).
 
 Same numpy weights (``convert.py``) and the same numpy batch on both sides.
 Tolerances, with what was measured when they were set:
@@ -43,7 +44,6 @@ from repro.serve.engine import generate as jax_generate
 from repro.serve.scheduler import Request as JaxRequest
 from repro.train import optimizer as jax_opt
 from repro.train.loop import make_train_step as jax_make_train_step
-from repro_torch.benchmarks import common, table1_accuracy
 from repro_torch.checkpoint import store
 from repro_torch.configs.registry import get_config, reduce_config
 from repro_torch.convert import params_from_numpy
@@ -340,8 +340,9 @@ def test_refusals_past_2048_and_of_other_impls():
     softermax = make_model(dataclasses.replace(cfg, softmax_impl="softermax"))
     assert bool(torch.isfinite(softermax.forward(params, short)).all())
     assert softermax.paged_read_path == "gathered"
-    with pytest.raises(NotImplementedError, match="Queue A 8"):
-        train_launch.main(["--smoke", "--device", "cpu", "--mesh", "2x2"])
+    # --mesh trains over gloo ranks (test_torch_mesh.py); a malformed one raises
+    with pytest.raises(ValueError, match="DATAxMODEL"):
+        train_launch.main(["--smoke", "--device", "cpu", "--mesh", "2by2"])
     # --seq past 2048 is no longer refused: it trains (test_torch_chunked.py
     # runs the launcher past 2048 and holds a step to jax.grad)
 
@@ -392,19 +393,3 @@ def test_serve_restores_a_training_checkpoint(tmp_path, capsys):
                              "--continuous", "--requests", "2", "--new-tokens", "2",
                              "--dtype", "float32"])
     assert "token-identical to static path: 2/2" in capsys.readouterr().out
-
-
-def test_table1_smoke(tmp_path):
-    """Three training steps of the tiny backbone, both rows evaluated, the
-    checkpoint cached: a second run loads it instead of training."""
-    out = table1_accuracy.run(steps=3, device="cpu", root=tmp_path)
-    assert set(table1_accuracy.ROWS) <= set(out) and out["train_seconds"] > 0
-    base = out["FP32"]
-    assert base["ppl_delta_%"] == 0.0 == base["acc_delta_%"]
-    for label in table1_accuracy.ROWS:
-        assert np.isfinite(out[label]["perplexity"]) and 0 <= out[label]["top1_acc"] <= 1
-    assert (tmp_path / "results" / "table1_accuracy.json").exists()
-    assert store.latest_step(tmp_path / "tiny_lm") == 3
-    again = table1_accuracy.run(steps=3, device="cpu", root=tmp_path)
-    assert again["train_seconds"] == 0.0 and again["FP32"] == out["FP32"]
-    assert common.tiny_cfg().softmax_impl == "exact" and common.tiny_cfg().d_model == 128
