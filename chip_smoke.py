@@ -153,7 +153,11 @@ Phases, each fatal on failure (exit code 1):
                bitwise, bytes and seconds of both; 8 requests served through
                ContinuousEngine from the restored (params,), sentinels
                silent; ``launch.train --smoke --steps 3`` and ``launch.serve
-               --smoke --ckpt`` as subprocesses on the card;
+               --smoke --ckpt`` as subprocesses on the card; every launcher
+               subprocess of the script starts here, in chains that run
+               side by side (``LAUNCH_CHAINS``: train then serve, the cut
+               run then its resume, phase 21's and phase 23's), and phases
+               21 and 23 gate theirs where they stand;
  13. table1  - the Table I analogue: the tiny gpt-neo trained TABLE1_STEPS
                steps with exact ops, evaluated under exact, GN and the
                bit-accurate hwsim ops (the GN row through the kernels, its
@@ -275,9 +279,11 @@ Phases, each fatal on failure (exit code 1):
                ``perplexity`` (launches exact); (c) training at TRAIN_LONG
                (full depth; the straight-through backward, no softmax
                launch past 2048; step ms, tokens/s, peak memory) and
-               ``launch.train --smoke --seq 4096`` as a subprocess; (d) at 2
-               layers f32 card = CPU: prefill logits (GN and exact) and the
-               flash kernel's straight-through gradients.
+               ``launch.train --smoke --seq 4096`` as a subprocess (started
+               in phase 12); (d) at 2 layers f32 card = CPU: prefill logits
+               (GN and exact) and the flash kernel's straight-through
+               gradients, the card's half first and the CPU's in a thread
+               beside (a)-(c).
  22. cross   - whisper-large-v3 and llama-3.2-vision-11b at full width cut
                to a sixteenth and an eighth of their depth (XATTN_DEPTH:
                whisper 2 + 2 of 32 + 32 layers, the VLM 5 of 40 in 1 block;
@@ -319,7 +325,7 @@ Phases, each fatal on failure (exit code 1):
                layers: AdamW's f32 state of 6.75e9 parameters does not fit;
                launches exact, losses finite, the trained forward causal),
                and ``launch.train --arch xlstm-350m --smoke`` as a
-               subprocess.
+               subprocess (started in phase 12).
  24. audit   - run right after phase 6, on its engine and phase 4's (nothing
                is built; both dropped after): ``repro_torch.analysis``'s
                audit (``[audit]``): the trace keys against the captures, and
@@ -372,7 +378,11 @@ Phases, each fatal on failure (exit code 1):
                reported); every request one device's tokens where no
                difference came (gated); the kernel read's whole sequences
                keep the reference's MoE pin against ``static_reference``
-               (gated); each engine's tick ms reported.
+               (gated); each engine's tick ms reported; one device's
+               kernel-read and streamed-read engines share every token up to
+               their first parting, and there each slot whose greedy pick
+               differs holds logits within MOE_RTOL of the other read's (a
+               near-tie, ``reads_apart``; gated).
  26. sharded-train - (``[sharded-train]``) phase 11's full-width training
                (its weights, batch, optimizer and microbatches) under an NCCL
                group of one rank on a (1, 1) (data, model) mesh, every leaf a
@@ -383,7 +393,23 @@ Phases, each fatal on failure (exit code 1):
                after a step on the mesh, ``restore_sharded`` and a second
                step equal to the unsharded second step within 1e-5 (gated); where the machine has n >= 2 cards also (1, n)
                and (n, 1) meshes, one NCCL rank a card (losses finite and
-               falling, gated; the gap to phase 11's reported).
+               falling, gated; the gap to phase 11's reported); the (1, 1)
+               run's parameter, AdamW state and batch bytes and its peak
+               allocation above what was there before (phase 27 reads them).
+ 27. dryrun  - (``[dryrun]``) ``launch.dryrun`` on the card's torch, over
+               fake tensors of device cuda (nothing allocated, nothing
+               launched): (a) DRYRUN_CELLS (internlm2-1.8b train_4k,
+               prefill_32k and decode_32k on pod16x16 and train_4k on
+               pod2x16x16; llama4-scout train_4k; zamba2-7b long_500k under
+               SP_OVERRIDES; minicpm3-4b decode_32k, MLA through
+               ``local_mixer``) at DRYRUN_DEPTH layers: every cell ok and the
+               launch and plain-version counters unmoved (gated); each
+               cell's seconds, memory, collective bytes by kind and
+               roofline; (b) the dry run of phase 26's own step (its config,
+               batch, optimizer and microbatches on a (1, 1) mesh): argument
+               bytes equal to phase 26's exactly, no collective bytes, and
+               argument + temp within DRYRUN_MEM_RTOL of phase 26's peak
+               (gated); its roofline terms beside phase 26's step ms.
 Every bound in the script is the roofline module's (``roofline.analysis``,
 one copy of the H100 peaks) over a kernel wrapper's ``work()``.
 Phases 4-10 and 15-18 serve with the GN sentinels on, the engine's default:
@@ -395,6 +421,7 @@ Usage: python3 chip_smoke.py   (needs one CUDA GPU and nvcc)
 """
 from __future__ import annotations
 
+import concurrent.futures
 import dataclasses
 import functools
 import gc
@@ -2772,6 +2799,68 @@ def phase_train() -> dict:
 
 
 # ----------------------------------------------------------------- phase 12 --
+def run_launcher(argv: list) -> dict:
+    """``python -m <argv>`` from the repo root as a user runs it: its exit
+    code, seconds, output and last line."""
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    env.pop("REPRO_FAIL_AT_STEP", None)
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", *argv], env=env, cwd=ROOT, timeout=300,
+                         capture_output=True, text=True)
+    return {"rc": run.returncode, "seconds": time.perf_counter() - t0, "stdout": run.stdout,
+            "stderr": run.stderr, "last_line": (run.stdout.strip().splitlines() or [""])[-1]}
+
+
+def _chain(steps: list) -> dict:
+    return {name: run_launcher(argv) for name, argv in steps}
+
+
+# the launcher subprocesses of phases 12, 21 and 23, as chains that run in
+# order within themselves (a serve reads its train's checkpoint, a resume its
+# cut run's) and side by side across themselves: name -> its steps under a
+# run directory
+_TRAIN = ["repro_torch.launch.train", "--smoke", "--steps", "3"]
+LAUNCH_CHAINS = {
+    "ckpt": lambda d: [("train", _TRAIN + ["--outdir", str(d / "smoke")]),
+                       ("serve", ["repro_torch.launch.serve", "--smoke", "--ckpt",
+                                  str(d / "smoke" / "ckpt"), "--batches", "1"])],
+    "ckpt-resume": lambda d: [
+        ("train_fail_at_2", _TRAIN + ["--checkpoint-every", "1", "--outdir", str(d / "cut"),
+                                      "--fail-at", "2"]),
+        ("train_resume", _TRAIN + ["--checkpoint-every", "1", "--outdir", str(d / "cut")])],
+    "train-long": lambda d: [("train-long", [
+        "repro_torch.launch.train", "--smoke", "--seq", str(TRAIN_LONG[1]), "--batch", "1",
+        "--steps", "2", "--outdir", str(d / "train-long")])],
+    "ssm-train": lambda d: [("ssm-train", [
+        "repro_torch.launch.train", "--arch", "xlstm-350m", "--smoke", "--steps", "3",
+        "--outdir", str(d / "ssm-train")])],
+}
+_LAUNCHED: dict = {}
+_POOL = concurrent.futures.ThreadPoolExecutor(max_workers=len(LAUNCH_CHAINS))
+
+
+def launched(name: str, root: Path | None = None) -> None:
+    """Start the launcher chain ``name`` under ``root`` (a temporary
+    directory of its own by default, removed when ``launch_result`` reads
+    the chain), unless it already runs."""
+    if name not in _LAUNCHED:
+        own = root is None
+        root = root or Path(tempfile.mkdtemp(prefix=f"chip_smoke_{name}_"))
+        _LAUNCHED[name] = (_POOL.submit(_chain, LAUNCH_CHAINS[name](root)), root if own else None)
+
+
+def launch_result(name: str) -> dict:
+    """The runs of the launcher chain ``name`` by launcher name, started now
+    if it was not (waits for it to end)."""
+    launched(name)
+    future, own_root = _LAUNCHED[name]
+    try:
+        return future.result()
+    finally:
+        if own_root is not None:
+            shutil.rmtree(own_root, ignore_errors=True)
+
+
 def phase_ckpt() -> dict:
     """Train the full widths cut to 2 layers for 3 steps (Adam moments held
     in bf16), save (params, opt_state), restore it, every leaf bitwise; serve
@@ -2816,29 +2905,26 @@ def phase_ckpt() -> dict:
                                   device=DEV)
         _, served_launches, serve_s = first_run("ckpt-serve", engine, reqs)
         del engine
-        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-        env.pop("REPRO_FAIL_AT_STEP", None)
-        launchers = {}
-        train = ["repro_torch.launch.train", "--smoke", "--steps", "3"]
-        cut = train + ["--checkpoint-every", "1", "--outdir", str(tmp / "cut")]
-        for name, argv, want_rc in (
-                ("train", train + ["--outdir", str(tmp / "smoke")], 0),
-                ("serve", ["repro_torch.launch.serve", "--smoke", "--ckpt",
-                           str(tmp / "smoke" / "ckpt"), "--batches", "1"], 0),
-                ("train_fail_at_2", cut + ["--fail-at", "2"], 42),
-                ("train_resume", cut, 0)):
-            t0 = time.perf_counter()
-            run = subprocess.run([sys.executable, "-m", *argv], env=env, cwd=ROOT, timeout=300,
-                                 capture_output=True, text=True)
-            launchers[name] = {"rc": run.returncode, "seconds": time.perf_counter() - t0,
-                               "last_line": (run.stdout.strip().splitlines() or [""])[-1]}
-            if run.returncode != want_rc:
-                fail(f"ckpt: launch {name} exited {run.returncode}:\n{run.stdout[-2000:]}\n"
-                     f"{run.stderr[-2000:]}")
-            if name == "serve" and "restored checkpoint step 3" not in run.stdout:
-                fail(f"ckpt: launch.serve did not restore the checkpoint:\n{run.stdout[-2000:]}")
-            if name == "train_resume" and "[resume] from checkpoint step 2" not in run.stdout:
-                fail(f"ckpt: the rerun did not resume from step 2:\n{run.stdout[-2000:]}")
+        # every launcher chain of the script at once (phases 21 and 23 read
+        # theirs later); this phase waits for its own two
+        t0 = time.perf_counter()
+        for name in LAUNCH_CHAINS:
+            launched(name, tmp if name.startswith("ckpt") else None)
+        runs = {**launch_result("ckpt"), **launch_result("ckpt-resume")}
+        launchers = {name: {k: run[k] for k in ("rc", "seconds", "last_line")}
+                     for name, run in runs.items()}
+        launchers["wall_seconds"] = time.perf_counter() - t0
+        for name, want_rc in (("train", 0), ("serve", 0), ("train_fail_at_2", 42),
+                              ("train_resume", 0)):
+            run = runs[name]
+            if run["rc"] != want_rc:
+                fail(f"ckpt: launch {name} exited {run['rc']}:\n{run['stdout'][-2000:]}\n"
+                     f"{run['stderr'][-2000:]}")
+            if name == "serve" and "restored checkpoint step 3" not in run["stdout"]:
+                fail(f"ckpt: launch.serve did not restore the checkpoint:\n"
+                     f"{run['stdout'][-2000:]}")
+            if name == "train_resume" and "[resume] from checkpoint step 2" not in run["stdout"]:
+                fail(f"ckpt: the rerun did not resume from step 2:\n{run['stdout'][-2000:]}")
         whole, _ = store.restore_flat(tmp / "smoke" / "ckpt", 3)
         resumed, _ = store.restore_flat(tmp / "cut" / "ckpt", 3)
         gaps = {k: (whole[k].double() - resumed[k].double()).abs().max().item() for k in whole}
@@ -4339,7 +4425,7 @@ def mla_long() -> dict:
     return {**res, "launches": add_launches(launches, ppl_launches)}
 
 
-def train_long(root: Path) -> dict:
+def train_long() -> dict:
     """Phase 21 (c): full-width, full-depth internlm2-1.8b trained at
     TRAIN_LONG: bf16 compute over f32 masters, the flash kernel's
     straight-through backward past 2048; launches exact (no softmax in the
@@ -4372,66 +4458,84 @@ def train_long(root: Path) -> dict:
     release()
     if launches != want or any(counters.plain_cuda_calls().values()):
         fail(f"train-long: launches {launches} != {want}, or plain versions on the card")
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--smoke",
-                           "--seq", str(s), "--batch", "1", "--steps", "2", "--outdir",
-                           str(root / "train-long")],
-                          capture_output=True, text=True, timeout=300,
-                          env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
-    res["launcher"] = {"rc": proc.returncode, "seconds": time.perf_counter() - t0,
-                       "last_line": proc.stdout.strip().splitlines()[-1:]}
+    # started with phase 12's launchers (``launched``)
+    run = launch_result("train-long")["train-long"]
+    res["launcher"] = {"rc": run["rc"], "seconds": run["seconds"], "last_line": run["last_line"]}
     print(f"[train-long] {json.dumps(res)}")
-    if proc.returncode:
-        fail(f"train-long: launch.train --seq {s} exited {proc.returncode}: {proc.stderr[-2000:]}")
+    if run["rc"]:
+        fail(f"train-long: launch.train --seq {s} exited {run['rc']}: {run['stderr'][-2000:]}")
     return res
 
 
-def long_small() -> dict:
-    """Phase 21 (d): internlm2-1.8b cut to 2 layers at f32 (full widths),
-    the prefill over 1 x LONG_SMALL tokens on the card against the CPU's:
-    exact (the chunked stream on both sides) and GN (the flash kernel on
-    the card, its plain one-pass version on the CPU).  Gated as phase 2
-    gates the kernel against its plain version: the positions whose logits
-    part by more than LOGITS_ATOL_F32 at most FLIP_ROWS of all (a Δ-grid
-    flip on a score row moves that position's logits), none past
-    LOGITS_ATOL_BF16, and the next token equal unless the CPU's top two
-    logits lie within twice the measured gap (a near tie, reported); the GN
-    flash kernel's straight-through gradients at (1, 16, 8, LONG_SMALL,
-    128) on the card against the CPU's (plain forward, the same backward)
-    within GRAD_REL["attention_float32"] relative L2 (gated)."""
-    res, ok = {}, True
+def long_small_card() -> tuple:
+    """Phase 21 (d), its card half, run first so that its CPU half
+    (``long_small_cpu``) runs beside phase 21's card stages: internlm2-1.8b
+    cut to 2 layers at f32 (full widths), the prefill over 1 x LONG_SMALL
+    tokens on the card, exact (the chunked stream) and GN (the flash
+    kernel); the GN flash kernel's straight-through gradients at (1, 16, 8,
+    LONG_SMALL, 128).  Returns (the card's logits and gradients, the CPU
+    half's inputs: each impl's model, CPU masters and tokens, and the
+    attention inputs on the CPU)."""
+    card, cpu_in = {}, {}
     for impl in ("gn", "exact"):
         small = make_model(dataclasses.replace(get_config(ARCH), n_layers=2, dtype="float32",
                                                softmax_impl=impl))
         master = small.init(SEED, DEV)
         data = DataConfig(vocab=small.cfg.vocab, seq_len=LONG_SMALL, global_batch=1, seed=SEED)
         toks = torch.as_tensor(batch_at(data, 0)["tokens"])
-        card = small.prefill(small.prepare(master, DEV), {"tokens": toks.to(DEV)})[0][0].cpu()
-        cpu_master = tree_map(lambda t: t.cpu(), master)
+        card[impl] = small.prefill(small.prepare(master, DEV), {"tokens": toks.to(DEV)})[0][0].cpu()
+        cpu_in[impl] = (small, tree_map(lambda t: t.cpu(), master), toks)
         del master
         release()
-        cpu = small.prefill(small.prepare(cpu_master, "cpu"), {"tokens": toks})[0][0]
-        row_err = (card - cpu).abs().amax(dim=-1)
+    gen = torch.Generator(device=DEV).manual_seed(SEED)
+    q, k, v = fa_inputs((1, 16, 8, LONG_SMALL, LONG_SMALL, 128), torch.float32, gen)
+    w = torch.randn(q.shape, generator=gen, device=DEV)
+    card["grads"] = st_grads(q, k, v, w, DEV)
+    cpu_in["attention"] = [t.cpu() for t in (q, k, v, w)]
+    return card, cpu_in
+
+
+def st_grads(q, k, v, w, dev) -> list:
+    """The GN flash attention's straight-through gradients of sum(out * w)
+    (causal) with respect to q, k and v, computed on ``dev``, on the CPU."""
+    ts = [t.detach().to(dev).requires_grad_(True) for t in (q, k, v)]
+    (fa_ops.gn_attention(*ts, causal=True) * w.to(dev)).sum().backward()
+    return [t.grad.cpu() for t in ts]
+
+
+def long_small_cpu(cpu_in: dict) -> dict:
+    """Phase 21 (d), its CPU half: the same prefills and gradients on the
+    CPU (the plain one-pass GN version, the chunked exact stream)."""
+    out = {}
+    for impl in ("gn", "exact"):
+        small, cpu_master, toks = cpu_in[impl]
+        out[impl] = small.prefill(small.prepare(cpu_master, "cpu"), {"tokens": toks})[0][0]
+    out["grads"] = st_grads(*cpu_in["attention"], "cpu")
+    return out
+
+
+def long_small(card: dict, cpu: dict) -> dict:
+    """Phase 21 (d): the card's 2-layer f32 prefills and gradients
+    (``long_small_card``) against the CPU's (``long_small_cpu``).  Gated as
+    phase 2 gates the kernel against its plain version: the positions whose
+    logits part by more than LOGITS_ATOL_F32 at most FLIP_ROWS of all (a
+    Δ-grid flip on a score row moves that position's logits), none past
+    LOGITS_ATOL_BF16, and the next token equal unless the CPU's top two
+    logits lie within twice the measured gap (a near tie, reported); the
+    gradients within GRAD_REL["attention_float32"] relative L2 (gated)."""
+    res, ok = {}, True
+    for impl in ("gn", "exact"):
+        row_err = (card[impl] - cpu[impl]).abs().amax(dim=-1)
         err = row_err.max().item()
         past = (row_err > LOGITS_ATOL_F32).float().mean().item()
-        top2 = cpu[-1].topk(2).values
+        top2 = cpu[impl][-1].topk(2).values
         margin = (top2[0] - top2[1]).item()
-        same = int(card[-1].argmax()) == int(cpu[-1].argmax())
+        same = int(card[impl][-1].argmax()) == int(cpu[impl][-1].argmax())
         res[impl] = {"max_abs_err": err, "rows_past_atol": past, "last_row_err": row_err[-1].item(),
                      "next_token_equal": same, "cpu_top2_margin": margin}
         ok &= (past <= FLIP_ROWS and err <= LOGITS_ATOL_BF16
                and (same or margin <= 2 * row_err[-1].item()))
-        del card, cpu
-    gen = torch.Generator(device=DEV).manual_seed(SEED)
-    q, k, v = fa_inputs((1, 16, 8, LONG_SMALL, LONG_SMALL, 128), torch.float32, gen)
-    w = torch.randn(q.shape, generator=gen, device=DEV)
-
-    def grads(dev):
-        ts = [t.detach().to(dev).requires_grad_(True) for t in (q, k, v)]
-        (fa_ops.gn_attention(*ts, causal=True) * w.to(dev)).sum().backward()
-        return [t.grad.cpu() for t in ts]
-
-    errs = [rel_l2(a, b) for a, b in zip(grads(DEV), grads("cpu"))]
+    errs = [rel_l2(a, b) for a, b in zip(card["grads"], cpu["grads"])]
     res["ste_grad_rel_l2"] = errs
     print(f"[long-2l-f32] {json.dumps(res)}")
     if not ok or max(errs) > GRAD_REL["attention_float32"]:
@@ -4440,23 +4544,26 @@ def long_small() -> dict:
 
 
 def phase_long_chunked() -> dict:
-    """Phase 21 (module docstring)."""
-    root = Path(tempfile.mkdtemp(prefix="chip_smoke_long_"))
+    """Phase 21 (module docstring).  The 2-layer f32 gate's CPU half runs in
+    a thread beside the card stages (exact, MLA, training)."""
     t0, stages = time.perf_counter(), {}
-    try:
+    card, cpu_in = long_small_card()
+    stages["small_f32_card"] = time.perf_counter() - t0
+    with concurrent.futures.ThreadPoolExecutor(max_workers=1) as pool:
+        cpu = pool.submit(long_small_cpu, cpu_in)
+        del cpu_in
+        t0 = time.perf_counter()
         exact = exact_long()
         stages["exact"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         mla = mla_long()
         stages["mla"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        train = train_long(root)
+        train = train_long()
         stages["train"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        small = long_small()
-        stages["small_f32"] = time.perf_counter() - t0
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+        small = long_small(card, cpu.result())
+        stages["small_f32_wait"] = time.perf_counter() - t0
     print(f"[long-chunked-stages] {json.dumps(stages)}")
     return {"exact": exact, "mla": mla, "train": train, "small_f32": small,
             "stage_seconds": stages,
@@ -4781,19 +4888,13 @@ def phase_ssm() -> dict:
         for label, arch in zip(("xlstm", "zamba2"), SSM_ARCHS):
             out[label] = ssm_family(label, arch, root)
             release()
-        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
-        env.pop("REPRO_FAIL_AT_STEP", None)
-        t0 = time.perf_counter()
-        run = subprocess.run([sys.executable, "-m", "repro_torch.launch.train", "--arch",
-                              SSM_ARCHS[0], "--smoke", "--steps", "3", "--outdir",
-                              str(root / "train")], env=env, cwd=ROOT, timeout=300,
-                             capture_output=True, text=True)
-        out["train_launcher"] = {"rc": run.returncode, "seconds": time.perf_counter() - t0,
-                                 "last_line": (run.stdout.strip().splitlines() or [""])[-1]}
+        # started with phase 12's launchers (``launched``)
+        run = launch_result("ssm-train")["ssm-train"]
+        out["train_launcher"] = {k: run[k] for k in ("rc", "seconds", "last_line")}
         print(f"[ssm-train-launcher] {json.dumps(out['train_launcher'])}")
-        if run.returncode:
-            fail(f"ssm: launch.train --arch {SSM_ARCHS[0]} exited {run.returncode}:\n"
-                 f"{run.stdout[-2000:]}\n{run.stderr[-2000:]}")
+        if run["rc"]:
+            fail(f"ssm: launch.train --arch {SSM_ARCHS[0]} exited {run['rc']}:\n"
+                 f"{run['stdout'][-2000:]}\n{run['stderr'][-2000:]}")
     finally:
         shutil.rmtree(root, ignore_errors=True)
     return {**out, "launches": {"ssm": out["xlstm"]["launches"],
@@ -5048,7 +5149,7 @@ def moe_in_step(label: str, pairs: dict, reqs) -> dict:
     compared, the largest relative differences, the shards' launches and
     mean tick ms, one device's mean tick ms, both engines' tokens."""
     zero = {k: 0 for k in counters.launch_counts()}
-    res, ticked = {}, {}
+    res, ticked, logs = {}, {}, {name: [] for name in pairs}
     for name, (one, two, _) in pairs.items():
         for engine in (one, two):
             engine.reset()
@@ -5066,11 +5167,13 @@ def moe_in_step(label: str, pairs: dict, reqs) -> dict:
                 st = res[name]
                 with swapped("FORCE_PAGED_READ", read):
                     n0 = len(calls)
+                    held = one.held_logits().float().cpu()
                     if not one.step():
                         going.discard(name)
                         if two.step():
                             fail(f"{label}-moe: {name}: the shards outlast one device")
                         continue
+                    logs[name].append((one.model_ticks, held, _tokens_so_far(one)))
                     mine, lanes = [r[1:] for r in calls[n0:]], ticked[name][0][-1]
                     n0, before = len(calls), counters.launch_counts()
                     two.step()
@@ -5117,6 +5220,7 @@ def moe_in_step(label: str, pairs: dict, reqs) -> dict:
                 if parted:
                     st["event"] = {"kind": "token", "tick": one.model_ticks,
                                    "requests": parted}
+    res["one_device_apart"] = reads_apart(logs)
     for name, (one, two, _) in pairs.items():
         st = res[name]
         want = {c.request_id: c.new_tokens for c in one.completions}
@@ -5142,6 +5246,31 @@ def moe_in_step(label: str, pairs: dict, reqs) -> dict:
             fail(f"{label}-moe: {name}: the shards' tokens part from one device's with no "
                  f"routing or token difference in their ticks: {st['one_device_identical']}")
     return res
+
+
+def reads_apart(logs: dict) -> dict:
+    """One device's kernel-read and streamed-read engines, tick by tick
+    (``moe_in_step``'s logs: each tick's number, the held logits before it,
+    the tokens after it): the first tick at which their tokens part and, at
+    it, each slot whose greedy pick from the held logits differs, with the
+    two rows' largest difference relative to the row's largest |logit| and
+    the row's top-2 gap.  ``near_tie``: no tick parted, or every such
+    slot's rows within MOE_RTOL of each other (a greedy near-tie of logits
+    the two reads computed alike, ROADMAP Expected difference 19); a
+    parting with no such slot, or one past MOE_RTOL, is another cause."""
+    for (t, held_k, tok_k), (_, held_s, tok_s) in zip(logs["kernel"], logs["streamed"]):
+        if tok_k == tok_s:
+            continue
+        flips = []
+        for s in range(held_k.shape[0]):
+            if int(held_k[s].argmax()) != int(held_s[s].argmax()):
+                top2 = held_k[s].topk(2).values
+                flips.append({"slot": s, "top2_gap": float(top2[0] - top2[1]),
+                              "held_rel_diff": float((held_k[s] - held_s[s]).abs().max()
+                                                     / held_k[s].abs().max())})
+        return {"tick": t, "flips": flips,
+                "near_tie": bool(flips) and all(f["held_rel_diff"] <= MOE_RTOL for f in flips)}
+    return {"tick": None, "flips": [], "near_tie": True}
 
 
 def moe_pin(toks: dict, ref: dict) -> list[float]:
@@ -5200,7 +5329,7 @@ def sharded_moe(label: str, device) -> dict:
               for read in ("streamed", "kernel")},
            "one_device_kernel_vs_streamed_new_token_share": common_prefix(
                reads["kernel"]["tokens"][0], reads["streamed"]["tokens"][0]),
-           "kernel_read_oracle_lcp": fracs,
+           "kernel_read_oracle_lcp": fracs, "one_device_reads_apart": reads["one_device_apart"],
            "kernel_read_oracle_new_token_share": common_prefix(
                reads["kernel"]["tokens"][1], {i: t[prompts[i]:] for i, t in oracle.items()}),
            "launches": launches}
@@ -5208,6 +5337,9 @@ def sharded_moe(label: str, device) -> dict:
     if min(fracs) < 0.5 or float(np.mean(fracs)) < 0.7:
         fail(f"{label}-moe: the kernel read misses the reference's MoE pin against the "
              f"static oracle: {res}")
+    if not reads["one_device_apart"]["near_tie"]:
+        fail(f"{label}-moe: one device's kernel-read and streamed-read engines part other than "
+             f"at a greedy near-tie within {MOE_RTOL}: {res['one_device_reads_apart']}")
     if not launches["gn_softmax"] or not reads["kernel"]["launches"]["gn_paged_attention"]:
         fail(f"{label}-moe: the shards' ticks launched no GN kernel: {res}")
     return res
@@ -5311,10 +5443,15 @@ def mesh_steps(shape: tuple, model, steps: int, seed: int = SEED) -> dict:
     from repro_torch.launch.mesh import make_test_mesh
     from repro_torch.parallel.sharding import distribute_params, use_sharding
 
+    from repro_torch.launch.dryrun import local_bytes
+
     opt = step_opt()
     batch = train_batch(model.cfg.vocab)
     step = make_train_step(model, opt, TRAIN_MB)
     losses, ms = [], []
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     with use_sharding(make_test_mesh(shape)):
         params = distribute_params(model, model.init(seed, DEV))
         state = init_opt_state(opt, params)
@@ -5326,9 +5463,14 @@ def mesh_steps(shape: tuple, model, steps: int, seed: int = SEED) -> dict:
             losses.append(float(m["loss"]))
             torch.cuda.synchronize()
             ms.append((time.perf_counter() - t0) * 1e3)
+    # this rank's parameters, AdamW state and batch (the step's arguments),
+    # and the peak of what the run allocated on top of what was there before
+    args = {"params": local_bytes(params), "opt_state": local_bytes(state),
+            "inputs": sum(np.asarray(v).nbytes for v in batch.values())}
     return {"losses": losses, "step_ms": ms, "launches": counters.launch_counts(),
             "plain": counters.plain_cuda_calls(), "tree": (params, state), "step": step,
-            "batch": batch}
+            "batch": batch, "argument_parts": args,
+            "peak_bytes": torch.cuda.max_memory_allocated() - base}
 
 
 def mesh_rank(rank: int, world: int, shape: tuple, want: list) -> dict:
@@ -5367,7 +5509,8 @@ def phase_sharded_train(train: dict, card: str) -> dict:
                    "phase11_losses": train["losses"][:SHARD_TRAIN_STEPS],
                    "max_rel_gap": max(gaps), "first_step_ms": run["step_ms"][0],
                    "step_ms": run["step_ms"][1:], "phase11_step_ms": train["step_ms"],
-                   "launches": run["launches"]}
+                   "launches": run["launches"], "argument_parts": run["argument_parts"],
+                   "peak_bytes": run["peak_bytes"]}
             if run["launches"] != want or any(run["plain"].values()):
                 fail(f"{label}: launches {run['launches']} != {want}, plain {run['plain']}")
             if max(gaps) > SHARD_TRAIN_RTOL:
@@ -5427,6 +5570,87 @@ def mesh_restore(label: str, root: Path) -> dict:
            "rel_gap": abs(restored - losses[1]) / abs(losses[1])}
     if res["rel_gap"] > SHARD_TRAIN_RTOL or man["step"] != 1:
         fail(f"{label}: the restored step parts from the unsharded second step: {res}")
+    return res
+
+
+# ----------------------------------------------------------------- phase 27 --
+# the multi-pod dry run (launch/dryrun.py) on the card's torch over fake
+# tensors of device cuda: (arch, shape, multi_pod) cells, each cut to
+# DRYRUN_DEPTH layers (the script's time limit; a hybrid keeps one shared
+# block's group); phase 26's own step against its measured peak within
+# DRYRUN_MEM_RTOL
+DRYRUN_CELLS = (("internlm2-1.8b", "train_4k", False), ("internlm2-1.8b", "prefill_32k", False),
+                ("internlm2-1.8b", "decode_32k", False), ("internlm2-1.8b", "train_4k", True),
+                ("llama4-scout-17b-a16e", "train_4k", False), ("zamba2-7b", "long_500k", False),
+                ("minicpm3-4b", "decode_32k", False))
+DRYRUN_DEPTH, DRYRUN_MEM_RTOL = 1, 0.15
+
+
+def dryrun_cfg(arch: str):
+    """``arch`` cut to DRYRUN_DEPTH layers (a hybrid to one group of
+    ``attn_every``)."""
+    cfg = get_config(arch)
+    layers = cfg.attn_every if cfg.family == "hybrid" else DRYRUN_DEPTH
+    return dataclasses.replace(cfg, n_layers=layers)
+
+
+def phase_dryrun(sharded_train: dict, card: str) -> dict:
+    """Phase 27 (``[dryrun]``): (a) ``launch.dryrun``'s cells of
+    DRYRUN_CELLS over fake tensors of device cuda on the production meshes:
+    every cell ok, and no kernel launched and no plain version run on the
+    card (the counters do not move; gated); per cell its seconds, memory,
+    collective bytes by kind and roofline terms; (b) the dry run of phase
+    26's own step (its config, batch, optimizer and microbatches on a
+    (1, 1) mesh): its argument bytes equal to phase 26's parameter, AdamW
+    state and batch bytes exactly, no collective bytes, and argument +
+    temp bytes within DRYRUN_MEM_RTOL of phase 26's measured peak (gated);
+    the roofline's terms beside phase 26's step ms."""
+    from repro_torch.configs.base import ALL_SHAPES, ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.roofline.op_cost import collective_bytes
+
+    label = "dryrun"
+    shapes = {s.name: s for s in ALL_SHAPES}
+    before = (counters.launch_counts(), counters.plain_cuda_calls())
+    cells = {}
+    root = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    try:
+        for arch, shape, multi in DRYRUN_CELLS:
+            rec = dryrun.run_cell(arch, shapes[shape], multi, root, DEV, dryrun_cfg(arch))
+            cells[f"{arch}__{shape}__{rec['mesh']}"] = {
+                k: rec.get(k) for k in ("ok", "error", "lower_s", "call_s", "memory",
+                                        "collective_bytes", "roofline")}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    after = (counters.launch_counts(), counters.plain_cuda_calls())
+    cfg = get_config(ARCH)
+    tokens = np.asarray(train_batch(cfg.vocab)["tokens"])
+    got = dryrun.record_call(
+        cfg, ShapeConfig("phase26", TRAIN_SEQ, TRAIN_BATCH, "train"), 1,
+        lambda: make_test_mesh((1, 1), device_type=torch.device(DEV).type), DEV, opt_cfg=step_opt(),
+        microbatches=TRAIN_MB, batch={"tokens": (tokens.shape, getattr(torch, str(tokens.dtype)))})
+    mem, want = got["memory"], sharded_train["argument_parts"]
+    roof = roofline.analyze(got["records"], got["n_chips"], got["model_flops"])
+    coll = collective_bytes(got["records"])
+    total = mem["argument_bytes"] + mem["temp_bytes"]
+    step = {"layers": cfg.n_layers, "memory": mem, "collective_bytes": coll,
+            "phase26_argument_parts": want, "phase26_peak_bytes": sharded_train["peak_bytes"],
+            "argument_plus_temp_rel_gap": total / sharded_train["peak_bytes"] - 1.0,
+            "roofline": roof.to_dict(), "phase26_step_ms": sharded_train["step_ms"],
+            "call_s": got["seconds"]}
+    res = {"card": card, "depth": DRYRUN_DEPTH, "cells": cells, "phase26_step": step,
+           "launches_moved": before != after}
+    print(f"[{label}] {json.dumps(res)}")
+    bad = [k for k, c in cells.items() if not c["ok"]]
+    if bad:
+        fail(f"{label}: cells failed on the card's torch: "
+             f"{ {k: cells[k]['error'] for k in bad} }")
+    if before != after:
+        fail(f"{label}: the dry run moved the launch counters: {before} -> {after}")
+    if (mem["argument_parts"] != want or mem["argument_bytes"] != sum(want.values())
+            or coll["total"] or abs(step["argument_plus_temp_rel_gap"]) > DRYRUN_MEM_RTOL):
+        fail(f"{label}: the dry run of phase 26's step parts from the real one: {step}")
     return res
 
 
@@ -5494,6 +5718,7 @@ def main() -> int:
     ssm = phase("ssm", phase_ssm)
     sharded = phase("sharded", phase_sharded, served)
     sharded_train = phase("sharded-train", phase_sharded_train, train, card)
+    phase("dryrun", phase_dryrun, sharded_train, card)
     by_path = {"continuous": served["launches"], "static": static["launches"],
                "int8": int8["launches"], "long_static": long_static["launches"],
                "long_continuous": long_cont["launches"], "reads": reads["launches"],

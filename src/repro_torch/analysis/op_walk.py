@@ -71,10 +71,19 @@ def tensor_info(t: torch.Tensor) -> TensorInfo:
     if t.numel() == 0:
         elems = 0
     try:
-        storage = t.untyped_storage().data_ptr() if t.numel() else 0
+        storage = t.untyped_storage().data_ptr() if t.numel() and not _shape_only(t) else 0
     except (RuntimeError, NotImplementedError):  # a tensor without storage
         storage = 0
     return TensorInfo(tuple(t.shape), t.dtype, t.device.type, storage, elems)
+
+
+def _shape_only(t: torch.Tensor) -> bool:
+    """A meta or fake tensor: shapes without memory, and so no storage address."""
+    if t.is_meta:
+        return True
+    from torch._subclasses.fake_tensor import is_fake
+
+    return is_fake(t)
 
 
 def _tensors(tree) -> list[torch.Tensor]:
@@ -115,8 +124,24 @@ class OpRecorder(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        self.note(func, args, kwargs, out)
+        return out
+
+    @contextlib.contextmanager
+    def listening(self) -> Iterator["OpRecorder"]:
+        """Take the kernel wrappers' opaque records without entering the
+        dispatch mode: for a caller that hands this recorder its ops itself
+        through ``note`` (the multi-pod dry run's fake-tensor mode)."""
+        _ACTIVE.append(self)
+        try:
+            yield self
+        finally:
+            _ACTIVE.remove(self)
+
+    def note(self, func, args, kwargs, out) -> None:
+        """Record one dispatched op ``func(*args, **kwargs) -> out``."""
         if self._suppress:
-            return out
+            return
         packet = func.overloadpacket
         flops = 0.0
         if packet in flop_registry:
@@ -127,7 +152,6 @@ class OpRecorder(TorchDispatchMode):
         ins = [tensor_info(t) for t in _tensors((args, kwargs))]
         self.records.append(OpRecord(str(packet), ins, [tensor_info(t) for t in outs],
                                      matmul_flops=flops))
-        return out
 
     @contextlib.contextmanager
     def suppressed(self) -> Iterator[None]:

@@ -6,12 +6,18 @@ reference's.
 
 Each entry is copied from ``repro/configs/registry.py``; ``reduce_config``
 is the reference's systematic shrink for CPU tests, copied as it is.
+``ASSIGNED_ARCHS``, ``input_specs`` and ``input_logical_axes`` are the
+multi-pod dry run's inputs (``launch/dryrun.py``): shapes only, each leaf a
+``(shape, dtype)`` pair as ``Model.cache_specs`` gives its leaves, so
+nothing is allocated.
 """
 from __future__ import annotations
 
 import dataclasses
 
-from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, SSMConfig
+import torch
+
+from repro_torch.configs.base import MLAConfig, ModelConfig, MoEConfig, ShapeConfig, SSMConfig
 
 _REGISTRY: dict[str, ModelConfig] = {}
 
@@ -124,6 +130,12 @@ BERT_BASE = register(ModelConfig(
     vocab=30522, norm_impl="gn_ln", mlp_act="gelu",
 ))
 
+ASSIGNED_ARCHS = (
+    "whisper-large-v3", "deepseek-coder-33b", "internlm2-1.8b", "minicpm3-4b",
+    "stablelm-1.6b", "llama4-scout-17b-a16e", "mixtral-8x22b", "xlstm-350m",
+    "zamba2-7b", "llama-3.2-vision-11b",
+)
+
 
 def reduce_config(cfg: ModelConfig, **overrides) -> ModelConfig:
     """Systematically shrink a config for CPU smoke tests (same family/code)."""
@@ -162,3 +174,40 @@ def reduce_config(cfg: ModelConfig, **overrides) -> ModelConfig:
             small["head_dim"] = 64
     small.update(overrides)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **small)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """``(shape, dtype)`` stand-ins for every model input of the given shape.
+
+    train/prefill: the token batch (and the modality stubs).  decode: one
+    new token, the cache of seq_len (``Model.cache_specs``) and the
+    position scalar.
+    """
+    b, s = shape.global_batch, shape.seq_len
+    i32 = torch.int32
+    if shape.kind in ("train", "prefill"):
+        specs = {"tokens": ((b, s), i32)}
+        if cfg.family == "encdec":
+            specs["frames"] = ((b, cfg.encoder_seq, cfg.d_model), getattr(torch, cfg.dtype))
+        if cfg.family == "vlm":
+            specs["patches"] = ((b, cfg.num_patches, cfg.d_model), getattr(torch, cfg.dtype))
+        return specs
+    from repro_torch.models.transformer import make_model
+
+    return {"token": ((b, 1), i32), "cache": make_model(cfg).cache_specs(b, s),
+            "pos": ((), i32)}
+
+
+def input_logical_axes(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """Logical sharding axes parallel to ``input_specs(cfg, shape)``."""
+    if shape.kind in ("train", "prefill"):
+        axes = {"tokens": ("batch", "seq")}
+        if cfg.family == "encdec":
+            axes["frames"] = ("batch", None, None)
+        if cfg.family == "vlm":
+            axes["patches"] = ("batch", None, None)
+        return axes
+    from repro_torch.models.transformer import make_model
+
+    return {"token": ("batch", None), "cache": make_model(cfg).cache_logical_axes(),
+            "pos": ()}

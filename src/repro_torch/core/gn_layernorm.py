@@ -12,7 +12,6 @@ straight-through JVP lives with the kernel wrapper
 """
 from __future__ import annotations
 
-import functools
 
 import numpy as np
 import torch
@@ -23,7 +22,7 @@ from repro_torch.core.fixedpoint import float_lod, float_mantissa_index
 from repro_torch.core.luts import INV_SQRT2, PAPER_RSQRT, RsqrtConfig
 
 
-@functools.lru_cache(maxsize=16)
+@luts.device_tables
 def rsqrt_lut_tensor(cfg: RsqrtConfig, device: str) -> torch.Tensor:
     return torch.from_numpy(luts.rsqrt_mantissa_lut(cfg)).to(device)
 
@@ -92,7 +91,7 @@ def gn_rmsnorm(x, gamma=None, cfg: RsqrtConfig = PAPER_RSQRT):
 
 
 # --- Bit-accurate integer datapath (Fig. 4) ----------------------------------
-@functools.lru_cache(maxsize=16)
+@luts.device_tables
 def rsqrt_lut_q16_tensor(cfg: RsqrtConfig, device: str) -> torch.Tensor:
     """The mantissa LUT in Q.16, int64, on ``device``."""
     lut = np.round(luts.rsqrt_mantissa_lut(cfg) * (1 << 16)).astype("int64")

@@ -16,7 +16,6 @@ point.  The straight-through JVP lives with the kernel wrapper
 """
 from __future__ import annotations
 
-import functools
 
 import torch
 
@@ -33,7 +32,7 @@ def exact_softmax(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     return (e / e.sum(dim=dim, keepdim=True)).to(x.dtype)
 
 
-@functools.lru_cache(maxsize=16)
+@luts.device_tables
 def exp_lut_tensors(cfg: SoftmaxLUTConfig, device: str) -> tuple[torch.Tensor, torch.Tensor]:
     """The (coarse, residual) ROM tables as f32 tensors on ``device``."""
     coarse, residual = luts.exp_luts(cfg)
@@ -57,7 +56,7 @@ def _saturate(d: torch.Tensor, cfg: SoftmaxLUTConfig) -> torch.Tensor:
     return d.nan_to_num(0.0).clamp(0, cfg.max_delta_int).to(torch.int32)
 
 
-@functools.lru_cache(maxsize=16)
+@luts.device_tables
 def exp_lut_int_tensors(cfg: SoftmaxLUTConfig, device: str) -> tuple[torch.Tensor, torch.Tensor]:
     """The (coarse, residual) ROM tables as Q1.vb int64 tensors on ``device``."""
     return tuple(torch.from_numpy(t.astype("int64")).to(device) for t in luts.exp_luts_int(cfg))

@@ -94,3 +94,23 @@ def rsqrt_mantissa_lut(cfg: RsqrtConfig) -> np.ndarray:
 
 # sqrt(1/2) constant for odd-exponent correction, fixed-point rounded.
 INV_SQRT2 = float(np.round((2.0 ** -0.5) * (1 << 16)) / (1 << 16))
+
+
+def device_tables(fn):
+    """``functools.lru_cache`` for a function of hashable arguments that
+    builds tables as tensors on a device, bypassed while a fake-tensor mode
+    is active (the multi-pod dry run): a fake table is never cached, so a
+    later real call never gets one, and a cached real one never meets a
+    fake mode."""
+    import torch
+
+    cached = functools.lru_cache(maxsize=16)(fn)
+
+    @functools.wraps(fn)
+    def tables(*args):
+        if torch._C._get_dispatch_mode(torch._C._TorchDispatchModeKey.FAKE) is not None:
+            return fn(*args)
+        return cached(*args)
+
+    tables.cache_clear = cached.cache_clear
+    return tables

@@ -126,6 +126,19 @@ def launch(device: torch.device, entry, *args) -> int:
         return entry(*args)
 
 
+def shape_only(t: torch.Tensor) -> bool:
+    """Whether ``t`` has no memory to launch on: a meta tensor, or a fake one
+    (``torch._subclasses.FakeTensor``, the multi-pod dry run's).  A wrapper
+    given one returns outputs of its call's shapes and dtypes and launches
+    nothing; a real CPU tensor still takes the plain version and a real
+    CUDA tensor the kernel."""
+    if t.is_meta:
+        return True
+    from torch._subclasses.fake_tensor import is_fake
+
+    return is_fake(t)
+
+
 def check(rc: int, what: str) -> None:
     """Raise when a C entry returned a CUDA error (a refused launch never runs
     and a later synchronize would not report it)."""

@@ -243,8 +243,11 @@ def work(q, k, v, cfg: SoftmaxLUTConfig = TPU_SOFTMAX_LUT, causal: bool = False,
 @opaque("gn_attention", work)
 def _forward(q, k, v, cfg: SoftmaxLUTConfig, causal: bool, sm_scale: float,
              window: int = 0) -> torch.Tensor:
-    """The plain version for CPU tensors, the kernel for CUDA ones."""
+    """The plain version for CPU tensors, the kernel for CUDA ones; for meta
+    or fake ones (``_build.shape_only``) the output's shape alone."""
     global launches
+    if _build.shape_only(q):
+        return torch.empty_like(q)
     if q.device.type == "cpu":
         return ref.gn_attention_ref(q, k, v, cfg, causal, sm_scale, window)
     if q.device.type != "cuda":

@@ -190,7 +190,10 @@ def work(x, r=None, gamma=None, beta=None, cfg: RsqrtConfig = PAPER_RSQRT,
 
 @opaque(lambda x, r, *args: "gn_rmsnorm" if r is None else "gn_rmsnorm_fused", work)
 def _forward(x, r, gamma, beta, cfg, subtract_mean, layout_name):
-    """The plain version for a CPU tensor, one kernel launch for a CUDA one."""
+    """The plain version for a CPU tensor, one kernel launch for a CUDA one;
+    for a meta or fake one (``_build.shape_only``) the outputs' shapes alone."""
+    if _build.shape_only(x):
+        return torch.empty_like(x) if r is None else (torch.empty_like(x), torch.empty_like(x))
     if x.device.type == "cpu":
         if r is None:
             return ref.gn_layernorm_ref(x, gamma, beta, cfg, subtract_mean)
@@ -199,7 +202,7 @@ def _forward(x, r, gamma, beta, cfg, subtract_mean, layout_name):
 
 
 def _device(x, what: str) -> str:
-    if x.device.type not in ("cpu", "cuda"):
+    if x.device.type not in ("cpu", "cuda") and not _build.shape_only(x):
         raise ValueError(f"{what} runs on cpu or cuda tensors, got {x.device}")
     return x.device.type
 

@@ -135,11 +135,15 @@ def work(q, k_arena, v_arena, tables, starts, n_valid, cfg: SoftmaxLUTConfig = T
     too), the tables and the per-sequence ints; operations: q.k and p.v
     over the visible (row, column) pairs of the valid rows, at q's
     precision.  The live blocks and the visible pairs are what this call's
-    lengths (starts + n_valid, read from the device) need."""
+    lengths (starts + n_valid, read from the device) need; lengths that
+    cannot be read (meta or fake tensors, ``_build.shape_only``) count every
+    table column of every row, the most the call could need."""
     n, c, h, d = q.shape
     bs, hkv = k_arena.shape[1], k_arena.shape[2]
     blocks = seen = 0
-    for s0, nv in zip(starts.tolist(), n_valid.tolist()):
+    if _build.shape_only(starts):
+        blocks, seen = n * tables.shape[1], n * c * tables.shape[1] * bs
+    for s0, nv in ([] if blocks else zip(starts.tolist(), n_valid.tolist())):
         blocks += -(-(s0 + nv) // bs)
         seen += nv * s0 + nv * (nv + 1) // 2  # row i sees s0 + i + 1 columns
     nbytes = (2 * blocks * bs * hkv * d * k_arena.element_size()
@@ -176,6 +180,10 @@ def gn_paged_attention_chunk(
     global launches, launches_int8
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
+    if _build.shape_only(q):  # meta or fake tensors: the outputs' shapes alone
+        out = torch.empty_like(q)
+        n, c, h, _ = q.shape
+        return (out, torch.empty(n, c, h, dtype=torch.int32, device=q.device)) if nonfinite else out
     if q.device.type == "cpu":
         return ref.gn_paged_attention_chunk_ref(q, k_arena, v_arena, tables, starts,
                                                 n_valid, cfg, sm_scale, scales, nonfinite)

@@ -146,8 +146,11 @@ def scores_work(scores: torch.Tensor, scale=None, mask=None, out_dtype=None,
 
 @opaque("gn_softmax", work)
 def _forward(x: torch.Tensor, cfg: SoftmaxLUTConfig) -> torch.Tensor:
-    """The plain version for a CPU tensor, the kernel for a CUDA one."""
+    """The plain version for a CPU tensor, the kernel for a CUDA one; for a
+    meta or fake one (``_build.shape_only``) the output's shape alone."""
     global launches
+    if _build.shape_only(x):
+        return torch.empty_like(x)
     if x.device.type == "cpu":
         return ref.gn_softmax_ref(x, cfg)
     if x.device.type != "cuda":
@@ -215,8 +218,11 @@ def gn_softmax_scores(scores: torch.Tensor, scale: float | None = None,
 
 @opaque("gn_softmax_scores", scores_work)
 def _scores_forward(scores, scale, mask, out_dtype, cfg) -> torch.Tensor:
-    """The plain chain for a CPU tensor, the fused kernel for a CUDA one."""
+    """The plain chain for a CPU tensor, the fused kernel for a CUDA one; for
+    a meta or fake one (``_build.shape_only``) the output's shape alone."""
     global launches
+    if _build.shape_only(scores):
+        return torch.empty(scores.shape, dtype=out_dtype, device=scores.device)
     if scores.device.type == "cpu":
         return ref.gn_softmax_scores_ref(scores, scale, mask, out_dtype, cfg)
     if scores.device.type != "cuda":

@@ -117,7 +117,8 @@ from repro_torch.kernels.gn_softmax.ref import scores_chain
 from repro_torch.models.chunked_attention import chunked_self_attention
 from repro_torch.models.layers import ParamSpec
 from repro_torch.models.rope import apply_rope
-from repro_torch.parallel.sharding import current_ctx, local_kernel
+from repro_torch.parallel.sharding import (current_ctx, is_dtensor, local_kernel, local_offset,
+                                           shard)
 
 NEG_INF = -1e30
 # CHUNKED_FROM (2048, ``kernels/gn_attention/ops.py``): longer prompts take the
@@ -167,8 +168,45 @@ def _long_exact(cfg: ModelConfig, s: int) -> bool:
 
 
 def _split_heads(x, n_heads, head_dim):
+    """(B, S, heads * dh) -> (B, S, heads, dh).  Under a sharding context a
+    feature dim split over a mesh axis that does not divide the heads is
+    gathered first (DTensor splits no head), as XLA reshards it."""
     b, s, _ = x.shape
+    ctx = current_ctx()
+    if (ctx is not None and is_dtensor(x)
+            and ctx.spec_for_shape((b, s, n_heads, head_dim), ("batch", "seq", "heads_act", None))[2]
+            is None):
+        x = shard(x, "batch", "seq", None)
     return x.reshape(b, s, n_heads, head_dim)
+
+
+def _grouped(q, kv: int):
+    """(B, S, H, dh) -> (B, S, KV, H // KV, dh): the q heads of each kv head.
+    Under a sharding context a head dim split over a mesh axis that does
+    not divide the kv heads is gathered first (DTensor splits no group)."""
+    b, s, h, dh = q.shape
+    ctx = current_ctx()
+    if (ctx is not None and is_dtensor(q)
+            and ctx.spec_for_shape((b, s, kv, h // kv, dh),
+                                   ("batch", "seq", "heads_act", None, None))[2] is None):
+        q = shard(q, "batch", "seq", None, None)
+    return q.reshape(b, s, kv, h // kv, dh)
+
+
+def _merge_heads(out, features: int):
+    """(B, S, heads, dh) -> (B, S, heads * dh).  Under a sharding context
+    with heads that no mesh axis splits, the merge runs on local shards
+    (``local_kernel``), so that its backward gathers a gradient that comes
+    back split along the features before unmerging it (DTensor splits no
+    head unevenly)."""
+    b, s = out.shape[:2]
+    ctx = current_ctx()
+    axes = ("batch", "seq", "heads_act", None)
+    if (ctx is None or not is_dtensor(out)
+            or ctx.spec_for_shape(tuple(out.shape), axes)[2] is not None):
+        return out.reshape(b, s, features)
+    return local_kernel(lambda t: t.reshape(t.shape[0], t.shape[1], features), (out,),
+                        (("batch", "seq", None, None),), ("batch", "seq", None))
 
 
 def _score_product(qg, k):
@@ -187,7 +225,7 @@ def _score_softmax(impl: str, scores, scale: float, mask, dtype):
     if impl == "gn":
         axes = ("batch", "heads_act", None, None, None)[:scores.dim()]
         return local_kernel(lambda s, m: gn_softmax_scores(s, scale, m, dtype),
-                            (scores, mask), (axes, None), axes)
+                            (scores, mask), (axes, None if mask is None else axes), axes)
     return scores_chain(scores, scale, mask, dtype, get_softmax(impl))
 
 
@@ -196,7 +234,7 @@ def _sdpa(cfg: ModelConfig, q, k, v, mask):
     One-pass attention through the softmax of ``cfg.softmax_impl``."""
     b, s, h, dh = q.shape
     kv = k.shape[2]
-    scores = _score_product(q.reshape(b, s, kv, h // kv, dh), k)
+    scores = _score_product(_grouped(q, kv), k)
     p = _score_softmax(cfg.softmax_impl, scores, dh ** -0.5, mask[:, :, None], v.dtype)
     return torch.einsum("bkgst,btkd->bskgd", p, v).reshape(b, s, h, dh)
 
@@ -256,7 +294,7 @@ def self_attention(cfg: ModelConfig, p: dict, x, positions, causal: bool = True)
         mask = causal_mask(s, s, x.device, win) if causal else torch.ones(
             1, 1, s, s, dtype=torch.bool, device=x.device)
         out = _sdpa(cfg, q, k, v, mask)
-    return out.reshape(b, s, cfg.q_features) @ p["wo"]
+    return _merge_heads(out, cfg.q_features) @ p["wo"]
 
 
 # ------------------------------------------------------------ cross-attn --
@@ -276,7 +314,7 @@ def cross_attend_cached(cfg: ModelConfig, p: dict, x, k, v):
     b, s, _ = x.shape
     q = _split_heads(x @ p["wq"], cfg.n_heads, cfg.head_dim)
     kv, dh = cfg.n_kv_heads, cfg.head_dim
-    scores = _score_product(q.reshape(b, s, kv, cfg.n_heads // kv, dh), k)
+    scores = _score_product(_grouped(q, kv), k)
     pmat = _score_softmax(cfg.softmax_impl, scores, dh ** -0.5, None, v.dtype)
     out = torch.einsum("bkgst,btkd->bskgd", pmat, v).reshape(b, s, cfg.q_features)
     return out @ p["wo"]
@@ -351,8 +389,12 @@ def _attend_slab(cfg: ModelConfig, p: dict, q, k, v, valid):
     projected by wo: (N, C, D)."""
     n, c_len = q.shape[:2]
     kv, dh = cfg.n_kv_heads, cfg.head_dim
-    scores = _score_product(q.reshape(n, c_len, kv, cfg.n_heads // kv, dh), k)
+    if is_dtensor(q):  # a slab split along its slots (kv_seq): every head of the rows' q
+        q = shard(q, "batch", None, None, None)
+    scores = _score_product(_grouped(q, kv), k)
     pmat = _score_softmax(cfg.softmax_impl, scores, dh ** -0.5, valid[:, None, None], v.dtype)
+    if is_dtensor(pmat):  # the probabilities split as the slab's slots, for P·V
+        pmat = shard(pmat, "batch", None, None, None, "kv_seq")
     out = torch.einsum("bkgst,btkd->bskgd", pmat, v).reshape(n, c_len, cfg.q_features)
     return out @ p["wo"]
 
@@ -362,12 +404,46 @@ def slab_write(slab, new, dest, lane_ok) -> None:
     """Write ``new`` (N, C, ...) into ``slab`` (N, T, ...) at slots ``dest``
     (N, C), distinct within a row, in place; a lane off ``lane_ok`` (N, C)
     writes back the value its slot holds."""
+    if is_dtensor(slab):
+        return _slab_write_sharded(slab, new, dest, lane_ok)
     n, t = slab.shape[:2]
     flat = slab.view(n * t, *slab.shape[2:])
     idx = (torch.arange(n, device=slab.device)[:, None] * t + dest).reshape(-1)
     keep = lane_ok.reshape(-1, *([1] * (slab.dim() - 2)))
     vals = new.reshape(-1, *slab.shape[2:]).to(slab.dtype)
     flat.index_copy_(0, idx, torch.where(keep, vals, flat.index_select(0, idx)))
+
+
+def _slab_write_sharded(slab, new, dest, lane_ok) -> None:
+    """``slab_write`` into a DTensor slab under a sharding context (the
+    static decode step over a cache split by ``cache_logical_axes``): each
+    rank writes the lanes whose row and slot fall in its own shard, into
+    its local slab, with no communication; ``new`` is first placed as the
+    slab's rows and heads.  One lane a row (a decode step): a lane outside
+    the shard is clamped onto a slot its own row writes back unchanged."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    if new.shape[1] != 1:
+        raise NotImplementedError("a sharded slab takes one lane a row (the decode step)")
+    local = slab.to_local()
+    n_loc, t_loc = local.shape[:2]
+    row0, slot0 = local_offset(tuple(slab.shape), slab.placements, slab.device_mesh)[:2]
+
+    def rows(x):  # this rank's rows of a (N, ...) tensor, whole along the rest
+        return x.full_tensor()[row0:row0 + n_loc] if is_dtensor(x) else x[row0:row0 + n_loc]
+
+    # the new values placed as the slab's rows and heads, every lane
+    lanes = [Replicate() if isinstance(p, Shard) and p.dim == 1 else p for p in slab.placements]
+    vals = new.redistribute(slab.device_mesh, lanes).to_local()
+
+    dest_l = rows(dest) - slot0
+    ok = rows(lane_ok) & (dest_l >= 0) & (dest_l < t_loc)
+    flat = local.view(n_loc * t_loc, *local.shape[2:])
+    idx = (torch.arange(n_loc, device=local.device)[:, None] * t_loc
+           + dest_l.clamp(0, t_loc - 1)).reshape(-1)
+    keep = ok.reshape(-1, *([1] * (local.dim() - 2)))
+    flat.index_copy_(0, idx, torch.where(keep, vals.reshape(-1, *local.shape[2:]).to(local.dtype),
+                                         flat.index_select(0, idx)))
 
 
 def attn_slab_decode(cfg: ModelConfig, p: dict, cache: dict, x, positions, live):

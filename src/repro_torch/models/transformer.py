@@ -94,7 +94,8 @@ from repro_torch.models.layers import (
     norm_specs,
     stack_specs,
 )
-from repro_torch.parallel.sharding import local_kernel, local_mixer, shard
+from repro_torch.parallel.sharding import (current_ctx, is_dtensor, local_kernel, local_mixer,
+                                           shard, zeros)
 
 # leaves the forward multiplies in the activation dtype (the reference casts
 # each at its use: attention, MLA's latent projections, the MoE router and
@@ -331,10 +332,14 @@ class Model:
         into a slab cache), the new carries written back in place (one
         graph keeps reading the same buffers): the mixer's output."""
         names = self.carry_leaves
-        y, carry = self._ssm_block(self.cfg, p, h, tuple(layer[n] for n in names), n_valid)
-        for name, new in zip(names, carry):
-            layer[name].copy_(new)
-        return y
+
+        def fn(h, state, p):
+            y, carry = self._ssm_block(self.cfg, p, h, tuple(state[n] for n in names), n_valid)
+            for name, new in zip(names, carry):
+                state[name].copy_(new)
+            return y
+
+        return _stateful_mixer(fn, h, {n: layer[n] for n in names}, p)
 
     def _encode(self, params, frames):
         """The whisper encoder over frame embeddings (B, M, D): ``pos``
@@ -410,8 +415,11 @@ class Model:
         logits, aux = self.forward(params, batch, aux=True)
         logits = logits.float()[:, :-1]
         targets = torch.as_tensor(batch["tokens"]).to(logits.device)[:, 1:].long()
-        logp = torch.log_softmax(logits, dim=-1)
-        loss = -logp.gather(-1, targets[..., None])[..., 0].mean()
+        if _vocab_split(logits):
+            loss = _sharded_nll(logits, targets)
+        else:
+            logp = torch.log_softmax(logits, dim=-1)
+            loss = -logp.gather(-1, targets[..., None])[..., 0].mean()
         metrics = {"nll": loss}
         if cfg.moe is not None:
             loss = loss + 0.01 * aux["load_balance"] / cfg.n_layers
@@ -440,6 +448,32 @@ class Model:
             specs.update({name: ((groups, *kv[k][0]), kv[k][1]) for name, k in _SHARED_KV.items()})
         return {**specs, **self.extra_specs(batch)}
 
+    def cache_logical_axes(self) -> dict:
+        """Logical sharding axes of each ``cache_specs`` leaf (the
+        reference's tree, flat): ``kv_seq`` switches to sequence
+        parallelism for long-context decode (``SP_OVERRIDES``)."""
+        cfg = self.cfg
+        kv = ("layers", "batch", "kv_seq", "heads_tp", None)
+        if cfg.mla is not None:
+            axes = {k: ("layers", "batch", "kv_seq", None) for k in self.cache_specs(1, 1)}
+        elif cfg.family == "ssm" and cfg.ssm.kind == "mlstm":
+            axes = {"conv": ("layers", "batch", None, "ff"),
+                    "C": ("layers", "batch", None, None, "heads_tp"),
+                    "n": ("layers", "batch", None, "heads_tp"), "m": ("layers", "batch", None)}
+        elif cfg.family in ("ssm", "hybrid"):
+            axes = {"conv": ("layers", "batch", None, "ff"),
+                    "h": ("layers", "batch", "heads_tp", None, None)}
+        else:
+            axes = {"k": kv, "v": kv}
+        if cfg.family == "hybrid":
+            axes.update({"shared_k": kv, "shared_v": kv})
+        if cfg.family == "encdec":
+            cross = ("layers", "batch", None, "heads_tp", None)
+            axes.update({"cross_k": cross, "cross_v": cross})
+        if cfg.family == "vlm":
+            axes["patches"] = ("batch", None, None)
+        return axes
+
     def extra_specs(self, batch: int) -> dict:
         """The extra leaves (``extra_leaves``), name -> (shape, dtype):
         encdec's cross k and v (L, B, encoder_seq, KV, dh), the VLM's
@@ -454,8 +488,11 @@ class Model:
         return {}
 
     def init_cache(self, batch: int, max_seq: int, device=None) -> dict:
+        """Zero slabs of ``cache_specs``; under a sharding context each a
+        DTensor placed by ``cache_logical_axes``."""
         dev = resolve_device(device)
-        return {k: torch.zeros(shape, dtype=dt, device=dev)
+        axes = self.cache_logical_axes()
+        return {k: zeros(shape, dt, dev, axes[k])
                 for k, (shape, dt) in self.cache_specs(batch, max_seq).items()}
 
     def _per_layer(self, cache: dict, i: int) -> dict:
@@ -544,16 +581,31 @@ class Model:
             for name, new in kv.items():
                 if win and s > win:  # the ring: position p in slot p % window
                     layer[name].copy_(torch.roll(new, s % win, dims=1))
+                elif s == layer[name].shape[1]:  # the whole slab (a sharded one too)
+                    layer[name].copy_(new)
+                elif is_dtensor(layer[name]):
+                    raise NotImplementedError(
+                        f"a prefill of {s} tokens into a sharded slab of {layer[name].shape[1]}: "
+                        "under a sharding context the prefill fills its whole slab")
                 else:
                     layer[name][:, :s] = new
 
         def mixer(i, lp, h):
             if self._recurrent:  # the monolithic serving call: exact
-                y, carry = self._ssm_block(cfg, lp["mixer"], h, exact=True)
-                for name, new in zip(self.carry_leaves, carry):
+                names = self.carry_leaves
+                y, *carry = local_mixer(
+                    lambda h, p: _flat(self._ssm_block(cfg, p, h, exact=True)), (h,),
+                    lp["mixer"], n_out=1 + len(names))
+                for name, new in zip(names, carry):
                     cache[name][i].copy_(new)
                 return y
-            y, kv = prefill(cfg, lp["mixer"], h, positions)
+            if cfg.mla is not None:  # whole on each rank's rows under a context
+                y, c_kv, k_rope = local_mixer(
+                    lambda h, pos, p: _flat(prefill(cfg, p, h, pos)), (h, positions),
+                    lp["mixer"], n_out=3)
+                kv = {"c_kv": c_kv, "k_rope": k_rope}
+            else:
+                y, kv = prefill(cfg, lp["mixer"], h, positions)
             write_kv(self._per_layer(cache, i), kv)
             return y
 
@@ -579,9 +631,13 @@ class Model:
         step = mla_mod.mla_decode_step if cfg.mla is not None else attn.attn_decode_step
 
         def mixer(i, lp, h):
+            layer = self._per_layer(cache, i)
             if self._recurrent:
-                return self._carried(lp["mixer"], self._per_layer(cache, i), h)
-            return step(cfg, lp["mixer"], self._per_layer(cache, i), h, pos)[0]
+                return self._carried(lp["mixer"], layer, h)
+            if cfg.mla is not None:  # whole on each rank's rows under a context
+                return _stateful_mixer(lambda h, state, p: step(cfg, p, state, h, pos)[0], h,
+                                       layer, lp["mixer"])
+            return step(cfg, lp["mixer"], layer, h, pos)[0]
 
         x = self._decoder(
             params, x, mixer, self._cross_fn(cache), cache.get("patches"),
@@ -805,6 +861,65 @@ class Model:
     def _lm_head(self, params, x):
         logits = apply_norm(self.cfg, params["final_norm"], x) @ params["lm_head"]["w"]
         return shard(logits, "batch", "seq", "vocab")
+
+
+def _flat(out) -> tuple:
+    """A mixer's (y, state) as one flat tuple: y, then the state's tensors
+    (a tuple of carries, or a dict of K/V leaves in its order)."""
+    y, state = out
+    return (y, *(state.values() if isinstance(state, dict) else state))
+
+
+def _stateful_mixer(fn, h, state: dict, p: dict):
+    """``fn(h, state, p)``, a mixer that writes the tensors of ``state`` in
+    place, through ``local_mixer``: under a sharding context each rank runs
+    it whole on its rows of h and of the state (the state gathered along
+    its other dims), and the state it wrote goes back into the state's
+    shards; without one, ``fn`` itself, writing ``state`` in place."""
+    names = list(state)
+
+    def body(h, *rest):
+        local = dict(zip(names, rest[:-1]))
+        y = fn(h, local, rest[-1])
+        return (y, *(local[n] for n in names))
+
+    y, *new = local_mixer(body, (h, *state.values()), p, n_out=1 + len(names))
+    for name, value in zip(names, new):
+        if value is not state[name]:
+            state[name].copy_(value)
+    return y
+
+
+def _vocab_split(logits) -> bool:
+    """Whether ``logits`` is a DTensor whose vocab (last) dim a mesh axis of
+    more than one rank splits."""
+    if not is_dtensor(logits):
+        return False
+    from torch.distributed.tensor import Shard
+
+    last = logits.dim() - 1
+    return any(isinstance(p, Shard) and p.dim == last and logits.device_mesh.size(i) > 1
+               for i, p in enumerate(logits.placements))
+
+
+def _sharded_nll(logits, targets):
+    """The mean next-token NLL of f32 ``logits`` (B, S, V) DTensors whose
+    vocab dim a mesh axis may split: the log-sum-exp over the vocab and the
+    target's logit picked by a compare against vocab ids placed as the
+    logits' vocab dim, so that no rank gathers the whole vocab (a
+    ``gather`` along a split dim would replicate the logits on every
+    rank).  The same quantity as ``Model.loss``'s unsharded form."""
+    from torch.distributed.tensor import distribute_tensor
+
+    ctx = current_ctx()
+    v = logits.shape[-1]
+    ids = distribute_tensor(torch.arange(v, device=logits.device), ctx.mesh,
+                            ctx.placements((v,), ("vocab",)), src_data_rank=None)
+    rows = ("batch", "seq")  # each row's reductions whole on the ranks of its batch shard
+    m = shard(logits.detach().amax(dim=-1), *rows)
+    lse = shard((logits - m[..., None]).exp().sum(dim=-1), *rows).log() + m
+    picked = shard(torch.where(ids == targets[..., None], logits, 0.0).sum(dim=-1), *rows)
+    return (lse - picked).mean()
 
 
 def make_model(cfg: ModelConfig) -> Model:

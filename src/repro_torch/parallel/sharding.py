@@ -183,7 +183,8 @@ def local_kernel(fn, args: tuple, in_axes: tuple, out_axes, like: int = 0):
 
     ``in_axes[i]`` names the logical axes of ``args[i]`` (None for a plain
     tensor or None argument, which goes in as it is); each DTensor argument
-    is redistributed to the placements of its axes.  ``out_axes`` names the
+    is redistributed to the placements of its axes, and a plain tensor that
+    they split goes in as this rank's chunk of it.  ``out_axes`` names the
     axes of the output (a tuple of names), or of each output (a tuple of
     such tuples); each is placed by the shape of ``args[like]``, so a dim
     dropped from the input's placements (a mesh axis that does not divide
@@ -194,6 +195,7 @@ def local_kernel(fn, args: tuple, in_axes: tuple, out_axes, like: int = 0):
         return fn(*args)
     from torch.distributed.tensor.experimental import local_map
 
+    args = tuple(_chunked(ctx, a, ax) for a, ax in zip(args, in_axes))
     in_pl = tuple(ctx.placements(tuple(a.shape), ax) if is_dtensor(a) else None
                   for a, ax in zip(args, in_axes))
     ref_shape = tuple(args[like].shape)
@@ -206,7 +208,21 @@ def local_kernel(fn, args: tuple, in_axes: tuple, out_axes, like: int = 0):
                      redistribute_inputs=True)(*args)
 
 
-def local_mixer(fn, rows: tuple, p: dict):
+def _chunked(ctx: ShardingCtx, a, axes):
+    """A plain tensor that its ``axes`` split (a batch of token ids, a mask
+    of every row), the same on every rank, as a DTensor of this rank's
+    chunk; anything else as it is."""
+    if not torch.is_tensor(a) or is_dtensor(a) or axes is None:
+        return a
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    pl = ctx.placements(tuple(a.shape), axes)
+    if all(p == Replicate() for p in pl):
+        return a
+    return distribute_tensor(a, ctx.mesh, pl, src_data_rank=None)
+
+
+def local_mixer(fn, rows: tuple, p: dict, n_out: int = 1):
     """``fn(*rows, p)``, a whole mixer, over local shards when a context is
     installed and ``rows[0]`` is a DTensor: each tensor of ``rows`` (x, and
     a cross-attention's memory) split by its leading dim on the ``batch``
@@ -217,7 +233,9 @@ def local_mixer(fn, rows: tuple, p: dict):
     runs on (the SSM and hybrid mixers' grouped convs and scans, MLA's and
     cross-attention's score einsums): the ``model`` axis then splits none of
     their work, and their weights' gradients sum over the ranks whose rows
-    differ.  Without a context this is ``fn(*rows, p)``."""
+    differ.  ``fn`` returns one tensor, or ``n_out`` of them, each split
+    as ``rows[0]`` (a mixer's output and the state it wrote).  Without a
+    context this is ``fn(*rows, p)``."""
     ctx = current_ctx()
     if ctx is None or not is_dtensor(rows[0]):
         return fn(*rows, p)
@@ -235,9 +253,58 @@ def local_mixer(fn, rows: tuple, p: dict):
     def body(*args):
         return fn(*args[:len(rows)], tree_unflatten(list(args[len(rows):]), spec))
 
-    return local_map(body, out_placements=placed[0], in_placements=in_pl,
+    out_pl = placed[0] if n_out == 1 else tuple(placed[0] for _ in range(n_out))
+    return local_map(body, out_placements=out_pl, in_placements=in_pl,
                      in_grad_placements=grad_placements(in_pl), device_mesh=ctx.mesh,
                      redistribute_inputs=True)(*rows, *leaves)
+
+
+def local_shape(shape: tuple, placements, mesh) -> tuple:
+    """This rank's shard of a ``shape`` tensor placed ``placements`` on
+    ``mesh``, each split even (``ShardingCtx.spec_for_shape`` keeps only
+    the mesh axes that divide their dim)."""
+    from torch.distributed.tensor import Shard
+
+    local = list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            local[p.dim] //= mesh.size(i)
+    return tuple(local)
+
+
+def local_offset(shape: tuple, placements, mesh) -> tuple:
+    """Where this rank's shard of a ``shape`` tensor placed ``placements``
+    starts, per dim: a dim split over several mesh dims splits in mesh-dim
+    order, as DTensor lays it out."""
+    from torch.distributed.tensor import Shard
+
+    coord = mesh.get_coordinate()
+    offset, chunk = [0] * len(shape), list(shape)
+    for i, p in enumerate(placements):
+        if isinstance(p, Shard):
+            chunk[p.dim] //= mesh.size(i)
+            offset[p.dim] += coord[i] * chunk[p.dim]
+    return tuple(offset)
+
+
+def zeros(shape: tuple, dtype, device, logical_axes: tuple):
+    """``torch.zeros(shape)``; under a context a DTensor of that global
+    shape placed by ``logical_axes``, each rank allocating only its own
+    zero shard (a sharded cache)."""
+    ctx = current_ctx()
+    if ctx is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from torch.distributed.tensor import DTensor
+
+    shape = tuple(shape)
+    pl = ctx.placements(shape, tuple(logical_axes))
+    local = torch.zeros(local_shape(shape, pl, ctx.mesh), dtype=dtype, device=device)
+    stride, step = [], 1
+    for size in reversed(shape):  # the global tensor's contiguous strides
+        stride.insert(0, step)
+        step *= size
+    return DTensor.from_local(local, ctx.mesh, pl, run_check=False, shape=torch.Size(shape),
+                              stride=tuple(stride))
 
 
 def grad_placements(in_pl: tuple) -> tuple:

@@ -6,9 +6,21 @@ A call's least time on the card is the larger of two terms:
   operations = flops / peak rate of the precision they run at
   memory     = bytes / HBM rate
 
-with each input byte read once and each output byte written once.  The
-reference adds a collective term over
-its interconnect; on one card it is 0, and it waits for the multi-GPU port.
+with each input byte read once and each output byte written once.  A step
+sharded over a mesh adds the reference's third term (``Roofline``,
+``analyze``):
+
+  collective = the bytes each card moves in collectives / LINK_BYTES_PER_S
+
+counted from the c10d functional collectives that DTensor issues
+(``op_cost.collective_bytes``, the reference's ring accounting).  Both
+production meshes (16 x 16 and 2 x 16 x 16 cards) span more than one
+8-card node, and the 16-wide ``model`` axis itself crosses nodes, so the
+rate is the slowest link such a mesh crosses: one 400 Gb/s NDR InfiniBand
+port a card, 50 GB/s (NVIDIA's DGX H100 layout: eight ConnectX-7 ports,
+one a GPU).  NVLink 4 (450 GB/s a direction a card) joins cards only inside
+a node.  No run of this repository has measured either rate: on one card
+the term is 0.
 
 Peaks: NVIDIA's H100 SXM data sheet, dense rates without sparsity, at the
 700 W power limit.  A card below that limit runs slower under load, so
@@ -17,6 +29,7 @@ every share this module states names the card and its power limit
 """
 from __future__ import annotations
 
+import dataclasses
 import shutil
 import subprocess
 from typing import NamedTuple
@@ -24,6 +37,9 @@ from typing import NamedTuple
 import torch
 
 HBM_BYTES_PER_S = 3.35e12
+# a card's share of the slowest link a production mesh crosses: one 400 Gb/s
+# NDR InfiniBand port a card (see the module docstring)
+LINK_BYTES_PER_S = 50e9
 PEAK_FLOPS = {"bf16": 989e12, "fp16": 989e12, "tf32": 495e12, "f32": 67e12, "int8": 1979e12}
 # the precision whose peak a tensor of this dtype's arithmetic runs at: bf16
 # and fp16 on the tensor cores, f32 on the CUDA cores (the port computes with
@@ -95,3 +111,93 @@ def card(index: int = 0) -> Card:
         if index < len(rows) and rows[index].strip():
             limit = rows[index].strip()
     return Card(name, limit)
+
+
+@dataclasses.dataclass
+class Roofline:
+    """The reference's three-term roofline of one step on ``n_chips``
+    cards, per device: ``compute_s`` each precision's recorded operations
+    over its peak, ``memory_s`` the recorded (unfused, ``op_cost``) bytes
+    over the HBM rate, ``collective_s`` the collective bytes over
+    ``LINK_BYTES_PER_S``."""
+
+    compute_s: float
+    memory_s: float
+    collective_s: float
+    flops_per_device: float
+    bytes_per_device: float
+    collective_bytes_per_device: float
+    model_flops: float
+    hlo_flops_total: float  # the reference's name: the recorded operations over every card
+    n_chips: int = 256
+
+    @property
+    def bottleneck(self) -> str:
+        terms = {"compute": self.compute_s, "memory": self.memory_s,
+                 "collective": self.collective_s}
+        return max(terms, key=terms.get)
+
+    @property
+    def total_s(self) -> float:
+        return max(self.compute_s, self.memory_s, self.collective_s)
+
+    @property
+    def useful_flops_ratio(self) -> float:
+        """MODEL_FLOPS / recorded operations: remat and redundancy waste."""
+        return self.model_flops / max(self.hlo_flops_total, 1.0)
+
+    @property
+    def roofline_fraction(self) -> float:
+        """Achievable MFU bound: useful flop-time over the dominant term."""
+        return self.model_flops_per_device_s / max(self.total_s, 1e-30)
+
+    @property
+    def model_flops_per_device_s(self) -> float:
+        """The model's FLOPs a card at the bf16 peak (the matmuls' precision)."""
+        return self.model_flops / self.n_chips / PEAK_FLOPS["bf16"] if self.n_chips else 0.0
+
+    def to_dict(self) -> dict:
+        return {
+            "compute_s": self.compute_s,
+            "memory_s": self.memory_s,
+            "collective_s": self.collective_s,
+            "bottleneck": self.bottleneck,
+            "flops_per_device": self.flops_per_device,
+            "bytes_per_device": self.bytes_per_device,
+            "collective_bytes_per_device": self.collective_bytes_per_device,
+            "model_flops": self.model_flops,
+            "hlo_flops_total": self.hlo_flops_total,
+            "useful_flops_ratio": self.useful_flops_ratio,
+            "roofline_fraction": self.roofline_fraction,
+            "n_chips": self.n_chips,
+        }
+
+
+def analyze(records, n_chips: int, model_flops: float) -> Roofline:
+    """The three terms of one device's recorded step (``analysis.op_walk``
+    records; rank 0 stands for every rank of a mesh)."""
+    from repro_torch.roofline.op_cost import module_cost
+
+    cost = module_cost(records)
+    flops = cost.total_flops
+    return Roofline(
+        compute_s=sum(f / PEAK_FLOPS[p] for p, f in cost.flops.items()),
+        memory_s=cost.bytes / HBM_BYTES_PER_S,
+        collective_s=cost.collective_total / LINK_BYTES_PER_S,
+        flops_per_device=flops,
+        bytes_per_device=cost.bytes,
+        collective_bytes_per_device=cost.collective_total,
+        model_flops=model_flops,
+        hlo_flops_total=flops * n_chips,
+        n_chips=n_chips,
+    )
+
+
+def model_flops_for(cfg, shape) -> float:
+    """6·N·D (train) / 2·N·D (prefill fwd-only) / 2·N·B per decode step."""
+    n_active = cfg.active_param_count()
+    if shape.kind == "train":
+        return 6.0 * n_active * shape.global_batch * shape.seq_len
+    if shape.kind == "prefill":
+        return 2.0 * n_active * shape.global_batch * shape.seq_len
+    return 2.0 * n_active * shape.global_batch  # one decode step

@@ -14,7 +14,13 @@ module costs the record:
   its own elements), views and allocations at none, gathers and scatters
   at what they touch (twice the rows moved, plus the indices);
 * each hand-written kernel (an opaque record) through its wrapper's
-  ``work()``.
+  ``work()``;
+* the c10d functional collectives that DTensor issues under a mesh
+  (``_c10d_functional.all_reduce``, ``all_gather_into_tensor``,
+  ``reduce_scatter_tensor``, ``all_to_all_single``, their coalesced and
+  in-place forms, and a broadcast) by the reference's ring accounting
+  (``hlo_cost.py``): an all-reduce moves twice its operand, an all-gather
+  its output, any other its operand, per device.
 
 The bytes are an **unfused** count: every eager op's operands cross HBM.
 XLA's fusion-boundary bytes, which the reference's ``hlo_cost`` reports,
@@ -53,6 +59,24 @@ FREE = frozenset(f"aten.{n}" for n in (
     "split", "split_with_sizes", "unbind", "chunk", "narrow", "diagonal", "unfold", "empty",
     "empty_like", "empty_strided", "new_empty", "new_empty_strided", "view_as_real",
     "view_as_complex", "_local_scalar_dense"))
+# c10d functional collective -> the reference's kind (``hlo_cost._COLLECTIVE_KINDS``)
+COLLECTIVE_KINDS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+                    "collective-permute", "collective-broadcast")
+COLLECTIVES = {f"{ns}.{op}": kind for ns in ("_c10d_functional", "c10d_functional")
+               for op, kind in (
+                   ("all_reduce", "all-reduce"), ("all_reduce_", "all-reduce"),
+                   ("all_reduce_coalesced", "all-reduce"), ("all_reduce_coalesced_", "all-reduce"),
+                   ("all_gather_into_tensor", "all-gather"),
+                   ("all_gather_into_tensor_out", "all-gather"),
+                   ("all_gather_into_tensor_coalesced", "all-gather"),
+                   ("reduce_scatter_tensor", "reduce-scatter"),
+                   ("reduce_scatter_tensor_coalesced", "reduce-scatter"),
+                   ("all_to_all_single", "all-to-all"),
+                   ("permute_tensor", "collective-permute"),
+                   ("broadcast", "collective-broadcast"), ("broadcast_", "collective-broadcast"))}
+# waits and autograd wrappers of a collective's result: no traffic of their own
+COLLECTIVE_FREE = frozenset(f"{ns}.{op}" for ns in ("_c10d_functional", "c10d_functional")
+                            for op in ("wait_tensor", "_wrap_tensor_autograd"))
 GATHERS = frozenset(f"aten.{n}" for n in (
     "index", "_unsafe_index", "index_select", "gather", "embedding"))
 SCATTERS = frozenset(f"aten.{n}" for n in (
@@ -62,19 +86,28 @@ SCATTERS = frozenset(f"aten.{n}" for n in (
 
 @dataclasses.dataclass
 class OpCost:
-    """One op's (or a group of ops') work: operations per precision, bytes."""
+    """One op's (or a group of ops') work: operations per precision, bytes,
+    and the bytes each device moves over the interconnect by collective
+    kind (``COLLECTIVE_KINDS``)."""
 
     flops: dict = dataclasses.field(default_factory=dict)
     bytes: float = 0.0
     calls: int = 0
+    collective: dict = dataclasses.field(default_factory=dict)
 
     @property
     def total_flops(self) -> float:
         return sum(self.flops.values())
 
+    @property
+    def collective_total(self) -> float:
+        return sum(self.collective.values())
+
     def add(self, other: "OpCost") -> None:
         for p, f in other.flops.items():
             self.flops[p] = self.flops.get(p, 0.0) + f
+        for k, b in other.collective.items():
+            self.collective[k] = self.collective.get(k, 0.0) + b
         self.bytes += other.bytes
         self.calls += other.calls
 
@@ -91,10 +124,14 @@ def op_cost(r: OpRecord) -> OpCost:
     if r.opaque:
         w = r.work
         return OpCost({w.precision: float(w.flops)} if w.flops else {}, float(w.bytes), 1)
-    if r.name in FREE:
+    if r.name in FREE or r.name in COLLECTIVE_FREE:
         return OpCost(calls=1)
     ins = sum(t.nbytes for t in r.inputs)
     outs = sum(t.nbytes for t in r.outputs)
+    if r.name in COLLECTIVES:  # ring accounting; the operand read and the result written
+        kind = COLLECTIVES[r.name]
+        moved = {"all-reduce": 2.0 * ins, "all-gather": float(outs)}.get(kind, float(ins))
+        return OpCost(bytes=float(ins + outs), calls=1, collective={kind: moved})
     if r.name in GATHERS:  # the rows moved, read and written, and the indices
         idx = sum(t.nbytes for t in r.inputs[1:])
         return OpCost(bytes=2.0 * outs + idx, calls=1)
@@ -147,3 +184,12 @@ def kernel_work(records: list[OpRecord]) -> dict[str, OpCost]:
             out.setdefault(r.name, OpCost()).add(op_cost(r))
     return out
 
+
+
+def collective_bytes(records: list[OpRecord]) -> dict:
+    """Per-device collective bytes by kind, and their ``total`` (the
+    reference's ``hlo_cost.collective_bytes``)."""
+    c = module_cost(records)
+    out = {k: c.collective.get(k, 0.0) for k in COLLECTIVE_KINDS}
+    out["total"] = c.collective_total
+    return out

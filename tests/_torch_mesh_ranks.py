@@ -26,6 +26,9 @@ ARCHS = ("internlm2-1.8b", "mixtral-8x22b")
 # memory's), the mLSTM (xlstm) and zamba2's Mamba2 and shared attention
 MIXER_ARCHS = ("minicpm3-4b", "whisper-large-v3", "llama-3.2-vision-11b", "xlstm-350m",
                "zamba2-7b")
+# the static prefill and decode step over a cache split by its logical axes
+SERVE_ARCHS = ("internlm2-1.8b", "minicpm3-4b", "mixtral-8x22b", "xlstm-350m", "zamba2-7b",
+               "whisper-large-v3", "llama-3.2-vision-11b")
 SEQ, BATCH = 16, 8
 
 
@@ -101,13 +104,46 @@ def _grad_gap(arch: str, shape: tuple) -> float:
     return max(float((a - b).norm() / b.norm().clamp_min(1e-30)) for a, b in zip(got, want))
 
 
+def _serve_gap(arch: str, shape: tuple) -> float:
+    """max |sharded - one device's| over the static prefill's logits and
+    cache (its whole slab) and then one decode step's logits and cache,
+    over a ``shape`` mesh: the cache placed by ``cache_logical_axes``, the
+    inputs by the batch axes."""
+    from torch.distributed.tensor.experimental import implicit_replication
+
+    from repro_torch.parallel.sharding import current_ctx, is_dtensor, place_tree
+
+    cfg = dataclasses.replace(reduce_config(get_config(arch)), dtype="float32")
+    model = make_model(cfg)
+    params = model.init(0, "cpu")
+    batch = _batch(cfg)
+    pos = torch.tensor(SEQ - 1, dtype=torch.int32)
+
+    def run(ps, b, placed):
+        logits, cache = model.prefill(model.prepare(ps, "cpu"), placed(b), max_seq=SEQ)
+        token = placed({"t": b["tokens"][:, -1:]})["t"]
+        step, cache = model.decode_step(model.prepare(ps, "cpu"), cache, token, pos)
+        whole = (lambda t: t.full_tensor() if is_dtensor(t) else t)
+        return [whole(logits), whole(step)] + [whole(v) for v in cache.values()]
+
+    want = run(params, batch, lambda b: b)
+    with use_sharding(make_test_mesh(shape)), implicit_replication():
+        ctx = current_ctx()
+        got = run(distribute_params(model, params), batch,
+                  lambda b: place_tree(b, {k: ctx.placements(tuple(v.shape), ("batch",))
+                                           for k, v in b.items()}, ctx.mesh))
+    return max(float((a.float() - b.float()).abs().max()) for a, b in zip(got, want))
+
+
 def train_and_remesh(rank: int, world: int, root: str) -> dict:
     """For each arch: the sharded forward's gap to one device's on a (2, 2)
     mesh, then ``launch.train --mesh 2x2`` for 4 steps and, from its step-4
     checkpoint, ``--mesh 4x1`` for step 5 (``store.restore_sharded`` onto
     another mesh); for each of the other families the step-1 gradients'
-    gap to one device's on (2, 2)."""
+    gap to one device's on (2, 2); for each arch of SERVE_ARCHS the static
+    prefill's and decode step's gap to one device's on (2, 2)."""
     out = {arch: {"grad_gap": _grad_gap(arch, (2, 2))} for arch in MIXER_ARCHS}
+    out["serve_gap"] = {arch: _serve_gap(arch, (2, 2)) for arch in SERVE_ARCHS}
     for arch in ARCHS:
         outdir = Path(root) / arch
         with f32_launcher():

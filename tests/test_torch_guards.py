@@ -14,6 +14,7 @@ import torch
 import repro_torch
 from repro_torch.configs.registry import get_config, reduce_config
 from repro_torch.core.luts import SoftmaxLUTConfig
+from repro_torch.kernels import _build
 from repro_torch.kernels.gn_attention import ops as fa_ops
 from repro_torch.kernels.gn_layernorm import ops as norm_ops
 from repro_torch.kernels.gn_paged_attention import ops as attn_ops
@@ -116,12 +117,25 @@ def test_cpu_wrappers_leave_launch_counters_at_zero():
     assert tuple(m.launches for m in ops) == before == (0, 0, 0, 0)
 
 
-def test_wrappers_refuse_other_devices():
+def test_wrappers_refuse_other_devices(monkeypatch):
+    """A device other than the CPU or CUDA raises.  Meta tensors stand in
+    for one with the shape-only route (``_build.shape_only``, the dry run's
+    fake and meta tensors) turned off; with it on, they take that route:
+    their outputs' shapes, no launch."""
     x = torch.randn(2, 8, device="meta")
-    with pytest.raises(ValueError, match="cpu or cuda"):
-        norm_ops.gn_rmsnorm(x)
     meta = torch.zeros(1, 1, 1, 8, device="meta")
     ints = torch.zeros(1, 1, dtype=torch.int32, device="meta")
+    calls = (lambda: norm_ops.gn_rmsnorm(x),
+             lambda: attn_ops.gn_paged_attention_chunk(meta, meta, meta, ints, ints[0], ints[0]),
+             lambda: sm_ops.gn_softmax(x),
+             lambda: fa_ops.gn_attention(meta, meta, meta, causal=True))
+    for call in calls:  # the shape-only route: meta outputs of the inputs' shapes
+        out = call()
+        assert out.is_meta and out.shape in (x.shape, meta.shape)
+    assert (norm_ops.launches, attn_ops.launches, sm_ops.launches, fa_ops.launches) == (0,) * 4
+    monkeypatch.setattr(_build, "shape_only", lambda t: False)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        norm_ops.gn_rmsnorm(x)
     with pytest.raises(ValueError, match="cpu or cuda"):
         attn_ops.gn_paged_attention_chunk(meta, meta, meta, ints, ints[0], ints[0])
     with pytest.raises(ValueError, match="cpu or cuda"):
@@ -130,7 +144,7 @@ def test_wrappers_refuse_other_devices():
         fa_ops.gn_attention(meta, meta, meta, causal=True)
 
 
-def test_fused_norm_refuses_inputs_that_do_not_match():
+def test_fused_norm_refuses_inputs_that_do_not_match(monkeypatch):
     """The fused add + norm takes x and r of one shape, dtype (f32 or bf16)
     and device, both contiguous, and raises otherwise on any device."""
     x = torch.randn(4, 16)
@@ -147,6 +161,9 @@ def test_fused_norm_refuses_inputs_that_do_not_match():
         with pytest.raises(TypeError, match="takes"):
             norm_ops.gn_add_rmsnorm(x.to(dt), x.to(dt), g)
     meta = torch.zeros(4, 16, device="meta")
+    s, y = norm_ops.gn_add_rmsnorm(meta, meta)  # the shape-only route (the dry run's)
+    assert s.is_meta and y.is_meta and s.shape == y.shape == meta.shape
+    monkeypatch.setattr(_build, "shape_only", lambda t: False)  # meta as another device
     with pytest.raises(ValueError, match="cpu or cuda"):
         norm_ops.gn_add_rmsnorm(meta, meta)
     assert norm_ops.launches == norm_ops.launches_fused == 0

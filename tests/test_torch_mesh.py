@@ -21,7 +21,9 @@ logical-axis rules on DTensor (``parallel/sharding.py``), ``launch.train
     ``store.restore`` reads that checkpoint, and the JAX step 5 from it gives
     the sharded step 5's loss within 1e-5 relative; in the same spawn, MLA
     and whisper, whose mixers run whole on local shards, take step-1
-    gradients within 1e-5 relative L2 of one device's on (2, 2);
+    gradients within 1e-5 relative L2 of one device's on (2, 2); the static
+    prefill and decode step of seven families over a cache split by
+    ``cache_logical_axes`` within 1e-5 of one device's logits and cache;
   * marked slow, the counterpart of ``tests/test_distributed.py``: 8 ranks,
     a (2, 4) mesh restored onto (4, 2), both archs.
 """
@@ -211,6 +213,8 @@ def test_mesh_training_equals_one_device_and_restores_onto_another_mesh(tmp_path
         assert abs(losses[4] - step5) <= TOL * abs(step5), (arch, losses[4], step5)
     for arch in ranks.MIXER_ARCHS:  # measured <= 5.4e-7
         assert got[arch]["grad_gap"] <= TOL, (arch, got[arch])
+    for arch, gap in got["serve_gap"].items():  # measured <= 6.5e-7
+        assert gap <= TOL, (arch, gap)
 
 
 @pytest.mark.slow  # 8 gloo ranks per arch: multi-rank train + elastic restore

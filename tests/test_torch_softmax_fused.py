@@ -29,6 +29,7 @@ import torch
 
 from repro.kernels.gn_softmax import ops as jax_sm_ops
 from repro.kernels.gn_softmax.ref import gn_softmax_ref as jax_gn_softmax_ref
+from repro_torch.kernels import _build
 from repro_torch.kernels.gn_softmax import ops as sm_ops
 from repro_torch.kernels.gn_softmax import ref as sm_ref
 from repro_torch.models import attention as t_attn
@@ -235,6 +236,13 @@ def test_mla_softmax_av_equals_its_chain_bitwise(dtype):
                                                          att, valid, lanes))
 
 
-def test_fused_entry_refuses_other_devices():
+def test_fused_entry_refuses_other_devices(monkeypatch):
+    """Meta tensors stand in for another device with the shape-only route
+    (the dry run's fake and meta tensors) turned off; with it on, they take
+    that route."""
+    x = torch.zeros(2, 8, device="meta")
+    out = sm_ops.gn_softmax_scores(x, 0.5, None, torch.float32)
+    assert out.is_meta and out.shape == x.shape and out.dtype == torch.float32
+    monkeypatch.setattr(_build, "shape_only", lambda t: False)
     with pytest.raises(ValueError, match="cpu or cuda"):
-        sm_ops.gn_softmax_scores(torch.zeros(2, 8, device="meta"), 0.5)
+        sm_ops.gn_softmax_scores(x, 0.5)
